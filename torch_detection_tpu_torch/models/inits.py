@@ -1,0 +1,48 @@
+"""Seeded weight initialisation.
+
+The reference's heads and backbone take flax's defaults: ``lecun_normal``
+kernels (truncated normal, variance 1 / fan_in) and zero biases, FrozenBN
+at the identity. ``init_weights`` gives a port model the same
+distributions from a ``torch.Generator``. The values are drawn on the CPU
+and copied, so one seed gives the same weights on every device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import Tensor, nn
+
+from .layers import FrozenBatchNorm
+
+# std of a standard normal truncated to [-2, 2], as flax's truncated normal
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(param: Tensor, fan_in: int, generator: torch.Generator) -> Tensor:
+    """Fill ``param`` from a normal of variance 1 / fan_in truncated at two
+    standard deviations."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    values = torch.empty(param.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(values, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    with torch.no_grad():
+        param.copy_(values)
+    return param
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded reference-default weights for every conv, linear and FrozenBN."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Conv2d, nn.Linear)):
+                fan_in = module.weight[0].numel()
+                lecun_normal_(module.weight, fan_in, generator)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, FrozenBatchNorm):
+                module.scale.fill_(1.0)
+                module.bias.zero_()
+                module.mean.zero_()
+                module.var.fill_(1.0)
+    return model
