@@ -30,8 +30,11 @@ def test_detection_cfg_matches_reference():
     for field in ("num_classes", "roi_strides", "roi_size", "finest_scale", "rcnn_target_means",
                   "rcnn_target_stds", "score_thr", "nms_iou_thr", "max_detections"):
         assert getattr(cfg, field) == getattr(want, field), field
-    for field in ("pre_nms_per_level", "post_nms_top_k", "nms_iou_thr", "min_box_size", "pool_k"):
+    for field in ("pre_nms_per_level", "post_nms_top_k", "nms_iou_thr"):
         assert getattr(cfg.proposal_test, field) == getattr(want.proposal_test, field), field
+    # the port's constants: a pool of 2 * post_nms_top_k and no min-size filter
+    assert want.proposal_test.pool_k == 2 * cfg.proposal_test.post_nms_top_k
+    assert want.proposal_test.min_box_size == 0
     for field in ("strides", "ratios", "resolved_scales", "num_base_anchors"):
         assert getattr(cfg.anchor_generator, field) == getattr(want.anchor_generator, field), field
     assert not want.approx_top_k  # the port selects exactly

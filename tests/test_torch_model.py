@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from torch_detection_tpu.models.detectors import FasterRCNNConfig as JaxFasterRCNNConfig
 from torch_detection_tpu.models.detectors import TwoStageDetector as JaxTwoStageDetector
@@ -34,7 +35,11 @@ from torch_detection_tpu_torch.models.detectors import (
     faster_rcnn_inference,
 )
 from torch_detection_tpu_torch.models.heads import ProposalConfig, generate_proposals
-from torch_detection_tpu_torch.models.layers import max_pool_same_torch, resize_nearest
+from torch_detection_tpu_torch.models.layers import (
+    FrozenBatchNorm,
+    max_pool_same_torch,
+    resize_nearest,
+)
 from torch_detection_tpu_torch.models.necks import FPN
 from torch_detection_tpu_torch.ops.anchors import AnchorGenerator
 
@@ -188,6 +193,36 @@ def test_max_pool_matches(rng, window, stride, padding):
     want = np.asarray(jax_pool(jnp.asarray(x), window, stride, padding))
     got = max_pool_same_torch(torch.from_numpy(x).permute(0, 3, 1, 2), window, stride, padding)
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference"])
+def test_frozen_bn_fold_follows_its_statistics(rng, mode):
+    """The fold matches the reference, and without autograd its cache is
+    refreshed when the statistics are replaced (steps 0, 1: fresh tensors of
+    one version) or edited in place (step 2)."""
+    from torch_detection_tpu.models.layers import FrozenBatchNorm as JaxFrozenBN
+
+    x = rng.normal(size=(2, 5, 6, 4)).astype(np.float32)
+    bn = FrozenBatchNorm(4, device="cpu")
+    jax_bn = JaxFrozenBN()
+    ctx = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+           "inference": torch.inference_mode}[mode]
+    for step in range(3):
+        stats = {k: rng.uniform(0.5, 1.5, 4).astype(np.float32) for k in ("scale", "var")}
+        stats.update({k: rng.normal(size=4).astype(np.float32) for k in ("bias", "mean")})
+        with torch.no_grad():
+            for k, v in stats.items():
+                if step == 2:
+                    getattr(bn, k).copy_(torch.from_numpy(v))
+                else:  # as load_state_dict(assign=True) would
+                    fresh = torch.from_numpy(v)
+                    setattr(bn, k, nn.Parameter(fresh) if k in ("scale", "bias") else fresh)
+        variables = {"params": {k: stats[k] for k in ("scale", "bias")},
+                     "batch_stats": {k: stats[k] for k in ("mean", "var")}}
+        want = np.asarray(jax_bn.apply(variables, jnp.asarray(x)))
+        with ctx():
+            got = bn(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-6, rtol=1e-6)
 
 
 def test_resnet50_bottleneck_stages(rng):

@@ -28,14 +28,12 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
-                 with_downsample: bool = False, norm_cfg: Optional[dict] = None,
-                 dtype=None, device=None):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, with_downsample: bool = False,
+                 norm_cfg: Optional[dict] = None, dtype=None, device=None):
         super().__init__()
         norm = norm_cfg or {"type": "FrozenBN"}
         kw = dict(norm_cfg=norm, dtype=dtype, device=device)
-        self.block1 = ConvModule(inplanes, planes, 3, stride=stride, padding=dilation,
-                                 dilation=dilation, act="relu", **kw)
+        self.block1 = ConvModule(inplanes, planes, 3, stride=stride, padding=1, act="relu", **kw)
         self.block2 = ConvModule(planes, planes, 3, padding=1, act=None, **kw)
         self.downsample = (
             ConvModule(inplanes, planes, 1, stride=stride, act=None, **kw)
@@ -48,20 +46,18 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """1x1 -> 3x3 (stride, dilation) -> 1x1 residual block. expansion = 4."""
+    """1x1 -> 3x3 (stride) -> 1x1 residual block. expansion = 4."""
 
     expansion = 4
 
-    def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
-                 with_downsample: bool = False, norm_cfg: Optional[dict] = None,
-                 dtype=None, device=None):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, with_downsample: bool = False,
+                 norm_cfg: Optional[dict] = None, dtype=None, device=None):
         super().__init__()
         norm = norm_cfg or {"type": "FrozenBN"}
         kw = dict(norm_cfg=norm, dtype=dtype, device=device)
         out_channels = planes * self.expansion
         self.block1 = ConvModule(inplanes, planes, 1, act="relu", **kw)
-        self.block2 = ConvModule(planes, planes, 3, stride=stride, padding=dilation,
-                                 dilation=dilation, act="relu", **kw)
+        self.block2 = ConvModule(planes, planes, 3, stride=stride, padding=1, act="relu", **kw)
         self.block3 = ConvModule(planes, out_channels, 1, act=None, **kw)
         self.downsample = (
             ConvModule(inplanes, out_channels, 1, stride=stride, act=None, **kw)
@@ -85,15 +81,14 @@ ARCH_SETTINGS = {
 @BACKBONES.register_module
 class ResNet(nn.Module):
     """Multi-scale feature extractor: features at ``out_indices`` (C2..C5,
-    strides 4/8/16/32). ``frozen_stages`` freezes the stem and the first
-    stages' parameters (``requires_grad=False``), the reference's cut."""
+    strides 4/8/16/32; each stage after the first halves the size).
+    ``frozen_stages`` freezes the stem and the first stages' parameters
+    (``requires_grad=False``), the reference's cut."""
 
     def __init__(
         self,
         depth: int = 50,
         num_stages: int = 4,
-        strides: Sequence[int] = (1, 2, 2, 2),
-        dilations: Sequence[int] = (1, 1, 1, 1),
         out_indices: Sequence[int] = (0, 1, 2, 3),
         frozen_stages: int = -1,
         norm_cfg: Optional[dict] = None,
@@ -121,12 +116,12 @@ class ResNet(nn.Module):
             planes = 64 * 2**i
             names = []
             for j in range(num_blocks):
-                block_stride = strides[i] if j == 0 else 1
+                block_stride = 2 if i > 0 and j == 0 else 1
                 needs_down = j == 0 and (block_stride != 1 or inplanes != planes * block_cls.expansion)
                 name = f"layer{i + 1}_{j}"
                 self.add_module(name, block_cls(
-                    inplanes, planes, stride=block_stride, dilation=dilations[i],
-                    with_downsample=needs_down, norm_cfg=norm, dtype=dtype, device=device,
+                    inplanes, planes, stride=block_stride, with_downsample=needs_down,
+                    norm_cfg=norm, dtype=dtype, device=device,
                 ))
                 inplanes = planes * block_cls.expansion
                 names.append(name)

@@ -53,15 +53,8 @@ class ProposalConfig:
     pre_nms_per_level: int = 1000
     post_nms_top_k: int = 1000
     nms_iou_thr: float = 0.7
-    min_box_size: float = 0.0
     target_means: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
     target_stds: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
-    # candidate pool of the cross-level NMS; None = 2 * post_nms_top_k
-    nms_pool_k: Optional[int] = None
-
-    @property
-    def pool_k(self) -> int:
-        return self.nms_pool_k if self.nms_pool_k is not None else 2 * self.post_nms_top_k
 
 
 def generate_proposals(
@@ -90,11 +83,7 @@ def generate_proposals(
     boxes = torch.cat(cand_boxes, dim=1)  # (B, M, 4)
     if img_shapes is not None:
         boxes = clip_boxes(boxes, img_shapes)
-    if cfg.min_box_size > 0:
-        ok = ((boxes[..., 2] - boxes[..., 0]) >= cfg.min_box_size) & (
-            (boxes[..., 3] - boxes[..., 1]) >= cfg.min_box_size
-        )
-        scores = torch.where(ok, scores, torch.zeros_like(scores))
+    # the cross-level NMS draws from the best 2 * post_nms_top_k candidates
     res = nms(boxes, scores, iou_thr=cfg.nms_iou_thr, max_out=cfg.post_nms_top_k,
-              pre_top_k=cfg.pool_k)
+              pre_top_k=2 * cfg.post_nms_top_k)
     return Proposals(res.boxes, res.scores, res.valid)

@@ -13,7 +13,7 @@ computes it from its float32 params.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,7 +21,8 @@ from torch import Tensor, nn
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm on stored statistics, folded to one multiply-add."""
+    """BatchNorm on stored statistics, folded to one multiply-add
+    ``x * k + b`` in one pass (``addcmul``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -31,11 +32,28 @@ class FrozenBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, **kw))
         self.register_buffer("mean", torch.zeros(num_features, **kw))
         self.register_buffer("var", torch.ones(num_features, **kw))
+        self._fold_key = None
+        self._fold_cache = None
 
-    def forward(self, x: Tensor) -> Tensor:  # (B, C, H, W)
+    def _fold(self, dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+        """``k`` and ``b`` of ``x * k + b``, computed in float32 and cast."""
         k = self.scale * torch.rsqrt(self.var + self.eps)
         b = self.bias - self.mean * k
-        return x * k.to(x.dtype)[:, None, None] + b.to(x.dtype)[:, None, None]
+        return k.to(dtype)[:, None, None], b.to(dtype)[:, None, None]
+
+    def forward(self, x: Tensor) -> Tensor:  # (B, C, H, W)
+        if torch.is_grad_enabled():
+            k, b = self._fold(x.dtype)
+        else:
+            # without autograd the fold is reused until a statistic is
+            # replaced (object, storage) or edited in place (version); the
+            # cache holds the statistics, so their ids stay unique
+            stats = (self.scale, self.bias, self.mean, self.var)
+            key = (x.dtype, x.device) + tuple((id(t), t.data_ptr(), t._version) for t in stats)
+            if key != self._fold_key:
+                self._fold_key, self._fold_cache = key, (stats, self._fold(x.dtype))
+            k, b = self._fold_cache[1]
+        return torch.addcmul(b, x, k)
 
 
 def build_norm(norm_cfg: Optional[dict], num_features: int, device=None) -> Optional[nn.Module]:
@@ -58,52 +76,36 @@ def build_act(act: Optional[str]) -> Optional[Callable[[Tensor], Tensor]]:
     return _ACTS[act]
 
 
-def _pair(v: Union[int, Tuple[int, int]]) -> Tuple[int, int]:
-    return (v, v) if isinstance(v, int) else tuple(v)
-
-
 class ConvModule(nn.Module):
-    """conv (+ norm) (+ act) in a configurable order. The conv has a bias
-    unless a norm follows it (``use_bias`` overrides)."""
+    """conv -> norm -> act, each of the last two optional. The conv has a
+    bias unless a norm follows it."""
 
     def __init__(
         self,
         in_channels: int,
         out_channels: int,
-        kernel_size: Union[int, Tuple[int, int]] = 3,
-        stride: Union[int, Tuple[int, int]] = 1,
-        padding: Union[int, Tuple[int, int]] = 0,
-        dilation: Union[int, Tuple[int, int]] = 1,
-        groups: int = 1,
-        use_bias: Optional[bool] = None,
+        kernel_size: int = 3,
+        stride: int = 1,
+        padding: int = 0,
         norm_cfg: Optional[dict] = None,
         act: Optional[str] = "relu",
-        order: Tuple[str, ...] = ("conv", "norm", "act"),
         dtype: Optional[torch.dtype] = None,
         device=None,
     ):
         super().__init__()
-        if not set(order) <= {"conv", "norm", "act"} or "conv" not in order:
-            raise ValueError(f"bad order {order}")
-        self.order = order
-        bias = use_bias if use_bias is not None else norm_cfg is None
         self.conv = nn.Conv2d(
-            in_channels, out_channels, _pair(kernel_size), stride=_pair(stride),
-            padding=_pair(padding), dilation=_pair(dilation), groups=groups, bias=bias,
-            dtype=dtype, device=device,
+            in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+            bias=norm_cfg is None, dtype=dtype, device=device,
         )
-        norm_features = out_channels if order.index("conv") < order.index("norm") else in_channels
-        self.norm = build_norm(norm_cfg, norm_features, device) if "norm" in order else None
+        self.norm = build_norm(norm_cfg, out_channels, device)
         self.act_fn = build_act(act)
 
     def forward(self, x: Tensor) -> Tensor:
-        for op in self.order:
-            if op == "conv":
-                x = self.conv(x)
-            elif op == "norm" and self.norm is not None:
-                x = self.norm(x)
-            elif op == "act" and self.act_fn is not None:
-                x = self.act_fn(x)
+        x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        if self.act_fn is not None:
+            x = self.act_fn(x)
         return x
 
 
