@@ -11,14 +11,12 @@
 // contract (a roi spans <= 39 cells at its level) the two are identical;
 // outside it this kernel stays exact, where the TPU path clamps to its window.
 //
-// Index arithmetic follows ops/roi_align.py::_bilinear_sample exactly: the
-// weights come from the unclamped floor, the indices are clamped to
-// [0, size-1], and the upper index is the clamped lower index + 1, clamped
-// again. Coordinates use round-to-nearest intrinsics so nvcc cannot contract
-// them into FMAs, matching the plain version's separate multiply and add.
-// The routed level of each roi is computed by the Python wrapper with the
-// same tensor expression the plain version uses, so the two never route a
-// boundary roi differently.
+// The sample grid (roi_align_common.cuh::axis_sample) follows
+// ops/roi_align.py::axis_samples exactly; the backward kernel
+// roi_align_bwd.cu takes its samples from the same function. The routed
+// level of each roi is computed by the Python wrapper with the same tensor
+// expression the plain version uses, so the two never route a boundary roi
+// differently.
 //
 // Design: one block per (image, roi), one launch for the whole batch and all
 // levels. Threads run across channels, two channels per thread (float2 or
@@ -35,61 +33,16 @@
 // corner from L1/L2 for every sample; staging a roi's window in shared
 // memory with cp.async or TMA is the work of a later change.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "roi_align_common.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 8;
-
-struct Levels {
-  const void* feat[kMaxLevels];
-  int height[kMaxLevels];
-  int width[kMaxLevels];
-  float scale[kMaxLevels];
-};
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ float2 load_f32x2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load_f32x2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void store_f32x2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
-}
-__device__ __forceinline__ void store_f32x2(__nv_bfloat16* p, float2 v) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __float22bfloat162_rn(v);
-}
-
-// One axis of the sample grid: lower/upper cell index and the fractional
-// weight of the upper cell, for sample i of S along [lo, hi) of a roi.
-__device__ __forceinline__ void axis_sample(float lo_img, float hi_img, float scale,
-                                            int size, int out_size, int ratio, int i,
-                                            int* lo_idx, int* hi_idx, float* frac) {
-  const float lo = __fmul_rn(lo_img, scale);
-  const float hi = __fmul_rn(hi_img, scale);
-  const float extent = fmaxf(__fsub_rn(hi, lo), 1.0f);
-  const float bin = __fdiv_rn(extent, static_cast<float>(out_size));
-  const float grid = __fdiv_rn(__fadd_rn(static_cast<float>(i), 0.5f), static_cast<float>(ratio));
-  const float c = __fadd_rn(lo, __fmul_rn(bin, grid));
-  const float c0 = floorf(c);
-  // clamp in float before the conversion: equal to the int clamp for every
-  // finite coordinate, and defined for any input
-  const int i0 = static_cast<int>(fminf(fmaxf(c0, 0.0f), static_cast<float>(size - 1)));
-  *lo_idx = i0;
-  *hi_idx = min(i0 + 1, size - 1);
-  *frac = __fsub_rn(c, c0);
-}
+using Levels = roi_align::LevelTable<const void*>;
+using roi_align::axis_sample;
+using roi_align::load_f32;
+using roi_align::load_f32x2;
+using roi_align::store_f32;
+using roi_align::store_f32x2;
 
 template <typename T, bool kPairs>
 __global__ void roi_align_fwd_kernel(Levels levels, const float* __restrict__ rois,
@@ -123,7 +76,7 @@ __global__ void roi_align_fwd_kernel(Levels levels, const float* __restrict__ ro
   }
   __syncthreads();
 
-  const T* feat = static_cast<const T*>(levels.feat[lvl]) +
+  const T* feat = static_cast<const T*>(levels.data[lvl]) +
                   static_cast<size_t>(image) * h * w * channels;
   T* dst = out + static_cast<size_t>(roi) * out_size * out_size * channels;
   const float count = static_cast<float>(ratio * ratio);
@@ -173,9 +126,8 @@ template <typename T>
 void launch(bool pairs, const Levels& levels, const float* rois, const int* roi_level,
             int num_blocks, int num_rois, int channels, int out_size, int ratio, T* out,
             cudaStream_t stream) {
-  const int work = pairs ? channels / 2 : channels;
-  const int threads = min(256, max(32, (work + 31) / 32 * 32));
-  const size_t smem = 6 * static_cast<size_t>(out_size) * ratio * sizeof(int);
+  const int threads = roi_align::block_threads(channels, pairs);
+  const size_t smem = roi_align::sample_table_bytes(out_size, ratio);
   if (pairs) {
     roi_align_fwd_kernel<T, true><<<num_blocks, threads, smem, stream>>>(
         levels, rois, roi_level, num_rois, channels, out_size, ratio, out);
@@ -199,17 +151,11 @@ extern "C" int roi_align_fwd(int dtype, int num_levels, const void* const* feats
                              const float* rois, const int* roi_level, int batch,
                              int num_rois, int channels, int out_size, int ratio,
                              int use_pairs, void* out, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || batch < 1 || num_rois < 1 ||
+  if (num_levels < 1 || num_levels > roi_align::kMaxLevels || batch < 1 || num_rois < 1 ||
       channels < 1 || out_size < 1 || ratio < 1 || (use_pairs && channels % 2 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Levels levels = {};
-  for (int l = 0; l < num_levels; ++l) {
-    levels.feat[l] = feats[l];
-    levels.height[l] = heights[l];
-    levels.width[l] = widths[l];
-    levels.scale[l] = scales[l];
-  }
+  const Levels levels = roi_align::make_levels(num_levels, feats, heights, widths, scales);
   const int num_blocks = batch * num_rois;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {

@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
-own into ``build/kernels/<name>-<hash>.so`` under the repository root (the
-hash covers the source and the flags, so an edited source is rebuilt).
+own into ``build/kernels/<name>-<hash>.so`` under the repository root. The
+hash covers the source, every header ``csrc/*.cuh`` and the flags, so an
+edited source or shared header is rebuilt.
 Nothing is compiled when this module is imported: ``load`` builds a library
 at its first use in a process, and ``build_all`` builds every source at once,
 one ``nvcc`` per source, all started together.
@@ -51,9 +52,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Sequence[str] = ()) -> Dict[str, float]:

@@ -1,4 +1,4 @@
-"""Box geometry: pairwise IoU, delta decoding, clipping.
+"""Box geometry: pairwise IoU, delta encoding and decoding, clipping.
 
 Counterpart of ``torch_detection_tpu/ops/boxes.py``. Boxes are xyxy with
 the +1 inclusive-pixel offset. Every function broadcasts over leading
@@ -39,6 +39,32 @@ def bbox_overlaps(
     else:
         union = area1[..., :, None] + bbox_areas(boxes2, offset)[..., None, :] - inter
     return inter / torch.clamp(union, min=eps)
+
+
+def bbox2delta(
+    proposals: Tensor,  # (..., 4)
+    gt: Tensor,  # (..., 4)
+    means: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0),
+    stds: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0),
+    offset: float = 1.0,
+) -> Tensor:
+    """Encode gt boxes as (dx, dy, dw, dh) deltas relative to proposals,
+    normalised by (means, stds)."""
+    pw = proposals[..., 2] - proposals[..., 0] + offset
+    ph = proposals[..., 3] - proposals[..., 1] + offset
+    px = proposals[..., 0] + 0.5 * (pw - offset)
+    py = proposals[..., 1] + 0.5 * (ph - offset)
+
+    gw = gt[..., 2] - gt[..., 0] + offset
+    gh = gt[..., 3] - gt[..., 1] + offset
+    gx = gt[..., 0] + 0.5 * (gw - offset)
+    gy = gt[..., 1] + 0.5 * (gh - offset)
+
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph, torch.log(gw / pw),
+                          torch.log(gh / ph)], dim=-1)
+    means_t = torch.tensor(means, dtype=deltas.dtype, device=deltas.device)
+    stds_t = torch.tensor(stds, dtype=deltas.dtype, device=deltas.device)
+    return (deltas - means_t) / stds_t
 
 
 def delta2bbox(

@@ -1,17 +1,24 @@
-"""FPN RoIAlign (NHWC) and level routing, with its CUDA kernel.
+"""FPN RoIAlign (NHWC) and level routing, with its CUDA kernels.
 
-Counterpart of ``torch_detection_tpu/ops/roi_align.py``. Three pieces:
+Counterpart of ``torch_detection_tpu/ops/roi_align.py`` and of the custom
+VJP of ``roi_align_pallas.py``. The pieces:
 
 * ``map_rois_to_levels``: the mmdet level router;
-* ``multilevel_roi_align``: the plain PyTorch version, the gather
+* ``multilevel_roi_align``: the plain PyTorch forward, the gather
   formulation of the JAX oracle with the same expressions; it runs on CPU
-  tensors and is the reference the kernel is held against;
-* ``multilevel_roi_align_cuda``: the wrapper of the hand-written kernel
-  ``csrc/roi_align_fwd.cu``, for CUDA tensors.
+  tensors and is the reference the forward kernel is held against;
+* ``multilevel_roi_align_cuda``: the wrapper of the hand-written forward
+  kernel ``csrc/roi_align_fwd.cu`` (K1), for CUDA tensors;
+* ``multilevel_roi_align_backward``: the plain PyTorch backward, the
+  explicit scatter-add of the forward's bilinear weights;
+* ``multilevel_roi_align_backward_cuda``: the wrapper of the hand-written
+  backward kernel ``csrc/roi_align_bwd.cu`` (K2), for CUDA tensors;
+* ``RoIAlignFunction``: the ``torch.autograd.Function`` that pairs them.
 
-``batched_multilevel_roi_align`` dispatches on the device of its tensors: a
-CPU tensor goes to the plain version, a CUDA tensor to the kernel, which
-launches or raises.
+``batched_multilevel_roi_align`` goes through ``RoIAlignFunction``, which
+dispatches on the device of its tensors: CPU tensors go to the plain
+versions, CUDA tensors to the kernels, which launch or raise. The rois get
+no gradient, as the reference gives them zero.
 
 Sampling (as the reference): bins of ``roi_size / out`` with sub-bin centres
 at ``(i + 0.5) / ratio``, bilinear with a border clamp, no -0.5 shift, and
@@ -22,7 +29,7 @@ each ``ratio x ratio`` group averaged. This is not torchvision's
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -37,12 +44,14 @@ def map_rois_to_levels(
     offset: float = 1.0,
 ) -> Tensor:
     """level = floor(log2(sqrt(wh) / finest_scale + 1e-6)), clamped to
-    [0, num_levels - 1]. Returns (...,) int32."""
+    [0, num_levels - 1]. Returns (...,) int32. A non-finite roi (as a NaN
+    image gives) goes to level 0, so the kernels index no level outside the
+    table."""
     w = rois[..., 2] - rois[..., 0] + offset
     h = rois[..., 3] - rois[..., 1] + offset
     scale = torch.sqrt(torch.clamp(w * h, min=1e-6))
     lvl = torch.floor(torch.log2(scale / _divisor(finest_scale, scale) + 1e-6))
-    return torch.clamp(lvl, 0, num_levels - 1).to(torch.int32)
+    return torch.clamp(torch.nan_to_num(lvl, nan=0.0), 0, num_levels - 1).to(torch.int32)
 
 
 def _divisor(value: float, like: Tensor) -> Tensor:
@@ -102,6 +111,7 @@ def multilevel_roi_align(
     out_size: int = 7,
     sampling_ratio: int = 2,
     finest_scale: float = 56.0,
+    levels: Optional[Tensor] = None,  # (B, R) int32 routed levels, if already computed
 ) -> Tensor:
     """Plain PyTorch RoIAlign: (B, R, out, out, C) in the feature dtype.
 
@@ -112,7 +122,8 @@ def multilevel_roi_align(
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
     s = sampling_ratio
-    levels = map_rois_to_levels(rois, len(feats), finest_scale)
+    if levels is None:
+        levels = map_rois_to_levels(rois, len(feats), finest_scale)
     out = torch.zeros((b, r, out_size, out_size, c), dtype=torch.float32, device=rois.device)
     for lvl, (feat, stride) in enumerate(zip(feats, strides)):
         bi, ri = torch.nonzero(levels == lvl, as_tuple=True)
@@ -151,44 +162,31 @@ def multilevel_roi_align_cuda(
     out_size: int = 7,
     sampling_ratio: int = 2,
     finest_scale: float = 56.0,
+    levels: Optional[Tensor] = None,  # (B, R) int32 routed levels, if already computed
 ) -> Tensor:
     """The RoIAlign kernel ``csrc/roi_align_fwd.cu``: (B, R, out, out, C) in
     the feature dtype (float32 or bfloat16), one launch for the batch and
     every level. ``multilevel_roi_align_cuda.launches`` counts launches."""
     _check_inputs(feats, rois, strides)
-    dtype = feats[0].dtype
-    device = feats[0].device
-    if device.type != "cuda" or rois.device != device:
-        raise ValueError("multilevel_roi_align_cuda takes CUDA tensors on one device")
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"feature dtype {dtype} is not float32 or bfloat16")
-    if rois.dtype != torch.float32:
-        raise TypeError(f"rois must be float32, got {rois.dtype}")
+    _check_cuda("multilevel_roi_align_cuda", feats[0], rois, len(feats), out_size, sampling_ratio)
     if not all(f.is_contiguous() for f in feats):
         raise ValueError("level maps must be contiguous NHWC tensors")
-    if len(feats) > 8:
-        raise ValueError("the kernel takes at most 8 levels")
-    if out_size < 1 or sampling_ratio < 1:
-        raise ValueError("out_size and sampling_ratio must be positive")
+    dtype, device = feats[0].dtype, feats[0].device
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
     out = torch.empty((b, r, out_size, out_size, c), dtype=dtype, device=device)
     if b * r == 0:
         return out
     rois = rois.contiguous()
-    levels = map_rois_to_levels(rois, len(feats), finest_scale).contiguous()
+    if levels is None:
+        levels = map_rois_to_levels(rois, len(feats), finest_scale)
+    levels = levels.to(torch.int32).contiguous()
     pairs = c % 2 == 0 and all(f.data_ptr() % (2 * f.element_size()) == 0 for f in feats)
-
-    num = len(feats)
-    ptrs = (ctypes.c_void_p * num)(*[f.data_ptr() for f in feats])
-    heights = (ctypes.c_int * num)(*[f.shape[1] for f in feats])
-    widths = (ctypes.c_int * num)(*[f.shape[2] for f in feats])
-    scales = (ctypes.c_float * num)(*[1.0 / s for s in strides])
-    fn = _kernel()
+    geometry = _level_geometry(feats, [f.shape[1:3] for f in feats], strides)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
-            _DTYPE_CODES[dtype], num, ptrs, heights, widths, scales,
+        rc = _kernel("roi_align_fwd")(
+            _DTYPE_CODES[dtype], len(feats), *geometry,
             rois.data_ptr(), levels.data_ptr(), b, r, c, out_size, sampling_ratio,
             int(pairs), out.data_ptr(), stream,
         )
@@ -201,8 +199,37 @@ def multilevel_roi_align_cuda(
 multilevel_roi_align_cuda.launches = 0
 
 
-def _kernel():
-    fn = kernels.load("roi_align_fwd").roi_align_fwd
+def _check_cuda(name: str, x: Tensor, rois: Tensor, num_levels: int, out_size: int,
+                sampling_ratio: int) -> None:
+    """What both kernels refuse: another device, dtype, level count or size."""
+    if x.device.type != "cuda" or rois.device != x.device:
+        raise ValueError(f"{name} takes CUDA tensors on one device")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"feature dtype {x.dtype} is not float32 or bfloat16")
+    if rois.dtype != torch.float32:
+        raise TypeError(f"rois must be float32, got {rois.dtype}")
+    if num_levels > 8:
+        raise ValueError("the kernels take at most 8 levels")
+    if out_size < 1 or sampling_ratio < 1:
+        raise ValueError("out_size and sampling_ratio must be positive")
+
+
+def _level_geometry(maps: Sequence[Tensor], shapes, strides: Sequence[int]):
+    """The per-level host arrays of the kernels' C interface: device
+    pointers, heights, widths and 1 / stride."""
+    num = len(maps)
+    return (
+        (ctypes.c_void_p * num)(*[m.data_ptr() for m in maps]),
+        (ctypes.c_int * num)(*[int(hw[0]) for hw in shapes]),
+        (ctypes.c_int * num)(*[int(hw[1]) for hw in shapes]),
+        (ctypes.c_float * num)(*[1.0 / s for s in strides]),
+    )
+
+
+def _kernel(name: str):
+    """``roi_align_fwd`` or ``roi_align_bwd`` from its library; the two
+    share one C signature."""
+    fn = getattr(kernels.load(name), name)
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -213,6 +240,126 @@ def _kernel():
     return fn
 
 
+def multilevel_roi_align_backward(
+    grad: Tensor,  # (B, R, out, out, C) cotangent of the forward's output
+    rois: Tensor,  # (B, R, 4) float32
+    levels: Tensor,  # (B, R) routed levels, as the forward used them
+    level_shapes: Sequence[Tuple[int, int]],  # per level (H_l, W_l)
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> List[Tensor]:
+    """Plain PyTorch backward of RoIAlign: per level (B, H_l, W_l, C) in
+    ``grad``'s dtype.
+
+    The explicit scatter-add of the forward's weights: every sample's four
+    bilinear corners receive ``grad[bin] / ratio**2`` times their weight
+    (``index_put_(..., accumulate=True)`` in float32), then one cast."""
+    b, r = rois.shape[:2]
+    c = grad.shape[-1]
+    s = sampling_ratio
+    g = grad.float() / _divisor(s * s, grad)
+    outs = []
+    for lvl, ((h, w), stride) in enumerate(zip(level_shapes, strides)):
+        acc = torch.zeros((b, h, w, c), dtype=torch.float32, device=grad.device)
+        bi, ri = torch.nonzero(levels == lvl, as_tuple=True)
+        if bi.numel():
+            box = rois[bi, ri]
+            y0, y1, wy = axis_samples(box[:, 1], box[:, 3], 1.0 / stride, h, out_size, s)
+            x0, x1, wx = axis_samples(box[:, 0], box[:, 2], 1.0 / stride, w, out_size, s)
+            # each sample's share of its bin's cotangent: (N, S, S, C)
+            gs = g[bi, ri].repeat_interleave(s, dim=1).repeat_interleave(s, dim=2)
+            n, samples = gs.shape[:2]
+            bb = bi[:, None, None].expand(n, samples, samples)
+            wy, wx = wy[:, :, None, None], wx[:, None, :, None]
+            for ys, ky in ((y0, 1 - wy), (y1, wy)):
+                for xs, kx in ((x0, 1 - wx), (x1, wx)):
+                    index = (bb, ys[:, :, None].expand(n, samples, samples),
+                             xs[:, None, :].expand(n, samples, samples))
+                    acc.index_put_(index, gs * ky * kx, accumulate=True)
+        outs.append(acc.to(grad.dtype))
+    return outs
+
+
+def multilevel_roi_align_backward_cuda(
+    grad: Tensor,  # (B, R, out, out, C) float32 or bfloat16, on one GPU
+    rois: Tensor,  # (B, R, 4) float32
+    levels: Tensor,  # (B, R) routed levels, as the forward used them
+    level_shapes: Sequence[Tuple[int, int]],  # per level (H_l, W_l)
+    strides: Sequence[int],
+    out_size: int = 7,
+    sampling_ratio: int = 2,
+) -> List[Tensor]:
+    """The RoIAlign backward kernel ``csrc/roi_align_bwd.cu``: per level
+    (B, H_l, W_l, C) in ``grad``'s dtype, one launch for the batch and every
+    level. The kernel adds into one zero-filled float32 buffer that holds
+    every level; for bfloat16 one cast follows, and the levels are views of
+    the cast buffer. ``multilevel_roi_align_backward_cuda.launches`` counts
+    launches."""
+    num = len(level_shapes)
+    if len(strides) != num or not num:
+        raise ValueError(f"{num} levels but {len(strides)} strides")
+    _check_cuda("multilevel_roi_align_backward_cuda", grad, rois, num, out_size, sampling_ratio)
+    b, r = rois.shape[:2]
+    c = grad.shape[-1]
+    if grad.shape != (b, r, out_size, out_size, c) or levels.shape != (b, r):
+        raise ValueError(f"grad {tuple(grad.shape)} and levels {tuple(levels.shape)} do not "
+                         f"match rois {tuple(rois.shape)} at out_size {out_size}")
+    sizes = [b * int(h) * int(w) * c for h, w in level_shapes]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad.device)
+    accums = list(torch.split(flat, sizes))
+    if b * r:
+        grad, rois = grad.contiguous(), rois.contiguous()
+        levels = levels.to(torch.int32).contiguous()
+        pairs = c % 2 == 0 and grad.data_ptr() % (2 * grad.element_size()) == 0
+        geometry = _level_geometry(accums, level_shapes, strides)
+        with torch.cuda.device(grad.device):
+            stream = torch.cuda.current_stream(grad.device).cuda_stream
+            rc = _kernel("roi_align_bwd")(
+                _DTYPE_CODES[grad.dtype], num, *geometry,
+                rois.data_ptr(), levels.data_ptr(), b, r, c, out_size, sampling_ratio,
+                int(pairs), grad.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"roi_align_bwd failed to launch: CUDA error {rc}")
+        multilevel_roi_align_backward_cuda.launches += 1
+    out = flat.to(grad.dtype)
+    return [part.view(b, int(h), int(w), c)
+            for part, (h, w) in zip(torch.split(out, sizes), level_shapes)]
+
+
+multilevel_roi_align_backward_cuda.launches = 0
+
+
+class RoIAlignFunction(torch.autograd.Function):
+    """RoIAlign whose backward is the scatter-add: the kernels K1 and K2
+    for CUDA tensors, the two plain versions for CPU tensors. The routed
+    levels are computed once in the forward and saved, so both passes route
+    a boundary roi alike. The rois get no gradient (the reference's VJP
+    returns zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, rois, strides, out_size, sampling_ratio, finest_scale, *feats):
+        device = feats[0].device
+        if device.type not in ("cuda", "cpu"):
+            raise ValueError(f"no RoIAlign for device {device}")
+        levels = map_rois_to_levels(rois, len(feats), finest_scale)
+        forward = multilevel_roi_align_cuda if device.type == "cuda" else multilevel_roi_align
+        out = forward(feats, rois, strides, out_size, sampling_ratio, levels=levels)
+        ctx.save_for_backward(rois, levels)
+        ctx.geometry = ([tuple(f.shape[1:3]) for f in feats], tuple(strides), out_size,
+                        sampling_ratio)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        rois, levels = ctx.saved_tensors
+        backward = (multilevel_roi_align_backward_cuda if grad.device.type == "cuda"
+                    else multilevel_roi_align_backward)
+        grads = backward(grad.contiguous(), rois, levels, *ctx.geometry)
+        return (None, None, None, None, None, *grads)
+
+
 def batched_multilevel_roi_align(
     feats: Sequence[Tensor],  # per level (B, H_l, W_l, C)
     rois: Tensor,  # (B, R, 4)
@@ -221,13 +368,7 @@ def batched_multilevel_roi_align(
     sampling_ratio: int = 2,
     finest_scale: float = 56.0,
 ) -> Tensor:
-    """(B, R, out, out, C) aligned features: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
-    device = feats[0].device
-    if device.type == "cuda":
-        fn = multilevel_roi_align_cuda
-    elif device.type == "cpu":
-        fn = multilevel_roi_align
-    else:
-        raise ValueError(f"no RoIAlign for device {device}")
-    return fn(feats, rois, strides, out_size, sampling_ratio, finest_scale)
+    """(B, R, out, out, C) aligned features through ``RoIAlignFunction``:
+    the plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
+    return RoIAlignFunction.apply(rois, tuple(strides), out_size, sampling_ratio, finest_scale,
+                                  *feats)
