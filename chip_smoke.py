@@ -261,12 +261,12 @@ def phase_roi_align(rois_per_image: int) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = f"roi_align_fwd {rois_per_image} rois {str(dtype).replace('torch.', '')}"
         feats = [f.to(dtype).contiguous() for f in feats32]
-        got = kernel(feats, rois, STRIDES)
-        want = plain(feats, rois, STRIDES)
+        got = kernel(feats, rois, levels, STRIDES)
+        want = plain(feats, rois, levels, STRIDES)
         torch.cuda.synchronize()
         err = (check_f32 if dtype == torch.float32 else check_bf16)(name, got, want)
-        ms = cuda_ms(lambda: kernel(feats, rois, STRIDES), iters=50)
-        plain_ms = cuda_ms(lambda: plain(feats, rois, STRIDES), iters=3, warmup=1)
+        ms = cuda_ms(lambda: kernel(feats, rois, levels, STRIDES), iters=50)
+        plain_ms = cuda_ms(lambda: plain(feats, rois, levels, STRIDES), iters=3, warmup=1)
         out_bytes = got.numel() * got.element_size()
         in_bytes = touched_bytes(feats, rois) + rois.numel() * 4 + levels.numel() * 4
         flops = 2 * 4 * rois.shape[0] * rois.shape[1] * (OUT_SIZE * RATIO) ** 2 * CHANNELS  # 4 FMAs a sample, channel
@@ -337,10 +337,11 @@ def phase_roi_align_variants() -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     for c, out_size, ratio in VARIANTS:
         feats32, rois = variant_inputs(gen, c)
+        levels = roi_align.map_rois_to_levels(rois, len(STRIDES))
         for dtype in (torch.float32, torch.bfloat16):
             feats = [f.to(dtype) for f in feats32]
-            got = roi_align.multilevel_roi_align_cuda(feats, rois, STRIDES, out_size, ratio)
-            want = roi_align.multilevel_roi_align(feats, rois, STRIDES, out_size, ratio)
+            got = roi_align.multilevel_roi_align_cuda(feats, rois, levels, STRIDES, out_size, ratio)
+            want = roi_align.multilevel_roi_align(feats, rois, levels, STRIDES, out_size, ratio)
             name = f"roi_align_fwd C={c} out={out_size} ratio={ratio} {str(dtype).replace('torch.', '')}"
             (check_f32 if dtype == torch.float32 else check_bf16)(name, got, want)
 
@@ -436,13 +437,14 @@ def phase_model(card: str) -> dict:
         feats, rpn_s, rpn_d = model(images[1])
         props = generate_proposals(det_cfg.proposal_test, det_cfg.anchor_generator, rpn_s, rpn_d,
                                    img_shape)
-        levels = list(feats[: len(det_cfg.roi_strides)])
-        got = roi_align.multilevel_roi_align_cuda(levels, props.boxes, det_cfg.roi_strides)
-        want = roi_align.multilevel_roi_align(levels, props.boxes, det_cfg.roi_strides)
+        maps = list(feats[: len(det_cfg.roi_strides)])
+        routed = roi_align.map_rois_to_levels(props.boxes, len(maps), det_cfg.finest_scale)
+        got = roi_align.multilevel_roi_align_cuda(maps, props.boxes, routed, det_cfg.roi_strides)
+        want = roi_align.multilevel_roi_align(maps, props.boxes, routed, det_cfg.roi_strides)
         check_bf16("roi_align on the main path's levels and proposals", got, want)
     stage_breakdown(model, det_cfg, images[1], img_shape, card)
     device_profile(lambda: infer(images[1], img_shape, scale), mean_ms, card)
-    return dict(launches=launches, ms_per_batch=mean_ms)
+    return dict(launches=launches, bwd_launches=bwd_launches, ms_per_batch=mean_ms)
 
 
 def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -> None:
@@ -854,7 +856,7 @@ def main() -> int:
               {"serving": serve["launches"], "training": train["k1"]}, fwd,
               at_train_rois={k: fwd_train[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
-              {"serving": 0, "training": train["k2"]}, bwd),
+              {"serving": serve["bwd_launches"], "training": train["k2"]}, bwd),
     ]}
     log(card)
     log(json.dumps(line))

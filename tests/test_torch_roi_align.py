@@ -116,7 +116,9 @@ def test_bf16_features_keep_their_dtype(rng):
 def test_cuda_wrapper_refuses_cpu_tensors(rng):
     feats, rois = _feats(rng), _rois_in_contract(rng)
     with pytest.raises(ValueError, match="CUDA"):
+        boxes = torch.from_numpy(rois)
         port.multilevel_roi_align_cuda(
-            [torch.from_numpy(f) for f in feats], torch.from_numpy(rois), STRIDES
+            [torch.from_numpy(f) for f in feats], boxes, port.map_rois_to_levels(boxes, len(feats)),
+            STRIDES,
         )
     assert port.multilevel_roi_align_cuda.launches == 0

@@ -90,7 +90,8 @@ def test_plain_backward_equals_autograd_of_plain_forward(rng, out_size, ratio):
     feats, rois = _feats(rng), _rois(rng)
     g = _cotangent(rng, rois, out_size=out_size)
     leaves = [torch.from_numpy(f).requires_grad_() for f in feats]
-    out = port.multilevel_roi_align(leaves, torch.from_numpy(rois), STRIDES, out_size, ratio)
+    out = port.multilevel_roi_align(leaves, torch.from_numpy(rois), _levels(rois), STRIDES,
+                                    out_size, ratio)
     want = torch.autograd.grad(out, leaves, torch.from_numpy(g), materialize_grads=True)
     got = _plain_backward(feats, rois, g, out_size=out_size, sampling_ratio=ratio)
     for a, b in zip(got, want, strict=True):

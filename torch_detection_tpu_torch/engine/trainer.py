@@ -21,19 +21,18 @@ def detection_lr_schedule(
     base_lr: float,
     steps_per_epoch: int,
     decay_epochs: Sequence[int] = (8, 11),
-    decay_factor: float = 0.1,
     warmup_steps: int = 500,
     warmup_ratio: float = 1.0 / 3.0,
 ) -> Callable[[int], float]:
     """mmdetection's step schedule: from ``warmup_ratio * base_lr`` linearly
-    up to ``base_lr`` over ``warmup_steps``, then ``base_lr`` times
-    ``decay_factor`` for every boundary ``epoch * steps_per_epoch`` reached."""
+    up to ``base_lr`` over ``warmup_steps``, then ``base_lr`` times 0.1 for
+    every boundary ``epoch * steps_per_epoch`` reached."""
     boundaries = sorted({int(e * steps_per_epoch) for e in decay_epochs})
 
     def schedule(step: int) -> float:
         if step < warmup_steps:
             return base_lr * (warmup_ratio + (1 - warmup_ratio) * step / warmup_steps)
-        return base_lr * decay_factor ** sum(step >= b for b in boundaries)
+        return base_lr * 0.1 ** sum(step >= b for b in boundaries)
 
     return schedule
 
@@ -56,21 +55,18 @@ class Trainer:
         self.skipped_steps = 0
         self.history: List[Dict[str, Any]] = []
 
-    def run(self, num_epochs: int, start_epoch: int = 0) -> List[Dict[str, Any]]:
-        for epoch in range(start_epoch, num_epochs):
+    def run(self, num_epochs: int) -> List[Dict[str, Any]]:
+        for epoch in range(num_epochs):
             self.dataloader.set_epoch(epoch)
             epoch_t0 = window_t0 = time.perf_counter()
             n_images = 0
-            window_skipped = []  # device scalars, summed at log time
             for batch in self.dataloader.iter_batches():
                 batch.pop("img_meta", None)
                 metrics = self.train_step(batch)
-                window_skipped.append(metrics["skipped_nonfinite"])
+                self.skipped_steps += int(metrics["skipped_nonfinite"])
                 n_images += batch["image"].shape[0]
                 if self.optimizer.steps % self.log_interval == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}
-                    self.skipped_steps += int(sum(float(s) for s in window_skipped))
-                    window_skipped = []
                     dt = time.perf_counter() - window_t0
                     window_t0 = time.perf_counter()
                     metrics.update(

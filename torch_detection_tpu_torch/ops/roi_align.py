@@ -29,7 +29,7 @@ each ``ratio x ratio`` group averaged. This is not torchvision's
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -91,7 +91,8 @@ def axis_samples(
     return i0, i1, coords - c0
 
 
-def _check_inputs(feats: Sequence[Tensor], rois: Tensor, strides: Sequence[int]) -> None:
+def _check_inputs(feats: Sequence[Tensor], rois: Tensor, levels: Tensor,
+                  strides: Sequence[int]) -> None:
     if len(feats) != len(strides) or not feats:
         raise ValueError(f"{len(feats)} levels but {len(strides)} strides")
     b, c = feats[0].shape[0], feats[0].shape[-1]
@@ -102,28 +103,27 @@ def _check_inputs(feats: Sequence[Tensor], rois: Tensor, strides: Sequence[int])
             raise ValueError("level maps must share one dtype and device")
     if rois.dim() != 3 or rois.shape[0] != b or rois.shape[-1] != 4:
         raise ValueError(f"rois must be (B, R, 4) with B={b}, got {tuple(rois.shape)}")
+    if levels.shape != rois.shape[:2]:
+        raise ValueError(f"levels {tuple(levels.shape)} do not match rois {tuple(rois.shape)}")
 
 
 def multilevel_roi_align(
     feats: Sequence[Tensor],  # per level (B, H_l, W_l, C)
     rois: Tensor,  # (B, R, 4) image coordinates, float32
+    levels: Tensor,  # (B, R) routed levels (``map_rois_to_levels``)
     strides: Sequence[int],
     out_size: int = 7,
     sampling_ratio: int = 2,
-    finest_scale: float = 56.0,
-    levels: Optional[Tensor] = None,  # (B, R) int32 routed levels, if already computed
 ) -> Tensor:
     """Plain PyTorch RoIAlign: (B, R, out, out, C) in the feature dtype.
 
     Each roi is sampled on its routed level only. The JAX oracle aligns on
     every level and blends with a one-hot weight; with finite features the
     unused levels add exact zeros, so the two are equal."""
-    _check_inputs(feats, rois, strides)
+    _check_inputs(feats, rois, levels, strides)
     b, r = rois.shape[:2]
     c = feats[0].shape[-1]
     s = sampling_ratio
-    if levels is None:
-        levels = map_rois_to_levels(rois, len(feats), finest_scale)
     out = torch.zeros((b, r, out_size, out_size, c), dtype=torch.float32, device=rois.device)
     for lvl, (feat, stride) in enumerate(zip(feats, strides)):
         bi, ri = torch.nonzero(levels == lvl, as_tuple=True)
@@ -158,16 +158,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def multilevel_roi_align_cuda(
     feats: Sequence[Tensor],  # per level (B, H_l, W_l, C), contiguous, on one GPU
     rois: Tensor,  # (B, R, 4) float32
+    levels: Tensor,  # (B, R) routed levels (``map_rois_to_levels``)
     strides: Sequence[int],
     out_size: int = 7,
     sampling_ratio: int = 2,
-    finest_scale: float = 56.0,
-    levels: Optional[Tensor] = None,  # (B, R) int32 routed levels, if already computed
 ) -> Tensor:
     """The RoIAlign kernel ``csrc/roi_align_fwd.cu``: (B, R, out, out, C) in
     the feature dtype (float32 or bfloat16), one launch for the batch and
     every level. ``multilevel_roi_align_cuda.launches`` counts launches."""
-    _check_inputs(feats, rois, strides)
+    _check_inputs(feats, rois, levels, strides)
     _check_cuda("multilevel_roi_align_cuda", feats[0], rois, len(feats), out_size, sampling_ratio)
     if not all(f.is_contiguous() for f in feats):
         raise ValueError("level maps must be contiguous NHWC tensors")
@@ -178,8 +177,6 @@ def multilevel_roi_align_cuda(
     if b * r == 0:
         return out
     rois = rois.contiguous()
-    if levels is None:
-        levels = map_rois_to_levels(rois, len(feats), finest_scale)
     levels = levels.to(torch.int32).contiguous()
     pairs = c % 2 == 0 and all(f.data_ptr() % (2 * f.element_size()) == 0 for f in feats)
     geometry = _level_geometry(feats, [f.shape[1:3] for f in feats], strides)
@@ -345,7 +342,7 @@ class RoIAlignFunction(torch.autograd.Function):
             raise ValueError(f"no RoIAlign for device {device}")
         levels = map_rois_to_levels(rois, len(feats), finest_scale)
         forward = multilevel_roi_align_cuda if device.type == "cuda" else multilevel_roi_align
-        out = forward(feats, rois, strides, out_size, sampling_ratio, levels=levels)
+        out = forward(feats, rois, levels, strides, out_size, sampling_ratio)
         ctx.save_for_backward(rois, levels)
         ctx.geometry = ([tuple(f.shape[1:3]) for f in feats], tuple(strides), out_size,
                         sampling_ratio)

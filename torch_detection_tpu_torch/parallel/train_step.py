@@ -87,30 +87,28 @@ def make_optimizer(
 def make_train_step(
     loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]],
     optimizer: Optimizer,
-    skip_nonfinite: bool = True,
 ) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
     """``train_step(batch) -> metrics``: one forward, one backward, one
     optimizer step. ``loss_fn(batch, step) -> (loss, metrics)``.
 
-    ``skip_nonfinite``: a step whose loss or gradient norm is NaN or Inf
-    changes neither the parameters nor the momentum, and its metrics carry
-    ``skipped_nonfinite`` = 1. The guard reads both scalars on the host, one
-    sync a step; the reference selects on the device instead."""
+    A step whose loss or gradient norm is NaN or Inf changes neither the
+    parameters nor the momentum, and its metrics carry ``skipped_nonfinite``
+    = 1 (0 otherwise). The guard reads both scalars on the host, one sync a
+    step; the reference selects on the device instead."""
 
     def train_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         optimizer.zero_grad()
         loss, metrics = loss_fn(batch, step=optimizer.steps)
         loss.backward()
         grad_norm = optimizer.global_norm()
-        ok = not skip_nonfinite or bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
+        ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if ok:
             optimizer.apply(grad_norm)
         optimizer.zero_grad()
         optimizer.steps += 1
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
-        if skip_nonfinite:
-            metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
+        metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)
         return metrics
 
     return train_step
