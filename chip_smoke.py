@@ -17,7 +17,10 @@ Phases, each fatal on failure:
    and sampling ratios;
 4. the RoIAlign backward kernel (K2) against its plain version at the
    training shapes (512 rois an image, a seeded cotangent), in float32 and
-   bfloat16, timed likewise; then at the small shapes;
+   bfloat16, timed likewise, and two launches bitwise equal; then at the
+   small shapes; then K1 and K2 on edge rois at out 7 and 14 (one roi 512
+   times, 512 rois in one 8 x 8-cell area, a NaN roi, a roi larger than
+   P5);
 5. serving: Faster R-CNN R50-FPN (configs/faster_rcnn_r50_fpn_coco.py,
    seeded weights, bf16) answers batches of 4 seeded 800 x 1216 images
    through ``make_inference_fn``; K1's launches are counted over that run,
@@ -83,6 +86,7 @@ CONFIG = ROOT / "configs" / "faster_rcnn_r50_fpn_coco.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
+SPIN_CYCLES = 60_000_000  # cuda_ms's head start for the host, about 30 ms at 1.98 GHz
 F32_ATOL = 1e-5
 
 # the slice's shapes: 1000 proposals an image at serving, 512 sampled rois
@@ -106,10 +110,15 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call over ``iters`` calls, by CUDA events."""
+    """Mean milliseconds per call over ``iters`` calls, by CUDA events. The
+    device first spins for about 30 ms while the host queues the calls, so
+    that a call shorter than its wrapper's host time is timed on the device
+    and not at the host's launch rate (a call that syncs with the host is
+    timed with its syncs)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -153,8 +162,8 @@ def check_f32(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_f32_scaled(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """f32 atomics add in an order that changes from run to run: within
-    F32_ATOL * max(1, max |want|)."""
+    """Gradients sum many products, in another order than the plain
+    version's: within F32_ATOL * max(1, max |want|)."""
     err = float((got - want).abs().max())
     limit = F32_ATOL * max(1.0, float(want.abs().max()))
     log(f"{name}: max abs err {err:.3e} (limit {limit:.3e})")
@@ -277,11 +286,25 @@ def phase_roi_align(rois_per_image: int) -> dict:
     return result
 
 
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits, NaN included."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(a.view(ints), b.view(ints))
+
+
+def check_deterministic(name: str, kernel, args) -> None:
+    """K2 sums in a fixed order: two launches on the same inputs give the
+    same bits."""
+    first, second = kernel(*args), kernel(*args)
+    if not all(bitwise_equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    log(f"{name}: two launches bitwise equal")
+
+
 def phase_roi_align_bwd() -> dict:
     """K2 vs its plain version at the training shapes: the slice's P2-P5,
     512 rois an image, a seeded cotangent. The kernel's time is the
-    wrapper's: the zero fill of the float32 accumulator, the kernel, and for
-    bf16 the cast."""
+    wrapper's: the empty allocation of the outputs and the one launch."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     feats32, rois, levels = slice_inputs(gen, TRAIN_ROIS)
     shapes = [tuple(f.shape[1:3]) for f in feats32]
@@ -294,22 +317,26 @@ def phase_roi_align_bwd() -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = f"roi_align_bwd {str(dtype).replace('torch.', '')}"
         grad = grad32.to(dtype)
-        got = kernel(grad, rois, levels, shapes, STRIDES)
-        want = plain(grad, rois, levels, shapes, STRIDES)
+        args = (grad, rois, levels, shapes, STRIDES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        want = plain(*args)
         torch.cuda.synchronize()
         err = check_grads(name, got, want, dtype)
-        ms = cuda_ms(lambda: kernel(grad, rois, levels, shapes, STRIDES), iters=20)
-        plain_ms = cuda_ms(lambda: plain(grad, rois, levels, shapes, STRIDES), iters=2, warmup=1)
-        zero_ms = cuda_ms(lambda: torch.zeros(cells, dtype=torch.float32, device="cuda"), iters=20)
-        acc = torch.zeros(cells, dtype=torch.float32, device="cuda")
-        cast_ms = cuda_ms(lambda: acc.to(dtype), iters=20) if dtype != torch.float32 else 0.0
+        check_deterministic(name, kernel, args)
+        ms = cuda_ms(lambda: kernel(*args), iters=20)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
         in_bytes = grad.numel() * grad.element_size() + rois.numel() * 4 + levels.numel() * 4
         out_bytes = cells * grad.element_size()
         flops = 2 * 4 * BATCH * TRAIN_ROIS * (OUT_SIZE * RATIO) ** 2 * CHANNELS  # 4 corners a sample, channel
         result[dtype] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              **bound(name, in_bytes, out_bytes, flops))
-        log(f"{name}: kernel (zero fill, atomics, cast) {ms:.4f} ms, of which the zero fill "
-            f"alone {zero_ms:.4f} ms and the cast alone {cast_ms:.4f} ms; plain {plain_ms:.3f} ms, "
+        log(f"{name}: kernel (empty outputs, one launch) {ms:.4f} ms, device memory of one call "
+            f"{peak / 1e6:.1f} MB (the gradients {out_bytes / 1e6:.1f} MB); plain {plain_ms:.3f} ms, "
             "library_ms none (no PyTorch call computes this backward; torchvision is not used)")
     return result
 
@@ -361,6 +388,90 @@ def phase_roi_align_bwd_variants() -> None:
             want = roi_align.multilevel_roi_align_backward(*args)
             check_grads(f"roi_align_bwd C={c} out={out_size} ratio={ratio} "
                         f"{str(dtype).replace('torch.', '')}", got, want, dtype)
+
+
+def edge_inputs(gen: torch.Generator):
+    """3 images on the slice's canvas with P2-P5 of 256 channels, 512 rois
+    each: image 0 holds 512 copies of one roi (routed to P2, 24.5 x 24.5
+    cells there, over 16 tiles of K2); image 1 512 rois of 14 x 14 px packed
+    into one 8 x 8-cell area of P2 (32 x 32 px); image 2 the slice's random
+    rois with a NaN roi and a roi larger than P5 in front. The rois of
+    images 0 and 1 start on a grid of 1/4 cell with bins of 3.5 or 0.5 cells
+    (halved at out 14), so every sample weight has few fraction bits: with
+    the cotangent that ``edge_cotangent`` gives them, every f32 sum there is
+    exact in any order, and the kernel must equal the plain version even
+    where 512 rois add up on one cell."""
+    device = torch.device("cuda")
+    h, w = CANVAS
+    feats32 = [torch.randn((3, h // s, w // s, CHANNELS), generator=gen, device=device)
+               for s in STRIDES]
+    one = torch.tensor([301.0, 201.0, 399.0, 299.0], device=device)
+    corner = 600.0 + torch.randint(0, 19, (TRAIN_ROIS, 2), generator=gen, device=device).float()
+    packed = torch.cat([corner, corner + 14.0], dim=-1)
+    mixed = slice_rois(gen, device, TRAIN_ROIS)[0].clone()
+    mixed[0] = float("nan")
+    mixed[1] = torch.tensor([-600.0, -500.0, 2200.0, 1700.0], device=device)
+    return feats32, torch.stack([one.expand(TRAIN_ROIS, 4), packed, mixed]).contiguous()
+
+
+def edge_cotangent(gen: torch.Generator, rois: torch.Tensor, out_size: int) -> torch.Tensor:
+    """A seeded cotangent for ``edge_inputs``: multiples of 1/16 in [-1, 1]
+    for images 0 and 1 (exact in bf16, and exact f32 sums there), standard
+    normal for image 2."""
+    shape = (*rois.shape[:2], out_size, out_size, CHANNELS)
+    dyadic = torch.randint(-16, 17, shape, generator=gen, device="cuda") / 16.0
+    normal = torch.randn(shape, generator=gen, device="cuda")
+    return torch.cat([dyadic[:2], normal[2:]])
+
+
+def without_nans(name: str, got: torch.Tensor, want: torch.Tensor):
+    """NaN at the same elements on both sides, as a NaN roi spreads it; both
+    returned with those elements zeroed, and the NaN count."""
+    got_nan, want_nan = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(got_nan, want_nan):
+        raise AssertionError(f"{name}: NaN at {int((got_nan != want_nan).sum())} other elements")
+    return got.masked_fill(got_nan, 0), want.masked_fill(want_nan, 0), int(got_nan.sum())
+
+
+def phase_roi_align_edges() -> None:
+    """K1 and K2 against their plain versions on ``edge_inputs``, out 7 and
+    14, float32 and bf16: one roi 512 times (hot tiles for K2), 512 rois in
+    one tile, a NaN roi (NaN where the plain version puts it) and a roi
+    larger than its level. K2 must give the same bits twice; its time here
+    shows what hot tiles cost."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    feats32, rois = edge_inputs(gen)
+    levels = roi_align.map_rois_to_levels(rois, len(STRIDES))
+    shapes = [tuple(f.shape[1:3]) for f in feats32]
+    log(f"edge rois: levels of image 0 {sorted(set(levels[0].tolist()))}, image 1 "
+        f"{sorted(set(levels[1].tolist()))}; the NaN roi at level {int(levels[2, 0])}, the large "
+        f"one at {int(levels[2, 1])}")
+    for out_size in (OUT_SIZE, 14):
+        grad32 = edge_cotangent(gen, rois, out_size)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"out={out_size} {str(dtype).replace('torch.', '')}"
+            feats = [f.to(dtype) for f in feats32]
+            got = roi_align.multilevel_roi_align_cuda(feats, rois, levels, STRIDES, out_size)
+            want = roi_align.multilevel_roi_align(feats, rois, levels, STRIDES, out_size)
+            got, want, nans = without_nans(f"roi_align_fwd edges {tag}", got, want)
+            if nans != out_size * out_size * CHANNELS:
+                raise AssertionError(f"roi_align_fwd edges {tag}: {nans} NaN, not one roi's")
+            (check_f32 if dtype == torch.float32 else check_bf16)(
+                f"roi_align_fwd edges {tag}", got, want)
+
+            args = (grad32.to(dtype), rois, levels, shapes, STRIDES, out_size)
+            got = roi_align.multilevel_roi_align_backward_cuda(*args)
+            want = roi_align.multilevel_roi_align_backward(*args)
+            pairs = [without_nans(f"roi_align_bwd edges {tag}", g, w) for g, w in zip(got, want)]
+            nans = [n for _, _, n in pairs]
+            if nans != [2 * 2 * CHANNELS, 0, 0, 0]:
+                raise AssertionError(f"roi_align_bwd edges {tag}: NaN per level {nans}")
+            check_grads(f"roi_align_bwd edges {tag}", [g for g, _, _ in pairs],
+                        [w for _, w, _ in pairs], dtype)
+            check_deterministic(f"roi_align_bwd edges {tag}",
+                                roi_align.multilevel_roi_align_backward_cuda, args)
+            ms = cuda_ms(lambda: roi_align.multilevel_roi_align_backward_cuda(*args), iters=10)
+            log(f"roi_align_bwd edges {tag}: kernel {ms:.4f} ms")
 
 
 def load_model(dtype: str, device):
@@ -476,6 +587,9 @@ def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -
         f"kernels, idle share of an unprofiled {batch_ms:.3f} ms {what} {1 - busy_ms / batch_ms:.3f}; "
         "device ms by operator: "
         + "; ".join(f"{key} {us / 1e3:.3f} ({n} calls)" for key, us, n in top))
+    roi = [(key, us, n) for key, us, n in ops if "RoIAlign" in key]
+    log(f"device profile, one {what} [{card}]: RoIAlign operators "
+        + ("; ".join(f"{key} {us / 1e3:.3f} ms ({n} calls)" for key, us, n in roi) or "none"))
 
 
 def stage_breakdown(model, det_cfg, images, img_shape, card: str, repeats: int = 5) -> None:
@@ -831,6 +945,7 @@ def main() -> int:
     phase_roi_align_variants()
     bwd = phase_roi_align_bwd()[torch.bfloat16]
     phase_roi_align_bwd_variants()
+    phase_roi_align_edges()
     serve = phase_model(card)
     phase_reference()
     train = phase_train(card)

@@ -141,3 +141,108 @@ def test_backward_cuda_wrapper_refuses_cpu_tensors(rng):
             [f.shape[1:3] for f in feats], STRIDES,
         )
     assert port.multilevel_roi_align_backward_cuda.launches == 0
+
+
+# What the kernels' designs rest on, checked with the plain versions: the
+# backward kernel finds a roi's cells from its first and last samples, both
+# kernels regroup the sum of sample products into per-axis folded weights,
+# and the wrappers pick the channel vector a load carries.
+
+_EDGE_ROIS = {
+    "crosses_border": [-40.0, -25.0, 90.0, 70.0],
+    "all_zero": [0.0, 0.0, 0.0, 0.0],
+    "aspect_8_to_1": [10.0, 30.0, 330.0, 70.0],
+    "larger_than_level": [-300.0, -200.0, 900.0, 700.0],
+    "nan": [float("nan")] * 4,
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_EDGE_ROIS))
+def test_first_and_last_samples_bound_every_cell_the_backward_writes(rng, kind):
+    """The footprint [y_lo(0), y_hi(S-1)] x [x_lo(0), x_hi(S-1)] from
+    ``axis_samples`` holds every cell that the plain backward writes for the
+    roi, on every level it could be routed to, at out 7 and 14."""
+    feats = _feats(rng)
+    shapes = [f.shape[1:3] for f in feats]
+    box = torch.tensor([[_EDGE_ROIS[kind]]], dtype=torch.float32).expand(2, 1, 4).contiguous()
+    for out_size in (7, 14):
+        g = torch.from_numpy(rng.normal(size=(2, 1, out_size, out_size, 6)).astype(np.float32))
+        for lvl, ((h, w), stride) in enumerate(zip(shapes, STRIDES)):
+            levels = torch.full((2, 1), lvl, dtype=torch.int32)
+            grads = port.multilevel_roi_align_backward(g, box, levels, shapes, STRIDES, out_size)
+            written = (grads[lvl] != 0).any(-1)  # (B, H, W); NaN != 0 counts
+            assert bool(written.any())
+            y0, y1, _ = port.axis_samples(box[0, :, 1], box[0, :, 3], 1.0 / stride, h, out_size, 2)
+            x0, x1, _ = port.axis_samples(box[0, :, 0], box[0, :, 2], 1.0 / stride, w, out_size, 2)
+            inside = torch.zeros((h, w), dtype=torch.bool)
+            inside[int(y0[0, 0]):int(y1[0, -1]) + 1, int(x0[0, 0]):int(x1[0, -1]) + 1] = True
+            assert not bool((written & ~inside).any()), (kind, out_size, lvl)
+            if kind == "nan":
+                assert (int(y0[0, 0]), int(y1[0, -1]), int(x0[0, 0]), int(x1[0, -1])) == (0, 1, 0, 1)
+                assert bool(torch.isnan(grads[lvl][:, :2, :2]).all())
+
+
+def _folded(lo, hi, scale, size, out_size, ratio):
+    """(N, out, size) per-axis weights: for each bin, the sum over its ratio
+    samples of (1 - frac) on the lower cell and frac on the upper one."""
+    i0, i1, f = port.axis_samples(lo, hi, scale, size, out_size, ratio)
+    n = lo.shape[0]
+    w = torch.zeros((n, out_size * ratio, size))
+    w.scatter_add_(2, i0[..., None], (1 - f)[..., None])
+    w.scatter_add_(2, i1[..., None], f[..., None])
+    return w.reshape(n, out_size, ratio, size).sum(2)
+
+
+@pytest.mark.parametrize("out_size,ratio", [(7, 2), (14, 2), (4, 1), (5, 3)])
+def test_folded_axis_weights_regroup_both_plain_versions(rng, out_size, ratio):
+    """sum_j sum_k wy_j wx_k F[j, k] / ratio**2 over the folded weights is the
+    plain forward, and its transpose the plain backward (atol 1e-5: the same
+    products summed in another order)."""
+    feats, rois = _feats(rng), _rois(rng)
+    levels = _levels(rois)
+    boxes = torch.from_numpy(rois)
+    g = torch.from_numpy(_cotangent(rng, rois, out_size=out_size))
+    want_out = port.multilevel_roi_align([torch.from_numpy(f) for f in feats], boxes, levels,
+                                         STRIDES, out_size, ratio)
+    want_grads = port.multilevel_roi_align_backward(g, boxes, levels, [f.shape[1:3] for f in feats],
+                                                    STRIDES, out_size, ratio)
+    for lvl, (f, stride) in enumerate(zip(feats, STRIDES)):
+        bi, ri = torch.nonzero(levels == lvl, as_tuple=True)
+        box = boxes[bi, ri]
+        h, w = f.shape[1:3]
+        wy = _folded(box[:, 1], box[:, 3], 1.0 / stride, h, out_size, ratio)
+        wx = _folded(box[:, 0], box[:, 2], 1.0 / stride, w, out_size, ratio)
+        fmap = torch.from_numpy(f)[bi]  # (N, H, W, C)
+        out = torch.einsum("npy,nqx,nyxc->npqc", wy, wx, fmap) / ratio**2
+        np.testing.assert_allclose(out.numpy(), want_out[bi, ri].numpy(), **TOL)
+        per_roi = torch.einsum("npy,nqx,npqc->nyxc", wy, wx, g[bi, ri]) / ratio**2
+        grad = torch.zeros_like(want_grads[lvl]).index_add_(0, bi, per_roi)
+        np.testing.assert_allclose(grad.numpy(), want_grads[lvl].numpy(), **TOL)
+
+
+@pytest.mark.parametrize("dtype,channels,offset,want", [
+    (torch.bfloat16, 256, 0, 8), (torch.float32, 256, 0, 4), (torch.bfloat16, 130, 0, 2),
+    (torch.float32, 6, 0, 2), (torch.bfloat16, 5, 0, 1), (torch.bfloat16, 256, 2, 2),
+    (torch.float32, 256, 1, 1),
+])
+def test_channel_vector_is_the_widest_load_that_fits(dtype, channels, offset, want):
+    """16 bytes a load where the channel count and every pointer allow, else
+    the widest narrower one: a view that starts ``offset`` elements into its
+    storage is aligned only to that."""
+    base = torch.zeros(4 * channels + 16, dtype=dtype)
+    view = base[offset:offset + 4 * channels]
+    assert port.channel_vector(channels, [base, view]) == want
+    size = base.element_size()
+    assert channels % want == 0 and view.data_ptr() % (want * size) == 0
+    wider = 2 * want
+    assert wider * size > 16 or channels % wider or view.data_ptr() % (wider * size)
+
+
+def test_backward_cuda_wrapper_refuses_out_sizes_past_255(rng):
+    feats, rois = _feats(rng), _rois(rng)
+    with pytest.raises(ValueError, match="255"):
+        port.multilevel_roi_align_backward_cuda(
+            torch.zeros((*rois.shape[:2], 256, 256, 6)), torch.from_numpy(rois), _levels(rois),
+            [f.shape[1:3] for f in feats], STRIDES, out_size=256,
+        )
+    assert port.multilevel_roi_align_backward_cuda.launches == 0

@@ -18,60 +18,117 @@
 // expression the plain version uses, so the two never route a boundary roi
 // differently.
 //
-// Design: one block per (image, roi), one launch for the whole batch and all
-// levels. Threads run across channels, two channels per thread (float2 or
-// __nv_bfloat162 loads, so a warp reads a contiguous run of a corner's
-// channel vector) or one when C is odd. Bins and sub-samples loop in
-// registers with f32 accumulation, and each output element is stored once in
-// the feature dtype. No atomics, so the result is deterministic.
-//
 // Bound on an H100 SXM at the Faster R-CNN slice (B=4, R=1000, out=7,
-// ratio=2, C=256, bf16): the output is 100 MB, and the feature cells the
-// rois touch are at most the 165 MB of P2-P5; the 4 f32 FMAs per sample and
-// channel come to ~1.6 GFLOP, ~24 us at 67 TFLOP/s. So bytes bound it: on
-// the order of 30-80 us at 3.35 TB/s. This simple kernel re-reads each
-// corner from L1/L2 for every sample; staging a roi's window in shared
-// memory with cp.async or TMA is the work of a later change.
+// ratio=2, C=256, bf16): the output is 100 MB and the feature cells the rois
+// touch 136 MB; the f32 products take ~24 us at 67 TFLOP/s. So bytes bound
+// it, at ~0.07 ms for 3.35 TB/s.
+//
+// What held the first version back: one thread carried two channels and
+// issued 4 corner loads of 4 bytes for each of the 196 samples, each load
+// feeding an FMA before the next was issued, and re-read every cell that
+// neighbouring samples share. Latency and instruction count, not bytes, set
+// its pace (f32 was only 5% slower than bf16).
+//
+// Design: the separable form the TPU kernel uses, in the roi's compact
+// sample-index space. The ratio samples of a bin touch at most 2 * ratio
+// distinct cells along each axis; bin_cells lists
+// those cells with the sum of the bilinear weights its samples give them
+// (the ratio mean folded into per-axis weights, as roi_align_pallas.py:24-29),
+// for every bin and axis of the roi in a prologue. A bin's output is then
+// sum_j sum_k wy_j wx_k F[row_j, col_k] with every distinct cell of the bin
+// loaded once, as 16 bytes of channels a lane (8 bf16 or 4 f32), so one warp
+// spans 256 bf16 channels of a cell; a lane issues 4 loads (kept as raw bits,
+// 4 registers each for bf16) before their FMAs. One block per (image, roi),
+// 8 warps on different bins; sums in f32, one rounding to the feature dtype
+// at the store. No atomics, so the result is deterministic. Rois that share
+// cells still read them once each: the design reads a bin's cells, not the
+// level's.
+//
+// What bounds it now (NVIDIA H100 80GB HBM3, 700 W, PERF.md): latency. Its
+// time grows with the rois from a small fixed part (0.044 ms at 128 rois an
+// image in bf16); at the slice it runs at about 3x its byte bound in bf16
+// and 2.3x in f32: each warp's bins are a few rounds of dependent loads.
 
 #include "roi_align_common.cuh"
 
 namespace {
 
 using Levels = roi_align::LevelTable<const void*>;
+using roi_align::Axis;
 using roi_align::axis_sample;
-using roi_align::load_f32;
-using roi_align::load_f32x2;
-using roi_align::store_f32;
-using roi_align::store_f32x2;
+using roi_align::roi_axis;
+using roi_align::sample_grid;
+using roi_align::load_vec;
+using roi_align::store_vec;
 
-template <typename T, bool kPairs>
-__global__ void roi_align_fwd_kernel(Levels levels, const float* __restrict__ rois,
-                                     const int* __restrict__ roi_level, int num_rois,
-                                     int channels, int out_size, int ratio,
-                                     T* __restrict__ out) {
+// The separable form of one bin along one axis: the distinct cells that the
+// ratio samples of `bin` touch, each with the sum of the bilinear weights the
+// samples give it (the ratio mean folded into per-axis weights, as
+// roi_align_pallas.py:24-29 does). grid holds sample_grid(i, ratio) for the
+// S samples. Returns the count, at most 2 * ratio. A bin's value is then
+// sum_j sum_k wy_j wx_k F[row_j, col_k] over its two lists, the plain
+// version's sum of products regrouped. A NaN weight stays NaN, so a
+// non-finite roi spreads NaN to the cells the plain version does.
+__device__ __forceinline__ int bin_cells(const Axis& a, const float* grid, int size, int ratio,
+                                         int bin, int* cells, float* weights) {
+  int n = 0;
+  auto add = [&](int cell, float w) {
+    for (int j = 0; j < n; ++j) {
+      if (cells[j] == cell) {
+        weights[j] += w;
+        return;
+      }
+    }
+    cells[n] = cell;
+    weights[n] = w;
+    ++n;
+  };
+  for (int k = 0; k < ratio; ++k) {
+    int lo, hi;
+    float f;
+    axis_sample(a, grid[bin * ratio + k], size, &lo, &hi, &f);
+    add(lo, 1.0f - f);
+    add(hi, f);
+  }
+  return n;
+}
+
+constexpr int kWarps = 8;  // a block's warps, each on its own bins
+constexpr int kBatch = 4;  // cells a lane loads before it adds them
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+roi_align_fwd_kernel(Levels levels, const float* __restrict__ rois,
+                     const int* __restrict__ roi_level, int num_rois, int channels,
+                     int out_size, int ratio, T* __restrict__ out) {
   const int roi = blockIdx.x;  // image * num_rois + r
   const int image = roi / num_rois;
   const int lvl = roi_level[roi];
   const int h = levels.height[lvl];
   const int w = levels.width[lvl];
-  const int S = out_size * ratio;
+  const int m = 2 * ratio;  // most cells a bin touches along an axis
 
-  extern __shared__ unsigned char smem[];
-  int* y_lo = reinterpret_cast<int*>(smem);
-  int* y_hi = y_lo + S;
-  int* x_lo = y_hi + S;
-  int* x_hi = x_lo + S;
-  float* y_frac = reinterpret_cast<float*>(x_hi + S);
-  float* x_frac = y_frac + S;
+  extern __shared__ int smem[];
+  int* y_count = smem;
+  int* x_count = y_count + out_size;
+  int* y_cell = x_count + out_size;
+  int* x_cell = y_cell + out_size * m;
+  float* y_wt = reinterpret_cast<float*>(x_cell + out_size * m);
+  float* x_wt = y_wt + out_size * m;
+  float* grid = x_wt + out_size * m;  // sample_grid of the S samples
 
+  for (int i = threadIdx.x; i < out_size * ratio; i += blockDim.x) grid[i] = sample_grid(i, ratio);
+  __syncthreads();
   const float* box = rois + static_cast<size_t>(roi) * 4;
-  for (int t = threadIdx.x; t < 2 * S; t += blockDim.x) {
-    if (t < S) {
-      axis_sample(box[1], box[3], levels.scale[lvl], h, out_size, ratio, t,
-                  &y_lo[t], &y_hi[t], &y_frac[t]);
+  const float scale = levels.scale[lvl];
+  for (int t = threadIdx.x; t < 2 * out_size; t += blockDim.x) {
+    if (t < out_size) {
+      y_count[t] = bin_cells(roi_axis(box[1], box[3], scale, out_size), grid, h, ratio, t,
+                             y_cell + t * m, y_wt + t * m);
     } else {
-      axis_sample(box[0], box[2], levels.scale[lvl], w, out_size, ratio, t - S,
-                  &x_lo[t - S], &x_hi[t - S], &x_frac[t - S]);
+      const int p = t - out_size;
+      x_count[p] = bin_cells(roi_axis(box[0], box[2], scale, out_size), grid, w, ratio, p,
+                             x_cell + p * m, x_wt + p * m);
     }
   }
   __syncthreads();
@@ -80,60 +137,80 @@ __global__ void roi_align_fwd_kernel(Levels levels, const float* __restrict__ ro
                   static_cast<size_t>(image) * h * w * channels;
   T* dst = out + static_cast<size_t>(roi) * out_size * out_size * channels;
   const float count = static_cast<float>(ratio * ratio);
-  constexpr int kVec = kPairs ? 2 : 1;
+  const int groups = channels / VEC;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
 
-  for (int c = threadIdx.x * kVec; c < channels; c += blockDim.x * kVec) {
-    for (int ph = 0; ph < out_size; ++ph) {
-      for (int pw = 0; pw < out_size; ++pw) {
-        float acc0 = 0.0f, acc1 = 0.0f;
-        for (int iy = 0; iy < ratio; ++iy) {
-          const int sy = ph * ratio + iy;
-          const size_t row0 = static_cast<size_t>(y_lo[sy]) * w;
-          const size_t row1 = static_cast<size_t>(y_hi[sy]) * w;
-          const float ty = y_frac[sy];
-          const float uy = 1.0f - ty;
-          for (int ix = 0; ix < ratio; ++ix) {
-            const int sx = pw * ratio + ix;
-            const float tx = x_frac[sx];
-            const float ux = 1.0f - tx;
-            const T* p00 = feat + (row0 + x_lo[sx]) * channels + c;
-            const T* p01 = feat + (row0 + x_hi[sx]) * channels + c;
-            const T* p10 = feat + (row1 + x_lo[sx]) * channels + c;
-            const T* p11 = feat + (row1 + x_hi[sx]) * channels + c;
-            if constexpr (kPairs) {
-              const float2 f00 = load_f32x2(p00), f01 = load_f32x2(p01);
-              const float2 f10 = load_f32x2(p10), f11 = load_f32x2(p11);
-              acc0 += f00.x * uy * ux + f01.x * uy * tx + f10.x * ty * ux + f11.x * ty * tx;
-              acc1 += f00.y * uy * ux + f01.y * uy * tx + f10.y * ty * ux + f11.y * ty * tx;
-            } else {
-              acc0 += load_f32(p00) * uy * ux + load_f32(p01) * uy * tx +
-                      load_f32(p10) * ty * ux + load_f32(p11) * ty * tx;
+  for (int bin = warp; bin < out_size * out_size; bin += kWarps) {
+    const int ph = bin / out_size;
+    const int pw = bin % out_size;
+    const int nx = x_count[pw];
+    const int items = y_count[ph] * nx;  // the bin's distinct cells, row-major
+    const int* yc = y_cell + ph * m;
+    const int* xc = x_cell + pw * m;
+    const float* yw = y_wt + ph * m;
+    const float* xw = x_wt + pw * m;
+    for (int g = lane; g < groups; g += 32) {
+      const T* base = feat + g * VEC;
+      float acc[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
+      int j0 = 0, k0 = 0;  // the row and column of item i0
+      for (int i0 = 0; i0 < items; i0 += kBatch) {
+        roi_align::Vec<T, VEC> v[kBatch];
+        float wgt[kBatch];
+        int j = j0, k = k0;
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (i0 + b < items) {
+            v[b] = load_vec<T, VEC>(base + (static_cast<size_t>(yc[j]) * w + xc[k]) * channels);
+            wgt[b] = yw[j] * xw[k];
+            if (++k == nx) {
+              k = 0;
+              ++j;
             }
           }
         }
-        T* o = dst + (ph * out_size + pw) * channels + c;
-        if constexpr (kPairs) {
-          store_f32x2(o, make_float2(acc0 / count, acc1 / count));
-        } else {
-          store_f32(o, acc0 / count);
+        j0 = j;
+        k0 = k;
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          if (i0 + b < items) {
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) acc[q] += wgt[b] * v[b][q];
+          }
         }
       }
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[q] = acc[q] / count;
+      store_vec<T, VEC>(dst + static_cast<size_t>(bin) * channels + g * VEC, acc);
     }
   }
 }
 
+template <typename T, int VEC>
+void launch(const Levels& levels, const float* rois, const int* roi_level, int num_blocks,
+            int num_rois, int channels, int out_size, int ratio, void* out, cudaStream_t stream) {
+  const size_t smem = (2 * out_size + 4 * out_size * 2 * ratio + out_size * ratio) * sizeof(int);
+  roi_align_fwd_kernel<T, VEC><<<num_blocks, kWarps * 32, smem, stream>>>(
+      levels, rois, roi_level, num_rois, channels, out_size, ratio, static_cast<T*>(out));
+}
+
 template <typename T>
-void launch(bool pairs, const Levels& levels, const float* rois, const int* roi_level,
-            int num_blocks, int num_rois, int channels, int out_size, int ratio, T* out,
-            cudaStream_t stream) {
-  const int threads = roi_align::block_threads(channels, pairs);
-  const size_t smem = roi_align::sample_table_bytes(out_size, ratio);
-  if (pairs) {
-    roi_align_fwd_kernel<T, true><<<num_blocks, threads, smem, stream>>>(
-        levels, rois, roi_level, num_rois, channels, out_size, ratio, out);
-  } else {
-    roi_align_fwd_kernel<T, false><<<num_blocks, threads, smem, stream>>>(
-        levels, rois, roi_level, num_rois, channels, out_size, ratio, out);
+bool dispatch(int vec, const Levels& levels, const float* rois, const int* roi_level,
+              int num_blocks, int num_rois, int channels, int out_size, int ratio, void* out,
+              cudaStream_t st) {
+  switch (vec) {
+    case 1: launch<T, 1>(levels, rois, roi_level, num_blocks, num_rois, channels, out_size, ratio, out, st); return true;
+    case 2: launch<T, 2>(levels, rois, roi_level, num_blocks, num_rois, channels, out_size, ratio, out, st); return true;
+    case 4: launch<T, 4>(levels, rois, roi_level, num_blocks, num_rois, channels, out_size, ratio, out, st); return true;
+    case 8:
+      if constexpr (sizeof(T) == 2) {
+        launch<T, 8>(levels, rois, roi_level, num_blocks, num_rois, channels, out_size, ratio, out, st);
+        return true;
+      }
+      return false;
+    default: return false;
   }
 }
 
@@ -143,29 +220,30 @@ void launch(bool pairs, const Levels& levels, const float* rois, const int* roi_
 // host arrays of num_levels entries; feats holds device pointers to
 // (batch, H_l, W_l, channels) contiguous maps. rois (batch, num_rois, 4) f32,
 // roi_level (batch, num_rois) int32 and out (batch, num_rois, out, out,
-// channels) are device pointers. use_pairs needs an even channel count and
-// every feature pointer aligned to two elements. Returns cudaGetLastError()
-// after the launch (0 on success).
+// channels) are device pointers. vec is the channels a load (1, 2, 4, or 8
+// for bf16): it divides channels, and every feature pointer and out is
+// aligned to vec elements. Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int roi_align_fwd(int dtype, int num_levels, const void* const* feats,
                              const int* heights, const int* widths, const float* scales,
                              const float* rois, const int* roi_level, int batch,
                              int num_rois, int channels, int out_size, int ratio,
-                             int use_pairs, void* out, void* stream) {
+                             int vec, void* out, void* stream) {
   if (num_levels < 1 || num_levels > roi_align::kMaxLevels || batch < 1 || num_rois < 1 ||
-      channels < 1 || out_size < 1 || ratio < 1 || (use_pairs && channels % 2 != 0)) {
+      channels < 1 || out_size < 1 || ratio < 1 || vec < 1 || channels % vec != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Levels levels = roi_align::make_levels(num_levels, feats, heights, widths, scales);
   const int num_blocks = batch * num_rois;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool ok = false;
   if (dtype == 0) {
-    launch<float>(use_pairs != 0, levels, rois, roi_level, num_blocks, num_rois, channels,
-                  out_size, ratio, static_cast<float*>(out), st);
+    ok = dispatch<float>(vec, levels, rois, roi_level, num_blocks, num_rois, channels, out_size,
+                         ratio, out, st);
   } else if (dtype == 1) {
-    launch<__nv_bfloat16>(use_pairs != 0, levels, rois, roi_level, num_blocks, num_rois,
-                          channels, out_size, ratio, static_cast<__nv_bfloat16*>(out), st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    ok = dispatch<__nv_bfloat16>(vec, levels, rois, roi_level, num_blocks, num_rois, channels,
+                                 out_size, ratio, out, st);
   }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

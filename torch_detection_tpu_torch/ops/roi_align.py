@@ -178,14 +178,13 @@ def multilevel_roi_align_cuda(
         return out
     rois = rois.contiguous()
     levels = levels.to(torch.int32).contiguous()
-    pairs = c % 2 == 0 and all(f.data_ptr() % (2 * f.element_size()) == 0 for f in feats)
     geometry = _level_geometry(feats, [f.shape[1:3] for f in feats], strides)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = _kernel("roi_align_fwd")(
             _DTYPE_CODES[dtype], len(feats), *geometry,
             rois.data_ptr(), levels.data_ptr(), b, r, c, out_size, sampling_ratio,
-            int(pairs), out.data_ptr(), stream,
+            channel_vector(c, [*feats, out]), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"roi_align_fwd failed to launch: CUDA error {rc}")
@@ -211,6 +210,17 @@ def _check_cuda(name: str, x: Tensor, rois: Tensor, num_levels: int, out_size: i
         raise ValueError("out_size and sampling_ratio must be positive")
 
 
+def channel_vector(channels: int, tensors: Sequence[Tensor]) -> int:
+    """The channels one load or store of the kernels carries: the widest of
+    16, 8, 4 or 2 bytes of the dtype, down to one element, that divides
+    ``channels`` and to which every tensor's data is aligned."""
+    size = tensors[0].element_size()
+    vec = 16 // size
+    while vec > 1 and (channels % vec or any(t.data_ptr() % (vec * size) for t in tensors)):
+        vec //= 2
+    return vec
+
+
 def _level_geometry(maps: Sequence[Tensor], shapes, strides: Sequence[int]):
     """The per-level host arrays of the kernels' C interface: device
     pointers, heights, widths and 1 / stride."""
@@ -224,15 +234,18 @@ def _level_geometry(maps: Sequence[Tensor], shapes, strides: Sequence[int]):
 
 
 def _kernel(name: str):
-    """``roi_align_fwd`` or ``roi_align_bwd`` from its library; the two
-    share one C signature."""
+    """``roi_align_fwd`` or ``roi_align_bwd`` from its library. Both take
+    (dtype, levels, level pointers, heights, widths, scales, rois, routed
+    levels, batch, rois an image, channels, out size, sampling ratio, channel
+    vector), then the forward its output and the backward its cotangent and
+    scratch, and last the stream."""
     fn = getattr(kernels.load(name), name)
     fn.restype = ctypes.c_int
+    pointers = 2 if name == "roi_align_fwd" else 3
     fn.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, *[ctypes.c_void_p] * pointers,
     ]
     return fn
 
@@ -289,13 +302,18 @@ def multilevel_roi_align_backward_cuda(
 ) -> List[Tensor]:
     """The RoIAlign backward kernel ``csrc/roi_align_bwd.cu``: per level
     (B, H_l, W_l, C) in ``grad``'s dtype, one launch for the batch and every
-    level. The kernel adds into one zero-filled float32 buffer that holds
-    every level; for bfloat16 one cast follows, and the levels are views of
-    the cast buffer. ``multilevel_roi_align_backward_cuda.launches`` counts
-    launches."""
+    level (three kernels on the stream: each roi's axes and footprint and
+    each tile's work, the tiles' launch order, the tiles; their scratch is
+    ``_bwd_scratch_bytes``). The levels are
+    views of one buffer in ``grad``'s dtype, allocated empty: the kernel
+    writes every cell once, zeros included, so there is no fill and no cast,
+    and it sums in a fixed order, so the result is the same bits from run to
+    run. ``multilevel_roi_align_backward_cuda.launches`` counts launches."""
     num = len(level_shapes)
     if len(strides) != num or not num:
         raise ValueError(f"{num} levels but {len(strides)} strides")
+    if out_size > 255:
+        raise ValueError(f"the backward kernel takes out_size up to 255, got {out_size}")
     _check_cuda("multilevel_roi_align_backward_cuda", grad, rois, num, out_size, sampling_ratio)
     b, r = rois.shape[:2]
     c = grad.shape[-1]
@@ -303,29 +321,45 @@ def multilevel_roi_align_backward_cuda(
         raise ValueError(f"grad {tuple(grad.shape)} and levels {tuple(levels.shape)} do not "
                          f"match rois {tuple(rois.shape)} at out_size {out_size}")
     sizes = [b * int(h) * int(w) * c for h, w in level_shapes]
-    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=grad.device)
-    accums = list(torch.split(flat, sizes))
-    if b * r:
+    if b * r == 0:
+        flat = torch.zeros(sum(sizes), dtype=grad.dtype, device=grad.device)
+    else:
+        flat = torch.empty(sum(sizes), dtype=grad.dtype, device=grad.device)
+        parts = list(torch.split(flat, sizes))
         grad, rois = grad.contiguous(), rois.contiguous()
+        if rois.data_ptr() % 16:  # the kernel reads a box as one float4
+            rois = rois.clone()
         levels = levels.to(torch.int32).contiguous()
-        pairs = c % 2 == 0 and grad.data_ptr() % (2 * grad.element_size()) == 0
-        geometry = _level_geometry(accums, level_shapes, strides)
+        geometry = _level_geometry(parts, level_shapes, strides)
         with torch.cuda.device(grad.device):
             stream = torch.cuda.current_stream(grad.device).cuda_stream
+            scratch = torch.empty(_bwd_scratch_bytes(num, geometry, b, r) // 4, dtype=torch.int32,
+                                  device=grad.device)
             rc = _kernel("roi_align_bwd")(
                 _DTYPE_CODES[grad.dtype], num, *geometry,
                 rois.data_ptr(), levels.data_ptr(), b, r, c, out_size, sampling_ratio,
-                int(pairs), grad.data_ptr(), stream,
+                channel_vector(c, [grad, *parts]), grad.data_ptr(), scratch.data_ptr(), stream,
             )
         if rc != 0:
             raise RuntimeError(f"roi_align_bwd failed to launch: CUDA error {rc}")
         multilevel_roi_align_backward_cuda.launches += 1
-    out = flat.to(grad.dtype)
     return [part.view(b, int(h), int(w), c)
-            for part, (h, w) in zip(torch.split(out, sizes), level_shapes)]
+            for part, (h, w) in zip(torch.split(flat, sizes), level_shapes)]
 
 
 multilevel_roi_align_backward_cuda.launches = 0
+
+
+def _bwd_scratch_bytes(num_levels: int, geometry, batch: int, num_rois: int) -> int:
+    """Bytes of device scratch the backward kernel asks for: per roi its axes
+    and footprint, per tile its work and place in the launch order."""
+    fn = kernels.load("roi_align_bwd").roi_align_bwd_scratch_bytes
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    size = fn(num_levels, geometry[1], geometry[2], batch, num_rois)
+    if size < 0:
+        raise ValueError(f"the backward kernel takes 1 to 8 levels, got {num_levels}")
+    return size
 
 
 class RoIAlignFunction(torch.autograd.Function):
