@@ -42,16 +42,43 @@ Phases, each fatal on failure:
 8. the GPU training path against the CPU path, float32, stage by stage on a
    small canvas with the same sampling draws: RPN losses, assignment and
    sampling on the GPU's proposals, RoI losses, and the RoI stage's
-   gradients into the FPN levels.
+   gradients into the FPN levels;
+9. mask serving: Mask R-CNN R50-FPN (configs/mask_rcnn_r50_fpn_coco.py,
+   seeded weights, bf16) answers batches of 4 seeded 800 x 1216 images
+   through ``make_inference_fn(..., segm=True)``: K1's launches are counted
+   (two a batch: out 7 for the boxes, out 14 for the masks), the mask
+   probabilities lie in [0, 1] and are 0 on invalid slots, K1 is held to its
+   plain version on the run's own levels and detections at out 14 and timed
+   there; one batch profiled;
+10. the mask branch on the GPU against the CPU, float32, stage by stage on a
+   small canvas: mask roi features, mask logits, mask probabilities, and the
+   mask targets (equal, except where the CPU's value before the threshold
+   lies within one bf16 ulp of 0.5);
+11. mask training: the Mask R-CNN training build takes seeded batches like
+   phase 7's, each gt box with a seeded filled ellipse as its mask (gt
+   masks uint8, their count bucketed as the collate does), through
+   ``Trainer.run``: 2 warm-up and 10 timed steps, K1 and K2 counted (two
+   each a step: the box slate and the mask slate), every ``loss_mask``
+   finite and above 0, no step skipped, the mask head's parameters moved;
+   ms a step, images/s, peak memory, one profiled step and a stage
+   breakdown with the mask stages;
+12. K1 and K2 held to their plain versions on a training step's own mask
+   slate, levels and mask-head cotangent (scaled by a power of two to a
+   largest value in [1, 2)) at out 14, and K2 on a slate of 128 positives
+   an image piled onto the batch's gts (K2 twice bitwise equal on both),
+   each timed against its bound there; the step's mask targets on the GPU
+   against the CPU at full size.
 
-The line before the last is the ``kernels`` JSON; the last line is the
-device JSON. Without a GPU it exits with 2 and prints no result.
+The line before the last is the ``kernels`` JSON (launches by path; times
+and bounds at each path's shapes); the
+last line is the device JSON. Without a GPU it exits with 2 and prints no result.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -68,14 +95,21 @@ from torch_detection_tpu_torch.builder import (
     build_train_objects,
 )
 from torch_detection_tpu_torch.engine import Trainer, make_inference_fn
-from torch_detection_tpu_torch.models.detectors import sampling_noise
+from torch_detection_tpu_torch.models.detectors import MaskRCNNConfig, sampling_noise
+from torch_detection_tpu_torch.models.detectors.mask_rcnn import sample_mask_rois
 from torch_detection_tpu_torch.models.detectors.two_stage import (
+    _faster_rcnn_inference_core,
     flatten_rpn_outputs,
     rcnn_losses,
     rpn_losses,
     sample_rois,
 )
-from torch_detection_tpu_torch.models.heads import generate_proposals
+from torch_detection_tpu_torch.models.heads import generate_proposals, mask_loss
+from torch_detection_tpu_torch.models.heads.mask_head import (
+    mask_target_means,
+    mask_targets_for_rois,
+    select_class,
+)
 from torch_detection_tpu_torch.ops import nms as nms_ops
 from torch_detection_tpu_torch.ops import roi_align
 from torch_detection_tpu_torch.ops.boxes import clip_boxes, delta2bbox
@@ -83,6 +117,7 @@ from torch_detection_tpu_torch.utils.config import Config
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "faster_rcnn_r50_fpn_coco.py"
+MASK_CONFIG = ROOT / "configs" / "mask_rcnn_r50_fpn_coco.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
@@ -210,7 +245,7 @@ def slice_rois(gen: torch.Generator, device, rois: int = ROIS) -> torch.Tensor:
     return torch.where(zero[..., None], torch.zeros_like(rois), rois).contiguous()
 
 
-def touched_bytes(feats, rois) -> int:
+def touched_bytes(feats, rois, out_size: int = OUT_SIZE) -> int:
     """Bytes of the feature cells this run's rois read: every bilinear
     corner of every sample, each cell counted once."""
     levels = roi_align.map_rois_to_levels(rois, len(feats))
@@ -221,8 +256,8 @@ def touched_bytes(feats, rois) -> int:
             continue
         b, h, w, c = f.shape
         box = rois[bi, ri]
-        y0, y1, _ = roi_align.axis_samples(box[:, 1], box[:, 3], 1.0 / stride, h, OUT_SIZE, RATIO)
-        x0, x1, _ = roi_align.axis_samples(box[:, 0], box[:, 2], 1.0 / stride, w, OUT_SIZE, RATIO)
+        y0, y1, _ = roi_align.axis_samples(box[:, 1], box[:, 3], 1.0 / stride, h, out_size, RATIO)
+        x0, x1, _ = roi_align.axis_samples(box[:, 0], box[:, 2], 1.0 / stride, w, out_size, RATIO)
         mark = torch.zeros((b, h, w), dtype=torch.bool, device=f.device)
         for ys in (y0, y1):
             for xs in (x0, x1):
@@ -474,8 +509,8 @@ def phase_roi_align_edges() -> None:
             log(f"roi_align_bwd edges {tag}: kernel {ms:.4f} ms")
 
 
-def load_model(dtype: str, device):
-    cfg = Config.fromfile(CONFIG)
+def load_model(dtype: str, device, config: Path = CONFIG):
+    cfg = Config.fromfile(config)
     model = build_detector(cfg.model, dtype, device=device, seed=SEED)
     return model, build_detection_cfg(cfg.detection)
 
@@ -498,8 +533,7 @@ def phase_model(card: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    roi_align.multilevel_roi_align_cuda.launches = 0
-    roi_align.multilevel_roi_align_backward_cuda.launches = 0
+    reset_launches()
     syncs0 = nms_ops.suppress_syncs()
     seconds, results = [], []
     for x in images[WARMUP_BATCHES:]:
@@ -594,7 +628,8 @@ def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -
 
 def stage_breakdown(model, det_cfg, images, img_shape, card: str, repeats: int = 5) -> None:
     """The batch stage by stage, a device sync between stages; the median
-    host ms of each stage over ``repeats`` runs."""
+    host ms of each stage over ``repeats`` runs. A Mask R-CNN adds its mask
+    branch on the detections."""
     times = {}
 
     def stage(name, fn):
@@ -622,7 +657,15 @@ def stage_breakdown(model, det_cfg, images, img_shape, card: str, repeats: int =
                 return nms_ops.multiclass_nms(boxes, scores, det_cfg.nms_iou_thr,
                                               det_cfg.score_thr, 1000, det_cfg.max_detections)
 
-            stage("decode + multiclass NMS", decode_and_nms)
+            dets = stage("decode + multiclass NMS", decode_and_nms)
+            if isinstance(det_cfg, MaskRCNNConfig):
+                mask_feats = stage("mask roi_align K1 out 14", lambda: (
+                    roi_align.batched_multilevel_roi_align(list(feats[:4]), dets.boxes,
+                                                           det_cfg.roi_strides,
+                                                           det_cfg.mask_roi_size)))
+                logits = stage("mask head", lambda: model.mask_forward(mask_feats))
+                stage("mask class select, sigmoid", lambda: torch.sigmoid(
+                    select_class(logits, dets.labels).float()) * dets.valid[..., None, None])
     median = {k: statistics.median(v) for k, v in times.items()}
     total = sum(median.values())
     log(f"stage breakdown, median of {repeats} batches [{card}]: " + ", ".join(
@@ -737,8 +780,7 @@ def phase_train(card: str) -> dict:
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
 
-    roi_align.multilevel_roi_align_cuda.launches = 0
-    roi_align.multilevel_roi_align_backward_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     history = trainer.run(1)
     torch.cuda.synchronize()
@@ -779,8 +821,9 @@ def phase_train(card: str) -> dict:
 
 def train_stage_breakdown(model, det_cfg, optimizer, batch, card: str, repeats: int = 5) -> None:
     """A training step stage by stage (the stages of
-    ``two_stage._faster_rcnn_loss_core``, the backward and the optimizer), a
-    device sync between stages; the median host ms of each over ``repeats``
+    ``two_stage._faster_rcnn_loss_core``, for a Mask R-CNN those of
+    ``mask_rcnn.mask_rcnn_loss``, the backward and the optimizer), a device
+    sync between stages; the median host ms of each over ``repeats``
     steps."""
     noise = functools.partial(sampling_noise, torch.Generator(device="cuda").manual_seed(SEED + 10))
     gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
@@ -814,6 +857,8 @@ def train_stage_breakdown(model, det_cfg, optimizer, batch, card: str, repeats: 
         sampled = stage("roi assign and sample", lambda: sample_rois(det_cfg, props, *gt, noise))
         rcnn_l = stage("roi_align K1, box head, losses", lambda: roi_stage(feats, sampled))
         loss = rpn_l[0].mean() + rpn_l[1].mean() + rcnn_l[0] + rcnn_l[1]
+        if isinstance(det_cfg, MaskRCNNConfig):
+            loss = loss + mask_stages(stage, model, det_cfg, batch, feats, props, noise)
         stage("backward (K2 in it)", loss.backward)
         stage("grad norm, clip, SGD", lambda: optimizer.apply(optimizer.global_norm()))
     optimizer.zero_grad()
@@ -821,6 +866,20 @@ def train_stage_breakdown(model, det_cfg, optimizer, batch, card: str, repeats: 
     total = sum(median.values())
     log(f"training stage breakdown, median of {repeats} steps [{card}]: " + ", ".join(
         f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in median.items()))
+
+
+def mask_stages(stage, model, det_cfg, batch, feats, props, noise):
+    """The mask branch of a training step, each part timed by ``stage``;
+    returns the mask loss."""
+    gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    slate = stage("mask assign and sample", lambda: sample_mask_rois(det_cfg, props, *gt, noise))
+    targets = stage("mask targets", lambda: mask_targets_for_rois(
+        batch["gt_masks"], slate.rois, slate.matched, det_cfg.mask_size))
+    roi_feats = stage("mask roi_align K1 out 14", lambda: roi_align.batched_multilevel_roi_align(
+        list(feats[: len(det_cfg.roi_strides)]), slate.rois, det_cfg.roi_strides,
+        det_cfg.mask_roi_size))
+    logits = stage("mask head", lambda: model.mask_forward(roi_feats))
+    return stage("mask loss", lambda: mask_loss(logits, targets, slate.labels, slate.is_pos))
 
 
 def phase_train_bwd_on_step_data(model, det_cfg, batch) -> None:
@@ -923,6 +982,341 @@ def phase_train_reference() -> None:
     log("training reference check, GPU vs CPU float32: " + "; ".join(checks))
 
 
+def reset_launches() -> None:
+    for fn in (roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align_backward_cuda):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return dict(k1=roi_align.multilevel_roi_align_cuda.launches,
+                k2=roi_align.multilevel_roi_align_backward_cuda.launches)
+
+
+def expect_launches(path: str, got: dict, k1: int, k2: int) -> None:
+    if got != dict(k1=k1, k2=k2):
+        raise AssertionError(f"{path}: launches {got}; expected K1 {k1} and K2 {k2}")
+
+
+def kernel_at(name: str, kernel, plain, args, check, in_bytes: int, out_bytes: int,
+              flops: int) -> dict:
+    """A kernel against its plain version on ``args`` (``check``), its time,
+    the plain version's time and the bound."""
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    err = check(name, got, want)
+    ms = cuda_ms(lambda: kernel(*args), iters=20)
+    plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
+    result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(name, in_bytes, out_bytes, flops))
+    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library_ms none")
+    return result
+
+
+def phase_mask_serving(card: str) -> dict:
+    """Full-width Mask R-CNN R50-FPN b4 800x1216 bf16 through
+    ``make_inference_fn(..., segm=True)``; K1's launches are counted over
+    the run."""
+    device = torch.device("cuda")
+    model, det_cfg = load_model("bfloat16", device, MASK_CONFIG)
+    infer = make_inference_fn(model, det_cfg, segm=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    h, w = CANVAS
+    images = [torch.randn((BATCH, h, w, 3), generator=gen, device=device, dtype=torch.bfloat16)
+              for _ in range(WARMUP_BATCHES + TIMED_BATCHES)]
+    img_shape = torch.tensor([[h, w]] * BATCH, dtype=torch.float32, device=device)
+    scale = torch.ones(BATCH, device=device)
+    for x in images[:WARMUP_BATCHES]:
+        infer(x, img_shape, scale)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    seconds, results = [], []
+    for x in images[WARMUP_BATCHES:]:
+        t0 = time.perf_counter()
+        res = infer(x, img_shape, scale)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        results.append(res)
+    launches = read_launches()
+    log(f"mask serving path: {TIMED_BATCHES} batches, launches {launches}")
+    # one K1 launch for the boxes (out 7) and one for the masks (out 14)
+    expect_launches("mask serving", launches, 2 * TIMED_BATCHES, 0)
+
+    d, m = det_cfg.max_detections, 2 * det_cfg.mask_roi_size
+    for res in results:
+        if res.boxes.shape != (BATCH, d, 4) or res.mask_probs.shape != (BATCH, d, m, m):
+            raise AssertionError(f"shapes {tuple(res.boxes.shape)}, {tuple(res.mask_probs.shape)}")
+        probs, v = res.mask_probs, res.valid
+        if not bool(v.any()):
+            raise AssertionError("no detection above score_thr")
+        if not (torch.isfinite(res.boxes).all() and torch.isfinite(probs).all()):
+            raise AssertionError("non-finite detections or masks")
+        if not (bool((probs >= 0).all()) and bool((probs <= 1).all())):
+            raise AssertionError("mask probabilities outside [0, 1]")
+        if bool(probs[~v].any()):
+            raise AssertionError("a mask on an invalid slot")
+        if not bool((probs[v] > 0).any()):
+            raise AssertionError("every valid mask is 0")
+    ms = [t * 1e3 for t in seconds]
+    mean_ms = sum(ms) / len(ms)
+    last = results[-1]
+    fg = float((last.mask_probs[last.valid] >= 0.5).float().mean())
+    log(f"mask serving path: ms a batch {[round(t, 3) for t in ms]}, mean {mean_ms:.3f} ms, "
+        f"{BATCH / (mean_ms / 1e3):.2f} images/s, median {statistics.median(ms):.3f} ms [{card}]; "
+        f"valid detections a batch {[int(r.valid.sum()) for r in results]}; mask pixels >= 0.5 in "
+        f"the last batch's valid masks {fg:.3f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # K1 against its plain version on this run's levels and detections, out 14
+    stage_breakdown(model, det_cfg, images[1], img_shape, card)
+    with torch.inference_mode():
+        dets, feats = _faster_rcnn_inference_core(det_cfg, model, images[1], img_shape)
+        maps = list(feats[: len(det_cfg.roi_strides)])
+        routed = roi_align.map_rois_to_levels(dets.boxes, len(maps), det_cfg.finest_scale)
+        log(f"mask serving detections per level {[int((routed == l).sum()) for l in range(4)]}")
+        args = (maps, dets.boxes, routed, det_cfg.roi_strides, det_cfg.mask_roi_size)
+        out_bytes = BATCH * d * det_cfg.mask_roi_size ** 2 * CHANNELS * maps[0].element_size()
+        in_bytes = (touched_bytes(maps, dets.boxes, det_cfg.mask_roi_size) + dets.boxes.numel() * 4
+                    + routed.numel() * 4)
+        flops = 2 * 4 * BATCH * d * (det_cfg.mask_roi_size * RATIO) ** 2 * CHANNELS
+        k1 = kernel_at("roi_align_fwd on the mask serving run's levels and detections, out 14",
+                       roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align, args,
+                       check_bf16, in_bytes, out_bytes, flops)
+    device_profile(lambda: infer(images[1], img_shape, scale), mean_ms, card)
+    return dict(launches=launches, ms_per_batch=mean_ms, k1=k1)
+
+
+def ellipse_masks(gen: torch.Generator, boxes: torch.Tensor, valid: torch.Tensor,
+                  canvas) -> torch.Tensor:
+    """(B, G, H, W) uint8 masks: a seeded filled ellipse inside each valid
+    box (half axes 0.6 to 1 of the box's, the centre anywhere that keeps the
+    ellipse inside), 0 elsewhere and for invalid boxes."""
+    h, w = canvas
+    device = boxes.device
+    u = torch.rand((*boxes.shape[:2], 4), generator=gen, device=device)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    rx, ry = (x2 - x1) / 2 * (0.6 + 0.4 * u[..., 0]), (y2 - y1) / 2 * (0.6 + 0.4 * u[..., 1])
+    cx = x1 + rx + (x2 - x1 - 2 * rx) * u[..., 2]
+    cy = y1 + ry + (y2 - y1 - 2 * ry) * u[..., 3]
+    yy = torch.arange(h, device=device, dtype=torch.float32)[:, None] + 0.5
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, :] + 0.5
+    masks = torch.zeros((*boxes.shape[:2], h, w), dtype=torch.uint8, device=device)
+    for k in range(boxes.shape[1]):  # one gt channel at a time: (B, H, W) temporaries
+        dx = (xx - cx[:, k, None, None]) / rx[:, k, None, None].clamp_min(0.5)
+        dy = (yy - cy[:, k, None, None]) / ry[:, k, None, None].clamp_min(0.5)
+        masks[:, k] = ((dx * dx + dy * dy <= 1) & valid[:, k, None, None]).to(torch.uint8)
+    return masks
+
+
+def mask_train_batch(gen: torch.Generator) -> dict:
+    """``train_batch`` with ``gt_masks``: the gt rows cut to the collate's
+    bucket, the smallest of 8, 16, 32, 64 or ``MAX_GTS`` rows that holds
+    every image's gts (the valid gts come first), one seeded ellipse each."""
+    batch = train_batch(gen)
+    n_max = int(batch["gt_valid"].sum(1).max())
+    g = next((bk for bk in (8, 16, 32, 64) if n_max <= bk < MAX_GTS), MAX_GTS)
+    batch["gt_masks"] = ellipse_masks(gen, batch["gt_boxes"][:, :g], batch["gt_valid"][:, :g],
+                                      CANVAS)
+    return batch
+
+
+def check_mask_targets(name: str, gt_masks, rois, matched, mask_size: int) -> None:
+    """The mask targets on the GPU against the CPU: equal, except where the
+    CPU's value before the threshold lies within one bf16 ulp of 0.5."""
+    got = mask_target_means(gt_masks, rois, matched, mask_size).cpu()
+    want = mask_target_means(gt_masks.cpu(), rois.cpu(), matched.cpu(), mask_size)
+    flips = (got >= 0.5) != (want >= 0.5)
+    near = (want - 0.5).abs() <= 2.0 ** -8
+    far_flips = int((flips & ~near).sum())
+    log(f"{name}: {want.numel()} target pixels, {float((want >= 0.5).float().mean()):.3f} of them 1; "
+        f"{int(flips.sum())} differ, {far_flips} of them farther than one bf16 ulp from 0.5; "
+        f"values before the threshold max abs diff {float((got - want).abs().max()):.3e}")
+    if far_flips:
+        raise AssertionError(f"{name}: the GPU's mask targets disagree with the CPU's")
+
+
+def phase_mask_reference() -> None:
+    """The mask branch in float32 on the GPU and on the CPU, stage by stage
+    on a small canvas; each GPU stage's output feeds the CPU counterpart of
+    the next stage. Then the mask targets of seeded masks and rois."""
+    gpu, det_cfg = load_model("float32", "cuda", MASK_CONFIG)
+    cpu, _ = load_model("float32", "cpu", MASK_CONFIG)
+    gen = torch.Generator().manual_seed(SEED + 15)
+    x = torch.randn((2, 256, 320, 3), generator=gen)
+    shapes = torch.tensor([[256.0, 320.0], [240.0, 300.0]])
+    strides, m = det_cfg.roi_strides, det_cfg.mask_roi_size
+    checks = []
+
+    def check(name, err, limit):
+        checks.append(f"{name} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"mask reference check {name}: {err} > {limit}")
+
+    with torch.inference_mode():
+        dets, feats = _faster_rcnn_inference_core(det_cfg, gpu, x.cuda(), shapes.cuda())
+        maps = list(feats[: len(strides)])
+        rg = roi_align.batched_multilevel_roi_align(maps, dets.boxes, strides, m)
+        rc = roi_align.batched_multilevel_roi_align([f.cpu() for f in maps], dets.boxes.cpu(),
+                                                    strides, m)
+        check("mask roi features (K1 out 14 vs plain on the CPU)", rel_err(rg, rc), 1e-5)
+        lg, lc = gpu.mask_forward(rg), cpu.mask_forward(rg.cpu())
+        check("mask logits", rel_err(lg, lc), 1e-4)
+        pg = torch.sigmoid(select_class(lg, dets.labels).float()) * dets.valid[..., None, None]
+        pc = torch.sigmoid(select_class(lg.cpu(), dets.labels.cpu()).float()) * dets.valid.cpu()[
+            ..., None, None]
+        check("mask probabilities", rel_err(pg, pc), 1e-6)
+    log(f"mask reference check, GPU vs CPU float32 ({int(dets.valid.sum())} detections): "
+        + "; ".join(checks))
+
+    # targets: 2 images of 300 x 400, 12 gts, 64 rois from 8 px to the whole
+    # image around them, so that they route to every pyramid level
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    size = 8.0 * 50.0 ** torch.rand((2, 12, 2), generator=g, device="cuda")
+    xy = torch.rand((2, 12, 2), generator=g, device="cuda") * (torch.tensor([400.0, 300.0],
+                                                                           device="cuda") - size)
+    gt = torch.cat([xy, xy + size], dim=-1)
+    masks = ellipse_masks(g, gt, torch.ones((2, 12), dtype=torch.bool, device="cuda"), (300, 400))
+    matched = torch.randint(0, 12, (2, 64), generator=g, device="cuda")
+    jitter = (torch.rand((2, 64, 4), generator=g, device="cuda") - 0.5) * 0.4
+    box = gt.gather(1, matched[..., None].expand(-1, -1, 4))
+    wh = (box[..., 2:] - box[..., :2]).repeat(1, 1, 2)
+    check_mask_targets("mask targets on 2 x 300 x 400, 64 rois an image", masks,
+                       box + jitter * wh, matched, det_cfg.mask_size)
+
+
+def phase_mask_train(card: str) -> dict:
+    """Full-width Mask R-CNN R50-FPN training, float32 parameters and bf16
+    compute, b4 on the 800 x 1216 canvas with gt masks, through the entry
+    points a user calls; K1's and K2's launches are counted over the timed
+    steps."""
+    cfg = Config.fromfile(MASK_CONFIG)
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    batches = [mask_train_batch(gen) for _ in range(steps)]
+    log(f"mask training batches: gt mask rows {[b['gt_masks'].shape[1] for b in batches]}, gts an "
+        f"image {[b['gt_valid'].sum(1).tolist() for b in batches[:3]]} ...")
+    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"mask training path: {TIMED_BATCHES} steps, launches {launches}")
+    # K1 and K2 once for the box slate (out 7), once for the mask slate (out 14)
+    expect_launches("mask training", launches, 2 * TIMED_BATCHES, 2 * TIMED_BATCHES)
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"{len(history)} steps logged, {trainer.skipped_steps} skipped")
+    keys = LOSS_KEYS + ("loss_mask",)
+    for h in history:
+        if not all(torch.isfinite(torch.tensor(h[k])) for k in keys):
+            raise AssertionError(f"non-finite loss at step {h['step']}: {h}")
+        if not (h["loss_mask"] > 0 and h["num_pos_rois"] > 0):
+            raise AssertionError(f"no mask loss or no positive roi at step {h['step']}: {h}")
+    still = [n for n, p in model.named_parameters() if p.requires_grad and torch.equal(p, before[n])]
+    moved = [n for n, p in model.named_parameters() if not p.requires_grad and not torch.equal(p, before[n])]
+    mask_params = [n for n in before if n.startswith("mask_head.")]
+    if still or moved or len(mask_params) != 2 * (model.mask_head.num_convs + 2):
+        raise AssertionError(f"trainable parameters that did not move {still}; frozen ones that "
+                             f"moved {moved}; mask head parameters {mask_params}")
+    step_ms = [BATCH / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    log(f"mask training path: ms a step {[round(t, 3) for t in step_ms]}, mean {mean_ms:.3f} ms, "
+        f"{BATCH / (mean_ms / 1e3):.2f} images/s, median {statistics.median(step_ms):.3f} ms [{card}]; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses first "
+        + ", ".join(f"{k} {history[0][k]:.4f}" for k in keys)
+        + "; last " + ", ".join(f"{k} {history[-1][k]:.4f}" for k in keys)
+        + f"; positive rois a step {[int(h['num_pos_rois']) for h in history]}")
+    device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    train_stage_breakdown(model, det_cfg, optimizer, batches[-1], card)
+    return dict(launches=launches, ms_per_step=mean_ms, model=model, det_cfg=det_cfg,
+                batch=batches[-1])
+
+
+def phase_mask_step_data(model, det_cfg, batch) -> dict:
+    """K1 and K2 against their plain versions on a training step's own mask
+    slate (positives first, 128 rois an image), FPN levels and mask-head
+    cotangent at out 14, and K2 on a slate of positives only, each timed
+    against its bound; the step's mask targets on the GPU against the
+    CPU."""
+    noise = functools.partial(sampling_noise, torch.Generator(device="cuda").manual_seed(SEED + 14))
+    gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    feats, rpn_s, rpn_d = model(batch["image"])
+    props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator,
+                               [s.detach() for s in rpn_s], [d.detach() for d in rpn_d],
+                               batch["img_shape"])
+    sample_rois(det_cfg, props, *gt, noise)  # the box slate's draws come first, as in a step
+    slate = sample_mask_rois(det_cfg, props, *gt, noise)
+    pos = slate.is_pos
+    hit = [len(set(slate.matched[i][pos[i]].tolist())) for i in range(BATCH)]
+    log(f"mask slate: {slate.rois.shape[1]} rois an image, positives {pos.sum(1).tolist()} on "
+        f"{hit} distinct gts")
+    check_mask_targets(f"mask targets on a training step's slate, {CANVAS[0]} x {CANVAS[1]}",
+                       batch["gt_masks"], slate.rois, slate.matched, det_cfg.mask_size)
+    targets = mask_targets_for_rois(batch["gt_masks"], slate.rois, slate.matched, det_cfg.mask_size)
+    levels_in = list(feats[: len(det_cfg.roi_strides)])
+    m = det_cfg.mask_roi_size
+    roi_feats = roi_align.batched_multilevel_roi_align(levels_in, slate.rois, det_cfg.roi_strides, m)
+    logits = model.mask_forward(roi_feats)
+    (cotangent,) = torch.autograd.grad(mask_loss(logits, targets, slate.labels, pos), roi_feats)
+    # mask_loss divides by its positives' pixel count, so the level
+    # gradients are about 1e-6, inside F32_ATOL, where even zeros would pass;
+    # K2 is linear in the cotangent, so a power of two brings its largest
+    # value into [1, 2) and leaves the step's own values otherwise as they were
+    top = float(cotangent.abs().max())
+    if not top > 0:
+        raise AssertionError("the mask slate's cotangent is all zero")
+    cotangent = cotangent * 2.0 ** -math.floor(math.log2(top))
+    routed = roi_align.map_rois_to_levels(slate.rois, len(levels_in))
+    maps = [f.detach() for f in levels_in]
+    n = slate.rois.shape[1]
+    flops = 2 * 4 * BATCH * n * (m * RATIO) ** 2 * CHANNELS
+    small = slate.rois.numel() * 4 + routed.numel() * 4
+    roi_bytes = BATCH * n * m * m * CHANNELS * cotangent.element_size()
+    k1 = kernel_at("roi_align_fwd on a training step's mask slate, out 14",
+                   roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align,
+                   (maps, slate.rois, routed, det_cfg.roi_strides, m), check_bf16,
+                   touched_bytes(maps, slate.rois, m) + small, roi_bytes, flops)
+    args = (cotangent, slate.rois, routed, [tuple(f.shape[1:3]) for f in maps], det_cfg.roi_strides, m)
+    name = "roi_align_bwd on a training step's mask slate and mask-head cotangent, out 14"
+    check_deterministic(name, roi_align.multilevel_roi_align_backward_cuda, args)
+    k2 = kernel_at(name, roi_align.multilevel_roi_align_backward_cuda,
+                   roi_align.multilevel_roi_align_backward, args,
+                   lambda nm, g, w: check_grads(nm, g, w, cotangent.dtype), roi_bytes + small,
+                   sum(f.numel() for f in maps) * cotangent.element_size(), flops)
+
+    # what a trained model's slate looks like: every roi a positive, piled
+    # onto the batch's 1-20 gts. Its cotangent is positive, in [0.5, 1): a
+    # cell sums thousands of terms here, and signed terms that cancel leave
+    # no f32 order within a bf16 ulp of the other (the edge phase's finding),
+    # while positive ones keep both sums far inside one
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    n_gt = batch["gt_valid"].sum(1)
+    pick = (torch.rand((BATCH, n), generator=g, device="cuda") * n_gt[:, None]).long()
+    box = batch["gt_boxes"].gather(1, pick[..., None].expand(-1, -1, 4))
+    wh = (box[..., 2:] - box[..., :2]).repeat(1, 1, 2)
+    hot = (box + (torch.rand((BATCH, n, 4), generator=g, device="cuda") - 0.5) * 0.2 * wh).contiguous()
+    hot_cot = 0.5 + 0.5 * torch.rand(cotangent.shape, generator=g, device="cuda")
+    hot_cot = hot_cot.to(cotangent.dtype)
+    hot_routed = roi_align.map_rois_to_levels(hot, len(maps))
+    hot_args = (hot_cot, hot, hot_routed, *args[3:])
+    name = f"roi_align_bwd on {n} positives an image around {n_gt.tolist()} gts, out 14"
+    check_deterministic(name, roi_align.multilevel_roi_align_backward_cuda, hot_args)
+    k2_hot = kernel_at(name, roi_align.multilevel_roi_align_backward_cuda,
+                       roi_align.multilevel_roi_align_backward, hot_args,
+                       lambda nm, g, w: check_grads(nm, g, w, hot_cot.dtype),
+                       roi_bytes + small, sum(f.numel() for f in maps) * hot_cot.element_size(), flops)
+    log(f"{name}: kernel {k2_hot['ms']:.4f} ms (the step's own slate {k2['ms']:.4f} ms)")
+    return dict(k1=k1, k2=k2, k2_hot=k2_hot)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -952,6 +1346,11 @@ def main() -> int:
     phase_train_bwd_on_step_data(train["model"], train["det_cfg"], train["batch"])
     del train["model"]
     phase_train_reference()
+    mask_serve = phase_mask_serving(card)
+    phase_mask_reference()
+    mask_train = phase_mask_train(card)
+    mask_step = phase_mask_step_data(mask_train.pop("model"), mask_train["det_cfg"],
+                                     mask_train["batch"])
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -966,12 +1365,17 @@ def main() -> int:
             **extra,
         }
 
+    mask_paths = {"mask_serving": mask_serve["launches"], "mask_training": mask_train["launches"]}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
-              {"serving": serve["launches"], "training": train["k1"]}, fwd,
-              at_train_rois={k: fwd_train[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}),
+              {"serving": serve["launches"], "training": train["k1"],
+               **{path: n["k1"] for path, n in mask_paths.items()}}, fwd,
+              at_train_rois={k: fwd_train[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
+              at_mask_serving=mask_serve["k1"], at_mask_training=mask_step["k1"]),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
-              {"serving": serve["bwd_launches"], "training": train["k2"]}, bwd),
+              {"serving": serve["bwd_launches"], "training": train["k2"],
+               **{path: n["k2"] for path, n in mask_paths.items()}}, bwd,
+              at_mask_training=mask_step["k2"], at_mask_positives_only=mask_step["k2_hot"]),
     ]}
     log(card)
     log(json.dumps(line))

@@ -2,7 +2,7 @@
 optimizer with its learning-rate schedule.
 
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``faster_rcnn``
-style; the other families arrive with their slices.
+and ``mask_rcnn`` styles; the other families arrive with their slices.
 """
 
 from __future__ import annotations
@@ -14,7 +14,13 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import torch
 
 from .engine.trainer import detection_lr_schedule
-from .models.detectors import FasterRCNNConfig, faster_rcnn_loss, sampling_noise
+from .models.detectors import (
+    FasterRCNNConfig,
+    MaskRCNNConfig,
+    faster_rcnn_loss,
+    mask_rcnn_loss,
+    sampling_noise,
+)
 from .models.inits import init_weights
 from .ops.anchors import AnchorGenerator
 from .parallel.train_step import Optimizer, make_optimizer
@@ -22,9 +28,13 @@ from .utils.registry import DETECTORS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the dtypes the kernels take
 
-# detection-config keys the Faster R-CNN inference path reads
+# detection-config keys the Faster R-CNN inference path reads, and what
+# Mask R-CNN adds
 _FASTER_RCNN_KEYS = ("num_classes", "score_thr", "nms_iou_thr", "max_detections", "roi_size",
                      "finest_scale")
+_MASK_RCNN_KEYS = _FASTER_RCNN_KEYS + ("mask_size", "mask_roi_size", "mask_loss_weight")
+_STYLES = {"faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS),
+           "mask_rcnn": (MaskRCNNConfig, _MASK_RCNN_KEYS)}
 
 
 def build_detector(
@@ -60,23 +70,25 @@ def _build_anchor_generator(anchor: Dict[str, Any]) -> AnchorGenerator:
 
 
 def build_detection_cfg(det_cfg: Dict[str, Any]) -> FasterRCNNConfig:
-    """The static detection config of a ``style='faster_rcnn'`` config.
-    Keys the port does not read yet raise instead of being dropped."""
+    """The static detection config of a ``style='faster_rcnn'`` or
+    ``'mask_rcnn'`` config. Keys the port does not read yet raise instead of
+    being dropped."""
     cfg = dict(det_cfg)
     style = cfg.pop("style", "retina")
-    if style != "faster_rcnn":
+    if style not in _STYLES:
         raise NotImplementedError(f"detection style {style!r} is not ported yet")
+    config_cls, keys = _STYLES[style]
     kwargs: Dict[str, Any] = {}
     anchor = cfg.pop("anchor", None)
     if anchor:
         kwargs["anchor_generator"] = _build_anchor_generator(dict(anchor))
-    for key in _FASTER_RCNN_KEYS:
+    for key in keys:
         if key in cfg:
             v = cfg.pop(key)
             kwargs[key] = tuple(v) if isinstance(v, list) else v
     if cfg:
         raise NotImplementedError(f"detection keys not ported yet: {sorted(cfg)}")
-    return FasterRCNNConfig(**kwargs)
+    return config_cls(**kwargs)
 
 
 def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
@@ -84,15 +96,17 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     of ``det_cfg``. The sampling draws of a step come from a
     ``torch.Generator`` on the model's device seeded from
     ``(rng_seed, step)``, so every step draws a fresh stream and a step
-    repeats exactly (the counterpart of the reference's ``_step_rng``)."""
+    repeats exactly (the counterpart of the reference's ``_step_rng``).
+    A ``MaskRCNNConfig`` adds the mask loss, whose batch carries
+    ``gt_masks``."""
     if not isinstance(det_cfg, FasterRCNNConfig):
         raise NotImplementedError(f"{type(det_cfg).__name__} training is not ported yet")
+    loss = mask_rcnn_loss if isinstance(det_cfg, MaskRCNNConfig) else faster_rcnn_loss
     device = next(model.parameters()).device
 
     def loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
         generator = torch.Generator(device=device).manual_seed((rng_seed << 32) + int(step))
-        losses = faster_rcnn_loss(det_cfg, model, batch,
-                                  functools.partial(sampling_noise, generator))
+        losses = loss(det_cfg, model, batch, functools.partial(sampling_noise, generator))
         return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
 
     return loss_fn

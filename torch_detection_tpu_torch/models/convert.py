@@ -4,18 +4,27 @@ The port names its submodules as the reference names its flax modules, so
 a parameter's path converts by joining it with dots. Only layouts change:
 
 * conv kernels HWIO -> OIHW;
+* transposed-conv kernels (flax ``ConvTranspose``) (kh, kw, in, out) ->
+  (in, out, kh, kw) with both spatial axes flipped: flax applies its kernel
+  as a convolution of the strided input, ``torch.nn.ConvTranspose2d`` as the
+  transpose of a convolution, which reads the kernel mirrored;
 * dense kernels (in, out) -> (out, in); fc1 needs no permutation, since both
   sides flatten RoI features in (S, S, C) order;
 * FrozenBN ``scale``/``bias`` (params) and ``mean``/``var`` (batch_stats)
   keep their names.
+
+A flax kernel does not say whether it is a conv's or a transposed conv's,
+so the port module it loads into decides (pass ``model``); without one, a
+rank-4 kernel is taken as a conv's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
@@ -27,19 +36,34 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield path, np.asarray(value)
 
 
-def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def _kernel_to_weight(value: np.ndarray, module: Optional[nn.Module], path: str) -> np.ndarray:
+    if isinstance(module, nn.ConvTranspose2d) and value.ndim == 4:
+        return np.ascontiguousarray(value[::-1, ::-1].transpose(2, 3, 0, 1))
+    if isinstance(module, (nn.Conv2d, type(None))) and value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    if isinstance(module, (nn.Linear, type(None))) and value.ndim == 2:
+        return value.T
+    raise ValueError(f"no layout for a rank-{value.ndim} kernel at {path} "
+                     f"(port module {type(module).__name__})")
+
+
+def from_jax_variables(
+    variables: Mapping[str, Any], model: Optional[nn.Module] = None
+) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` tree with numpy leaves -> the port's
-    ``state_dict`` (float32), to load with ``strict=True``."""
+    ``state_dict`` (float32), to load with ``strict=True``. With ``model``,
+    each kernel takes the layout of the module of ``model`` at its path
+    (``Conv2d``, ``ConvTranspose2d`` or ``Linear``; another or none raises);
+    a model with transposed convs must be passed."""
+    modules = dict(model.named_modules()) if model is not None else {}
     state = {}
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
             if path.endswith(".kernel"):
-                path = path[: -len("kernel")] + "weight"
-                if value.ndim == 4:
-                    value = value.transpose(3, 2, 0, 1)
-                elif value.ndim == 2:
-                    value = value.T
-                else:
-                    raise ValueError(f"unexpected kernel rank {value.ndim} at {path}")
+                name = path[: -len(".kernel")]
+                if model is not None and name not in modules:
+                    raise ValueError(f"{path}: the port model has no module {name!r}")
+                value = _kernel_to_weight(value, modules.get(name), path)
+                path = name + ".weight"
             state[path] = torch.tensor(value, dtype=torch.float32)
     return state

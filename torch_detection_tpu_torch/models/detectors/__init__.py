@@ -1,3 +1,10 @@
+from .mask_rcnn import (
+    MaskDetections,
+    MaskRCNN,
+    MaskRCNNConfig,
+    mask_rcnn_inference,
+    mask_rcnn_loss,
+)
 from .two_stage import (
     FasterRCNNConfig,
     TwoStageDetector,
@@ -6,5 +13,6 @@ from .two_stage import (
     sampling_noise,
 )
 
-__all__ = ["FasterRCNNConfig", "TwoStageDetector", "faster_rcnn_inference", "faster_rcnn_loss",
+__all__ = ["FasterRCNNConfig", "MaskDetections", "MaskRCNN", "MaskRCNNConfig", "TwoStageDetector",
+           "faster_rcnn_inference", "faster_rcnn_loss", "mask_rcnn_inference", "mask_rcnn_loss",
            "sampling_noise"]

@@ -311,6 +311,21 @@ def faster_rcnn_inference(
     scale_factors: Optional[Tensor] = None,  # (B,) or (B, 4)
 ) -> NMSResult:
     """Proposals -> RoIAlign -> box head -> per-class decode + NMS, padded."""
+    res, _ = _faster_rcnn_inference_core(cfg, model, images, img_shapes)
+    if scale_factors is None:
+        return res
+    b = res.boxes.shape[0]
+    return res._replace(boxes=res.boxes / scale_factors.reshape(b, 1, -1).to(res.boxes.dtype))
+
+
+def _faster_rcnn_inference_core(
+    cfg: FasterRCNNConfig,
+    model: TwoStageDetector,
+    images: Tensor,
+    img_shapes: Optional[Tensor] = None,
+) -> Tuple[NMSResult, Tuple[Tensor, ...]]:
+    """The detections in the network's frame, and the FPN levels they came
+    from, so that an extension (the mask branch) reuses the same forward."""
     feats, rpn_scores, rpn_deltas = model(images)
     proposals = generate_proposals(
         cfg.proposal_test, cfg.anchor_generator, rpn_scores, rpn_deltas, img_shapes
@@ -334,6 +349,4 @@ def faster_rcnn_inference(
         boxes, scores, iou_thr=cfg.nms_iou_thr, score_thr=cfg.score_thr,
         pre_nms_top_k=min(1000, r * probs.shape[-1]), max_out=cfg.max_detections,
     )
-    if scale_factors is None:
-        return res
-    return res._replace(boxes=res.boxes / scale_factors.reshape(b, 1, -1).to(res.boxes.dtype))
+    return res, feats

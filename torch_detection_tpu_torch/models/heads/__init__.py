@@ -1,4 +1,6 @@
 from .bbox_head import BBoxHead
+from .mask_head import FCNMaskHead, mask_loss, mask_targets_for_rois, paste_masks
 from .rpn_head import ProposalConfig, Proposals, RPNHead, generate_proposals
 
-__all__ = ["BBoxHead", "ProposalConfig", "Proposals", "RPNHead", "generate_proposals"]
+__all__ = ["BBoxHead", "FCNMaskHead", "ProposalConfig", "Proposals", "RPNHead",
+           "generate_proposals", "mask_loss", "mask_targets_for_rois", "paste_masks"]

@@ -4,7 +4,10 @@ The reference's heads and backbone take flax's defaults: ``lecun_normal``
 kernels (truncated normal, variance 1 / fan_in) and zero biases, FrozenBN
 at the identity. ``init_weights`` gives a port model the same
 distributions from a ``torch.Generator``. The values are drawn on the CPU
-and copied, so one seed gives the same weights on every device.
+and copied, so one seed gives the same weights on every device. ``fan_in``
+is the kernel's input channels times its window, for a transposed conv too
+(flax's ``ConvTranspose`` kernel is (kh, kw, in, out), torch's weight
+(in, out, kh, kw)).
 """
 
 from __future__ import annotations
@@ -32,12 +35,15 @@ def lecun_normal_(param: Tensor, fan_in: int, generator: torch.Generator) -> Ten
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded reference-default weights for every conv, linear and FrozenBN."""
+    """Seeded reference-default weights for every conv, transposed conv,
+    linear and FrozenBN."""
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Conv2d, nn.Linear)):
-                fan_in = module.weight[0].numel()
-                lecun_normal_(module.weight, fan_in, generator)
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                weight = module.weight
+                # one output's inputs: weight[0], but (in, out, kh, kw) for a transposed conv
+                fan_in = weight[:, 0] if isinstance(module, nn.ConvTranspose2d) else weight[0]
+                lecun_normal_(weight, fan_in.numel(), generator)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, FrozenBatchNorm):

@@ -91,6 +91,65 @@ def axis_samples(
     return i0, i1, coords - c0
 
 
+def window_geometry(
+    shapes: Sequence[Tuple[int, int]],  # per level (H_l, W_l)
+    rois: Tensor,  # (..., 4) image coordinates, float32
+    strides: Sequence[int],
+    out_size: int,
+    sampling_ratio: int,
+    finest_scale: float,
+    crop: int,
+) -> Tuple[List[int], int, Tensor, Tensor, Tensor]:
+    """The window RoIAlign's geometry, a copy of the reference's
+    ``_window_geometry`` without its TPU alignment options: each roi reads a
+    (crop, crop) window of its routed level in a pyramid whose levels are
+    padded to ``h_pads[l]`` rows and ``w_max`` columns and stacked along
+    rows.
+
+    Returns (``h_pads``, ``w_max``, starts (..., 2) int64 row and column of
+    the window, the row including its level's offset, wy (..., S, crop) and
+    wx (..., S, crop) float32 bilinear weights, S = out_size *
+    sampling_ratio). The window's origin is the first sample's cell, clamped
+    to [0, max(size - crop, 0)]; a sample's two cells are clipped into the
+    window, and where both clip to one cell their weights add. The divisors
+    are tensors, correctly rounded on every device (see ``axis_samples``)."""
+    w_max = max(max(w for _, w in shapes), crop)
+    h_pads = [max(h, crop) for h, _ in shapes]
+    offsets = [sum(h_pads[:i]) for i in range(len(shapes))]
+    levels = map_rois_to_levels(rois, len(shapes), finest_scale).long()
+
+    def per_level(values) -> Tensor:
+        return torch.tensor(values, dtype=torch.float32, device=rois.device)[levels]
+
+    inv = _divisor(1.0, rois) / per_level(strides)
+    s = out_size * sampling_ratio
+    grid = (torch.arange(s, dtype=torch.float32, device=rois.device) + 0.5) / _divisor(
+        sampling_ratio, rois)
+
+    def axis(lo: Tensor, hi: Tensor, size: Tensor) -> Tuple[Tensor, Tensor]:
+        lo = lo * inv
+        extent = torch.clamp(hi * inv - lo, min=1.0)
+        coords = lo[..., None] + (extent / _divisor(out_size, rois))[..., None] * grid
+        origin = torch.minimum(torch.clamp(torch.floor(coords[..., 0]), min=0.0),
+                               torch.clamp(size - crop, min=0.0))
+        c0 = torch.floor(coords)
+        t = coords - c0
+        last = (size - 1).long()[..., None]
+        i0 = torch.minimum(torch.clamp(c0.long(), min=0), last)
+        i1 = torch.minimum(i0 + 1, last)
+        l0 = torch.clamp(i0 - origin.long()[..., None], 0, crop - 1)
+        l1 = torch.clamp(i1 - origin.long()[..., None], 0, crop - 1)
+        weights = torch.zeros((*coords.shape, crop), dtype=torch.float32, device=rois.device)
+        weights.scatter_add_(-1, l0[..., None], (1.0 - t)[..., None])
+        weights.scatter_add_(-1, l1[..., None], t[..., None])
+        return origin, weights
+
+    origin_y, wy = axis(rois[..., 1], rois[..., 3], per_level([h for h, _ in shapes]))
+    origin_x, wx = axis(rois[..., 0], rois[..., 2], per_level([w for _, w in shapes]))
+    starts = torch.stack([(per_level(offsets) + origin_y).long(), origin_x.long()], dim=-1)
+    return h_pads, w_max, starts, wy, wx
+
+
 def _check_inputs(feats: Sequence[Tensor], rois: Tensor, levels: Tensor,
                   strides: Sequence[int]) -> None:
     if len(feats) != len(strides) or not feats:
