@@ -67,7 +67,29 @@ Phases, each fatal on failure:
    largest value in [1, 2)) at out 14, and K2 on a slate of 128 positives
    an image piled onto the batch's gts (K2 twice bitwise equal on both),
    each timed against its bound there; the step's mask targets on the GPU
-   against the CPU at full size.
+   against the CPU at full size;
+13. RetinaNet serving: RetinaNet R50-FPN (configs/retinanet_r50_fpn_coco.py,
+   seeded weights, bf16, ``cls_out``'s bias at 0 so that scores clear
+   ``score_thr``) answers batches of 4 seeded uint8 800 x 1216 images, relaid
+   2x2 space-to-depth on the host and put on the card once, through
+   ``fused_normalize_pad_s2d`` and ``make_inference_fn``, as bench.py's timed
+   batch: K1 and K2 counted (none expected), detections checked, a stage
+   breakdown and one profiled batch; then batches of 48, bench.py's batch;
+14. the stem finding: the folded 4x4 stem on the s2d wire against the 7x7
+   stride-2 conv on the plain layout, cuDNN, bf16, b4;
+15. the RetinaNet serving path on the GPU against the CPU, float32, stage by
+   stage on a small canvas: preprocess (exactly), stem, FPN levels, head,
+   preselection (exactly), decoded candidates, NMS on equal inputs
+   (exactly), detections;
+16. RetinaNet training: the training build (float32 parameters, bf16
+   compute) takes seeded batches of 8 images on the 800 x 1216 canvas
+   (``train_batch``'s images and gts, relaid space-to-depth) through
+   ``Trainer.run``: 2 warm-up and 10 timed steps, K1 and K2 counted (none
+   expected), finite losses, positives in every step, no step skipped; ms a
+   step, images/s, peak memory, one profiled step, a stage breakdown and
+   the assignment's peak memory;
+17. the RetinaNet training path on the GPU against the CPU, float32, on a
+   small canvas: the losses and every parameter's gradient.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -85,7 +107,9 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from torch_detection_tpu_torch import kernels
 from torch_detection_tpu_torch.builder import (
@@ -95,7 +119,15 @@ from torch_detection_tpu_torch.builder import (
     build_train_objects,
 )
 from torch_detection_tpu_torch.engine import Trainer, make_inference_fn
+from torch_detection_tpu_torch.models.backbones.resnet import space_to_depth_2x2
+from torch_detection_tpu_torch.models.inits import init_weights
 from torch_detection_tpu_torch.models.detectors import MaskRCNNConfig, sampling_noise
+from torch_detection_tpu_torch.models.detectors.single_stage import (
+    decode_candidates,
+    loss_weights,
+    preselect,
+    retina_targets,
+)
 from torch_detection_tpu_torch.models.detectors.mask_rcnn import sample_mask_rois
 from torch_detection_tpu_torch.models.detectors.two_stage import (
     _faster_rcnn_inference_core,
@@ -104,7 +136,7 @@ from torch_detection_tpu_torch.models.detectors.two_stage import (
     rpn_losses,
     sample_rois,
 )
-from torch_detection_tpu_torch.models.heads import generate_proposals, mask_loss
+from torch_detection_tpu_torch.models.heads import flatten_head_outputs, generate_proposals, mask_loss
 from torch_detection_tpu_torch.models.heads.mask_head import (
     mask_target_means,
     mask_targets_for_rois,
@@ -113,11 +145,19 @@ from torch_detection_tpu_torch.models.heads.mask_head import (
 from torch_detection_tpu_torch.ops import nms as nms_ops
 from torch_detection_tpu_torch.ops import roi_align
 from torch_detection_tpu_torch.ops.boxes import clip_boxes, delta2bbox
+from torch_detection_tpu_torch.ops.losses import sigmoid_focal_loss_sparse, smooth_l1_loss
+from torch_detection_tpu_torch.ops.preprocess import (
+    fused_normalize_pad,
+    fused_normalize_pad_s2d,
+    space_to_depth_2x2_np,
+)
 from torch_detection_tpu_torch.utils.config import Config
+from torch_detection_tpu_torch.utils.registry import DETECTORS
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "faster_rcnn_r50_fpn_coco.py"
 MASK_CONFIG = ROOT / "configs" / "mask_rcnn_r50_fpn_coco.py"
+RETINA_CONFIG = ROOT / "configs" / "retinanet_r50_fpn_coco.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
@@ -130,6 +170,8 @@ BATCH, CANVAS, CHANNELS, ROIS, TRAIN_ROIS, MAX_GTS = 4, (800, 1216), 256, 1000, 
 STRIDES = (4, 8, 16, 32)
 OUT_SIZE, RATIO = 7, 2
 WARMUP_BATCHES, TIMED_BATCHES = 2, 10
+BENCH_BATCH, BENCH_TIMED_BATCHES = 48, 5  # bench.py's serving batch
+RETINA_TRAIN_BATCH = 8  # the RetinaNet config's sample_per_replica
 
 
 def log(*args) -> None:
@@ -535,13 +577,8 @@ def phase_model(card: str) -> dict:
 
     reset_launches()
     syncs0 = nms_ops.suppress_syncs()
-    seconds, results = [], []
-    for x in images[WARMUP_BATCHES:]:
-        t0 = time.perf_counter()
-        res = infer(x, img_shape, scale)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        results.append(res)
+    timed = iter(images[WARMUP_BATCHES:])
+    ms, results = timed_batches(lambda: infer(next(timed), img_shape, scale), TIMED_BATCHES)
     launches = roi_align.multilevel_roi_align_cuda.launches
     bwd_launches = roi_align.multilevel_roi_align_backward_cuda.launches
     syncs = nms_ops.suppress_syncs() - syncs0
@@ -552,25 +589,7 @@ def phase_model(card: str) -> dict:
         raise AssertionError(f"expected one K1 launch a batch and no K2 launch, got {launches} "
                              f"and {bwd_launches}")
     for res in results:
-        if res.boxes.shape != (BATCH, det_cfg.max_detections, 4):
-            raise AssertionError(f"boxes shape {tuple(res.boxes.shape)}")
-        for t in (res.scores, res.labels, res.valid, res.indices):
-            if t.shape != (BATCH, det_cfg.max_detections):
-                raise AssertionError(f"output shape {tuple(t.shape)}")
-        if not (torch.isfinite(res.boxes).all() and torch.isfinite(res.scores).all()):
-            raise AssertionError("non-finite detections")
-        v = res.valid
-        if not bool(v.any()):
-            raise AssertionError("no detection above score_thr")
-        lab, bx = res.labels[v], res.boxes[v]
-        if not (bool((lab >= 0).all()) and bool((lab < det_cfg.num_classes).all())):
-            raise AssertionError("labels out of range")
-        if not (bool((bx >= 0).all()) and bool((bx[:, 0::2] <= w - 1).all())
-                and bool((bx[:, 1::2] <= h - 1).all())):
-            raise AssertionError("boxes outside the image")
-        if not bool((res.scores[v] > det_cfg.score_thr).all()):
-            raise AssertionError("a valid detection under score_thr")
-    ms = [s * 1e3 for s in seconds]
+        check_detections(res, det_cfg, BATCH, h, w)
     mean_ms = sum(ms) / len(ms)
     valid = [int(r.valid.sum()) for r in results]
     log(f"serving path: ms a batch {[round(m, 3) for m in ms]}, mean {mean_ms:.3f} ms, "
@@ -590,6 +609,61 @@ def phase_model(card: str) -> dict:
     stage_breakdown(model, det_cfg, images[1], img_shape, card)
     device_profile(lambda: infer(images[1], img_shape, scale), mean_ms, card)
     return dict(launches=launches, bwd_launches=bwd_launches, ms_per_batch=mean_ms)
+
+
+def check_detections(res, det_cfg, batch: int, h: int, w: int) -> None:
+    """Shapes, finite values, a detection in every image, labels in range,
+    boxes inside the image, scores above ``score_thr``."""
+    if res.boxes.shape != (batch, det_cfg.max_detections, 4):
+        raise AssertionError(f"boxes shape {tuple(res.boxes.shape)}")
+    for t in (res.scores, res.labels, res.valid, res.indices):
+        if t.shape != (batch, det_cfg.max_detections):
+            raise AssertionError(f"output shape {tuple(t.shape)}")
+    if not (torch.isfinite(res.boxes).all() and torch.isfinite(res.scores).all()):
+        raise AssertionError("non-finite detections")
+    v = res.valid
+    if not bool(v.any(dim=1).all()):
+        raise AssertionError("an image without a detection above score_thr")
+    lab, bx = res.labels[v], res.boxes[v]
+    if not (bool((lab >= 0).all()) and bool((lab < det_cfg.num_classes).all())):
+        raise AssertionError("labels out of range")
+    if not (bool((bx >= 0).all()) and bool((bx[:, 0::2] <= w - 1).all())
+            and bool((bx[:, 1::2] <= h - 1).all())):
+        raise AssertionError("boxes outside the image")
+    if not bool((res.scores[v] > det_cfg.score_thr).all()):
+        raise AssertionError("a valid detection under score_thr")
+
+
+def timed_batches(run, n: int):
+    """Host ms of ``n`` calls of ``run``, each ended by a device sync, and
+    their results."""
+    ms, results = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        results.append(run())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, results
+
+
+def stage_timer(times: dict):
+    """``stage(name, fn)``: ``fn()`` between two device syncs, its host ms
+    appended to ``times[name]``."""
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+    return stage
+
+
+def log_breakdown(title: str, times: dict, card: str) -> None:
+    median = {k: statistics.median(v) for k, v in times.items()}
+    total = sum(median.values())
+    log(f"{title} [{card}]: " + ", ".join(
+        f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in median.items()))
 
 
 def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -> None:
@@ -631,15 +705,7 @@ def stage_breakdown(model, det_cfg, images, img_shape, card: str, repeats: int =
     host ms of each stage over ``repeats`` runs. A Mask R-CNN adds its mask
     branch on the detections."""
     times = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return out
-
+    stage = stage_timer(times)
     with torch.inference_mode():
         for _ in range(repeats):
             feats, rpn_s, rpn_d = stage("backbone+fpn+rpn_head", lambda: model(images))
@@ -666,10 +732,7 @@ def stage_breakdown(model, det_cfg, images, img_shape, card: str, repeats: int =
                 logits = stage("mask head", lambda: model.mask_forward(mask_feats))
                 stage("mask class select, sigmoid", lambda: torch.sigmoid(
                     select_class(logits, dets.labels).float()) * dets.valid[..., None, None])
-    median = {k: statistics.median(v) for k, v in times.items()}
-    total = sum(median.values())
-    log(f"stage breakdown, median of {repeats} batches [{card}]: " + ", ".join(
-        f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in median.items()))
+    log_breakdown(f"stage breakdown, median of {repeats} batches", times, card)
 
 
 def phase_reference() -> None:
@@ -738,25 +801,26 @@ class Batches:
         return len(self.batches)
 
 
-def train_batch(gen: torch.Generator) -> dict:
-    """4 seeded images on the 800 x 1216 canvas, two filling it and two of
-    640 x 960 and 704 x 1088 with zeros outside, and 1-20 gt boxes an image
-    (16-400 px, labels 1-80) inside each image, padded to 100."""
+def train_batch(gen: torch.Generator, batch: int = BATCH) -> dict:
+    """``batch`` (a multiple of 4) seeded images on the 800 x 1216 canvas,
+    of every four two filling it and two of 640 x 960 and 704 x 1088 with
+    zeros outside, and 1-20 gt boxes an image (16-400 px, labels 1-80)
+    inside each image, padded to 100."""
     device = torch.device("cuda")
     h, w = CANVAS
-    shapes = torch.tensor([[h, w], [h, w], [640, 960], [704, 1088]], dtype=torch.float32,
-                          device=device)
-    image = torch.randn((BATCH, h, w, 3), generator=gen, device=device)
+    shapes = torch.tensor([[h, w], [h, w], [640, 960], [704, 1088]] * (batch // 4),
+                          dtype=torch.float32, device=device)
+    image = torch.randn((batch, h, w, 3), generator=gen, device=device)
     inside = ((torch.arange(h, device=device)[None, :, None] < shapes[:, 0, None, None])
               & (torch.arange(w, device=device)[None, None, :] < shapes[:, 1, None, None]))
     image = image * inside[..., None]
-    u = torch.rand((BATCH, MAX_GTS, 4), generator=gen, device=device)
+    u = torch.rand((batch, MAX_GTS, 4), generator=gen, device=device)
     size = 16.0 * 25.0 ** u[..., 2:]
     xy = u[..., :2] * (shapes[:, None, [1, 0]] - 1 - size)
-    num = torch.randint(1, 21, (BATCH, 1), generator=gen, device=device)
+    num = torch.randint(1, 21, (batch, 1), generator=gen, device=device)
     valid = torch.arange(MAX_GTS, device=device)[None, :] < num
     boxes = torch.where(valid[..., None], torch.cat([xy, xy + size], dim=-1), 0.0)
-    labels = torch.randint(1, 81, (BATCH, MAX_GTS), generator=gen, device=device)
+    labels = torch.randint(1, 81, (batch, MAX_GTS), generator=gen, device=device)
     return dict(image=image, gt_boxes=boxes, gt_labels=torch.where(valid, labels, 0),
                 gt_valid=valid, img_shape=shapes)
 
@@ -828,14 +892,7 @@ def train_stage_breakdown(model, det_cfg, optimizer, batch, card: str, repeats: 
     noise = functools.partial(sampling_noise, torch.Generator(device="cuda").manual_seed(SEED + 10))
     gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
     times = {}
-
-    def stage(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return out
+    stage = stage_timer(times)
 
     def rpn_stage(rpn_s, rpn_d):
         anchors = det_cfg.anchor_generator.flat_anchors([tuple(x.shape[1:3]) for x in rpn_s], "cuda")
@@ -862,10 +919,7 @@ def train_stage_breakdown(model, det_cfg, optimizer, batch, card: str, repeats: 
         stage("backward (K2 in it)", loss.backward)
         stage("grad norm, clip, SGD", lambda: optimizer.apply(optimizer.global_norm()))
     optimizer.zero_grad()
-    median = {k: statistics.median(v) for k, v in times.items()}
-    total = sum(median.values())
-    log(f"training stage breakdown, median of {repeats} steps [{card}]: " + ", ".join(
-        f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in median.items()))
+    log_breakdown(f"training stage breakdown, median of {repeats} steps", times, card)
 
 
 def mask_stages(stage, model, det_cfg, batch, feats, props, noise):
@@ -1030,13 +1084,8 @@ def phase_mask_serving(card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
-    seconds, results = [], []
-    for x in images[WARMUP_BATCHES:]:
-        t0 = time.perf_counter()
-        res = infer(x, img_shape, scale)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        results.append(res)
+    timed = iter(images[WARMUP_BATCHES:])
+    ms, results = timed_batches(lambda: infer(next(timed), img_shape, scale), TIMED_BATCHES)
     launches = read_launches()
     log(f"mask serving path: {TIMED_BATCHES} batches, launches {launches}")
     # one K1 launch for the boxes (out 7) and one for the masks (out 14)
@@ -1057,7 +1106,6 @@ def phase_mask_serving(card: str) -> dict:
             raise AssertionError("a mask on an invalid slot")
         if not bool((probs[v] > 0).any()):
             raise AssertionError("every valid mask is 0")
-    ms = [t * 1e3 for t in seconds]
     mean_ms = sum(ms) / len(ms)
     last = results[-1]
     fg = float((last.mask_probs[last.valid] >= 0.5).float().mean())
@@ -1317,6 +1365,346 @@ def phase_mask_step_data(model, det_cfg, batch) -> dict:
     return dict(k1=k1, k2=k2, k2_hot=k2_hot)
 
 
+def retina_wire(seed: int, batch: int):
+    """Seeded uint8 images on the canvas relaid 2x2 space-to-depth on the
+    host (the ``stem_s2d`` wire), put on the card once, and their (h, w)."""
+    h, w = CANVAS
+    u8 = np.random.default_rng(seed).integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    wire = torch.from_numpy(space_to_depth_2x2_np(u8)).cuda()
+    return wire, torch.tensor([[h, w]] * batch, dtype=torch.float32, device="cuda")
+
+
+def load_retina(dtype: str, device):
+    """The RetinaNet build with ``cls_out``'s bias at 0. With the focal
+    prior (-4.6) random weights score every pair near sigmoid(-4.6) = 0.01,
+    under ``score_thr`` 0.05, and the NMS pool would be empty; at 0 the
+    scores sit near 0.5, so every stage of the path, NMS included, works
+    on a full pool."""
+    model, det_cfg = load_model(dtype, device, RETINA_CONFIG)
+    with torch.no_grad():
+        model.head.cls_out.bias.zero_()
+    return model, det_cfg
+
+
+def serve_s2d(infer, wire, shapes):
+    """bench.py's timed batch: the u8 s2d wire normalized on the card, then
+    ``infer``."""
+    scale = torch.ones(wire.shape[0], device=wire.device)
+
+    def run():
+        return infer(fused_normalize_pad_s2d(wire, shapes, out_dtype=torch.bfloat16), shapes, scale)
+
+    return run
+
+
+def phase_retina_serving(card: str) -> dict:
+    """Full-width RetinaNet R50-FPN, bf16, b4 on the 800 x 1216 s2d wire
+    through ``fused_normalize_pad_s2d`` and ``make_inference_fn``; K1 and
+    K2 counted (none expected); then bench.py's batch, 48."""
+    model, det_cfg = load_retina("bfloat16", "cuda")
+    infer = make_inference_fn(model, det_cfg)
+    h, w = CANVAS
+    wire, shapes = retina_wire(SEED + 20, BATCH)
+    run = serve_s2d(infer, wire, shapes)
+    timed_batches(run, WARMUP_BATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    syncs0 = nms_ops.suppress_syncs()
+    ms, results = timed_batches(run, TIMED_BATCHES)
+    launches = read_launches()
+    syncs = (nms_ops.suppress_syncs() - syncs0) / TIMED_BATCHES
+    log(f"retina serving path: {TIMED_BATCHES} batches, launches {launches}, NMS fixpoint syncs "
+        f"{syncs:.1f} a batch")
+    expect_launches("retina serving", launches, 0, 0)
+    for res in results:
+        check_detections(res, det_cfg, BATCH, h, w)
+    mean_ms = sum(ms) / len(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.inference_mode():
+        cls, _ = model(fused_normalize_pad_s2d(wire, shapes, out_dtype=torch.bfloat16))
+        flat = torch.cat([c.reshape(BATCH, -1) for c in cls], dim=1).float()
+        above = (torch.sigmoid(flat) > det_cfg.score_thr).sum(dim=1)
+    log(f"retina serving path b{BATCH}: ms a batch {[round(m, 3) for m in ms]}, mean {mean_ms:.3f} ms, "
+        f"{BATCH / (mean_ms / 1e3):.2f} images/s, median {statistics.median(ms):.3f} ms [{card}]; "
+        f"(anchor, class) pairs above score_thr an image {above.tolist()} of {flat.shape[1]}; valid "
+        f"detections an image {results[-1].valid.sum(1).tolist()}; peak memory {peak:.2f} GiB")
+    retina_stage_breakdown(model, det_cfg, wire, shapes, card)
+    device_profile(run, mean_ms, card)
+
+    del results, cls, flat
+    wire, shapes = retina_wire(SEED + 21, BENCH_BATCH)
+    run = serve_s2d(infer, wire, shapes)
+    timed_batches(run, WARMUP_BATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms48, results = timed_batches(run, BENCH_TIMED_BATCHES)
+    expect_launches("retina serving b48", read_launches(), 0, 0)
+    check_detections(results[-1], det_cfg, BENCH_BATCH, h, w)
+    mean48 = sum(ms48) / len(ms48)
+    log(f"retina serving path b{BENCH_BATCH} (bench.py's batch): ms a batch "
+        f"{[round(m, 3) for m in ms48]}, mean {mean48:.3f} ms, {BENCH_BATCH / (mean48 / 1e3):.2f} "
+        f"images/s, median {statistics.median(ms48):.3f} ms [{card}]; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_profile(run, mean48, card, f"b{BENCH_BATCH} batch")
+    return dict(launches=launches, ms_per_batch=mean_ms, ms_per_batch_b48=mean48)
+
+
+def retina_stage_breakdown(model, det_cfg, wire, shapes, card: str, repeats: int = 5) -> None:
+    """A serving batch stage by stage, a device sync between stages; the
+    median host ms of each over ``repeats`` batches."""
+    times = {}
+    stage = stage_timer(times)
+    syncs = []
+    with torch.inference_mode():
+        for _ in range(repeats):
+            x = stage("preprocess (u8 s2d wire)", lambda: fused_normalize_pad_s2d(
+                wire, shapes, out_dtype=torch.bfloat16))
+            feats = stage("backbone (folded stem, R50)", lambda: model.backbone(x))
+            levels = stage("fpn", lambda: model.neck(feats))
+            cls, reg = stage("retina head", lambda: model.head(levels))
+            cand = stage("preselect", lambda: preselect(det_cfg, cls, reg))
+            scores, boxes = stage("sigmoid, decode, clip", lambda: decode_candidates(
+                det_cfg, cand, shapes))
+            s0 = nms_ops.suppress_syncs()
+            stage("multiclass NMS", lambda: nms_ops.multiclass_nms(
+                boxes, scores, det_cfg.nms_iou_thr, det_cfg.score_thr, det_cfg.pre_nms_top_k,
+                det_cfg.max_detections))
+            syncs.append(nms_ops.suppress_syncs() - s0)
+    log_breakdown(f"retina stage breakdown, median of {repeats} batches", times, card)
+    log(f"retina NMS: {cand.logits.shape[1]} candidates an image, fixpoint syncs {syncs}")
+
+
+def phase_retina_stem(card: str) -> None:
+    """The folded 4x4 stem on the s2d wire against the 7x7 stride-2 conv on
+    the same images in plain layout, cuDNN, bf16, b4 800 x 1216."""
+    model, _ = load_model("bfloat16", "cuda", RETINA_CONFIG)
+    conv = model.backbone.stem.conv
+    h, w = CANVAS
+    u8 = np.random.default_rng(SEED + 22).integers(0, 256, (BATCH, h, w, 3), dtype=np.uint8)
+    shapes = torch.tensor([[h, w]] * BATCH, device="cuda")
+    plain = fused_normalize_pad(torch.from_numpy(u8).cuda(), shapes).permute(0, 3, 1, 2)
+    wire = fused_normalize_pad_s2d(torch.from_numpy(space_to_depth_2x2_np(u8)).cuda(), shapes)
+    wire = wire.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        err = rel_err(conv(wire), F.conv2d(plain, conv.weight, stride=2, padding=3))
+        folded_ms = cuda_ms(lambda: conv(wire), iters=20)
+        plain_ms = cuda_ms(lambda: F.conv2d(plain, conv.weight, stride=2, padding=3), iters=20)
+    flops = 2 * BATCH * (h // 2) * (w // 2) * 64 * 7 * 7 * 3
+    log(f"stem finding [{card}]: folded 4x4 on the s2d wire (input pad and conv) {folded_ms:.4f} ms, "
+        f"7x7 stride 2 on the plain layout {plain_ms:.4f} ms; cuDNN, bf16, b{BATCH} {h}x{w}, "
+        f"{flops / 1e9:.1f} GFLOP of 7x7 taps; outputs differ by {err:.2e} (bf16 rounding)")
+    if not err <= 0.05:
+        raise AssertionError(f"the folded stem disagrees with the 7x7 conv: {err}")
+
+
+def phase_retina_reference() -> None:
+    """The serving path in float32 on the GPU and on the CPU, stage by
+    stage on a small canvas; each GPU stage's output feeds the CPU
+    counterpart of the next stage."""
+    gpu, det_cfg = load_retina("float32", "cuda")
+    cpu, _ = load_retina("float32", "cpu")
+    u8 = np.random.default_rng(SEED + 23).integers(0, 256, (2, 256, 320, 3), dtype=np.uint8)
+    wire = torch.from_numpy(space_to_depth_2x2_np(u8))
+    shapes = torch.tensor([[256, 320], [237, 301]], dtype=torch.float32)
+    checks = []
+
+    def check(name, err, limit):
+        checks.append(f"{name} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"retina reference check {name}: {err} > {limit}")
+
+    with torch.inference_mode():
+        xg = fused_normalize_pad_s2d(wire.cuda(), shapes.cuda(), out_dtype=torch.float32)
+        xc = fused_normalize_pad_s2d(wire, shapes, out_dtype=torch.float32)
+        check("preprocess mismatches", float((xg.cpu() != xc).sum()), 0)
+        # cuDNN and the CPU pick other convolution algorithms and sum orders
+        check("stem", rel_err(gpu.backbone.stem(xg.permute(0, 3, 1, 2)),
+                              cpu.backbone.stem(xc.permute(0, 3, 1, 2))), 1e-4)
+        lg, lc = gpu.neck(gpu.backbone(xg)), cpu.neck(cpu.backbone(xc))
+        check("fpn levels", max(rel_err(g, c) for g, c in zip(lg, lc)), 1e-3)
+        cls_g, reg_g = gpu.head(lg)
+        cls_c, reg_c = cpu.head([f.cpu() for f in lg])
+        check("head logits and deltas",
+              max(rel_err(g, c) for g, c in zip(cls_g + reg_g, cls_c + reg_c)), 1e-4)
+        cls_h, reg_h = [c.cpu() for c in cls_g], [r.cpu() for r in reg_g]
+        cand_g, cand_c = preselect(det_cfg, cls_g, reg_g), preselect(det_cfg, cls_h, reg_h)
+        check("preselected logits, anchors, deltas mismatches",
+              float(sum((g.cpu() != c).sum() for g, c in zip(cand_g, cand_c))), 0)
+        sg, bg = decode_candidates(det_cfg, cand_g, shapes.cuda())
+        sc, bc = decode_candidates(det_cfg, cand_c, shapes)
+        # exp and sigmoid may round differently on the two devices, and one
+        # ulp can swap two of the many near-equal scores, so NMS takes the
+        # GPU's candidates on both devices
+        check("candidate scores", float((sg.cpu() - sc).abs().max()), 1e-6)
+        check("candidate boxes (px)", float((bg.cpu() - bc).abs().max()), 1e-3)
+        nms_args = (det_cfg.nms_iou_thr, det_cfg.score_thr, det_cfg.pre_nms_top_k,
+                    det_cfg.max_detections)
+        ng = nms_ops.multiclass_nms(bg, sg, *nms_args)
+        nc = nms_ops.multiclass_nms(bg.cpu(), sg.cpu(), *nms_args)
+        for field in ("valid", "labels", "indices", "scores", "boxes"):
+            check(f"multiclass_nms on equal inputs, {field} mismatches",
+                  float((getattr(ng, field).cpu() != getattr(nc, field)).sum()), 0)
+        if not bool(nc.valid.any(dim=1).all()):
+            raise AssertionError("no detection in the reference batch")
+    log(f"retina reference check, GPU vs CPU float32 ({nc.valid.sum(1).tolist()} detections): "
+        + "; ".join(checks))
+
+
+def retina_train_batch(gen: torch.Generator) -> dict:
+    """``train_batch`` at b8 with its normalized images relaid 2x2
+    space-to-depth, as the collate does for an ``stem_s2d`` backbone."""
+    batch = train_batch(gen, RETINA_TRAIN_BATCH)
+    batch["image"] = space_to_depth_2x2(batch["image"])
+    return batch
+
+
+RETINA_LOSS_KEYS = ("loss", "loss_cls", "loss_reg")
+
+
+def phase_retina_train(card: str) -> dict:
+    """Full-width RetinaNet R50-FPN training, float32 parameters and bf16
+    compute, b8 on the 800 x 1216 canvas, through the entry points a user
+    calls; K1 and K2 counted (none expected)."""
+    cfg = Config.fromfile(RETINA_CONFIG)
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    batches = [retina_train_batch(gen) for _ in range(steps)]
+    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"retina training path: {TIMED_BATCHES} steps, launches {launches}")
+    expect_launches("retina training", launches, 0, 0)
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"{len(history)} steps logged, {trainer.skipped_steps} skipped")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in RETINA_LOSS_KEYS) or not h["num_pos"] > 0:
+            raise AssertionError(f"non-finite loss or no positive anchor at step {h['step']}: {h}")
+    still = [n for n, p in model.named_parameters() if p.requires_grad and torch.equal(p, before[n])]
+    moved = [n for n, p in model.named_parameters() if not p.requires_grad and not torch.equal(p, before[n])]
+    frozen = sum(not p.requires_grad for p in model.parameters())
+    if still or moved or not frozen:
+        raise AssertionError(f"trainable parameters that did not move {still}; frozen ones that "
+                             f"moved {moved}; {frozen} frozen")
+    b = RETINA_TRAIN_BATCH
+    step_ms = [b / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    keys = RETINA_LOSS_KEYS + ("num_pos",)
+    log(f"retina training path b{b}: ms a step {[round(m, 3) for m in step_ms]}, mean "
+        f"{mean_ms:.3f} ms, {b / (mean_ms / 1e3):.2f} images/s, median "
+        f"{statistics.median(step_ms):.3f} ms [{card}]; skipped steps {trainer.skipped_steps}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first "
+        + ", ".join(f"{k} {history[0][k]:.4f}" for k in keys)
+        + "; last " + ", ".join(f"{k} {history[-1][k]:.4f}" for k in keys))
+    device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    retina_train_stage_breakdown(model, det_cfg, optimizer, batches[-1], card)
+    return dict(launches=launches, ms_per_step=mean_ms)
+
+
+def retina_train_stage_breakdown(model, det_cfg, optimizer, batch, card: str,
+                                 repeats: int = 5) -> None:
+    """A training step stage by stage (the stages of ``retina_loss``, the
+    backward and the optimizer), a device sync between stages; the median
+    host ms of each over ``repeats`` steps, and the assignment's peak
+    memory above what was allocated before it."""
+    times = {}
+    stage = stage_timer(times)
+    gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+
+    def assign(cls):
+        anchors = det_cfg.anchor_generator.flat_anchors([tuple(c.shape[1:3]) for c in cls], "cuda")
+        return retina_targets(det_cfg, anchors, *gt, batch["img_shape"])
+
+    for _ in range(repeats):
+        optimizer.zero_grad()
+        cls, reg = stage("backbone+fpn+retina head", lambda: model(batch["image"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        targets = stage("anchors + assigner", lambda: assign(cls))
+        assign_peak = torch.cuda.max_memory_allocated() - base
+        flat_cls, flat_reg = flatten_head_outputs(cls, reg, det_cfg.num_classes)
+        cls_w, reg_w = loss_weights(targets)
+        loss_cls = stage("focal loss", lambda: sigmoid_focal_loss_sparse(
+            flat_cls, targets.label0, cls_w, det_cfg.focal_gamma, det_cfg.focal_alpha))
+        loss_reg = stage("smooth L1", lambda: smooth_l1_loss(
+            flat_reg.float(), targets.reg_targets, reg_w, det_cfg.smooth_l1_beta))
+        stage("backward", (loss_cls + loss_reg).backward)
+        stage("grad norm, clip, SGD", lambda: optimizer.apply(optimizer.global_norm()))
+    optimizer.zero_grad()
+    log_breakdown(f"retina training stage breakdown, median of {repeats} steps", times, card)
+    log(f"retina assignment: a ({RETINA_TRAIN_BATCH}, {targets.pos.shape[1]}, {MAX_GTS}) IoU, peak "
+        f"memory above its inputs {assign_peak / 2**30:.2f} GiB; positives an image "
+        f"{targets.pos.sum(1).tolist()}")
+
+
+def phase_retina_train_reference() -> None:
+    """The training path in float32 on the GPU and on the CPU on a small
+    canvas: the losses and every parameter's gradient, with float64 on the
+    GPU as the yardstick of float32's own rounding."""
+    cfg = Config.fromfile(RETINA_CONFIG)
+    det_cfg = build_detection_cfg(cfg.detection)
+    gpu = build_detector(cfg.model, "float32", "cuda", seed=SEED).train()
+    cpu = build_detector(cfg.model, "float32", "cpu", seed=SEED).train()
+    f64 = DETECTORS.build(dict(cfg.model), dtype=torch.float64, device="cuda")
+    f64 = init_weights(f64, torch.Generator().manual_seed(SEED)).train()  # build_detector's weights
+    gen = torch.Generator().manual_seed(SEED + 25)
+    batch = dict(
+        image=space_to_depth_2x2(torch.randn((2, 256, 320, 3), generator=gen)),
+        gt_boxes=torch.tensor([[[16, 20, 120, 140], [150, 40, 300, 230], [60, 150, 110, 250], [0] * 4],
+                               [[30, 30, 200, 180], [210, 100, 290, 200], [0] * 4, [0] * 4]],
+                              dtype=torch.float32),
+        gt_labels=torch.tensor([[3, 17, 80, 0], [1, 45, 0, 0]]),
+        gt_valid=torch.tensor([[True, True, True, False], [True, True, False, False]]),
+        img_shape=torch.tensor([[256.0, 320.0], [240.0, 300.0]]),
+    )
+    on_gpu = {k: v.cuda() for k, v in batch.items()}
+    parts = []
+    for model, data in ((gpu, on_gpu), (cpu, batch), (f64, on_gpu)):
+        loss, losses = build_loss_fn(model, det_cfg)(data)
+        loss.backward()
+        parts.append(losses)
+    err = max(rel_err(parts[0][k], parts[1][k]) for k in ("loss_cls", "loss_reg"))
+    if not err <= 1e-4 or float(parts[0]["num_pos"]) != float(parts[1]["num_pos"]):
+        raise AssertionError(f"retina training losses: {parts[0]} against {parts[1]}")
+
+    def rel_norm(a, b):
+        return float((a.cpu().double() - b.cpu().double()).norm() / b.cpu().double().norm().clamp_min(1e-300))
+
+    # each gradient tensor against its norm, and float64 on the GPU as the
+    # yardstick: cuDNN's float32 gradients lie about 2e-3 of their norm from
+    # float64 on this batch (the CPU's about 3e-4), and a single element of
+    # a deep layer's gradient, where one ReLU or max-pool input sits within
+    # rounding of its threshold, moves by up to 1% of the tensor's largest
+    errs = {}
+    for (name, g), (_, c), (_, r) in zip(gpu.named_parameters(), cpu.named_parameters(),
+                                         f64.named_parameters()):
+        if g.requires_grad:
+            errs[name] = (rel_norm(g.grad, c.grad), rel_norm(g.grad, r.grad), rel_norm(c.grad, r.grad))
+
+    def worst(i):
+        name = max(errs, key=lambda n: errs[n][i])
+        return f"{errs[name][i]:.2e} at {name}"
+
+    log(f"retina training reference check, GPU vs CPU float32 (positives an image "
+        f"{float(parts[1]['num_pos']):.1f}): losses {err:.2e} (limit 1e-4); the {len(errs)} "
+        f"gradients' relative norm of the difference: GPU vs CPU {worst(0)} (limit 1e-2); against "
+        f"float64 on the GPU, GPU float32 {worst(1)} (limit 1e-2), CPU float32 {worst(2)}")
+    bad = [n for n, e in errs.items() if not (e[0] <= 1e-2 and e[1] <= 1e-2)]
+    if bad:
+        raise AssertionError(f"retina training gradients beyond 1e-2: {[(n, errs[n]) for n in bad]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -1351,6 +1739,12 @@ def main() -> int:
     mask_train = phase_mask_train(card)
     mask_step = phase_mask_step_data(mask_train.pop("model"), mask_train["det_cfg"],
                                      mask_train["batch"])
+    del mask_train["det_cfg"], mask_train["batch"]
+    retina_serve = phase_retina_serving(card)
+    phase_retina_stem(card)
+    phase_retina_reference()
+    retina_train = phase_retina_train(card)
+    phase_retina_train_reference()
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -1366,15 +1760,17 @@ def main() -> int:
         }
 
     mask_paths = {"mask_serving": mask_serve["launches"], "mask_training": mask_train["launches"]}
+    retina_paths = {"retina_serving": retina_serve["launches"],
+                    "retina_training": retina_train["launches"]}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],
-               **{path: n["k1"] for path, n in mask_paths.items()}}, fwd,
+               **{path: n["k1"] for path, n in {**mask_paths, **retina_paths}.items()}}, fwd,
               at_train_rois={k: fwd_train[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
               at_mask_serving=mask_serve["k1"], at_mask_training=mask_step["k1"]),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
               {"serving": serve["bwd_launches"], "training": train["k2"],
-               **{path: n["k2"] for path, n in mask_paths.items()}}, bwd,
+               **{path: n["k2"] for path, n in {**mask_paths, **retina_paths}.items()}}, bwd,
               at_mask_training=mask_step["k2"], at_mask_positives_only=mask_step["k2_hot"]),
     ]}
     log(card)

@@ -43,7 +43,7 @@ def test_detection_cfg_matches_reference():
 @pytest.mark.parametrize(
     "det_cfg,match",
     [
-        (dict(num_classes=80), "style"),  # RetinaNet: a later slice
+        (dict(style="cascade_rcnn"), "style"),  # Cascade R-CNN: a later slice
         (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
     ],
 )

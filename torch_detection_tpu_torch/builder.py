@@ -1,8 +1,9 @@
 """Config -> objects: the detector, its detection config, its loss, and the
 optimizer with its learning-rate schedule.
 
-Counterpart of ``torch_detection_tpu/builder.py`` for the ``faster_rcnn``
-and ``mask_rcnn`` styles; the other families arrive with their slices.
+Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
+(the default), ``faster_rcnn`` and ``mask_rcnn`` styles; the other
+families arrive with their slices.
 """
 
 from __future__ import annotations
@@ -17,24 +18,32 @@ from .engine.trainer import detection_lr_schedule
 from .models.detectors import (
     FasterRCNNConfig,
     MaskRCNNConfig,
+    RetinaNetConfig,
     faster_rcnn_loss,
     mask_rcnn_loss,
+    retina_loss,
     sampling_noise,
 )
 from .models.inits import init_weights
 from .ops.anchors import AnchorGenerator
+from .ops.assign import MaxIoUAssigner
 from .parallel.train_step import Optimizer, make_optimizer
 from .utils.registry import DETECTORS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the dtypes the kernels take
 
-# detection-config keys the Faster R-CNN inference path reads, and what
-# Mask R-CNN adds
+# detection-config keys each style's paths read (besides ``anchor``, and
+# RetinaNet's ``assigner``)
+_RETINA_KEYS = ("num_classes", "target_means", "target_stds", "focal_gamma", "focal_alpha",
+                "smooth_l1_beta", "reg_loss_weight", "score_thr", "nms_iou_thr",
+                "pre_select_per_level", "pre_nms_top_k", "max_detections")
 _FASTER_RCNN_KEYS = ("num_classes", "score_thr", "nms_iou_thr", "max_detections", "roi_size",
                      "finest_scale")
 _MASK_RCNN_KEYS = _FASTER_RCNN_KEYS + ("mask_size", "mask_roi_size", "mask_loss_weight")
-_STYLES = {"faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS),
+_STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS),
+           "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS),
            "mask_rcnn": (MaskRCNNConfig, _MASK_RCNN_KEYS)}
+DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig]
 
 
 def build_detector(
@@ -69,10 +78,10 @@ def _build_anchor_generator(anchor: Dict[str, Any]) -> AnchorGenerator:
     )
 
 
-def build_detection_cfg(det_cfg: Dict[str, Any]) -> FasterRCNNConfig:
-    """The static detection config of a ``style='faster_rcnn'`` or
-    ``'mask_rcnn'`` config. Keys the port does not read yet raise instead of
-    being dropped."""
+def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
+    """The static detection config of a ``style='retina'`` (the default),
+    ``'faster_rcnn'`` or ``'mask_rcnn'`` config. Keys the port does not read
+    yet raise instead of being dropped."""
     cfg = dict(det_cfg)
     style = cfg.pop("style", "retina")
     if style not in _STYLES:
@@ -82,6 +91,8 @@ def build_detection_cfg(det_cfg: Dict[str, Any]) -> FasterRCNNConfig:
     anchor = cfg.pop("anchor", None)
     if anchor:
         kwargs["anchor_generator"] = _build_anchor_generator(dict(anchor))
+    if style == "retina" and "assigner" in cfg:
+        kwargs["assigner"] = MaxIoUAssigner(**cfg.pop("assigner"))
     for key in keys:
         if key in cfg:
             v = cfg.pop(key)
@@ -98,7 +109,15 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     ``(rng_seed, step)``, so every step draws a fresh stream and a step
     repeats exactly (the counterpart of the reference's ``_step_rng``).
     A ``MaskRCNNConfig`` adds the mask loss, whose batch carries
-    ``gt_masks``."""
+    ``gt_masks``. RetinaNet draws nothing."""
+    if isinstance(det_cfg, RetinaNetConfig):
+        def retina_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
+            cls_scores, bbox_preds = model(batch["image"])
+            losses = retina_loss(det_cfg, cls_scores, bbox_preds, batch["gt_boxes"],
+                                 batch["gt_labels"], batch["gt_valid"], batch.get("img_shape"))
+            return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
+
+        return retina_loss_fn
     if not isinstance(det_cfg, FasterRCNNConfig):
         raise NotImplementedError(f"{type(det_cfg).__name__} training is not ported yet")
     loss = mask_rcnn_loss if isinstance(det_cfg, MaskRCNNConfig) else faster_rcnn_loss
@@ -132,7 +151,7 @@ def build_train_objects(
     steps_per_epoch: int,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
-) -> Tuple[Any, FasterRCNNConfig, Optimizer]:
+) -> Tuple[Any, DetectionConfig, Optimizer]:
     """(model, det_cfg, optimizer) from a full config tree: the training
     build of the detector (float32 parameters, the runtime's compute dtype,
     train mode) and SGD with the config's momentum, weight decay, clip and

@@ -4,7 +4,7 @@ Counterpart of ``torch_detection_tpu/models/backbones/resnet.py``: the
 'pytorch' style (stride on the 3x3 conv), FrozenBN, multi-scale
 ``out_indices``, and the same submodule names (``stem``, ``layer{i}_{j}``,
 ``block{k}``, ``downsample``), so the reference's parameter tree converts
-by name. The reference's space-to-depth stem is not ported yet.
+by name; ``stem_s2d`` runs the stem on the 2x2 space-to-depth wire.
 
 ``forward`` takes NHWC images and returns NHWC features, as the reference;
 inside, tensors are NCHW in channels_last memory, so both permutes are
@@ -21,6 +21,40 @@ from torch import Tensor, nn
 
 from ...utils.registry import BACKBONES
 from ..layers import ConvModule, max_pool_same_torch
+
+
+def space_to_depth_2x2(x: Tensor) -> Tensor:
+    """(B, H, W, C) -> (B, H/2, W/2, 4C), channel order (p, q, c): the wire
+    of ``stem_s2d`` (``ops/preprocess.py::space_to_depth_2x2_np`` is the
+    host's copy)."""
+    b, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"space-to-depth needs an even canvas, got {h} x {w}")
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+class FoldedStemConv(nn.Conv2d):
+    """The 7x7 stride-2 stem conv evaluated on the space-to-depth wire.
+
+    The parameter is the logical (64, cin, 7, 7) kernel, so conversion,
+    initialisation (fan_in 7 * 7 * cin) and freezing treat it as the plain
+    stem's. At use it is re-indexed into a 4x4 stride-1 kernel over the
+    (p, q, c) channels: original tap (dy, dx) feeds folded tap (a, b) and
+    channel (p, q, c) with dy = 2a + p - 1, dx = 2b + q - 1 (the a = 0,
+    p = 0 row and column are zero), and padding (2, 1) on each axis gives
+    the original window exactly; only the summation order differs."""
+
+    def __init__(self, in_channels: int, out_channels: int = 64, dtype=None, device=None):
+        super().__init__(in_channels, out_channels, 7, stride=2, padding=3, bias=False,
+                         dtype=dtype, device=device)
+
+    def forward(self, x: Tensor) -> Tensor:  # (B, 4 * cin, H/2, W/2)
+        o, cin = self.weight.shape[:2]
+        w8 = F.pad(self.weight, (1, 0, 1, 0))
+        w44 = w8.reshape(o, cin, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * cin, 4, 4)
+        # Conv2d pads symmetrically; F.pad keeps channels_last memory
+        return F.conv2d(F.pad(x, (2, 1, 2, 1)), w44)
 
 
 class BasicBlock(nn.Module):
@@ -100,8 +134,6 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f"unsupported ResNet depth {depth}")
-        if stem_s2d:
-            raise NotImplementedError("the space-to-depth stem is not ported yet")
         if not 1 <= num_stages <= 4 or max(out_indices) >= num_stages:
             raise ValueError(f"bad num_stages {num_stages} / out_indices {out_indices}")
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
@@ -110,6 +142,10 @@ class ResNet(nn.Module):
 
         self.stem = ConvModule(in_channels, 64, 7, stride=2, padding=3, norm_cfg=norm,
                                act="relu", dtype=dtype, device=device)
+        self.stem_s2d = stem_s2d
+        self.in_channels = in_channels
+        if stem_s2d:  # the same parameters, the conv folded at use
+            self.stem.conv = FoldedStemConv(in_channels, 64, dtype=dtype, device=device)
         self.stages = []
         inplanes = 64
         for i, num_blocks in enumerate(stage_blocks[:num_stages]):
@@ -133,7 +169,11 @@ class ResNet(nn.Module):
                 module.requires_grad_(False)
 
     def forward(self, x: Tensor) -> Tuple[Tensor, ...]:
-        """(B, H, W, 3) -> NHWC features at ``out_indices``."""
+        """(B, H, W, 3) -> NHWC features at ``out_indices``. With
+        ``stem_s2d`` the input is the (B, H/2, W/2, 12) wire, or a plain
+        image that is relaid here."""
+        if self.stem_s2d and x.shape[-1] != 4 * self.in_channels:
+            x = space_to_depth_2x2(x)
         x = self.stem(x.permute(0, 3, 1, 2))
         x = max_pool_same_torch(x, window=3, stride=2, padding=1)
         outs = []

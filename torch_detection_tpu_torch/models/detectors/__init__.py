@@ -5,6 +5,13 @@ from .mask_rcnn import (
     mask_rcnn_inference,
     mask_rcnn_loss,
 )
+from .single_stage import (
+    RetinaNetConfig,
+    SingleStageDetector,
+    decode_detections,
+    retina_inference,
+    retina_loss,
+)
 from .two_stage import (
     FasterRCNNConfig,
     TwoStageDetector,
@@ -13,6 +20,7 @@ from .two_stage import (
     sampling_noise,
 )
 
-__all__ = ["FasterRCNNConfig", "MaskDetections", "MaskRCNN", "MaskRCNNConfig", "TwoStageDetector",
-           "faster_rcnn_inference", "faster_rcnn_loss", "mask_rcnn_inference", "mask_rcnn_loss",
-           "sampling_noise"]
+__all__ = ["FasterRCNNConfig", "MaskDetections", "MaskRCNN", "MaskRCNNConfig", "RetinaNetConfig",
+           "SingleStageDetector", "TwoStageDetector", "decode_detections", "faster_rcnn_inference",
+           "faster_rcnn_loss", "mask_rcnn_inference", "mask_rcnn_loss", "retina_inference",
+           "retina_loss", "sampling_noise"]

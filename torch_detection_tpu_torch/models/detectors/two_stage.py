@@ -14,7 +14,6 @@ from a ``torch.Generator``, and the tests hand in the reference's own
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -30,6 +29,7 @@ from ...ops.roi_align import batched_multilevel_roi_align
 from ...utils.device import resolve_device
 from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
 from ..heads.rpn_head import ProposalConfig, Proposals, generate_proposals
+from ..layers import compute_autocast
 
 # noise(shape) -> (u_pos in [0, 1), u_all in [0, 0.5)), each of ``shape``
 Noise = Callable[[Tuple[int, ...]], Tuple[Tensor, Tensor]]
@@ -61,9 +61,7 @@ class TwoStageDetector(nn.Module):
         self.bbox_head = HEADS.build(dict(bbox_head), in_channels=neck["out_channels"], **kw)
 
     def _autocast(self, x: Tensor):
-        if self.param_dtype == self.dtype:
-            return contextlib.nullcontext()
-        return torch.autocast(x.device.type, dtype=self.dtype)
+        return compute_autocast(x, self.dtype, self.param_dtype)
 
     def forward(self, images: Tensor):
         """(B, H, W, 3) -> (NHWC feats, per-level (B, H, W, A) RPN scores,

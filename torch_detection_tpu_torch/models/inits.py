@@ -8,6 +8,12 @@ and copied, so one seed gives the same weights on every device. ``fan_in``
 is the kernel's input channels times its window, for a transposed conv too
 (flax's ``ConvTranspose`` kernel is (kh, kw, in, out), torch's weight
 (in, out, kh, kw)).
+
+A conv that the reference initialises otherwise carries its rule as
+attributes: ``init_std`` for a plain normal kernel of that std (flax's
+``normal``, not truncated) and ``init_bias`` for a constant bias, as the
+RetinaNet head's output convs (``bias_init_with_prob`` for the focal-loss
+prior).
 """
 
 from __future__ import annotations
@@ -34,18 +40,34 @@ def lecun_normal_(param: Tensor, fan_in: int, generator: torch.Generator) -> Ten
     return param
 
 
+def normal_(param: Tensor, std: float, generator: torch.Generator) -> Tensor:
+    """Fill ``param`` from a normal of standard deviation ``std``."""
+    values = torch.randn(param.shape, dtype=torch.float32, generator=generator) * std
+    with torch.no_grad():
+        param.copy_(values)
+    return param
+
+
+def bias_init_with_prob(prior_prob: float) -> float:
+    """The bias whose sigmoid is ``prior_prob`` (the focal-loss prior)."""
+    return float(-math.log((1 - prior_prob) / prior_prob))
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded reference-default weights for every conv, transposed conv,
-    linear and FrozenBN."""
+    linear and FrozenBN, and a module's own ``init_std``/``init_bias``."""
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 weight = module.weight
-                # one output's inputs: weight[0], but (in, out, kh, kw) for a transposed conv
-                fan_in = weight[:, 0] if isinstance(module, nn.ConvTranspose2d) else weight[0]
-                lecun_normal_(weight, fan_in.numel(), generator)
+                if hasattr(module, "init_std"):
+                    normal_(weight, module.init_std, generator)
+                else:
+                    # one output's inputs: weight[0], but (in, out, kh, kw) for a transposed conv
+                    fan_in = weight[:, 0] if isinstance(module, nn.ConvTranspose2d) else weight[0]
+                    lecun_normal_(weight, fan_in.numel(), generator)
                 if module.bias is not None:
-                    module.bias.zero_()
+                    module.bias.fill_(getattr(module, "init_bias", 0.0))
             elif isinstance(module, FrozenBatchNorm):
                 module.scale.fill_(1.0)
                 module.bias.zero_()

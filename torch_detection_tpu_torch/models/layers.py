@@ -13,11 +13,22 @@ computes it from its float32 params.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+
+
+def compute_autocast(x: Tensor, dtype: torch.dtype, param_dtype: torch.dtype):
+    """``torch.autocast`` to the compute ``dtype`` where the parameters are
+    kept in another ``param_dtype`` (as flax's ``param_dtype``: each conv and
+    linear weight is cast at its use, the parameters and their gradients
+    stay in ``param_dtype``); no context where the two are equal."""
+    if param_dtype == dtype:
+        return contextlib.nullcontext()
+    return torch.autocast(x.device.type, dtype=dtype)
 
 
 class FrozenBatchNorm(nn.Module):
