@@ -121,7 +121,12 @@ from torch_detection_tpu_torch.builder import (
 from torch_detection_tpu_torch.engine import Trainer, make_inference_fn
 from torch_detection_tpu_torch.models.backbones.resnet import space_to_depth_2x2
 from torch_detection_tpu_torch.models.inits import init_weights
-from torch_detection_tpu_torch.models.detectors import MaskRCNNConfig, sampling_noise
+from torch_detection_tpu_torch.models.detectors import FastRCNNConfig, MaskRCNNConfig, sampling_noise
+from torch_detection_tpu_torch.models.detectors.cascade_rcnn import (
+    _cascade_rcnn_loss_core,
+    next_candidates,
+    refine,
+)
 from torch_detection_tpu_torch.models.detectors.single_stage import (
     decode_candidates,
     loss_weights,
@@ -131,8 +136,10 @@ from torch_detection_tpu_torch.models.detectors.single_stage import (
 from torch_detection_tpu_torch.models.detectors.mask_rcnn import sample_mask_rois
 from torch_detection_tpu_torch.models.detectors.two_stage import (
     _faster_rcnn_inference_core,
+    class_nms,
     flatten_rpn_outputs,
     rcnn_losses,
+    roi_features,
     rpn_losses,
     sample_rois,
 )
@@ -158,6 +165,9 @@ ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "faster_rcnn_r50_fpn_coco.py"
 MASK_CONFIG = ROOT / "configs" / "mask_rcnn_r50_fpn_coco.py"
 RETINA_CONFIG = ROOT / "configs" / "retinanet_r50_fpn_coco.py"
+CASCADE_CONFIG = ROOT / "configs" / "cascade_rcnn_r50_fpn_coco.py"
+CASCADE_MASK_CONFIG = ROOT / "configs" / "cascade_mask_rcnn_r50_fpn_coco.py"
+FAST_CONFIG = ROOT / "configs" / "fast_rcnn_r50_fpn_coco.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
@@ -814,6 +824,14 @@ def train_batch(gen: torch.Generator, batch: int = BATCH) -> dict:
     inside = ((torch.arange(h, device=device)[None, :, None] < shapes[:, 0, None, None])
               & (torch.arange(w, device=device)[None, None, :] < shapes[:, 1, None, None]))
     image = image * inside[..., None]
+    boxes, labels, valid = seeded_gts(gen, shapes)
+    return dict(image=image, gt_boxes=boxes, gt_labels=labels, gt_valid=valid, img_shape=shapes)
+
+
+def seeded_gts(gen: torch.Generator, shapes: torch.Tensor):
+    """1-20 gt boxes an image (16-400 px, labels 1-80) inside each (h, w)
+    of ``shapes``, padded to 100: boxes, labels and validity."""
+    device, batch = shapes.device, shapes.shape[0]
     u = torch.rand((batch, MAX_GTS, 4), generator=gen, device=device)
     size = 16.0 * 25.0 ** u[..., 2:]
     xy = u[..., :2] * (shapes[:, None, [1, 0]] - 1 - size)
@@ -821,8 +839,7 @@ def train_batch(gen: torch.Generator, batch: int = BATCH) -> dict:
     valid = torch.arange(MAX_GTS, device=device)[None, :] < num
     boxes = torch.where(valid[..., None], torch.cat([xy, xy + size], dim=-1), 0.0)
     labels = torch.randint(1, 81, (batch, MAX_GTS), generator=gen, device=device)
-    return dict(image=image, gt_boxes=boxes, gt_labels=torch.where(valid, labels, 0),
-                gt_valid=valid, img_shape=shapes)
+    return boxes, torch.where(valid, labels, 0), valid
 
 
 LOSS_KEYS = ("loss", "loss_rpn_cls", "loss_rpn_reg", "loss_rcnn_cls", "loss_rcnn_reg")
@@ -911,7 +928,8 @@ def train_stage_breakdown(model, det_cfg, optimizer, batch, card: str, repeats: 
         props = stage("proposals (top-k, decode, NMS)", lambda: generate_proposals(
             det_cfg.proposal_train, det_cfg.anchor_generator, [x.detach() for x in rpn_s],
             [x.detach() for x in rpn_d], batch["img_shape"]))
-        sampled = stage("roi assign and sample", lambda: sample_rois(det_cfg, props, *gt, noise))
+        sampled = stage("roi assign and sample", lambda: sample_rois(
+            det_cfg, props.boxes, props.valid, *gt, noise))
         rcnn_l = stage("roi_align K1, box head, losses", lambda: roi_stage(feats, sampled))
         loss = rpn_l[0].mean() + rpn_l[1].mean() + rcnn_l[0] + rcnn_l[1]
         if isinstance(det_cfg, MaskRCNNConfig):
@@ -944,8 +962,8 @@ def phase_train_bwd_on_step_data(model, det_cfg, batch) -> None:
     props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator,
                                [s.detach() for s in rpn_s], [d.detach() for d in rpn_d],
                                batch["img_shape"])
-    sampled = sample_rois(det_cfg, props, batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"],
-                          noise)
+    sampled = sample_rois(det_cfg, props.boxes, props.valid, batch["gt_boxes"], batch["gt_labels"],
+                          batch["gt_valid"], noise)
     levels_in = list(feats[: len(det_cfg.roi_strides)])
     roi_feats = roi_align.batched_multilevel_roi_align(levels_in, sampled.rois, det_cfg.roi_strides,
                                                       det_cfg.roi_size)
@@ -1011,9 +1029,9 @@ def phase_train_reference() -> None:
 
     props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator,
                                [s.detach() for s in sg], [d.detach() for d in dg], shapes.cuda())
-    sg_ = sample_rois(det_cfg, props, gt_gpu["gt_boxes"], gt_gpu["gt_labels"], gt_gpu["gt_valid"],
-                      noise_gpu)
-    sc_ = sample_rois(det_cfg, type(props)(*(t.cpu() for t in props)), gt["gt_boxes"],
+    sg_ = sample_rois(det_cfg, props.boxes, props.valid, gt_gpu["gt_boxes"], gt_gpu["gt_labels"],
+                      gt_gpu["gt_valid"], noise_gpu)
+    sc_ = sample_rois(det_cfg, props.boxes.cpu(), props.valid.cpu(), gt["gt_boxes"],
                       gt["gt_labels"], gt["gt_valid"], noise_cpu)
     for field in ("rois", "labels", "is_pos", "is_valid"):
         check(f"sampled {field} mismatches",
@@ -1091,21 +1109,9 @@ def phase_mask_serving(card: str) -> dict:
     # one K1 launch for the boxes (out 7) and one for the masks (out 14)
     expect_launches("mask serving", launches, 2 * TIMED_BATCHES, 0)
 
-    d, m = det_cfg.max_detections, 2 * det_cfg.mask_roi_size
+    d = det_cfg.max_detections
     for res in results:
-        if res.boxes.shape != (BATCH, d, 4) or res.mask_probs.shape != (BATCH, d, m, m):
-            raise AssertionError(f"shapes {tuple(res.boxes.shape)}, {tuple(res.mask_probs.shape)}")
-        probs, v = res.mask_probs, res.valid
-        if not bool(v.any()):
-            raise AssertionError("no detection above score_thr")
-        if not (torch.isfinite(res.boxes).all() and torch.isfinite(probs).all()):
-            raise AssertionError("non-finite detections or masks")
-        if not (bool((probs >= 0).all()) and bool((probs <= 1).all())):
-            raise AssertionError("mask probabilities outside [0, 1]")
-        if bool(probs[~v].any()):
-            raise AssertionError("a mask on an invalid slot")
-        if not bool((probs[v] > 0).any()):
-            raise AssertionError("every valid mask is 0")
+        check_mask_detections(res, det_cfg)
     mean_ms = sum(ms) / len(ms)
     last = results[-1]
     fg = float((last.mask_probs[last.valid] >= 0.5).float().mean())
@@ -1132,6 +1138,25 @@ def phase_mask_serving(card: str) -> dict:
                        check_bf16, in_bytes, out_bytes, flops)
     device_profile(lambda: infer(images[1], img_shape, scale), mean_ms, card)
     return dict(launches=launches, ms_per_batch=mean_ms, k1=k1)
+
+
+def check_mask_detections(res, det_cfg) -> None:
+    """Shapes, a detection in the batch, finite boxes and masks, mask
+    probabilities in [0, 1], 0 on invalid slots and not 0 everywhere."""
+    d, m = det_cfg.max_detections, 2 * det_cfg.mask_roi_size
+    if res.boxes.shape != (BATCH, d, 4) or res.mask_probs.shape != (BATCH, d, m, m):
+        raise AssertionError(f"shapes {tuple(res.boxes.shape)}, {tuple(res.mask_probs.shape)}")
+    probs, v = res.mask_probs, res.valid
+    if not bool(v.any()):
+        raise AssertionError("no detection above score_thr")
+    if not (torch.isfinite(res.boxes).all() and torch.isfinite(probs).all()):
+        raise AssertionError("non-finite detections or masks")
+    if not (bool((probs >= 0).all()) and bool((probs <= 1).all())):
+        raise AssertionError("mask probabilities outside [0, 1]")
+    if bool(probs[~v].any()):
+        raise AssertionError("a mask on an invalid slot")
+    if not bool((probs[v] > 0).any()):
+        raise AssertionError("every valid mask is 0")
 
 
 def ellipse_masks(gen: torch.Generator, boxes: torch.Tensor, valid: torch.Tensor,
@@ -1300,7 +1325,7 @@ def phase_mask_step_data(model, det_cfg, batch) -> dict:
     props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator,
                                [s.detach() for s in rpn_s], [d.detach() for d in rpn_d],
                                batch["img_shape"])
-    sample_rois(det_cfg, props, *gt, noise)  # the box slate's draws come first, as in a step
+    sample_rois(det_cfg, props.boxes, props.valid, *gt, noise)  # the box slate's draws come first, as in a step
     slate = sample_mask_rois(det_cfg, props, *gt, noise)
     pos = slate.is_pos
     hit = [len(set(slate.matched[i][pos[i]].tolist())) for i in range(BATCH)]
@@ -1648,10 +1673,11 @@ def retina_train_stage_breakdown(model, det_cfg, optimizer, batch, card: str,
         f"{targets.pos.sum(1).tolist()}")
 
 
-def phase_retina_train_reference() -> None:
-    """The training path in float32 on the GPU and on the CPU on a small
-    canvas: the losses and every parameter's gradient, with float64 on the
-    GPU as the yardstick of float32's own rounding."""
+def retina_reference_setup():
+    """The RetinaNet training build in float32 on the GPU and on the CPU and
+    in float64 on the GPU, on the same seeded weights, and a seeded batch of
+    2 x 256 x 320 images on the s2d wire with 3 and 2 gts: ``(det_cfg, gpu,
+    cpu, f64, batch)``, the batch on the CPU."""
     cfg = Config.fromfile(RETINA_CONFIG)
     det_cfg = build_detection_cfg(cfg.detection)
     gpu = build_detector(cfg.model, "float32", "cuda", seed=SEED).train()
@@ -1668,6 +1694,14 @@ def phase_retina_train_reference() -> None:
         gt_valid=torch.tensor([[True, True, True, False], [True, True, False, False]]),
         img_shape=torch.tensor([[256.0, 320.0], [240.0, 300.0]]),
     )
+    return det_cfg, gpu, cpu, f64, batch
+
+
+def phase_retina_train_reference() -> None:
+    """The training path in float32 on the GPU and on the CPU on a small
+    canvas: the losses and every parameter's gradient, with float64 on the
+    GPU as the yardstick of float32's own rounding."""
+    det_cfg, gpu, cpu, f64, batch = retina_reference_setup()
     on_gpu = {k: v.cuda() for k, v in batch.items()}
     parts = []
     for model, data in ((gpu, on_gpu), (cpu, batch), (f64, on_gpu)):
@@ -1682,10 +1716,10 @@ def phase_retina_train_reference() -> None:
         return float((a.cpu().double() - b.cpu().double()).norm() / b.cpu().double().norm().clamp_min(1e-300))
 
     # each gradient tensor against its norm, and float64 on the GPU as the
-    # yardstick: cuDNN's float32 gradients lie about 2e-3 of their norm from
-    # float64 on this batch (the CPU's about 3e-4), and a single element of
-    # a deep layer's gradient, where one ReLU or max-pool input sits within
-    # rounding of its threshold, moves by up to 1% of the tensor's largest
+    # yardstick: float32's rounding flips a few of the batch's 38 M ReLU
+    # decisions (inputs within it of zero; which ones depends on the
+    # summation order, cuDNN's or the CPU's), and each flip moves the
+    # gradients below it by up to 1e-3 of their norm (conv_precision.py)
     errs = {}
     for (name, g), (_, c), (_, r) in zip(gpu.named_parameters(), cpu.named_parameters(),
                                          f64.named_parameters()):
@@ -1705,10 +1739,418 @@ def phase_retina_train_reference() -> None:
         raise AssertionError(f"retina training gradients beyond 1e-2: {[(n, errs[n]) for n in bad]}")
 
 
+def proposal_slate(gen: torch.Generator, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                   shapes: torch.Tensor, n: int = ROIS):
+    """(B, n, 5) seeded proposals and their (B, n) validity, standing in for
+    the pkl of ``tools/dump_proposals.py``: of each image's 0.9 n to n valid
+    rows, the even ones are jittered copies of its gts (each side moved by
+    up to 0.3 of the gt's size), the odd ones random boxes of 8-900 px inside
+    the image, each with a random score in the fifth column; the tail is
+    zero and invalid, as the collate pads a slate."""
+    device, b = gt_boxes.device, gt_boxes.shape[0]
+
+    def u(*shape):
+        return torch.rand((b, n, *shape), generator=gen, device=device)
+
+    pick = (u() * gt_valid.sum(1)[:, None]).long()
+    src = gt_boxes.gather(1, pick[..., None].expand(-1, -1, 4))
+    jittered = src + (u(4) - 0.5) * 0.6 * (src[..., 2:] - src[..., :2]).repeat(1, 1, 2)
+    wh = shapes[:, None, [1, 0]] - 1
+    size = torch.minimum(8.0 * (900.0 / 8.0) ** u(2), wh)
+    xy = u(2) * (wh - size)
+    even = (torch.arange(n, device=device) % 2 == 0)[None, :, None]
+    boxes = clip_boxes(torch.where(even, jittered, torch.cat([xy, xy + size], dim=-1)), shapes)
+    n_valid = torch.randint(n - n // 10, n + 1, (b, 1), generator=gen, device=device)
+    valid = torch.arange(n, device=device)[None, :] < n_valid
+    return torch.cat([boxes, u(1)], dim=-1) * valid[..., None], valid
+
+
+def rcnn_serving_batches(gen: torch.Generator, proposals: bool):
+    """Seeded bf16 b4 batches on the full 800 x 1216 canvas, as
+    ``phase_model``'s: the arguments of ``infer``, with a proposal slate
+    around seeded gts for Fast R-CNN."""
+    h, w = CANVAS
+    shape = torch.tensor([[h, w]] * BATCH, dtype=torch.float32, device="cuda")
+    batches = []
+    for _ in range(WARMUP_BATCHES + TIMED_BATCHES):
+        args = [torch.randn((BATCH, h, w, 3), generator=gen, device="cuda", dtype=torch.bfloat16),
+                shape, torch.ones(BATCH, device="cuda")]
+        if proposals:
+            boxes, _, valid = seeded_gts(gen, shape)
+            args += proposal_slate(gen, boxes, valid, shape)
+        batches.append(args)
+    return batches
+
+
+def phase_rcnn_serving(card: str, path: str, config: Path, segm: bool, k1: int,
+                       seed: int) -> dict:
+    """Full-width serving of ``config``'s detector, b4 800x1216 bf16 through
+    ``make_inference_fn``: 2 warm-up and 10 timed batches, K1 launched
+    ``k1`` times a batch and K2 never, the detections (and masks) checked, a
+    stage breakdown and one profiled batch."""
+    model, det_cfg = load_model("bfloat16", "cuda", config)
+    infer = make_inference_fn(model, det_cfg, segm=segm)
+    fast = isinstance(det_cfg, FastRCNNConfig)
+    batches = rcnn_serving_batches(torch.Generator(device="cuda").manual_seed(seed), fast)
+    for args in batches[:WARMUP_BATCHES]:
+        infer(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    timed = iter(batches[WARMUP_BATCHES:])
+    ms, results = timed_batches(lambda: infer(*next(timed)), TIMED_BATCHES)
+    launches = read_launches()
+    log(f"{path} path: {TIMED_BATCHES} batches, launches {launches}")
+    expect_launches(path, launches, k1 * TIMED_BATCHES, 0)
+    h, w = CANVAS
+    for res in results:
+        if segm:
+            check_mask_detections(res, det_cfg)
+        else:
+            check_detections(res, det_cfg, BATCH, h, w)
+    mean_ms = sum(ms) / len(ms)
+    log(f"{path} path: ms a batch {[round(t, 3) for t in ms]}, mean {mean_ms:.3f} ms, "
+        f"{BATCH / (mean_ms / 1e3):.2f} images/s, median {statistics.median(ms):.3f} ms [{card}]; "
+        f"valid detections an image {results[-1].valid.sum(1).tolist()}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    rcnn_stage_breakdown(path, model, det_cfg, segm, batches[1], card)
+    device_profile(lambda: infer(*batches[1]), mean_ms, card)
+    return dict(launches=launches, ms_per_batch=mean_ms)
+
+
+def rcnn_stage_breakdown(path: str, model, det_cfg, segm: bool, args, card: str,
+                         repeats: int = 5) -> None:
+    """A Cascade (Mask) or Fast R-CNN serving batch stage by stage, a device
+    sync between stages; the median host ms of each over ``repeats``."""
+    images, img_shape = args[:2]
+    fast = isinstance(det_cfg, FastRCNNConfig)
+    times = {}
+    stage = stage_timer(times)
+
+    def decode(rois, reg):
+        return clip_boxes(delta2bbox(rois, reg.float(), det_cfg.rcnn_target_means,
+                                     det_cfg.rcnn_target_stds), img_shape)
+
+    with torch.inference_mode():
+        for _ in range(repeats):
+            if fast:
+                feats = stage("backbone+fpn", lambda: model(images))
+                boxes, valid = args[3][..., :4].float(), args[4]
+                roi_feats = stage("roi_align K1", lambda: roi_features(det_cfg, feats, boxes))
+                cls, reg = stage("bbox_head", lambda: model.roi_forward(roi_feats))
+                stage("decode + multiclass NMS", lambda: class_nms(
+                    det_cfg, decode(boxes, reg), torch.softmax(cls.float(), dim=-1)[..., 1:], valid))
+                continue
+            feats, rpn_s, rpn_d = stage("backbone+fpn+rpn_head", lambda: model(images))
+            props = stage("proposals (top-k, decode, NMS)", lambda: generate_proposals(
+                det_cfg.proposal_test, det_cfg.anchor_generator, rpn_s, rpn_d, img_shape))
+            boxes, probs = props.boxes, 0.0
+            for t in range(det_cfg.num_stages):
+                roi_feats = stage(f"stage {t} roi_align K1",
+                                  lambda: roi_features(det_cfg, feats, boxes))
+                cls, reg = stage(f"stage {t} bbox_head", lambda: model.roi_forward(roi_feats, t))
+                probs = probs + torch.softmax(cls.float(), dim=-1)
+                boxes = stage(f"stage {t} decode",
+                              lambda: refine(det_cfg, t, boxes, reg, img_shape))
+            dets = stage("scores + multiclass NMS", lambda: class_nms(
+                det_cfg, boxes, (probs / det_cfg.num_stages)[..., 1:], props.valid))
+            if segm:
+                mask_feats = stage("mask roi_align K1 out 14", lambda: roi_features(
+                    det_cfg, feats, dets.boxes, det_cfg.mask_roi_size))
+                for t in range(det_cfg.num_stages):
+                    stage(f"mask head {t}, class select, sigmoid", lambda: torch.sigmoid(
+                        select_class(model.mask_forward(mask_feats, t), dets.labels).float()))
+    log_breakdown(f"{path} stage breakdown, median of {repeats} batches", times, card)
+
+
+def fast_train_batch(gen: torch.Generator) -> dict:
+    """``train_batch`` with a proposal slate of 1000 an image around its
+    gts (``proposal_slate``)."""
+    batch = train_batch(gen)
+    batch["proposals"], batch["proposal_valid"] = proposal_slate(
+        gen, batch["gt_boxes"], batch["gt_valid"], batch["img_shape"])
+    return batch
+
+
+def phase_rcnn_train(card: str, path: str, config: Path, make_batch, k: int, seed: int) -> dict:
+    """Full-width training of ``config``'s detector, float32 parameters and
+    bf16 compute, b4 on the 800 x 1216 canvas, through the entry points a
+    user calls: 2 warm-up and 10 timed steps, K1 and K2 each launched ``k``
+    times a step, every loss finite, roi positives in every step, no step
+    skipped, every trainable parameter moved and no frozen one; one profiled
+    step."""
+    cfg = Config.fromfile(config)
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [make_batch(gen) for _ in range(steps)]
+    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"{path} path: {TIMED_BATCHES} steps, launches {launches}")
+    expect_launches(path, launches, k * TIMED_BATCHES, k * TIMED_BATCHES)
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"{len(history)} steps logged, {trainer.skipped_steps} skipped")
+    keys = [key for key in history[0] if key == "loss" or key.startswith("loss_")]
+    for h in history:
+        if not all(math.isfinite(h[key]) for key in keys):
+            raise AssertionError(f"non-finite loss at step {h['step']}: {h}")
+        if not (h["num_pos_rois"] > 0 and all(h[key] > 0 for key in keys if key.endswith("_mask"))):
+            raise AssertionError(f"no positive roi or no mask loss at step {h['step']}: {h}")
+    still = [n for n, p in model.named_parameters() if p.requires_grad and torch.equal(p, before[n])]
+    moved = [n for n, p in model.named_parameters() if not p.requires_grad and not torch.equal(p, before[n])]
+    if still or moved:
+        raise AssertionError(f"trainable parameters that did not move {still}; frozen ones that "
+                             f"moved {moved}")
+    step_ms = [BATCH / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    log(f"{path} path: ms a step {[round(t, 3) for t in step_ms]}, mean {mean_ms:.3f} ms, "
+        f"{BATCH / (mean_ms / 1e3):.2f} images/s, median {statistics.median(step_ms):.3f} ms [{card}]; "
+        f"skipped steps {trainer.skipped_steps}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses first "
+        + ", ".join(f"{key} {history[0][key]:.4f}" for key in keys)
+        + "; last " + ", ".join(f"{key} {history[-1][key]:.4f}" for key in keys)
+        + f"; positive rois a step (last stage) {[int(h['num_pos_rois']) for h in history]}")
+    device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    return dict(launches=launches, ms_per_step=mean_ms, model=model, det_cfg=det_cfg,
+                batch=batches[-1])
+
+
+def pile_up(slate) -> str:
+    """How a slate's positives pile onto the gts: positives, distinct gts
+    hit and the most positives on one gt, an image."""
+    pos, parts = slate.is_pos, []
+    for i in range(pos.shape[0]):
+        hits = slate.matched[i][pos[i]]
+        top = int(torch.bincount(hits).max()) if hits.numel() else 0
+        parts.append(f"{int(pos[i].sum())} on {len(set(hits.tolist()))} gts (at most {top})")
+    return "; ".join(parts)
+
+
+def phase_cascade_stage3(model, det_cfg, batch, mask: bool) -> dict:
+    """K2 against its plain version on a training step's last-stage slate:
+    Cascade R-CNN's box slate at out 7, or Cascade Mask R-CNN's mask slate
+    (the positives-first prefix of 128 an image) at out 14, the step's own
+    FPN levels and the last head's cotangent scaled by a power of two to a
+    largest value in [1, 2); timed against its bound. Logs how each stage's
+    positives pile onto the gts."""
+    noise = functools.partial(sampling_noise, torch.Generator(device="cuda").manual_seed(SEED + 30))
+    _, feats, slates = _cascade_rcnn_loss_core(det_cfg, model, batch, noise)
+    for t, slate in enumerate(slates):
+        log(f"cascade{' mask' if mask else ''} step, stage {t} slate: positives an image "
+            f"{pile_up(slate)}")
+    last, t = slates[-1], det_cfg.num_stages - 1
+    if mask:
+        num = int(det_cfg.rcnn_num_samples * det_cfg.rcnn_pos_fraction)
+        rois, m = last.rois[:, :num], det_cfg.mask_roi_size
+        targets = mask_targets_for_rois(batch["gt_masks"], rois, last.matched[:, :num],
+                                        det_cfg.mask_size)
+        roi_feats = roi_features(det_cfg, feats, rois, m)
+        loss = mask_loss(model.mask_forward(roi_feats, t), targets, last.labels[:, :num],
+                         last.is_pos[:, :num])
+    else:
+        rois, m = last.rois, det_cfg.roi_size
+        roi_feats = roi_features(det_cfg, feats, rois)
+        loss = sum(rcnn_losses(det_cfg, *model.roi_forward(roi_feats, t), last))
+    (cotangent,) = torch.autograd.grad(loss, roi_feats)
+    top = float(cotangent.abs().max())
+    if not top > 0:
+        raise AssertionError("the stage-3 slate's cotangent is all zero")
+    cotangent = cotangent * 2.0 ** -math.floor(math.log2(top))  # K2 is linear in it
+    maps = [f.detach() for f in feats[: len(det_cfg.roi_strides)]]
+    routed = roi_align.map_rois_to_levels(rois, len(maps))
+    n = rois.shape[1]
+    args = (cotangent, rois, routed, [tuple(f.shape[1:3]) for f in maps], det_cfg.roi_strides, m)
+    name = (f"roi_align_bwd on a cascade{' mask' if mask else ''} step's stage-3 "
+            f"{'mask ' if mask else ''}slate ({n} rois an image) and scaled cotangent, out {m}")
+    check_deterministic(name, roi_align.multilevel_roi_align_backward_cuda, args)
+    flops = 2 * 4 * BATCH * n * (m * RATIO) ** 2 * CHANNELS
+    small = rois.numel() * 4 + routed.numel() * 4
+    return kernel_at(name, roi_align.multilevel_roi_align_backward_cuda,
+                     roi_align.multilevel_roi_align_backward, args,
+                     lambda nm, g, w: check_grads(nm, g, w, cotangent.dtype),
+                     BATCH * n * m * m * CHANNELS * cotangent.element_size() + small,
+                     sum(f.numel() for f in maps) * cotangent.element_size(), flops)
+
+
+def phase_cascade_reference() -> None:
+    """Cascade Mask R-CNN serving in float32 on the GPU and on the CPU,
+    stage by stage on a small canvas; each GPU stage's output feeds the CPU
+    counterpart of the next stage, NMS gets equal inputs on both devices."""
+    gpu, det_cfg = load_model("float32", "cuda", CASCADE_MASK_CONFIG)
+    cpu, _ = load_model("float32", "cpu", CASCADE_MASK_CONFIG)
+    gen = torch.Generator().manual_seed(SEED + 31)
+    x = torch.randn((2, 256, 320, 3), generator=gen)
+    shapes = torch.tensor([[256.0, 320.0], [240.0, 300.0]])
+    checks = []
+
+    def check(name, err, limit):
+        checks.append(f"{name} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"cascade reference check {name}: {err} > {limit}")
+
+    with torch.inference_mode():
+        fg, sg, dg = gpu(x.cuda())
+        fc, _, _ = cpu(x)
+        # cuDNN and the CPU pick other convolution algorithms and sum orders
+        check("fpn levels", max(rel_err(g, c) for g, c in zip(fg, fc)), 1e-3)
+        props = generate_proposals(det_cfg.proposal_test, det_cfg.anchor_generator, sg, dg,
+                                   shapes.cuda())
+        fcpu = [f.cpu() for f in fg]
+        boxes, probs_g, probs_c = props.boxes, 0.0, 0.0
+        for t in range(det_cfg.num_stages):
+            rg = roi_features(det_cfg, fg, boxes)
+            rc = roi_features(det_cfg, fcpu, boxes.cpu())
+            check(f"stage {t} roi features (K1 vs plain on the CPU)", rel_err(rg, rc), 1e-5)
+            (cg, regg), (cc, regc) = gpu.roi_forward(rg, t), cpu.roi_forward(rg.cpu(), t)
+            check(f"stage {t} head", max(rel_err(cg, cc), rel_err(regg, regc)), 1e-4)
+            probs_g = probs_g + torch.softmax(cg, dim=-1)
+            probs_c = probs_c + torch.softmax(cg.cpu(), dim=-1)
+            refined = refine(det_cfg, t, boxes, regg, shapes.cuda())
+            check(f"stage {t} refined boxes",
+                  rel_err(refined, refine(det_cfg, t, boxes.cpu(), regg.cpu(), shapes)), 1e-5)
+            boxes = refined
+        check("averaged scores", rel_err(probs_g, probs_c), 1e-6)
+        probs = (probs_g / det_cfg.num_stages)[..., 1:]
+        ng = class_nms(det_cfg, boxes, probs, props.valid)
+        nc = class_nms(det_cfg, boxes.cpu(), probs.cpu(), props.valid.cpu())
+        for field in ("valid", "labels", "indices"):
+            check(f"multiclass_nms {field} mismatches",
+                  float((getattr(ng, field).cpu() != getattr(nc, field)).sum()), 0)
+        check("multiclass_nms scores", rel_err(ng.scores, nc.scores), 0)
+        m = det_cfg.mask_roi_size
+        mg = roi_features(det_cfg, fg, ng.boxes, m)
+        check("mask roi features (K1 out 14 vs plain on the CPU)",
+              rel_err(mg, roi_features(det_cfg, fcpu, ng.boxes.cpu(), m)), 1e-5)
+        pg, pc = 0.0, 0.0
+        for t in range(det_cfg.num_stages):
+            lg, lc = gpu.mask_forward(mg, t), cpu.mask_forward(mg.cpu(), t)
+            check(f"mask head {t} logits", rel_err(lg, lc), 1e-4)
+            pg = pg + torch.sigmoid(select_class(lg, ng.labels))
+            pc = pc + torch.sigmoid(select_class(lg.cpu(), ng.labels.cpu()))
+        check("averaged mask probabilities", rel_err(pg, pc), 1e-6)
+    log(f"cascade reference check, GPU vs CPU float32 ({int(ng.valid.sum())} detections): "
+        + "; ".join(checks))
+
+
+def phase_cascade_train_reference() -> None:
+    """Cascade R-CNN training in float32 on the GPU and on the CPU, stage by
+    stage on a small canvas with the same sampling draws: each stage's
+    sampled slate on the same candidates, its losses, its gradients into the
+    FPN levels (K2 against the plain backward on the CPU) and the next
+    stage's candidates; each GPU stage's output feeds the CPU's next."""
+    cfg = Config.fromfile(CASCADE_CONFIG)
+    det_cfg = build_detection_cfg(cfg.detection)
+    gpu = build_detector(cfg.model, "float32", "cuda", seed=SEED).train()
+    cpu = build_detector(cfg.model, "float32", "cpu", seed=SEED).train()
+    gen = torch.Generator().manual_seed(SEED + 32)
+    x = torch.randn((2, 256, 320, 3), generator=gen)
+    gt = (torch.tensor([[[16, 20, 120, 140], [150, 40, 300, 230], [60, 150, 110, 250], [0] * 4],
+                        [[30, 30, 200, 180], [210, 100, 290, 200], [0] * 4, [0] * 4]],
+                       dtype=torch.float32),
+          torch.tensor([[3, 17, 80, 0], [1, 45, 0, 0]]),
+          torch.tensor([[True, True, True, False], [True, True, False, False]]))
+    gt_gpu = tuple(g.cuda() for g in gt)
+    shapes = torch.tensor([[256.0, 320.0], [240.0, 300.0]])
+    noise_gpu, noise_cpu = same_noise(SEED + 33, "cuda"), same_noise(SEED + 33, "cpu")
+    checks = []
+
+    def check(name, err, limit):
+        checks.append(f"{name} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"cascade training reference check {name}: {err} > {limit}")
+
+    fg, sg, dg = gpu(x.cuda())
+    props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator,
+                               [s.detach() for s in sg], [d.detach() for d in dg], shapes.cuda())
+    lg = [f.detach().requires_grad_() for f in fg[: len(det_cfg.roi_strides)]]
+    lc = [f.detach().cpu().requires_grad_() for f in lg]
+    boxes, valid = props.boxes, props.valid
+    for t in range(det_cfg.num_stages):
+        kw = dict(assigner=det_cfg.stage_assigner(t), target_stds=det_cfg.stage_target_stds[t])
+        sgpu = sample_rois(det_cfg, boxes, valid, *gt_gpu, noise_gpu, **kw)
+        scpu = sample_rois(det_cfg, boxes.cpu(), valid.cpu(), *gt, noise_cpu, **kw)
+        for field in ("rois", "labels", "is_pos", "is_valid", "matched", "from_gt"):
+            check(f"stage {t} sampled {field} mismatches",
+                  float((getattr(sgpu, field).cpu() != getattr(scpu, field)).sum()), 0)
+        check(f"stage {t} regression targets", rel_err(sgpu.reg_targets, scpu.reg_targets), 1e-5)
+        if not bool(sgpu.is_pos.any()):
+            raise AssertionError(f"no positive roi at stage {t} of the reference batch")
+        cls, reg = gpu.roi_forward(roi_features(det_cfg, lg, sgpu.rois), t)
+        loss_g = rcnn_losses(det_cfg, cls, reg, sgpu)
+        loss_c = rcnn_losses(det_cfg, *cpu.roi_forward(roi_features(det_cfg, lc, scpu.rois), t),
+                             scpu)
+        check(f"stage {t} losses", rel_err(torch.stack(loss_g), torch.stack(loss_c)), 1e-3)
+        grads_g = torch.autograd.grad(sum(loss_g), lg)
+        grads_c = torch.autograd.grad(sum(loss_c), lc)
+        check(f"stage {t} gradients into the fpn levels (K2 vs plain on the CPU)",
+              max(rel_err(g, c) for g, c in zip(grads_g, grads_c)), 1e-3)
+        nxt = next_candidates(det_cfg, t, sgpu, reg, shapes.cuda())
+        nxt_c = next_candidates(det_cfg, t, type(sgpu)(*(f.cpu() for f in sgpu)), reg.cpu(), shapes)
+        check(f"stage {t} next candidates", rel_err(nxt[0], nxt_c[0]), 1e-5)
+        check(f"stage {t} next validity mismatches", float((nxt[1].cpu() != nxt_c[1]).sum()), 0)
+        boxes, valid = nxt[0].detach(), nxt[1]
+    log("cascade training reference check, GPU vs CPU float32: " + "; ".join(checks))
+
+
+def phase_fast_reference() -> None:
+    """Fast R-CNN serving in float32 on the GPU and on the CPU on a small
+    canvas and a seeded proposal slate: roi features, head, decoded boxes,
+    and NMS on equal inputs."""
+    gpu, det_cfg = load_model("float32", "cuda", FAST_CONFIG)
+    cpu, _ = load_model("float32", "cpu", FAST_CONFIG)
+    gen = torch.Generator().manual_seed(SEED + 34)
+    x = torch.randn((2, 256, 320, 3), generator=gen)
+    shapes = torch.tensor([[256.0, 320.0], [240.0, 300.0]], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    gt_boxes, _, gt_valid = seeded_gts(g, shapes)
+    props, valid = proposal_slate(g, gt_boxes, gt_valid, shapes, n=300)
+    rois = props[..., :4]
+    checks = []
+
+    def check(name, err, limit):
+        checks.append(f"{name} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"fast reference check {name}: {err} > {limit}")
+
+    with torch.inference_mode():
+        fg, fc = gpu(x.cuda()), cpu(x)
+        check("fpn levels", max(rel_err(a, b) for a, b in zip(fg, fc)), 1e-3)
+        rg = roi_features(det_cfg, fg, rois)
+        check("roi features (K1 vs plain on the CPU)",
+              rel_err(rg, roi_features(det_cfg, [f.cpu() for f in fg], rois.cpu())), 1e-5)
+        (cg, regg), (cc, regc) = gpu.roi_forward(rg), cpu.roi_forward(rg.cpu())
+        check("bbox head", max(rel_err(cg, cc), rel_err(regg, regc)), 1e-4)
+        means, stds = det_cfg.rcnn_target_means, det_cfg.rcnn_target_stds
+        bg = clip_boxes(delta2bbox(rois, regg, means, stds), shapes)
+        check("decoded boxes",
+              rel_err(bg, clip_boxes(delta2bbox(rois.cpu(), regg.cpu(), means, stds), shapes.cpu())),
+              1e-5)
+        probs = torch.softmax(cg, dim=-1)[..., 1:]
+        ng = class_nms(det_cfg, bg, probs, valid)
+        nc = class_nms(det_cfg, bg.cpu(), probs.cpu(), valid.cpu())
+        for field in ("valid", "labels", "indices"):
+            check(f"multiclass_nms {field} mismatches",
+                  float((getattr(ng, field).cpu() != getattr(nc, field)).sum()), 0)
+        check("multiclass_nms scores", rel_err(ng.scores, nc.scores), 0)
+    log(f"fast reference check, GPU vs CPU float32 ({int(valid.sum())} valid proposals, "
+        f"{int(ng.valid.sum())} detections): " + "; ".join(checks))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     card = card_line()
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1745,6 +2187,25 @@ def main() -> int:
     phase_retina_reference()
     retina_train = phase_retina_train(card)
     phase_retina_train_reference()
+    cascade_serve = phase_rcnn_serving(card, "cascade serving", CASCADE_CONFIG, False, 3, SEED + 36)
+    cascade_mask_serve = phase_rcnn_serving(card, "cascade mask serving", CASCADE_MASK_CONFIG, True,
+                                            4, SEED + 37)
+    fast_serve = phase_rcnn_serving(card, "fast serving", FAST_CONFIG, False, 1, SEED + 38)
+    phase_cascade_reference()
+    phase_cascade_train_reference()
+    phase_fast_reference()
+    cascade_train = phase_rcnn_train(card, "cascade training", CASCADE_CONFIG, train_batch, 3,
+                                     SEED + 39)
+    cascade_k2 = phase_cascade_stage3(cascade_train.pop("model"), cascade_train.pop("det_cfg"),
+                                      cascade_train.pop("batch"), mask=False)
+    cascade_mask_train = phase_rcnn_train(card, "cascade mask training", CASCADE_MASK_CONFIG,
+                                          mask_train_batch, 6, SEED + 40)
+    cascade_mask_k2 = phase_cascade_stage3(cascade_mask_train.pop("model"),
+                                           cascade_mask_train.pop("det_cfg"),
+                                           cascade_mask_train.pop("batch"), mask=True)
+    fast_train = phase_rcnn_train(card, "fast training", FAST_CONFIG, fast_train_batch, 1,
+                                  SEED + 41)
+    del fast_train["model"], fast_train["det_cfg"], fast_train["batch"]
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -1762,17 +2223,26 @@ def main() -> int:
     mask_paths = {"mask_serving": mask_serve["launches"], "mask_training": mask_train["launches"]}
     retina_paths = {"retina_serving": retina_serve["launches"],
                     "retina_training": retina_train["launches"]}
+    slice6_paths = {"cascade_serving": cascade_serve["launches"],
+                    "cascade_training": cascade_train["launches"],
+                    "cascade_mask_serving": cascade_mask_serve["launches"],
+                    "cascade_mask_training": cascade_mask_train["launches"],
+                    "fast_serving": fast_serve["launches"],
+                    "fast_training": fast_train["launches"]}
+    later_paths = {**mask_paths, **retina_paths, **slice6_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],
-               **{path: n["k1"] for path, n in {**mask_paths, **retina_paths}.items()}}, fwd,
+               **{path: n["k1"] for path, n in later_paths.items()}}, fwd,
               at_train_rois={k: fwd_train[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
               at_mask_serving=mask_serve["k1"], at_mask_training=mask_step["k1"]),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
               {"serving": serve["bwd_launches"], "training": train["k2"],
-               **{path: n["k2"] for path, n in {**mask_paths, **retina_paths}.items()}}, bwd,
-              at_mask_training=mask_step["k2"], at_mask_positives_only=mask_step["k2_hot"]),
+               **{path: n["k2"] for path, n in later_paths.items()}}, bwd,
+              at_mask_training=mask_step["k2"], at_mask_positives_only=mask_step["k2_hot"],
+              at_cascade_stage3=cascade_k2, at_cascade_mask_stage3=cascade_mask_k2),
     ]}
+    log(f"chip_smoke wall time {time.perf_counter() - started:.1f} s (the kernels' build included)")
     log(card)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,8 +43,9 @@ def test_detection_cfg_matches_reference():
 @pytest.mark.parametrize(
     "det_cfg,match",
     [
-        (dict(style="cascade_rcnn"), "style"),  # Cascade R-CNN: a later slice
+        (dict(style="sparse_rcnn"), "style"),  # Sparse R-CNN: a later slice
         (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
+        (dict(style="fast_rcnn", anchor=dict(strides=(4,))), "anchor"),  # Fast R-CNN has none
     ],
 )
 def test_detection_cfg_refuses_what_is_not_ported(det_cfg, match):
@@ -82,3 +83,48 @@ def test_entry_points_default_to_cuda():
         pytest.skip("a GPU is present: the default device is usable")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_detector(Config.fromfile(CONFIG).model)
+
+
+# each two-stage style, its loss and its inference (box and, where it has
+# one, mask); the cascade configs subclass FasterRCNNConfig, so a dispatch
+# that tested a base class first would send them down Faster R-CNN's path
+_FAMILIES = {
+    "faster_rcnn": ("faster_rcnn_loss", "faster_rcnn_inference", None),
+    "mask_rcnn": ("mask_rcnn_loss", "faster_rcnn_inference", "mask_rcnn_inference"),
+    "cascade_rcnn": ("cascade_rcnn_loss", "cascade_rcnn_inference", None),
+    "cascade_mask_rcnn": ("cascade_mask_rcnn_loss", "cascade_rcnn_inference",
+                          "cascade_mask_rcnn_inference"),
+    "fast_rcnn": ("fast_rcnn_loss", "fast_rcnn_inference", None),
+}
+
+
+@pytest.mark.parametrize("style", _FAMILIES)
+def test_each_two_stage_style_reaches_its_own_loss_and_inference(style, monkeypatch):
+    """Every loss and inference the dispatch can pick is replaced by a
+    recorder of its name; each style's config must reach its own."""
+    from torch_detection_tpu_torch import builder
+    from torch_detection_tpu_torch.engine import validate
+
+    def recorder(name):
+        def record(*args):
+            return {"loss": torch.zeros(()), "called": name}
+        return record
+
+    losses = {loss for loss, _, _ in _FAMILIES.values()}
+    inferences = {f for _, box, mask in _FAMILIES.values() for f in (box, mask) if f}
+    for name in losses:
+        monkeypatch.setattr(builder, name, recorder(name))
+    for name in inferences:
+        monkeypatch.setattr(validate, name, recorder(name))
+
+    loss, box, mask = _FAMILIES[style]
+    det_cfg = build_detection_cfg(dict(style=style))
+    loss_fn = builder.build_loss_fn(torch.nn.Linear(1, 1), det_cfg)
+    assert loss_fn({})[1]["called"] == loss
+    args = (None, None, None, None, None) if style == "fast_rcnn" else (None, None, None)
+    assert make_inference_fn(None, det_cfg)(*args)["called"] == box
+    if mask is None:
+        with pytest.raises(ValueError, match="mask-capable"):
+            make_inference_fn(None, det_cfg, segm=True)
+    else:
+        assert make_inference_fn(None, det_cfg, segm=True)(*args)["called"] == mask

@@ -1,4 +1,4 @@
-"""The port and its chip smoke import no JAX, no flax and nothing of the JAX
+"""The port and its chip scripts import no JAX, no flax and nothing of the JAX
 package, not even its pure-Python modules.
 
 An AST scan of the sources: a check of ``sys.modules`` cannot work here,
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torch_detection_tpu")
-SOURCES = sorted((ROOT / "torch_detection_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "torch_detection_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                      ROOT / "conv_precision.py"]
 
 
 def _imported_modules(path: Path):

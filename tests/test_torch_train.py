@@ -92,8 +92,10 @@ def _batch(rng):
 
 def _jax_draws(key, b, n):
     """The uniform draws the reference's ``_sample_fixed`` makes from each
-    image's key, for the RPN (``n[0]`` anchors) and the rois (``n[1]``)."""
-    rngs = jax.random.split(key, b * 2).reshape(b, 2, -1)
+    image's key, for each of its ``len(n)`` samplings in order: the RPN
+    (``n[0]`` anchors), then each RoI stage (``n[1:]`` candidates), the key
+    split into ``b * len(n)`` keys, ``len(n)`` an image."""
+    rngs = jax.random.split(key, b * len(n)).reshape(b, len(n), -1)
     out = []
     for stage, size in enumerate(n):
         u_pos, u_all = [], []

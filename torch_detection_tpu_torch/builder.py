@@ -2,8 +2,9 @@
 optimizer with its learning-rate schedule.
 
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
-(the default), ``faster_rcnn`` and ``mask_rcnn`` styles; the other
-families arrive with their slices.
+(the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
+``cascade_mask_rcnn`` and ``fast_rcnn`` styles; the other families arrive
+with their slices.
 """
 
 from __future__ import annotations
@@ -16,9 +17,15 @@ import torch
 
 from .engine.trainer import detection_lr_schedule
 from .models.detectors import (
+    CascadeMaskRCNNConfig,
+    CascadeRCNNConfig,
     FasterRCNNConfig,
+    FastRCNNConfig,
     MaskRCNNConfig,
     RetinaNetConfig,
+    cascade_mask_rcnn_loss,
+    cascade_rcnn_loss,
+    fast_rcnn_loss,
     faster_rcnn_loss,
     mask_rcnn_loss,
     retina_loss,
@@ -32,18 +39,28 @@ from .utils.registry import DETECTORS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the dtypes the kernels take
 
-# detection-config keys each style's paths read (besides ``anchor``, and
-# RetinaNet's ``assigner``)
+# detection-config keys each style's paths read (besides ``anchor``)
 _RETINA_KEYS = ("num_classes", "target_means", "target_stds", "focal_gamma", "focal_alpha",
                 "smooth_l1_beta", "reg_loss_weight", "score_thr", "nms_iou_thr",
                 "pre_select_per_level", "pre_nms_top_k", "max_detections")
 _FASTER_RCNN_KEYS = ("num_classes", "score_thr", "nms_iou_thr", "max_detections", "roi_size",
                      "finest_scale")
-_MASK_RCNN_KEYS = _FASTER_RCNN_KEYS + ("mask_size", "mask_roi_size", "mask_loss_weight")
-_STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS),
-           "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS),
-           "mask_rcnn": (MaskRCNNConfig, _MASK_RCNN_KEYS)}
-DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig]
+_MASK_KEYS = ("mask_size", "mask_roi_size", "mask_loss_weight")
+_CASCADE_KEYS = ("num_stages", "stage_pos_ious", "stage_loss_weights", "stage_target_stds")
+# style -> (config class, its keys, the field the ``assigner`` key sets or None)
+_STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
+           "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS, None),
+           "mask_rcnn": (MaskRCNNConfig, _FASTER_RCNN_KEYS + _MASK_KEYS, None),
+           "cascade_rcnn": (CascadeRCNNConfig, _FASTER_RCNN_KEYS + _CASCADE_KEYS, None),
+           "cascade_mask_rcnn": (CascadeMaskRCNNConfig,
+                                 _FASTER_RCNN_KEYS + _CASCADE_KEYS + _MASK_KEYS, None),
+           "fast_rcnn": (FastRCNNConfig, _FASTER_RCNN_KEYS, "rcnn_assigner")}
+DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig]
+
+
+def _tuples(value):
+    """Lists, nested ones too, as the tuples the frozen configs hold."""
+    return tuple(_tuples(v) for v in value) if isinstance(value, (list, tuple)) else value
 
 
 def build_detector(
@@ -80,23 +97,24 @@ def _build_anchor_generator(anchor: Dict[str, Any]) -> AnchorGenerator:
 
 def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     """The static detection config of a ``style='retina'`` (the default),
-    ``'faster_rcnn'`` or ``'mask_rcnn'`` config. Keys the port does not read
-    yet raise instead of being dropped."""
+    ``'faster_rcnn'``, ``'mask_rcnn'``, ``'cascade_rcnn'``,
+    ``'cascade_mask_rcnn'`` or ``'fast_rcnn'`` config. RetinaNet's
+    ``assigner`` is its ``assigner``, Fast R-CNN's its ``rcnn_assigner``.
+    Keys the port does not read yet raise instead of being dropped."""
     cfg = dict(det_cfg)
     style = cfg.pop("style", "retina")
     if style not in _STYLES:
         raise NotImplementedError(f"detection style {style!r} is not ported yet")
-    config_cls, keys = _STYLES[style]
+    config_cls, keys, assigner_field = _STYLES[style]
     kwargs: Dict[str, Any] = {}
-    anchor = cfg.pop("anchor", None)
+    anchor = cfg.pop("anchor", None) if hasattr(config_cls, "anchor_generator") else None
     if anchor:
         kwargs["anchor_generator"] = _build_anchor_generator(dict(anchor))
-    if style == "retina" and "assigner" in cfg:
-        kwargs["assigner"] = MaxIoUAssigner(**cfg.pop("assigner"))
+    if assigner_field and "assigner" in cfg:
+        kwargs[assigner_field] = MaxIoUAssigner(**cfg.pop("assigner"))
     for key in keys:
         if key in cfg:
-            v = cfg.pop(key)
-            kwargs[key] = tuple(v) if isinstance(v, list) else v
+            kwargs[key] = _tuples(cfg.pop(key))
     if cfg:
         raise NotImplementedError(f"detection keys not ported yet: {sorted(cfg)}")
     return config_cls(**kwargs)
@@ -108,8 +126,9 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     ``torch.Generator`` on the model's device seeded from
     ``(rng_seed, step)``, so every step draws a fresh stream and a step
     repeats exactly (the counterpart of the reference's ``_step_rng``).
-    A ``MaskRCNNConfig`` adds the mask loss, whose batch carries
-    ``gt_masks``. RetinaNet draws nothing."""
+    A mask config adds the mask losses, whose batch carries ``gt_masks``;
+    a ``FastRCNNConfig``'s batch carries ``proposals`` and
+    ``proposal_valid``. RetinaNet draws nothing."""
     if isinstance(det_cfg, RetinaNetConfig):
         def retina_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
             cls_scores, bbox_preds = model(batch["image"])
@@ -118,9 +137,7 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
             return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
 
         return retina_loss_fn
-    if not isinstance(det_cfg, FasterRCNNConfig):
-        raise NotImplementedError(f"{type(det_cfg).__name__} training is not ported yet")
-    loss = mask_rcnn_loss if isinstance(det_cfg, MaskRCNNConfig) else faster_rcnn_loss
+    loss = _rcnn_loss(det_cfg)
     device = next(model.parameters()).device
 
     def loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
@@ -129,6 +146,19 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
         return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
 
     return loss_fn
+
+
+def _rcnn_loss(det_cfg) -> Callable:
+    """The loss of an R-CNN family's config. The cascade configs subclass
+    ``FasterRCNNConfig``, so each subclass is tested before its base."""
+    for config_cls, loss in ((CascadeMaskRCNNConfig, cascade_mask_rcnn_loss),
+                             (CascadeRCNNConfig, cascade_rcnn_loss),
+                             (MaskRCNNConfig, mask_rcnn_loss),
+                             (FasterRCNNConfig, faster_rcnn_loss),
+                             (FastRCNNConfig, fast_rcnn_loss)):
+        if isinstance(det_cfg, config_cls):
+            return loss
+    raise NotImplementedError(f"{type(det_cfg).__name__} training is not ported yet")
 
 
 def build_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:

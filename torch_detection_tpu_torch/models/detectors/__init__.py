@@ -1,3 +1,16 @@
+from .cascade_mask_rcnn import (
+    CascadeMaskRCNN,
+    CascadeMaskRCNNConfig,
+    cascade_mask_rcnn_inference,
+    cascade_mask_rcnn_loss,
+)
+from .cascade_rcnn import (
+    CascadeRCNN,
+    CascadeRCNNConfig,
+    cascade_rcnn_inference,
+    cascade_rcnn_loss,
+)
+from .fast_rcnn import FastRCNN, FastRCNNConfig, fast_rcnn_inference, fast_rcnn_loss
 from .mask_rcnn import (
     MaskDetections,
     MaskRCNN,
@@ -20,7 +33,10 @@ from .two_stage import (
     sampling_noise,
 )
 
-__all__ = ["FasterRCNNConfig", "MaskDetections", "MaskRCNN", "MaskRCNNConfig", "RetinaNetConfig",
-           "SingleStageDetector", "TwoStageDetector", "decode_detections", "faster_rcnn_inference",
-           "faster_rcnn_loss", "mask_rcnn_inference", "mask_rcnn_loss", "retina_inference",
-           "retina_loss", "sampling_noise"]
+__all__ = ["CascadeMaskRCNN", "CascadeMaskRCNNConfig", "CascadeRCNN", "CascadeRCNNConfig",
+           "FastRCNN", "FastRCNNConfig", "FasterRCNNConfig", "MaskDetections", "MaskRCNN",
+           "MaskRCNNConfig", "RetinaNetConfig", "SingleStageDetector", "TwoStageDetector",
+           "cascade_mask_rcnn_inference", "cascade_mask_rcnn_loss", "cascade_rcnn_inference",
+           "cascade_rcnn_loss", "decode_detections", "fast_rcnn_inference", "fast_rcnn_loss",
+           "faster_rcnn_inference", "faster_rcnn_loss", "mask_rcnn_inference", "mask_rcnn_loss",
+           "retina_inference", "retina_loss", "sampling_noise"]

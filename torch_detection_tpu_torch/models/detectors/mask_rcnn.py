@@ -12,14 +12,13 @@ kernels K1 (and in training K2) at ``mask_roi_size``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
 
-from ...ops.roi_align import batched_multilevel_roi_align
-from ...utils.device import resolve_device
-from ...utils.registry import DETECTORS, HEADS
+from ...ops.nms import NMSResult
+from ...utils.registry import DETECTORS
 from ..heads.mask_head import mask_loss, mask_targets_for_rois, select_class
 from ..heads.rpn_head import Proposals
 from .two_stage import (
@@ -30,6 +29,8 @@ from .two_stage import (
     _faster_rcnn_loss_core,
     _sample_fixed,
     _take,
+    roi_features,
+    undo_scale,
 )
 
 
@@ -44,8 +45,7 @@ class MaskRCNN(TwoStageDetector):
                  dtype: Optional[torch.dtype] = None, param_dtype: Optional[torch.dtype] = None,
                  device=None):
         super().__init__(backbone, neck, rpn_head, bbox_head, dtype, param_dtype, device)
-        self.mask_head = HEADS.build(dict(mask_head, in_channels=neck["out_channels"]),
-                                     dtype=self.param_dtype, device=resolve_device(device))
+        self.mask_head = self._build_roi_head(mask_head)
 
     def mask_forward(self, roi_feats: Tensor) -> Tensor:
         """(B, R, S, S, C) aligned features -> (B, R, 2S, 2S, classes) logits."""
@@ -73,10 +73,7 @@ def mask_rcnn_loss(
     slate = sample_mask_rois(cfg, proposals, batch["gt_boxes"], batch["gt_labels"],
                              batch["gt_valid"], noise)
     targets = mask_targets_for_rois(batch["gt_masks"], slate.rois, slate.matched, cfg.mask_size)
-    roi_feats = batched_multilevel_roi_align(
-        list(feats[: len(cfg.roi_strides)]), slate.rois, cfg.roi_strides, cfg.mask_roi_size,
-        finest_scale=cfg.finest_scale,
-    )
+    roi_feats = roi_features(cfg, feats, slate.rois, cfg.mask_roi_size)
     loss_mask = mask_loss(model.mask_forward(roi_feats), targets, slate.labels, slate.is_pos)
     loss_mask = loss_mask * cfg.mask_loss_weight
     losses = dict(losses, loss_mask=loss_mask)
@@ -133,17 +130,19 @@ def mask_rcnn_inference(
     one forward of the backbone. The mask probabilities of invalid slots are
     0; ``paste_masks`` rasters them onto an image."""
     dets, feats = _faster_rcnn_inference_core(cfg, model, images, img_shapes)
-    roi_boxes = boxes = dets.boxes
-    if scale_factors is not None:
-        # detections go out in the original frame; the features are looked up
-        # in the network's, undone per image as the reference does for (B,)
-        sf = scale_factors.reshape(boxes.shape[0], 1, -1).to(boxes.dtype)
-        boxes = boxes / sf
-        roi_boxes = boxes * sf
-    roi_feats = batched_multilevel_roi_align(
-        list(feats[: len(cfg.roi_strides)]), roi_boxes, cfg.roi_strides, cfg.mask_roi_size,
-        finest_scale=cfg.finest_scale,
-    )
-    logits = select_class(model.mask_forward(roi_feats), dets.labels)
+    dets, roi_boxes = mask_frame(dets, scale_factors)
+    logits = select_class(model.mask_forward(roi_features(cfg, feats, roi_boxes,
+                                                          cfg.mask_roi_size)), dets.labels)
     probs = torch.sigmoid(logits.float()) * dets.valid[..., None, None]
-    return MaskDetections(boxes, dets.scores, dets.labels, dets.valid, probs)
+    return MaskDetections(dets.boxes, dets.scores, dets.labels, dets.valid, probs)
+
+
+def mask_frame(dets: NMSResult, scale_factors: Optional[Tensor]) -> Tuple[NMSResult, Tensor]:
+    """The detections in the original frame, and the boxes the mask branch
+    looks its features up at: the detections go out in the original frame,
+    the features live in the network's, so the factors are undone per image
+    and applied back, rounding as the reference does for (B,) factors."""
+    dets = undo_scale(dets, scale_factors)
+    if scale_factors is None:
+        return dets, dets.boxes
+    return dets, dets.boxes * scale_factors.reshape(dets.boxes.shape[0], 1, -1).to(dets.boxes.dtype)

@@ -35,33 +35,57 @@ from ..layers import compute_autocast
 Noise = Callable[[Tuple[int, ...]], Tuple[Tensor, Tensor]]
 
 
-@DETECTORS.register_module
-class TwoStageDetector(nn.Module):
-    """backbone + neck + RPN head + RoI box head, named as the reference's
-    (``backbone``, ``neck``, ``rpn``, ``bbox_head``). ``dtype`` is the
+class RoIDetector(nn.Module):
+    """The backbone and neck of the RoI detectors, named as the reference's
+    (``backbone``, ``neck``), and what their heads share. ``dtype`` is the
     compute dtype; images are cast to it. ``param_dtype`` (default
     ``dtype``) is the dtype the parameters are kept in, as flax's
-    ``param_dtype``: where it differs from ``dtype``, both forwards run under
+    ``param_dtype``: where it differs from ``dtype``, the forwards run under
     ``torch.autocast``, which casts every conv and linear weight to ``dtype``
     at its use (once a forward), while the parameters and their gradients
     stay in ``param_dtype``. FrozenBN keeps float32 statistics either way.
     ``device`` defaults to ``cuda``."""
 
-    def __init__(self, backbone: Dict[str, Any], neck: Dict[str, Any], rpn_head: Dict[str, Any],
-                 bbox_head: Dict[str, Any], dtype: Optional[torch.dtype] = None,
-                 param_dtype: Optional[torch.dtype] = None, device=None):
+    def __init__(self, backbone: Dict[str, Any], neck: Dict[str, Any],
+                 dtype: Optional[torch.dtype] = None, param_dtype: Optional[torch.dtype] = None,
+                 device=None):
         super().__init__()
         self.dtype = dtype or torch.float32
         self.param_dtype = param_dtype or self.dtype
-        kw = dict(dtype=self.param_dtype, device=resolve_device(device))
-        self.backbone = BACKBONES.build(dict(backbone), **kw)
-        self.neck = NECKS.build(dict(neck), **kw)
-        self.rpn = HEADS.build(dict(rpn_head), **kw)
-        # the box head reads the neck's channels (flax infers them at init)
-        self.bbox_head = HEADS.build(dict(bbox_head), in_channels=neck["out_channels"], **kw)
+        self._device = resolve_device(device)
+        self.backbone = self._build(BACKBONES, backbone)
+        self.neck = self._build(NECKS, neck)
+        self._neck_channels = neck["out_channels"]
+
+    def _build(self, registry, cfg: Dict[str, Any], **kwargs) -> nn.Module:
+        return registry.build(dict(cfg), dtype=self.param_dtype, device=self._device, **kwargs)
+
+    def _build_roi_head(self, cfg: Dict[str, Any]) -> nn.Module:
+        """A box or mask head; it reads the neck's channels, as flax infers
+        them at init."""
+        return self._build(HEADS, cfg, in_channels=self._neck_channels)
 
     def _autocast(self, x: Tensor):
         return compute_autocast(x, self.dtype, self.param_dtype)
+
+    def roi_forward(self, roi_feats: Tensor) -> Tuple[Tensor, Tensor]:
+        """The box head on aligned (B, R, S, S, C) roi features."""
+        with self._autocast(roi_feats):
+            return self.bbox_head(roi_feats)
+
+
+@DETECTORS.register_module
+class TwoStageDetector(RoIDetector):
+    """backbone + neck + RPN head + RoI box head, named as the reference's
+    (``backbone``, ``neck``, ``rpn``, ``bbox_head``); ``RoIDetector``'s
+    dtypes and device."""
+
+    def __init__(self, backbone: Dict[str, Any], neck: Dict[str, Any], rpn_head: Dict[str, Any],
+                 bbox_head: Dict[str, Any], dtype: Optional[torch.dtype] = None,
+                 param_dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__(backbone, neck, dtype, param_dtype, device)
+        self.rpn = self._build(HEADS, rpn_head)
+        self.bbox_head = self._build_roi_head(bbox_head)
 
     def forward(self, images: Tensor):
         """(B, H, W, 3) -> (NHWC feats, per-level (B, H, W, A) RPN scores,
@@ -71,11 +95,6 @@ class TwoStageDetector(nn.Module):
             feats = self.neck(self.backbone(x))
             rpn_scores, rpn_deltas = self.rpn(feats)
         return feats, rpn_scores, rpn_deltas
-
-    def roi_forward(self, roi_feats: Tensor) -> Tuple[Tensor, Tensor]:
-        """Second stage on aligned (B, R, S, S, C) roi features."""
-        with self._autocast(roi_feats):
-            return self.bbox_head(roi_feats)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,32 +223,42 @@ class SampledRois(NamedTuple):
     reg_targets: Tensor  # (B, num, 4)
     is_pos: Tensor  # (B, num) bool
     is_valid: Tensor  # (B, num) bool
+    matched: Tensor  # (B, num) int64 index of the assigned gt, clamped into [0, G)
+    from_gt: Tensor  # (B, num) bool: sampled out of the appended gt block
 
 
 def sample_rois(
     cfg: FasterRCNNConfig,
-    proposals: Proposals,
+    boxes: Tensor,  # (B, P, 4) candidate boxes: proposals, or a cascade stage's refined rois
+    valid: Tensor,  # (B, P) bool
     gt_boxes: Tensor,  # (B, G, 4)
     gt_labels: Tensor,  # (B, G)
     gt_valid: Tensor,  # (B, G)
     noise: Noise,
+    assigner: Optional[MaxIoUAssigner] = None,
+    target_stds: Optional[Tuple[float, float, float, float]] = None,
 ) -> SampledRois:
-    """The second stage's roi slate: the proposals plus the gt (which
-    guarantee positives early on), assigned and sampled."""
-    cand = torch.cat([proposals.boxes, gt_boxes.to(proposals.boxes.dtype)], dim=1)
-    cand_valid = torch.cat([proposals.valid, gt_valid], dim=1)
-    assign = cfg.rcnn_assigner(cand, gt_boxes, gt_valid, gt_labels, anchor_valid=cand_valid)
+    """The second stage's roi slate: the candidates plus the gt (which
+    guarantee positives early on), assigned by ``assigner`` (default
+    ``cfg.rcnn_assigner``) and sampled, ``min(rcnn_num_samples, P + G)`` an
+    image; regression targets normalised by ``target_stds`` (default
+    ``cfg.rcnn_target_stds``)."""
+    assigner = assigner or cfg.rcnn_assigner
+    target_stds = target_stds or cfg.rcnn_target_stds
+    cand = torch.cat([boxes, gt_boxes.to(boxes.dtype)], dim=1)
+    cand_valid = torch.cat([valid, gt_valid], dim=1)
+    assign = assigner(cand, gt_boxes, gt_valid, gt_labels, anchor_valid=cand_valid)
     pos = assign.assigned_gt_inds > 0
     neg = assign.assigned_gt_inds == 0
-    idx, is_pos, is_valid = _sample_fixed(pos, neg, cfg.rcnn_num_samples, cfg.rcnn_pos_fraction,
+    num = min(cfg.rcnn_num_samples, cand.shape[1])
+    idx, is_pos, is_valid = _sample_fixed(pos, neg, num, cfg.rcnn_pos_fraction,
                                           *noise(tuple(pos.shape)))
     rois = _take(cand, idx)
     labels = _take(assign.labels, idx)
     labels = torch.where(is_pos, labels, torch.zeros_like(labels))
     safe_gt = (_take(assign.assigned_gt_inds, idx).long() - 1).clamp(0, gt_boxes.shape[1] - 1)
-    reg_t = bbox2delta(rois, _take(gt_boxes, safe_gt), cfg.rcnn_target_means,
-                       cfg.rcnn_target_stds)
-    return SampledRois(rois, labels, reg_t, is_pos, is_valid)
+    reg_t = bbox2delta(rois, _take(gt_boxes, safe_gt), cfg.rcnn_target_means, target_stds)
+    return SampledRois(rois, labels, reg_t, is_pos, is_valid, safe_gt, idx >= boxes.shape[1])
 
 
 def rcnn_losses(
@@ -267,6 +296,22 @@ def _faster_rcnn_loss_core(
     ``batch``: ``image`` (B, H, W, 3), ``gt_boxes`` (B, G, 4), ``gt_labels``
     (B, G) 1-based, ``gt_valid`` (B, G), and optionally ``img_shape`` (B, 2).
     ``noise`` is called twice: for the RPN's anchors, then for the rois."""
+    gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    losses, feats, proposals = _rpn_stage(cfg, model, batch, noise)
+    sampled = sample_rois(cfg, proposals.boxes, proposals.valid, *gt, noise)
+    roi_feats = roi_features(cfg, feats, sampled.rois)
+    rcnn_cls_l, rcnn_reg_l = rcnn_losses(cfg, *model.roi_forward(roi_feats), sampled)
+    losses = dict(losses, loss=losses["loss"] + rcnn_cls_l + rcnn_reg_l, loss_rcnn_cls=rcnn_cls_l,
+                  loss_rcnn_reg=rcnn_reg_l, num_pos_rois=sampled.is_pos.float().sum())
+    return losses, feats, proposals
+
+
+def _rpn_stage(
+    cfg: FasterRCNNConfig, model: TwoStageDetector, batch: Dict[str, Tensor], noise: Noise
+) -> Tuple[Dict[str, Tensor], Tuple[Tensor, ...], Proposals]:
+    """The forward, the RPN's losses (``loss`` their sum, ``loss_rpn_cls``,
+    ``loss_rpn_reg``; ``noise`` called once, for the anchors) and the
+    training proposals, which carry no gradient back into the RPN."""
     gt_boxes, gt_labels, gt_valid = batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"]
     feats, rpn_scores, rpn_deltas = model(batch["image"])
     featmap_sizes = [tuple(s.shape[1:3]) for s in rpn_scores]
@@ -274,31 +319,24 @@ def _faster_rcnn_loss_core(
     flat_rpn_s, flat_rpn_d = flatten_rpn_outputs(rpn_scores, rpn_deltas)
     rpn_cls_l, rpn_reg_l = rpn_losses(cfg, anchors, flat_rpn_s, flat_rpn_d, gt_boxes, gt_labels,
                                       gt_valid, noise)
-
-    # stage 2 on proposals that carry no gradient back into the RPN
     proposals = generate_proposals(
         cfg.proposal_train, cfg.anchor_generator, [s.detach() for s in rpn_scores],
         [d.detach() for d in rpn_deltas], batch.get("img_shape"),
     )
-    sampled = sample_rois(cfg, proposals, gt_boxes, gt_labels, gt_valid, noise)
-    roi_feats = batched_multilevel_roi_align(
-        list(feats[: len(cfg.roi_strides)]), sampled.rois, cfg.roi_strides, cfg.roi_size,
+    loss_rpn_cls, loss_rpn_reg = rpn_cls_l.mean(), rpn_reg_l.mean()
+    losses = {"loss": loss_rpn_cls + loss_rpn_reg, "loss_rpn_cls": loss_rpn_cls,
+              "loss_rpn_reg": loss_rpn_reg}
+    return losses, feats, proposals
+
+
+def roi_features(cfg, feats: Sequence[Tensor], rois: Tensor, out_size: Optional[int] = None) -> Tensor:
+    """(B, R, S, S, C) RoIAlign of ``rois`` on the levels of ``cfg.roi_strides``
+    (K1, and K2 in the backward), at ``cfg.roi_size`` unless ``out_size``;
+    the levels keep their dtype and the kernel accumulates in float32."""
+    return batched_multilevel_roi_align(
+        list(feats[: len(cfg.roi_strides)]), rois, cfg.roi_strides, out_size or cfg.roi_size,
         finest_scale=cfg.finest_scale,
     )
-    cls_logits, reg_pred = model.roi_forward(roi_feats)
-    rcnn_cls_l, rcnn_reg_l = rcnn_losses(cfg, cls_logits, reg_pred, sampled)
-
-    loss_rpn_cls = rpn_cls_l.mean()
-    loss_rpn_reg = rpn_reg_l.mean()
-    losses = {
-        "loss": loss_rpn_cls + loss_rpn_reg + rcnn_cls_l + rcnn_reg_l,
-        "loss_rpn_cls": loss_rpn_cls,
-        "loss_rpn_reg": loss_rpn_reg,
-        "loss_rcnn_cls": rcnn_cls_l,
-        "loss_rcnn_reg": rcnn_reg_l,
-        "num_pos_rois": sampled.is_pos.float().sum(),
-    }
-    return losses, feats, proposals
 
 
 def faster_rcnn_inference(
@@ -310,6 +348,12 @@ def faster_rcnn_inference(
 ) -> NMSResult:
     """Proposals -> RoIAlign -> box head -> per-class decode + NMS, padded."""
     res, _ = _faster_rcnn_inference_core(cfg, model, images, img_shapes)
+    return undo_scale(res, scale_factors)
+
+
+def undo_scale(res: NMSResult, scale_factors: Optional[Tensor]) -> NMSResult:
+    """Detections in the original frame: the boxes divided by each image's
+    (B,) or (B, 4) scale factors."""
     if scale_factors is None:
         return res
     b = res.boxes.shape[0]
@@ -328,23 +372,35 @@ def _faster_rcnn_inference_core(
     proposals = generate_proposals(
         cfg.proposal_test, cfg.anchor_generator, rpn_scores, rpn_deltas, img_shapes
     )
-    roi_feats = batched_multilevel_roi_align(
-        list(feats[: len(cfg.roi_strides)]),  # native dtype; the kernel accumulates f32
-        proposals.boxes, cfg.roi_strides, cfg.roi_size, finest_scale=cfg.finest_scale,
-    )
-    cls_logits, reg_pred = model.roi_forward(roi_feats)
+    return rcnn_detections(cfg, model, feats, proposals.boxes, proposals.valid, img_shapes), feats
+
+
+def rcnn_detections(
+    cfg: FasterRCNNConfig,
+    model: nn.Module,
+    feats: Sequence[Tensor],
+    rois: Tensor,  # (B, R, 4)
+    valid: Tensor,  # (B, R) bool
+    img_shapes: Optional[Tensor] = None,
+) -> NMSResult:
+    """RoIAlign -> box head -> per-class decode + NMS on ``rois``, in the
+    network's frame; rois outside ``valid`` score 0."""
+    cls_logits, reg_pred = model.roi_forward(roi_features(cfg, feats, rois))
     probs = torch.softmax(cls_logits.float(), dim=-1)[..., 1:]  # drop background
     b, r = probs.shape[:2]
-
-    boxes = delta2bbox(proposals.boxes, reg_pred.float(), cfg.rcnn_target_means,
-                       cfg.rcnn_target_stds)
+    boxes = delta2bbox(rois, reg_pred.float(), cfg.rcnn_target_means, cfg.rcnn_target_stds)
     if boxes.shape[-1] != 4:  # class-specific -> (B, R, C, 4)
         boxes = boxes.reshape(b, r, -1, 4)
     if img_shapes is not None:
         boxes = clip_boxes(boxes, img_shapes)
-    scores = torch.where(proposals.valid[..., None], probs, torch.zeros_like(probs))
-    res = multiclass_nms(
+    return class_nms(cfg, boxes, probs, valid)
+
+
+def class_nms(cfg, boxes: Tensor, probs: Tensor, valid: Tensor) -> NMSResult:
+    """Per-class NMS of (B, R, C) foreground ``probs`` on (B, R, 4) or
+    (B, R, C, 4) boxes, rois outside ``valid`` scoring 0."""
+    scores = torch.where(valid[..., None], probs, torch.zeros_like(probs))
+    return multiclass_nms(
         boxes, scores, iou_thr=cfg.nms_iou_thr, score_thr=cfg.score_thr,
-        pre_nms_top_k=min(1000, r * probs.shape[-1]), max_out=cfg.max_detections,
+        pre_nms_top_k=min(1000, probs.shape[1] * probs.shape[2]), max_out=cfg.max_detections,
     )
-    return res, feats
