@@ -89,7 +89,25 @@ Phases, each fatal on failure:
    step, images/s, peak memory, one profiled step, a stage breakdown and
    the assignment's peak memory;
 17. the RetinaNet training path on the GPU against the CPU, float32, on a
-   small canvas: the losses and every parameter's gradient.
+   small canvas: the losses and every parameter's gradient;
+18. Cascade R-CNN, Cascade Mask R-CNN and Fast R-CNN R50-FPN served and
+   trained through the same entry points, K1 and K2 counted on each, K2 held
+   to its plain version on a cascade step's stage-3 slates, and each
+   family's stages against the CPU;
+19. the Hungarian matcher kernel against its plain version, bit for bit,
+   right after the RoIAlign edge phase: a training step's shape (48
+   problems of 100 x 100, 1-20 valid rows), the full slate, integer costs
+   full of ties, NaN and +-inf entries; totals against scipy's;
+20. Sparse R-CNN R50-FPN (configs/sparse_rcnn_r50_fpn_coco.py) served like
+   the cascade (K1 six times a batch, K2 and the matcher never), a stage
+   breakdown for each of its six stages;
+21. the Sparse R-CNN path on the GPU against the CPU, float32: each stage on
+   equal inputs, the top-k decode, the losses under one matching and the
+   gradients into the levels and both proposal parameters;
+22. Sparse R-CNN training, b8 with the config's AdamW through ``Trainer``:
+   K1 and K2 six times a step and the matcher once, every parameter group
+   moved; then K2 on the step's stage-0 and stage-5 slates and the matcher
+   on the step's own costs, each against its plain version and its bound.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -121,7 +139,12 @@ from torch_detection_tpu_torch.builder import (
 from torch_detection_tpu_torch.engine import Trainer, make_inference_fn
 from torch_detection_tpu_torch.models.backbones.resnet import space_to_depth_2x2
 from torch_detection_tpu_torch.models.inits import init_weights
-from torch_detection_tpu_torch.models.detectors import FastRCNNConfig, MaskRCNNConfig, sampling_noise
+from torch_detection_tpu_torch.models.detectors import (
+    FastRCNNConfig,
+    MaskRCNNConfig,
+    decode_sparse_rcnn,
+    sampling_noise,
+)
 from torch_detection_tpu_torch.models.detectors.cascade_rcnn import (
     _cascade_rcnn_loss_core,
     next_candidates,
@@ -134,6 +157,12 @@ from torch_detection_tpu_torch.models.detectors.single_stage import (
     retina_targets,
 )
 from torch_detection_tpu_torch.models.detectors.mask_rcnn import sample_mask_rois
+from torch_detection_tpu_torch.models.detectors.sparse_rcnn import (
+    match,
+    matching_cost,
+    set_losses,
+    set_targets,
+)
 from torch_detection_tpu_torch.models.detectors.two_stage import (
     _faster_rcnn_inference_core,
     class_nms,
@@ -149,6 +178,7 @@ from torch_detection_tpu_torch.models.heads.mask_head import (
     mask_targets_for_rois,
     select_class,
 )
+from torch_detection_tpu_torch.ops import hungarian
 from torch_detection_tpu_torch.ops import nms as nms_ops
 from torch_detection_tpu_torch.ops import roi_align
 from torch_detection_tpu_torch.ops.boxes import clip_boxes, delta2bbox
@@ -168,6 +198,7 @@ RETINA_CONFIG = ROOT / "configs" / "retinanet_r50_fpn_coco.py"
 CASCADE_CONFIG = ROOT / "configs" / "cascade_rcnn_r50_fpn_coco.py"
 CASCADE_MASK_CONFIG = ROOT / "configs" / "cascade_mask_rcnn_r50_fpn_coco.py"
 FAST_CONFIG = ROOT / "configs" / "fast_rcnn_r50_fpn_coco.py"
+SPARSE_CONFIG = ROOT / "configs" / "sparse_rcnn_r50_fpn_coco.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
@@ -182,6 +213,7 @@ OUT_SIZE, RATIO = 7, 2
 WARMUP_BATCHES, TIMED_BATCHES = 2, 10
 BENCH_BATCH, BENCH_TIMED_BATCHES = 48, 5  # bench.py's serving batch
 RETINA_TRAIN_BATCH = 8  # the RetinaNet config's sample_per_replica
+SPARSE_TRAIN_BATCH = 8  # the Sparse R-CNN config's, inherited from the RetinaNet base
 
 
 def log(*args) -> None:
@@ -591,13 +623,15 @@ def phase_model(card: str) -> dict:
     ms, results = timed_batches(lambda: infer(next(timed), img_shape, scale), TIMED_BATCHES)
     launches = roi_align.multilevel_roi_align_cuda.launches
     bwd_launches = roi_align.multilevel_roi_align_backward_cuda.launches
+    matcher = hungarian.batched_linear_sum_assignment_cuda.launches
     syncs = nms_ops.suppress_syncs() - syncs0
 
     log(f"serving path: {TIMED_BATCHES} batches, K1 launches {launches}, K2 launches "
-        f"{bwd_launches}, NMS fixpoint syncs {syncs / TIMED_BATCHES:.1f} a batch")
-    if launches != TIMED_BATCHES or bwd_launches != 0:
-        raise AssertionError(f"expected one K1 launch a batch and no K2 launch, got {launches} "
-                             f"and {bwd_launches}")
+        f"{bwd_launches}, matcher launches {matcher}, NMS fixpoint syncs "
+        f"{syncs / TIMED_BATCHES:.1f} a batch")
+    if launches != TIMED_BATCHES or bwd_launches != 0 or matcher != 0:
+        raise AssertionError(f"expected one K1 launch a batch and no K2 or matcher launch, got "
+                             f"{launches}, {bwd_launches} and {matcher}")
     for res in results:
         check_detections(res, det_cfg, BATCH, h, w)
     mean_ms = sum(ms) / len(ms)
@@ -618,7 +652,7 @@ def phase_model(card: str) -> dict:
         check_bf16("roi_align on the main path's levels and proposals", got, want)
     stage_breakdown(model, det_cfg, images[1], img_shape, card)
     device_profile(lambda: infer(images[1], img_shape, scale), mean_ms, card)
-    return dict(launches=launches, bwd_launches=bwd_launches, ms_per_batch=mean_ms)
+    return dict(launches=launches, bwd_launches=bwd_launches, matcher=matcher, ms_per_batch=mean_ms)
 
 
 def check_detections(res, det_cfg, batch: int, h: int, w: int) -> None:
@@ -868,10 +902,13 @@ def phase_train(card: str) -> dict:
     seconds = time.perf_counter() - t0
     k1 = roi_align.multilevel_roi_align_cuda.launches
     k2 = roi_align.multilevel_roi_align_backward_cuda.launches
+    matcher = hungarian.batched_linear_sum_assignment_cuda.launches
 
-    log(f"training path: {TIMED_BATCHES} steps, K1 launches {k1}, K2 launches {k2}")
-    if k1 != TIMED_BATCHES or k2 != TIMED_BATCHES:
-        raise AssertionError(f"expected one K1 and one K2 launch a step, got {k1} and {k2}")
+    log(f"training path: {TIMED_BATCHES} steps, K1 launches {k1}, K2 launches {k2}, matcher "
+        f"launches {matcher}")
+    if k1 != TIMED_BATCHES or k2 != TIMED_BATCHES or matcher != 0:
+        raise AssertionError(f"expected one K1 and one K2 launch a step and no matcher launch, "
+                             f"got {k1}, {k2} and {matcher}")
     if len(history) != TIMED_BATCHES or trainer.skipped_steps:
         raise AssertionError(f"{len(history)} steps logged, {trainer.skipped_steps} skipped")
     for h in history:
@@ -896,7 +933,7 @@ def phase_train(card: str) -> dict:
         + f"; positive rois a step {[int(h['num_pos_rois']) for h in history]}")
     device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
     train_stage_breakdown(model, det_cfg, optimizer, batches[-1], card)
-    return dict(k1=k1, k2=k2, ms_per_step=mean_ms, model=model, det_cfg=det_cfg,
+    return dict(k1=k1, k2=k2, matcher=matcher, ms_per_step=mean_ms, model=model, det_cfg=det_cfg,
                 batch=batches[-1])
 
 
@@ -1055,18 +1092,21 @@ def phase_train_reference() -> None:
 
 
 def reset_launches() -> None:
-    for fn in (roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align_backward_cuda):
+    for fn in (roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align_backward_cuda,
+               hungarian.batched_linear_sum_assignment_cuda):
         fn.launches = 0
 
 
 def read_launches() -> dict:
     return dict(k1=roi_align.multilevel_roi_align_cuda.launches,
-                k2=roi_align.multilevel_roi_align_backward_cuda.launches)
+                k2=roi_align.multilevel_roi_align_backward_cuda.launches,
+                matcher=hungarian.batched_linear_sum_assignment_cuda.launches)
 
 
-def expect_launches(path: str, got: dict, k1: int, k2: int) -> None:
-    if got != dict(k1=k1, k2=k2):
-        raise AssertionError(f"{path}: launches {got}; expected K1 {k1} and K2 {k2}")
+def expect_launches(path: str, got: dict, k1: int, k2: int, matcher: int = 0) -> None:
+    if got != dict(k1=k1, k2=k2, matcher=matcher):
+        raise AssertionError(f"{path}: launches {got}; expected K1 {k1}, K2 {k2} and the "
+                             f"matcher {matcher}")
 
 
 def kernel_at(name: str, kernel, plain, args, check, in_bytes: int, out_bytes: int,
@@ -1782,12 +1822,15 @@ def rcnn_serving_batches(gen: torch.Generator, proposals: bool):
     return batches
 
 
-def phase_rcnn_serving(card: str, path: str, config: Path, segm: bool, k1: int,
-                       seed: int) -> dict:
+def phase_rcnn_serving(card: str, path: str, config: Path, segm: bool, k1: int, seed: int,
+                       check, breakdown) -> dict:
     """Full-width serving of ``config``'s detector, b4 800x1216 bf16 through
     ``make_inference_fn``: 2 warm-up and 10 timed batches, K1 launched
-    ``k1`` times a batch and K2 never, the detections (and masks) checked, a
-    stage breakdown and one profiled batch."""
+    ``k1`` times a batch and K2 and the matcher never, each batch's results
+    held to ``check(res, det_cfg)``, then ``breakdown(path, model, det_cfg,
+    args, card)`` on the second batch (a stage breakdown; what it returns
+    joins the result) and one profiled batch. Serves Cascade (Mask), Fast
+    and Sparse R-CNN."""
     model, det_cfg = load_model("bfloat16", "cuda", config)
     infer = make_inference_fn(model, det_cfg, segm=segm)
     fast = isinstance(det_cfg, FastRCNNConfig)
@@ -1802,23 +1845,24 @@ def phase_rcnn_serving(card: str, path: str, config: Path, segm: bool, k1: int,
     launches = read_launches()
     log(f"{path} path: {TIMED_BATCHES} batches, launches {launches}")
     expect_launches(path, launches, k1 * TIMED_BATCHES, 0)
-    h, w = CANVAS
     for res in results:
-        if segm:
-            check_mask_detections(res, det_cfg)
-        else:
-            check_detections(res, det_cfg, BATCH, h, w)
+        check(res, det_cfg)
     mean_ms = sum(ms) / len(ms)
     log(f"{path} path: ms a batch {[round(t, 3) for t in ms]}, mean {mean_ms:.3f} ms, "
         f"{BATCH / (mean_ms / 1e3):.2f} images/s, median {statistics.median(ms):.3f} ms [{card}]; "
         f"valid detections an image {results[-1].valid.sum(1).tolist()}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    rcnn_stage_breakdown(path, model, det_cfg, segm, batches[1], card)
+    extra = breakdown(path, model, det_cfg, batches[1], card) or {}
     device_profile(lambda: infer(*batches[1]), mean_ms, card)
-    return dict(launches=launches, ms_per_batch=mean_ms)
+    return dict(launches=launches, ms_per_batch=mean_ms, **extra)
 
 
-def rcnn_stage_breakdown(path: str, model, det_cfg, segm: bool, args, card: str,
+def check_box_detections(res, det_cfg) -> None:
+    """``check_detections`` on a b4 batch of the full canvas."""
+    check_detections(res, det_cfg, BATCH, *CANVAS)
+
+
+def rcnn_stage_breakdown(path: str, model, det_cfg, args, card: str, segm: bool = False,
                          repeats: int = 5) -> None:
     """A Cascade (Mask) or Fast R-CNN serving batch stage by stage, a device
     sync between stages; the median host ms of each over ``repeats``."""
@@ -2146,6 +2190,430 @@ def phase_fast_reference() -> None:
         f"{int(ng.valid.sum())} detections): " + "; ".join(checks))
 
 
+def matcher_inputs(gen: torch.Generator, kind: str, problems: int = 48, rows: int = MAX_GTS,
+                   cols: int = 100):
+    """Seeded (problems, rows, cols) float32 costs and (problems, rows) row
+    validity for ``phase_hungarian``: ``step`` normal costs with 1-20 valid
+    rows, ``full`` every row valid, ``ties`` integer costs 0-3 with 1-100
+    valid rows, ``nonfinite`` normal costs with NaN and +-inf entries and
+    rows made of them."""
+    device = torch.device("cuda")
+    shape = (problems, rows, cols)
+    if kind == "ties":
+        cost = torch.randint(0, 4, shape, generator=gen, device=device).float()
+    else:
+        cost = torch.randn(shape, generator=gen, device=device) * 3.0
+    top = {"step": 21, "full": rows + 1, "ties": rows + 1, "nonfinite": 21}[kind]
+    low = rows if kind == "full" else 1
+    num = torch.randint(low, top, (problems, 1), generator=gen, device=device)
+    valid = torch.arange(rows, device=device)[None, :] < num
+    if kind == "nonfinite":
+        u = torch.rand(shape, generator=gen, device=device)
+        cost = torch.where(u < 0.02, float("nan"), cost)
+        cost = torch.where((u >= 0.02) & (u < 0.04), float("inf"), cost)
+        cost = torch.where((u >= 0.04) & (u < 0.05), float("-inf"), cost)
+        cost[:, 1] = float("nan")  # a row of NaN, one of +inf, one of -inf
+        cost[:, 2] = float("inf")
+        cost[:, 3, : cols // 2] = float("-inf")
+    return cost, valid
+
+
+def scipy_totals(cost: torch.Tensor, valid: torch.Tensor, col4row: torch.Tensor):
+    """Per problem, the total of ``col4row`` and scipy's optimal total on the
+    valid rows (float64 sums of the float32 costs), and scipy's host ms for
+    all the problems."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+    cost, valid, col4row = cost.cpu().numpy(), valid.cpu().numpy(), col4row.cpu().numpy()
+    ours, theirs, seconds = [], [], 0.0
+    for c, v, cols in zip(cost, valid, col4row):
+        sub = c[v].astype(np.float64)
+        t0 = time.perf_counter()
+        r, k = scipy_lsa(sub)
+        seconds += time.perf_counter() - t0
+        ours.append(sub[np.arange(len(sub)), cols[v]].sum())
+        theirs.append(sub[r, k].sum())
+    return np.array(ours), np.array(theirs), seconds * 1e3
+
+
+def hungarian_at(name: str, cost: torch.Tensor, valid: torch.Tensor, time_plain: bool,
+                 finite: bool = True) -> dict:
+    """The matcher kernel against its plain version on the same (P, G, Q)
+    costs (the plain version on the CPU copy, the same float32 adds and
+    compares): ``col4row`` bit for bit; on finite costs each problem's total
+    equal to scipy's optimum. The kernel's time, the plain version's on the
+    card where ``time_plain``, scipy's host time for context, and the bound:
+    the costs read once over the HBM rate, against the operations the data
+    needs (5 a column a Dijkstra step, counted by the plain version)."""
+    kernel = hungarian.batched_linear_sum_assignment_cuda
+    plain = hungarian.linear_sum_assignment_plain
+    got = kernel(cost, valid)
+    torch.cuda.synchronize()
+    steps0 = plain.dijkstra_steps
+    want = plain(cost.cpu(), valid.cpu())
+    steps = plain.dijkstra_steps - steps0
+    bad = int((got.cpu() != want).any(dim=1).sum())
+    if bad:
+        raise AssertionError(f"{name}: col4row differs from the plain version in {bad} problems")
+    col_err = float((got.cpu() - want).abs().max()) if want.numel() else 0.0
+    rows = int(valid.sum())
+    err = 0.0
+    scipy_ms = None
+    if finite:
+        ours, theirs, scipy_ms = scipy_totals(cost, valid, got)
+        err = float(np.abs(ours - theirs).max())
+        limit = 1e-4 * max(1.0, float(np.abs(theirs).max()))
+        if not err <= limit:
+            raise AssertionError(f"{name}: totals differ from scipy's by {err} (limit {limit})")
+    ms = cuda_ms(lambda: kernel(cost, valid), iters=20)
+    plain_ms = cuda_ms(lambda: plain(cost, valid), iters=1, warmup=0) if time_plain else None
+    p, g, q = cost.shape
+    flops = 5 * q * steps + 3 * (g + q) * rows
+    result = dict(max_abs_err=col_err, ms=ms, plain_ms=plain_ms,
+                  **bound(name, cost.numel() * 4 + valid.numel(), got.numel() * 4, flops),
+                  valid_rows=rows, dijkstra_steps=steps, scipy_host_ms=scipy_ms)
+    log(f"{name}: {p} problems of {g} x {q}, {rows} valid rows, {steps} Dijkstra steps; col4row "
+        f"equal to the plain version's in every problem"
+        + (f", totals within {err:.2e} of scipy's" if finite else "")
+        + f"; kernel {ms:.4f} ms, plain "
+        + (f"{plain_ms:.1f} ms" if plain_ms is not None else "not timed")
+        + (f", scipy on the host {scipy_ms:.2f} ms (context, not a yardstick)" if finite else "")
+        + ", library_ms none")
+    return result
+
+
+def phase_hungarian() -> dict:
+    """The matcher kernel against its plain version: a training step's shape
+    (48 problems of 100 x 100, 1-20 valid gts), the full slate (100 valid
+    gts, its worst case), integer costs full of ties, and NaN and +-inf
+    entries and rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    out = {}
+    for kind in ("step", "full", "ties", "nonfinite"):
+        cost, valid = matcher_inputs(gen, kind)
+        out[kind] = hungarian_at(f"hungarian, {kind} costs", cost, valid, time_plain=kind == "step",
+                                 finite=kind != "nonfinite")
+    # without row_valid every row is matched, the NaN and inf rows too
+    got = hungarian.batched_linear_sum_assignment_cuda(cost)
+    if not torch.equal(got.cpu(), hungarian.linear_sum_assignment_plain(cost.cpu())):
+        raise AssertionError("hungarian without row_valid differs from the plain version")
+    log("hungarian, nonfinite costs without row_valid: col4row equal to the plain version's")
+    return out
+
+
+def check_sparse_detections(res, det_cfg) -> None:
+    """``check_detections``' checks, and at ``score_thr`` 0 every slot
+    valid with a query id among the proposals."""
+    h, w = CANVAS
+    check_detections(res, det_cfg, BATCH, h, w)
+    if not bool(res.valid.all()):
+        raise AssertionError("an invalid detection at score_thr 0")
+    if not bool(((res.indices >= 0) & (res.indices < det_cfg.num_proposals)).all()):
+        raise AssertionError("a query id outside the proposals")
+
+
+def sparse_stage_breakdown(path: str, model, det_cfg, args, card: str, repeats: int = 5) -> None:
+    """A Sparse R-CNN serving batch stage by stage, a device sync between
+    stages: the backbone and FPN, then for each stage K1, the attention, the
+    dynamic conv, the FFN and heads and the box decode, then the top-k
+    decode; the median host ms of each over ``repeats``. Returns the last
+    repeat's levels and each stage's input boxes."""
+    images, img_shape = args[:2]
+    times = {}
+    stage = stage_timer(times)
+    with torch.inference_mode():
+        for _ in range(repeats):
+            feats = stage("backbone+fpn", lambda: model.features(images))
+            boxes, obj = stage("initial slate", lambda: model.initial_slate(feats, img_shape))
+            slates = []
+            for t in range(model.num_stages):
+                slates.append(boxes)
+                head = model.get_submodule(f"stage{t}")
+                roi = stage(f"stage {t} roi_align K1", lambda: model.roi_features(feats, boxes))
+                with model._autocast(roi):
+                    obj = stage(f"stage {t} attention", lambda: head.attention(obj))
+                    obj = stage(f"stage {t} dynamic conv", lambda: head.interaction(roi, obj))
+                    obj, cls, deltas = stage(f"stage {t} ffn and heads",
+                                             lambda: head.ffn_and_heads(obj))
+                boxes = stage(f"stage {t} box decode", lambda: model.refine(boxes, deltas))
+            stage("top-k decode", lambda: decode_sparse_rcnn(det_cfg, cls[None], boxes[None],
+                                                             img_shape, args[2]))
+    log_breakdown(f"{path} stage breakdown, median of {repeats} batches", times, card)
+    return feats, slates
+
+
+def sparse_rois(what: str, model, boxes: torch.Tensor):
+    """A Sparse R-CNN stage's continuous xyxy ``boxes`` (B, N, 4) as the
+    inclusive rois ``roi_features`` gives the kernels, and their routed
+    levels; logs how many land on each level."""
+    rois = torch.cat([boxes[..., :2], boxes[..., 2:] - 1.0], dim=-1).detach().contiguous()
+    routed = roi_align.map_rois_to_levels(rois, len(model.roi_strides), model.finest_scale)
+    log(f"{what}: the batch's {routed.numel()} rois on P2-P5 "
+        f"{[int((routed == l).sum()) for l in range(len(model.roi_strides))]}")
+    return rois, routed
+
+
+def sparse_k1_at(what: str, model, maps, rois: torch.Tensor, routed: torch.Tensor) -> dict:
+    """K1 against its plain version on a Sparse R-CNN stage's rois and
+    routed levels (``sparse_rois``) and the levels ``maps`` (bf16 within
+    one ulp, float32 within F32_ATOL), timed against its bound."""
+    b, n = rois.shape[:2]
+    m = model.roi_size
+    check = check_bf16 if maps[0].dtype == torch.bfloat16 else check_f32
+    return kernel_at(f"roi_align_fwd on {what} ({n} rois an image), out {m}",
+                     roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align,
+                     (maps, rois, routed, model.roi_strides, m), check,
+                     touched_bytes(maps, rois, m) + rois.numel() * 4 + routed.numel() * 4,
+                     b * n * m * m * CHANNELS * maps[0].element_size(),
+                     2 * 4 * b * n * (m * RATIO) ** 2 * CHANNELS)
+
+
+def sparse_serving_breakdown(path: str, model, det_cfg, args, card: str) -> dict:
+    """``sparse_stage_breakdown``, then K1 against its plain version on the
+    batch's own bf16 levels and its stage-0 slate (every roi the whole
+    image, so all on P5) and last-stage slate."""
+    feats, slates = sparse_stage_breakdown(path, model, det_cfg, args, card)
+    maps = list(feats[: len(model.roi_strides)])
+    out = {}
+    with torch.inference_mode():
+        for t in (0, model.num_stages - 1):
+            what = f"a sparse serving batch's stage-{t} slate"
+            out[f"k1_stage{t}"] = sparse_k1_at(what, model, maps,
+                                               *sparse_rois(what, model, slates[t]))
+    return out
+
+
+def sparse_train_forward(model, det_cfg, batch):
+    """A Sparse R-CNN training forward stage by stage, as the model's:
+    the FPN levels, each stage's input boxes and roi features (which keep
+    their gradient), the stacked logits and boxes, and the losses."""
+    shapes = batch["img_shape"]
+    feats = model.features(batch["image"])
+    boxes, obj = model.initial_slate(feats, shapes)
+    slates, roi_feats, logits, outs = [], [], [], []
+    for t in range(model.num_stages):
+        if t:
+            boxes = boxes.detach()
+        roi = model.roi_features(feats, boxes)
+        roi.retain_grad()
+        obj, cls, deltas = model.stage_forward(t, roi, obj)
+        slates.append(boxes.detach())
+        roi_feats.append(roi)
+        boxes = model.refine(boxes, deltas)
+        logits.append(cls)
+        outs.append(boxes)
+    cls, boxes = torch.stack(logits), torch.stack(outs)
+    gt_xyxy, whwh = set_targets(batch["gt_boxes"], batch["gt_valid"], shapes)
+    cost = matching_cost(det_cfg, cls, boxes, gt_xyxy, batch["gt_labels"], whwh)
+    col4row = match(cost, batch["gt_valid"])
+    losses = set_losses(det_cfg, cls, boxes, gt_xyxy, batch["gt_labels"], batch["gt_valid"], whwh,
+                        col4row)
+    return feats, slates, roi_feats, cost, losses
+
+
+def phase_sparse_train(card: str) -> dict:
+    """Full-width Sparse R-CNN R50-FPN training, float32 parameters and bf16
+    compute, b8 on the 800 x 1216 canvas, AdamW, through the entry points a
+    user calls: 2 warm-up and 10 timed steps, K1 and K2 six times a step and
+    the matcher once, finite losses, no step skipped, every parameter group
+    moved (the proposal boxes among them) and no frozen parameter; one
+    profiled step."""
+    cfg = Config.fromfile(SPARSE_CONFIG)
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
+    if not isinstance(optimizer.torch_optimizer, torch.optim.AdamW):
+        raise AssertionError(f"the config's optimizer built {type(optimizer.torch_optimizer)}")
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    batches = [train_batch(gen, SPARSE_TRAIN_BATCH) for _ in range(steps)]
+    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"sparse training path: {TIMED_BATCHES} steps, launches {launches}")
+    s = model.num_stages
+    expect_launches("sparse training", launches, s * TIMED_BATCHES, s * TIMED_BATCHES,
+                    TIMED_BATCHES)
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"{len(history)} steps logged, {trainer.skipped_steps} skipped")
+    keys = ("loss", "loss_cls", "loss_l1", "loss_giou")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in keys) or not h["num_pos"] > 0:
+            raise AssertionError(f"non-finite loss or no gt at step {h['step']}: {h}")
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    groups = sorted({n.split(".")[0] for n in trainable})
+    still_groups = [g for g in groups if not any(n.split(".")[0] == g for n in moved)]
+    frozen_moved = [n for n, p in model.named_parameters() if not p.requires_grad and n in moved]
+    still = [n for n in trainable if n not in moved]
+    log(f"sparse training path: {len(moved)} of {len(trainable)} trainable parameter tensors moved "
+        f"in the groups {groups}; those that did not: {still}")
+    if still_groups or frozen_moved or "proposal_boxes" not in moved:
+        raise AssertionError(f"groups that did not move {still_groups}; frozen parameters that "
+                             f"moved {frozen_moved}")
+    b = SPARSE_TRAIN_BATCH
+    step_ms = [b / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    log(f"sparse training path b{b}: ms a step {[round(t, 3) for t in step_ms]}, mean "
+        f"{mean_ms:.3f} ms, {b / (mean_ms / 1e3):.2f} images/s, median "
+        f"{statistics.median(step_ms):.3f} ms [{card}]; skipped steps {trainer.skipped_steps}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses first "
+        + ", ".join(f"{k} {history[0][k]:.4f}" for k in keys)
+        + "; last " + ", ".join(f"{k} {history[-1][k]:.4f}" for k in keys)
+        + f"; gts an image {history[0]['num_pos']:.2f}")
+    device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    return dict(launches=launches, ms_per_step=mean_ms, model=model, det_cfg=det_cfg,
+                batch=batches[-1])
+
+
+def phase_sparse_step_data(model, det_cfg, batch) -> dict:
+    """K1 and K2 against their plain versions on a training step's own
+    stage-0 slate (every roi the whole image, so all on P5) and its stage-5
+    slate, on the step's bf16 levels; K2 with each stage's
+    cotangent scaled by a power of two to a largest value in [1, 2), bitwise
+    equal twice; and the matcher kernel against its plain version on the
+    step's own (48, 100, 100) costs. Each timed against its bound."""
+    feats, slates, roi_feats, cost, losses = sparse_train_forward(model, det_cfg, batch)
+    losses["loss"].backward()
+    maps = [f.detach() for f in feats[: len(model.roi_strides)]]
+    shapes = [tuple(f.shape[1:3]) for f in maps]
+    out = {}
+    for t in (0, model.num_stages - 1):
+        cotangent = roi_feats[t].grad
+        top = float(cotangent.abs().max())
+        if not top > 0:
+            raise AssertionError(f"the stage-{t} slate's cotangent is all zero")
+        cotangent = cotangent * 2.0 ** -math.floor(math.log2(top))  # K2 is linear in it
+        what = f"a sparse training step's stage-{t} slate"
+        rois, routed = sparse_rois(what, model, slates[t])
+        out[f"k1_stage{t}"] = sparse_k1_at(what, model, maps, rois, routed)
+        n = rois.shape[1]
+        args = (cotangent, rois, routed, shapes, model.roi_strides, model.roi_size)
+        name = (f"roi_align_bwd on a sparse step's stage-{t} slate ({n} rois an image) and scaled "
+                f"cotangent, out {model.roi_size}")
+        check_deterministic(name, roi_align.multilevel_roi_align_backward_cuda, args)
+        flops = 2 * 4 * rois.shape[0] * n * (model.roi_size * RATIO) ** 2 * CHANNELS
+        small = rois.numel() * 4 + routed.numel() * 4
+        out[f"k2_stage{t}"] = kernel_at(
+            name, roi_align.multilevel_roi_align_backward_cuda,
+            roi_align.multilevel_roi_align_backward, args,
+            lambda nm, g, w: check_grads(nm, g, w, cotangent.dtype),
+            cotangent.numel() * cotangent.element_size() + small,
+            sum(f.numel() for f in maps) * cotangent.element_size(), flops)
+    s, b, g, q = cost.shape
+    valid = batch["gt_valid"][None].expand(s, b, g).reshape(s * b, g)
+    out["matcher"] = hungarian_at("hungarian on a sparse training step's own costs",
+                                  cost.reshape(s * b, g, q), valid, time_plain=True)
+    return out
+
+
+def phase_sparse_reference() -> None:
+    """Sparse R-CNN in float32 on the GPU and on the CPU on a small canvas.
+    Serving, stage by stage on equal inputs (each GPU stage's output feeds
+    the CPU counterpart of the next): roi features (K1 against the plain
+    version on the CPU), the head's outputs, the refined boxes, the top-k
+    decode. Training, each device its own chain from the same FPN levels
+    and the same matching (the kernel's, itself held to the plain version
+    on the GPU's costs, and from stage 1 on the GPU's input boxes, which the
+    model detaches there anyway): the losses, and the gradients into the
+    levels (K2 against the plain backward) and into both proposal
+    parameters. The rois are the same on both devices, so a sample that
+    lies within rounding of a cell's edge cannot move its gradient to the
+    neighbouring cell on one device only."""
+    cfg = Config.fromfile(SPARSE_CONFIG)
+    det_cfg = build_detection_cfg(cfg.detection)
+    gpu = build_detector(cfg.model, "float32", "cuda", seed=SEED).train()
+    cpu = build_detector(cfg.model, "float32", "cpu", seed=SEED).train()
+    gen = torch.Generator().manual_seed(SEED + 47)
+    x = torch.randn((2, 256, 320, 3), generator=gen)
+    shapes = torch.tensor([[256.0, 320.0], [240.0, 300.0]])
+    checks = []
+
+    def check(name, err, limit):
+        checks.append(f"{name} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"sparse reference check {name}: {err} > {limit}")
+
+    with torch.no_grad():
+        fg, fc = gpu.features(x.cuda()), cpu.features(x)
+        # cuDNN and the CPU pick other convolution algorithms and sum orders
+        check("fpn levels", max(rel_err(g, c) for g, c in zip(fg, fc)), 1e-3)
+        fcpu = [f.cpu() for f in fg]
+        boxes, obj = gpu.initial_slate(fg, shapes.cuda())
+        logits = []
+        for t in range(gpu.num_stages):
+            rg = gpu.roi_features(fg, boxes)
+            check(f"stage {t} roi features (K1 vs plain on the CPU)",
+                  rel_err(rg, cpu.roi_features(fcpu, boxes.cpu())), 1e-5)
+            og, cg, dg = gpu.stage_forward(t, rg, obj)
+            oc, cc, dc = cpu.stage_forward(t, rg.cpu(), obj.cpu())
+            check(f"stage {t} head (obj, logits, deltas)",
+                  max(rel_err(og, oc), rel_err(cg, cc), rel_err(dg, dc)), 1e-4)
+            refined = gpu.refine(boxes, dg)
+            check(f"stage {t} boxes", rel_err(refined, cpu.refine(boxes.cpu(), dg.cpu())), 1e-5)
+            boxes, obj = refined, og
+            logits.append(cg)
+        dets_g = decode_sparse_rcnn(det_cfg, logits[-1][None], boxes[None], shapes.cuda())
+        dets_c = decode_sparse_rcnn(det_cfg, logits[-1][None].cpu(), boxes[None].cpu(), shapes)
+        for field in ("valid", "labels", "indices"):
+            check(f"top-k decode {field} mismatches",
+                  float((getattr(dets_g, field).cpu() != getattr(dets_c, field)).sum()), 0)
+        # the devices' sigmoids may differ by an ulp
+        check("top-k decode scores", rel_err(dets_g.scores, dets_c.scores), 1e-6)
+        check("top-k decode boxes", rel_err(dets_g.boxes, dets_c.boxes), 1e-6)
+
+    gt = dict(gt_boxes=torch.tensor([[[16, 20, 120, 140], [150, 40, 300, 230], [60, 150, 110, 250]],
+                                     [[30, 30, 200, 180], [210, 100, 290, 200], [0] * 4]],
+                                    dtype=torch.float32),
+              gt_labels=torch.tensor([[3, 17, 80], [1, 45, 0]]),
+              gt_valid=torch.tensor([[True, True, True], [True, True, False]]))
+    levels_g = [f.detach().requires_grad_() for f in fg[: len(gpu.roi_strides)]]
+    levels_c = [f.detach().cpu().requires_grad_() for f in levels_g]
+    col4row = None
+    results, inputs = [], []
+    for model, levels, device in ((gpu, levels_g, "cuda"), (cpu, levels_c, "cpu")):
+        batch = {k: v.to(device) for k, v in gt.items()}
+        boxes, obj = model.initial_slate(levels, shapes.to(device))
+        cls_all, box_all = [], []
+        for t in range(model.num_stages):
+            if t:
+                boxes = boxes.detach() if device == "cuda" else inputs[t].cpu()
+            if device == "cuda":
+                inputs.append(boxes.detach())
+            obj, cls, deltas = model.stage_forward(t, model.roi_features(levels, boxes), obj)
+            boxes = model.refine(boxes, deltas)
+            cls_all.append(cls)
+            box_all.append(boxes)
+        cls, box = torch.stack(cls_all), torch.stack(box_all)
+        gt_xyxy, whwh = set_targets(batch["gt_boxes"], batch["gt_valid"], shapes.to(device))
+        if col4row is None:
+            cost = matching_cost(det_cfg, cls, box, gt_xyxy, batch["gt_labels"], whwh)
+            col4row = match(cost, batch["gt_valid"])  # the kernel
+            check("matching: kernel vs plain on the GPU's costs, mismatches",
+                  float((match(cost.cpu(), gt["gt_valid"]) != col4row.cpu()).sum()), 0)
+        losses = set_losses(det_cfg, cls, box, gt_xyxy, batch["gt_labels"], batch["gt_valid"],
+                            whwh, col4row.to(device))
+        grads = torch.autograd.grad(losses["loss"], [*levels, model.proposal_boxes,
+                                                     model.proposal_features])
+        results.append((losses, grads))
+    (lg, gg), (lc, gc) = results
+    check("losses", max(rel_err(lg[k], lc[k]) for k in ("loss_cls", "loss_l1", "loss_giou")), 1e-4)
+    check("gradients into the fpn levels (K2 vs plain on the CPU)",
+          max(rel_err(g, c) for g, c in zip(gg[:-2], gc[:-2])), 1e-3)
+    check("gradients into proposal_boxes", rel_err(gg[-2], gc[-2]), 1e-3)
+    check("gradients into proposal_features", rel_err(gg[-1], gc[-1]), 1e-3)
+    if not (float(gg[-2].abs().sum()) > 0 and float(gg[-1].abs().sum()) > 0):
+        raise AssertionError("no gradient into the proposal parameters")
+    log("sparse reference check, GPU vs CPU float32: " + "; ".join(checks))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -2170,6 +2638,7 @@ def main() -> int:
     bwd = phase_roi_align_bwd()[torch.bfloat16]
     phase_roi_align_bwd_variants()
     phase_roi_align_edges()
+    matcher_edges = phase_hungarian()
     serve = phase_model(card)
     phase_reference()
     train = phase_train(card)
@@ -2187,10 +2656,13 @@ def main() -> int:
     phase_retina_reference()
     retina_train = phase_retina_train(card)
     phase_retina_train_reference()
-    cascade_serve = phase_rcnn_serving(card, "cascade serving", CASCADE_CONFIG, False, 3, SEED + 36)
+    cascade_serve = phase_rcnn_serving(card, "cascade serving", CASCADE_CONFIG, False, 3, SEED + 36,
+                                       check_box_detections, rcnn_stage_breakdown)
     cascade_mask_serve = phase_rcnn_serving(card, "cascade mask serving", CASCADE_MASK_CONFIG, True,
-                                            4, SEED + 37)
-    fast_serve = phase_rcnn_serving(card, "fast serving", FAST_CONFIG, False, 1, SEED + 38)
+                                            4, SEED + 37, check_mask_detections,
+                                            functools.partial(rcnn_stage_breakdown, segm=True))
+    fast_serve = phase_rcnn_serving(card, "fast serving", FAST_CONFIG, False, 1, SEED + 38,
+                                    check_box_detections, rcnn_stage_breakdown)
     phase_cascade_reference()
     phase_cascade_train_reference()
     phase_fast_reference()
@@ -2206,6 +2678,12 @@ def main() -> int:
     fast_train = phase_rcnn_train(card, "fast training", FAST_CONFIG, fast_train_batch, 1,
                                   SEED + 41)
     del fast_train["model"], fast_train["det_cfg"], fast_train["batch"]
+    sparse_serve = phase_rcnn_serving(card, "sparse serving", SPARSE_CONFIG, False, 6, SEED + 48,
+                                      check_sparse_detections, sparse_serving_breakdown)
+    phase_sparse_reference()
+    sparse_train = phase_sparse_train(card)
+    sparse_step = phase_sparse_step_data(sparse_train.pop("model"), sparse_train.pop("det_cfg"),
+                                         sparse_train.pop("batch"))
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -2229,18 +2707,30 @@ def main() -> int:
                     "cascade_mask_training": cascade_mask_train["launches"],
                     "fast_serving": fast_serve["launches"],
                     "fast_training": fast_train["launches"]}
-    later_paths = {**mask_paths, **retina_paths, **slice6_paths}
+    slice7_paths = {"sparse_serving": sparse_serve["launches"],
+                    "sparse_training": sparse_train["launches"]}
+    later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],
                **{path: n["k1"] for path, n in later_paths.items()}}, fwd,
               at_train_rois={k: fwd_train[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")},
-              at_mask_serving=mask_serve["k1"], at_mask_training=mask_step["k1"]),
+              at_mask_serving=mask_serve["k1"], at_mask_training=mask_step["k1"],
+              at_sparse_serving_stage0=sparse_serve["k1_stage0"],
+              at_sparse_serving_stage5=sparse_serve["k1_stage5"],
+              at_sparse_training_stage0=sparse_step["k1_stage0"],
+              at_sparse_training_stage5=sparse_step["k1_stage5"]),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
               {"serving": serve["bwd_launches"], "training": train["k2"],
                **{path: n["k2"] for path, n in later_paths.items()}}, bwd,
               at_mask_training=mask_step["k2"], at_mask_positives_only=mask_step["k2_hot"],
-              at_cascade_stage3=cascade_k2, at_cascade_mask_stage3=cascade_mask_k2),
+              at_cascade_stage3=cascade_k2, at_cascade_mask_stage3=cascade_mask_k2,
+              at_sparse_stage0=sparse_step["k2_stage0"], at_sparse_stage5=sparse_step["k2_stage5"]),
+        entry("hungarian", "torch_detection_tpu/ops/hungarian.py:38",
+              {"serving": serve["matcher"], "training": train["matcher"],
+               **{path: n["matcher"] for path, n in later_paths.items()}}, sparse_step["matcher"],
+              note="replaces a lax.while_loop (the reference's on-device matcher), not a Pallas "
+                   "kernel", at_edge_sets=matcher_edges),
     ]}
     log(f"chip_smoke wall time {time.perf_counter() - started:.1f} s (the kernels' build included)")
     log(card)

@@ -43,7 +43,7 @@ def test_detection_cfg_matches_reference():
 @pytest.mark.parametrize(
     "det_cfg,match",
     [
-        (dict(style="sparse_rcnn"), "style"),  # Sparse R-CNN: a later slice
+        (dict(style="detr"), "style"),  # DETR: a later slice
         (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
         (dict(style="fast_rcnn", anchor=dict(strides=(4,))), "anchor"),  # Fast R-CNN has none
     ],
@@ -85,9 +85,10 @@ def test_entry_points_default_to_cuda():
         build_detector(Config.fromfile(CONFIG).model)
 
 
-# each two-stage style, its loss and its inference (box and, where it has
-# one, mask); the cascade configs subclass FasterRCNNConfig, so a dispatch
-# that tested a base class first would send them down Faster R-CNN's path
+# each two-stage style (and Sparse R-CNN's), its loss and its inference
+# (box and, where it has one, mask); the cascade configs subclass
+# FasterRCNNConfig, so a dispatch that tested a base class first would send
+# them down Faster R-CNN's path
 _FAMILIES = {
     "faster_rcnn": ("faster_rcnn_loss", "faster_rcnn_inference", None),
     "mask_rcnn": ("mask_rcnn_loss", "faster_rcnn_inference", "mask_rcnn_inference"),
@@ -95,6 +96,7 @@ _FAMILIES = {
     "cascade_mask_rcnn": ("cascade_mask_rcnn_loss", "cascade_rcnn_inference",
                           "cascade_mask_rcnn_inference"),
     "fast_rcnn": ("fast_rcnn_loss", "fast_rcnn_inference", None),
+    "sparse_rcnn": ("sparse_rcnn_train_loss", "sparse_rcnn_inference", None),
 }
 
 

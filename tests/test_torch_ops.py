@@ -67,6 +67,19 @@ def test_delta2bbox_matches(rng, num_classes, max_shape):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-4)
 
 
+@pytest.mark.parametrize("num_classes", [1, 3])
+def test_delta2bbox_matches_in_bf16(rng, num_classes):
+    """bf16 deltas (a head's) with stds and means that bf16 cannot hold
+    exactly: both sides scale by the bf16-rounded stds, so the boxes agree
+    bit for bit (float32 rois; each op of the reference run eagerly)."""
+    rois = _random_boxes(rng, (2, 200))
+    deltas = rng.normal(scale=1.0, size=(2, 200, 4 * num_classes)).astype(np.float32)
+    kw = dict(means=(0.1, -0.1, 0.0, 0.05), stds=(0.1, 0.1, 0.2, 0.2))
+    want = jax_boxes.delta2bbox(jnp.asarray(rois), jnp.asarray(deltas, jnp.bfloat16), **kw)
+    got = boxes.delta2bbox(_t(rois), _t(deltas).bfloat16(), **kw)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
 @pytest.mark.parametrize("mode", ["iou", "iof"])
 def test_bbox_overlaps_matches(rng, mode):
     a, b = _random_boxes(rng, (30,)), _random_boxes(rng, (20,))

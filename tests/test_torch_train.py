@@ -128,7 +128,7 @@ def _trace(opt_state):
 
 
 def _momentum(optimizer):
-    return [optimizer.sgd.state[p]["momentum_buffer"] for p in optimizer.params]
+    return [optimizer.torch_optimizer.state[p]["momentum_buffer"] for p in optimizer.params]
 
 
 def _is_frozen(name):
@@ -384,7 +384,7 @@ def test_schedule_and_optimizer_come_from_the_config():
     assert model.training and det_cfg.rpn_num_samples == 256
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert model.dtype == torch.bfloat16  # the runtime's compute dtype
-    group = optimizer.sgd.param_groups[0]
+    group = optimizer.torch_optimizer.param_groups[0]
     assert (group["momentum"], group["weight_decay"], optimizer.grad_clip_norm) == (0.9, 1e-4, 35.0)
     trainable = [p for n, p in model.named_parameters() if not _is_frozen(n)]
     assert len(optimizer.params) == len(trainable) < len(list(model.parameters()))

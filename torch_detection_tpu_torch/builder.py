@@ -3,8 +3,8 @@ optimizer with its learning-rate schedule.
 
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
 (the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
-``cascade_mask_rcnn`` and ``fast_rcnn`` styles; the other families arrive
-with their slices.
+``cascade_mask_rcnn``, ``fast_rcnn`` and ``sparse_rcnn`` styles; the other
+families arrive with their slices.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from .models.detectors import (
     FastRCNNConfig,
     MaskRCNNConfig,
     RetinaNetConfig,
+    SparseRCNNConfig,
     cascade_mask_rcnn_loss,
     cascade_rcnn_loss,
     fast_rcnn_loss,
@@ -30,6 +31,7 @@ from .models.detectors import (
     mask_rcnn_loss,
     retina_loss,
     sampling_noise,
+    sparse_rcnn_train_loss,
 )
 from .models.inits import init_weights
 from .ops.anchors import AnchorGenerator
@@ -47,6 +49,8 @@ _FASTER_RCNN_KEYS = ("num_classes", "score_thr", "nms_iou_thr", "max_detections"
                      "finest_scale")
 _MASK_KEYS = ("mask_size", "mask_roi_size", "mask_loss_weight")
 _CASCADE_KEYS = ("num_stages", "stage_pos_ious", "stage_loss_weights", "stage_target_stds")
+_SPARSE_KEYS = ("num_classes", "num_proposals", "cls_weight", "l1_weight", "giou_weight",
+                "focal_gamma", "focal_alpha", "score_thr", "max_detections")
 # style -> (config class, its keys, the field the ``assigner`` key sets or None)
 _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS, None),
@@ -54,8 +58,9 @@ _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "cascade_rcnn": (CascadeRCNNConfig, _FASTER_RCNN_KEYS + _CASCADE_KEYS, None),
            "cascade_mask_rcnn": (CascadeMaskRCNNConfig,
                                  _FASTER_RCNN_KEYS + _CASCADE_KEYS + _MASK_KEYS, None),
-           "fast_rcnn": (FastRCNNConfig, _FASTER_RCNN_KEYS, "rcnn_assigner")}
-DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig]
+           "fast_rcnn": (FastRCNNConfig, _FASTER_RCNN_KEYS, "rcnn_assigner"),
+           "sparse_rcnn": (SparseRCNNConfig, _SPARSE_KEYS, None)}
+DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig, SparseRCNNConfig]
 
 
 def _tuples(value):
@@ -98,7 +103,7 @@ def _build_anchor_generator(anchor: Dict[str, Any]) -> AnchorGenerator:
 def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     """The static detection config of a ``style='retina'`` (the default),
     ``'faster_rcnn'``, ``'mask_rcnn'``, ``'cascade_rcnn'``,
-    ``'cascade_mask_rcnn'`` or ``'fast_rcnn'`` config. RetinaNet's
+    ``'cascade_mask_rcnn'``, ``'fast_rcnn'`` or ``'sparse_rcnn'`` config. RetinaNet's
     ``assigner`` is its ``assigner``, Fast R-CNN's its ``rcnn_assigner``.
     Keys the port does not read yet raise instead of being dropped."""
     cfg = dict(det_cfg)
@@ -128,7 +133,14 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     repeats exactly (the counterpart of the reference's ``_step_rng``).
     A mask config adds the mask losses, whose batch carries ``gt_masks``;
     a ``FastRCNNConfig``'s batch carries ``proposals`` and
-    ``proposal_valid``. RetinaNet draws nothing."""
+    ``proposal_valid``. RetinaNet and Sparse R-CNN draw nothing; Sparse
+    R-CNN's forward and loss take the batch's ``img_shape``."""
+    if isinstance(det_cfg, SparseRCNNConfig):
+        def sparse_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
+            losses = sparse_rcnn_train_loss(det_cfg, model, batch)
+            return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
+
+        return sparse_loss_fn
     if isinstance(det_cfg, RetinaNetConfig):
         def retina_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
             cls_scores, bbox_preds = model(batch["image"])
@@ -184,21 +196,20 @@ def build_train_objects(
 ) -> Tuple[Any, DetectionConfig, Optimizer]:
     """(model, det_cfg, optimizer) from a full config tree: the training
     build of the detector (float32 parameters, the runtime's compute dtype,
-    train mode) and SGD with the config's momentum, weight decay, clip and
-    schedule. The data loader is the caller's; ``steps_per_epoch`` is its
-    length."""
+    train mode) and the config's optimizer (``type`` ``sgd``, the default,
+    or ``adamw``) with its momentum, weight decay, clip and schedule. The
+    data loader is the caller's; ``steps_per_epoch`` is its length."""
     runtime = cfg.get("runtime", {})
     model = build_detector(cfg["model"], runtime.get("compute_dtype"), device, seed,
                            param_dtype="float32").train()
     det_cfg = build_detection_cfg(cfg["detection"])
     opt_cfg = cfg.get("optimizer", {})
-    if opt_cfg.get("type", "sgd") != "sgd":
-        raise NotImplementedError(f"optimizer {opt_cfg['type']!r} is not ported")
     optimizer = make_optimizer(
         model.parameters(),
         learning_rate=build_lr_schedule(cfg, steps_per_epoch),
         momentum=opt_cfg.get("momentum", 0.9),
         weight_decay=opt_cfg.get("weight_decay", 1e-4),
         grad_clip_norm=opt_cfg.get("grad_clip_norm"),
+        kind=opt_cfg.get("type", "sgd"),
     )
     return model, det_cfg, optimizer

@@ -2,7 +2,7 @@
 
 Counterpart of ``torch_detection_tpu/engine/validate.py::make_inference_fn``
 for the Faster R-CNN, Mask R-CNN, Cascade R-CNN, Cascade Mask R-CNN, Fast
-R-CNN and RetinaNet families. The port's modules hold their weights, so
+R-CNN, RetinaNet and Sparse R-CNN families. The port's modules hold their weights, so
 ``infer`` takes the batch alone.
 """
 
@@ -19,12 +19,14 @@ from ..models.detectors import (
     FastRCNNConfig,
     MaskRCNNConfig,
     RetinaNetConfig,
+    SparseRCNNConfig,
     cascade_mask_rcnn_inference,
     cascade_rcnn_inference,
     fast_rcnn_inference,
     faster_rcnn_inference,
     mask_rcnn_inference,
     retina_inference,
+    sparse_rcnn_inference,
 )
 
 
@@ -38,7 +40,8 @@ def _inference(det_cfg, segm: bool) -> Callable:
                                      (MaskRCNNConfig, faster_rcnn_inference, mask_rcnn_inference),
                                      (FasterRCNNConfig, faster_rcnn_inference, None),
                                      (FastRCNNConfig, fast_rcnn_inference, None),
-                                     (RetinaNetConfig, retina_inference, None)):
+                                     (RetinaNetConfig, retina_inference, None),
+                                     (SparseRCNNConfig, sparse_rcnn_inference, None)):
         if isinstance(det_cfg, config_cls):
             if segm and masks is None:
                 raise ValueError("segm=True needs a mask-capable detector (MaskRCNNConfig or "
@@ -56,7 +59,8 @@ def make_inference_fn(model, det_cfg, segm: bool = False) -> Callable:
     ``MaskDetections``, whose ``mask_probs`` are the detections' masks. Fast
     R-CNN's ``infer(image, img_shape, scale_factor, proposals,
     proposal_valid)`` also takes its proposals, (B, P, 4|5) in the canvas
-    frame, and their (B, P) validity."""
+    frame, and their (B, P) validity. Sparse R-CNN's ``img_shape`` also
+    sizes its initial slate (the canvas where it is None)."""
     inference = _inference(det_cfg, segm)
 
     if isinstance(det_cfg, FastRCNNConfig):

@@ -25,6 +25,14 @@ from .single_stage import (
     retina_inference,
     retina_loss,
 )
+from .sparse_rcnn import (
+    SparseRCNN,
+    SparseRCNNConfig,
+    decode_sparse_rcnn,
+    sparse_rcnn_inference,
+    sparse_rcnn_loss,
+    sparse_rcnn_train_loss,
+)
 from .two_stage import (
     FasterRCNNConfig,
     TwoStageDetector,
@@ -39,4 +47,6 @@ __all__ = ["CascadeMaskRCNN", "CascadeMaskRCNNConfig", "CascadeRCNN", "CascadeRC
            "cascade_mask_rcnn_inference", "cascade_mask_rcnn_loss", "cascade_rcnn_inference",
            "cascade_rcnn_loss", "decode_detections", "fast_rcnn_inference", "fast_rcnn_loss",
            "faster_rcnn_inference", "faster_rcnn_loss", "mask_rcnn_inference", "mask_rcnn_loss",
-           "retina_inference", "retina_loss", "sampling_noise"]
+           "retina_inference", "retina_loss", "sampling_noise", "SparseRCNN", "SparseRCNNConfig",
+           "decode_sparse_rcnn", "sparse_rcnn_inference", "sparse_rcnn_loss",
+           "sparse_rcnn_train_loss"]

@@ -1,7 +1,9 @@
 """Shared model building blocks.
 
 Counterpart of ``torch_detection_tpu/models/layers.py``, cut to what the
-Faster R-CNN slice runs. These blocks take NCHW tensors, PyTorch's
+ported slices run, with the flax building blocks Sparse R-CNN takes from
+``flax.linen`` (``LayerNorm``, ``MultiHeadDotProductAttention`` and a
+float32 ``Dense``). These blocks take NCHW tensors, PyTorch's
 convention; the detector keeps them in ``torch.channels_last`` memory, so a
 ``permute(0, 2, 3, 1)`` gives the reference's NHWC layout without a copy.
 
@@ -14,6 +16,7 @@ computes it from its float32 params.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -118,6 +121,84 @@ class ConvModule(nn.Module):
         if self.act_fn is not None:
             x = self.act_fn(x)
         return x
+
+
+class LayerNorm(nn.Module):
+    """flax's ``LayerNorm(dtype=float32)`` over the last axis: float32
+    ``scale`` and ``bias`` (flax's names, kept in float32 in every build),
+    eps 1e-6, computed and returned in float32 with autocast off."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(num_features, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, dtype=torch.float32, device=device))
+
+    def forward(self, x: Tensor) -> Tensor:
+        with torch.autocast(x.device.type, enabled=False):
+            return F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias, self.eps)
+
+
+class Float32Linear(nn.Linear):
+    """A linear layer kept and computed in float32 in every build, autocast
+    off, as a flax ``Dense(dtype=float32)`` on float32 parameters."""
+
+    def __init__(self, in_features: int, out_features: int, device=None):
+        super().__init__(in_features, out_features, dtype=torch.float32, device=device)
+
+    def forward(self, x: Tensor) -> Tensor:
+        with torch.autocast(x.device.type, enabled=False):
+            return F.linear(x.float(), self.weight, self.bias)
+
+
+class HeadsLinear(nn.Linear):
+    """A projection of flax's ``MultiHeadDotProductAttention``, whose
+    ``DenseGeneral`` kernel has rank 3: (in, heads, head_dim) into the heads
+    (``heads_axis="out"``) or (heads, head_dim, out) out of them
+    (``heads_axis="in"``). Here the heads are one axis of heads * head_dim,
+    head-major; ``models/convert.py`` reads ``heads_axis`` to merge them."""
+
+    def __init__(self, in_features: int, out_features: int, heads_axis: str, dtype=None,
+                 device=None):
+        super().__init__(in_features, out_features, dtype=dtype, device=device)
+        if heads_axis not in ("in", "out"):
+            raise ValueError(f"heads_axis must be 'in' or 'out', got {heads_axis!r}")
+        self.heads_axis = heads_axis
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax's ``MultiHeadDotProductAttention`` as self-attention without a
+    mask or dropout: ``query``, ``key``, ``value`` and ``out`` projections
+    (flax's names), the query divided by sqrt(head_dim) in the compute dtype
+    before the product, the softmax's result cast to the compute dtype, as
+    flax computes them. Parameters in ``dtype``; the compute dtype is the
+    projections' output dtype (autocast's, where it is on)."""
+
+    def __init__(self, features: int, num_heads: int, dtype=None, device=None):
+        super().__init__()
+        if features % num_heads:
+            raise ValueError(f"{features} features do not split into {num_heads} heads")
+        self.num_heads = num_heads
+        kw = dict(dtype=dtype, device=device)
+        self.query = HeadsLinear(features, features, "out", **kw)
+        self.key = HeadsLinear(features, features, "out", **kw)
+        self.value = HeadsLinear(features, features, "out", **kw)
+        self.out = HeadsLinear(features, features, "in", **kw)
+
+    def forward(self, x: Tensor) -> Tensor:  # (..., N, features)
+        *lead, n, features = x.shape
+        heads = (*lead, n, self.num_heads, features // self.num_heads)
+        q = self.query(x).view(heads)
+        k = self.key(x).view(heads)
+        v = self.value(x).view(heads)
+        dtype = q.dtype
+        # a 0-d tensor on the device, so that the division is correctly
+        # rounded there too (CUDA divides by a Python scalar's reciprocal)
+        depth = torch.full((), math.sqrt(heads[-1]), dtype=torch.float32, device=x.device)
+        weights = torch.einsum("...qhd,...khd->...hqk", q / depth.to(dtype), k)
+        weights = torch.softmax(weights, dim=-1).to(dtype)
+        out = torch.einsum("...hqk,...khd->...qhd", weights, v)
+        return self.out(out.reshape(*lead, n, features))
 
 
 def max_pool_same_torch(x: Tensor, window: int, stride: int, padding: int) -> Tensor:

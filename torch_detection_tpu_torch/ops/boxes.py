@@ -78,15 +78,13 @@ def delta2bbox(
 ) -> Tensor:
     """Decode (dx, dy, dw, dh) deltas to xyxy boxes of ``deltas``' shape.
     ``wh_ratio_clip`` bounds the exp(); ``max_shape`` (h, w) clips."""
-    c = deltas.shape[-1] // 4
-    means_t = torch.tensor(means, dtype=deltas.dtype, device=deltas.device).repeat(c)
-    stds_t = torch.tensor(stds, dtype=deltas.dtype, device=deltas.device).repeat(c)
-    d = deltas * stds_t + means_t
+    # each coordinate by its Python scalars, rounded to ``deltas``' dtype as
+    # the reference's (4,) arrays are, without copying a tensor to the
+    # device (a host sync on CUDA)
+    def rounded(x: float) -> float:
+        return torch.tensor(x, dtype=deltas.dtype).item()
 
-    dx = d[..., 0::4]
-    dy = d[..., 1::4]
-    dw = d[..., 2::4]
-    dh = d[..., 3::4]
+    dx, dy, dw, dh = (deltas[..., i::4] * rounded(stds[i]) + rounded(means[i]) for i in range(4))
     max_ratio = abs(math.log(wh_ratio_clip))
     dw = torch.clamp(dw, -max_ratio, max_ratio)
     dh = torch.clamp(dh, -max_ratio, max_ratio)

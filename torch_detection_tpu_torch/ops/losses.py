@@ -1,7 +1,7 @@
 """Detection losses (mask-weighted, fixed shapes).
 
 Counterpart of ``torch_detection_tpu/ops/losses.py``, cut to what the
-two-stage and RetinaNet slices use. Every loss takes an elementwise ``weight`` and an
+two-stage, RetinaNet and Sparse R-CNN slices use. Every loss takes an elementwise ``weight`` and an
 ``avg_factor``; the reduction is an explicit sum over the weighted elements
 divided by ``max(avg_factor, 1)``, so padded rows with weight 0 drop out.
 """
@@ -125,3 +125,43 @@ def smooth_l1_loss(pred: Tensor, target: Tensor, weight: Optional[Tensor] = None
     diff = (pred - target).abs()
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta, diff - 0.5 * beta)
     return _reduce(loss, weight, avg_factor)
+
+
+_IOU_MODES = ("iou", "giou", "linear_iou", "square_iou")
+
+
+def iou_loss_elementwise(pred: Tensor, target: Tensor, mode: str = "giou", offset: float = 1.0,
+                         eps: float = 1e-7) -> Tensor:
+    """The unreduced IoU loss of each pair of xyxy boxes, ``pred`` and
+    ``target`` broadcast against each other: (G, 1, 4) against (1, Q, 4)
+    gives the (G, Q) matrix of every pair. ``giou``: 1 - GIoU; ``iou``:
+    -log(IoU); ``linear_iou``: 1 - IoU; ``square_iou``: 1 - IoU^2."""
+    if mode not in _IOU_MODES:
+        raise ValueError(f"iou mode {mode!r} is not one of {_IOU_MODES}")
+    lt = torch.maximum(pred[..., :2], target[..., :2])
+    rb = torch.minimum(pred[..., 2:4], target[..., 2:4])
+    wh = torch.clamp(rb - lt + offset, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    ap = (pred[..., 2] - pred[..., 0] + offset) * (pred[..., 3] - pred[..., 1] + offset)
+    at = (target[..., 2] - target[..., 0] + offset) * (target[..., 3] - target[..., 1] + offset)
+    union = torch.clamp(ap + at - inter, min=eps)
+    iou = inter / union
+    if mode == "iou":
+        return -torch.log(torch.clamp(iou, eps, 1.0))
+    if mode == "linear_iou":
+        return 1.0 - iou
+    if mode == "square_iou":
+        return 1.0 - iou ** 2
+    elt = torch.minimum(pred[..., :2], target[..., :2])
+    erb = torch.maximum(pred[..., 2:4], target[..., 2:4])
+    ewh = torch.clamp(erb - elt + offset, min=0.0)
+    enclose = torch.clamp(ewh[..., 0] * ewh[..., 1], min=eps)
+    return 1.0 - (iou - (enclose - union) / enclose)
+
+
+def iou_loss(pred: Tensor, target: Tensor, weight: Optional[Tensor] = None, mode: str = "giou",
+             offset: float = 1.0, eps: float = 1e-7,
+             avg_factor: Optional[Tensor] = None) -> Tensor:
+    """``iou_loss_elementwise`` reduced as every loss here: the weighted sum
+    over ``max(avg_factor, 1)``, or the plain sum without either."""
+    return _reduce(iou_loss_elementwise(pred, target, mode, offset, eps), weight, avg_factor)
