@@ -108,6 +108,20 @@ Phases, each fatal on failure:
    K1 and K2 six times a step and the matcher once, every parameter group
    moved; then K2 on the step's stage-0 and stage-5 slates and the matcher
    on the step's own costs, each against its plain version and its bound.
+23. DETR R50 (configs/detr_r50_coco.py) served b4 bf16 on its 800 x 1344
+   canvas (1050 encoder tokens an image, two images in every four smaller
+   than the canvas, so the key mask drops tokens): K1, K2 and the matcher
+   never launched, a stage breakdown (C5, projection and encoding, each
+   encoder and decoder layer, heads, decode) and one profiled batch;
+24. the DETR path on the GPU against the CPU, float32: C5, the projection,
+   the encoding and the key mask, each encoder and decoder layer and the
+   heads on equal inputs, the top-k decode, the losses under one matching
+   and the gradients into C5 and ``query_embed``;
+25. DETR training, b8 with the config's AdamW and clip through ``Trainer``:
+   the matcher once a step (all six decoder layers and eight images in one
+   launch), K1 and K2 never, every parameter group moved; then the matcher
+   on the step's own (48, 100, 100) costs against its plain version and its
+   bound.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -142,9 +156,11 @@ from torch_detection_tpu_torch.models.inits import init_weights
 from torch_detection_tpu_torch.models.detectors import (
     FastRCNNConfig,
     MaskRCNNConfig,
+    decode_detr,
     decode_sparse_rcnn,
     sampling_noise,
 )
+from torch_detection_tpu_torch.models.detectors import detr as detr_mod
 from torch_detection_tpu_torch.models.detectors.cascade_rcnn import (
     _cascade_rcnn_loss_core,
     next_candidates,
@@ -199,6 +215,7 @@ CASCADE_CONFIG = ROOT / "configs" / "cascade_rcnn_r50_fpn_coco.py"
 CASCADE_MASK_CONFIG = ROOT / "configs" / "cascade_mask_rcnn_r50_fpn_coco.py"
 FAST_CONFIG = ROOT / "configs" / "fast_rcnn_r50_fpn_coco.py"
 SPARSE_CONFIG = ROOT / "configs" / "sparse_rcnn_r50_fpn_coco.py"
+DETR_CONFIG = ROOT / "configs" / "detr_r50_coco.py"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 SEED = 0
@@ -208,6 +225,7 @@ F32_ATOL = 1e-5
 # the slice's shapes: 1000 proposals an image at serving, 512 sampled rois
 # an image in training, gt padded to 100
 BATCH, CANVAS, CHANNELS, ROIS, TRAIN_ROIS, MAX_GTS = 4, (800, 1216), 256, 1000, 512, 100
+INNER_SHAPES = ((640, 960), (704, 1088))  # of every four images, two smaller than the canvas
 STRIDES = (4, 8, 16, 32)
 OUT_SIZE, RATIO = 7, 2
 WARMUP_BATCHES, TIMED_BATCHES = 2, 10
@@ -845,19 +863,25 @@ class Batches:
         return len(self.batches)
 
 
-def train_batch(gen: torch.Generator, batch: int = BATCH) -> dict:
-    """``batch`` (a multiple of 4) seeded images on the 800 x 1216 canvas,
-    of every four two filling it and two of 640 x 960 and 704 x 1088 with
-    zeros outside, and 1-20 gt boxes an image (16-400 px, labels 1-80)
-    inside each image, padded to 100."""
+def padded_images(gen: torch.Generator, batch: int, canvas) -> tuple:
+    """``batch`` (a multiple of 4) seeded float32 images on ``canvas``, of
+    every four two filling it and two of ``INNER_SHAPES`` with zeros
+    outside, and their (B, 2) (h, w)."""
     device = torch.device("cuda")
-    h, w = CANVAS
-    shapes = torch.tensor([[h, w], [h, w], [640, 960], [704, 1088]] * (batch // 4),
+    h, w = canvas
+    shapes = torch.tensor([[h, w], [h, w], *INNER_SHAPES] * (batch // 4),
                           dtype=torch.float32, device=device)
     image = torch.randn((batch, h, w, 3), generator=gen, device=device)
     inside = ((torch.arange(h, device=device)[None, :, None] < shapes[:, 0, None, None])
               & (torch.arange(w, device=device)[None, None, :] < shapes[:, 1, None, None]))
-    image = image * inside[..., None]
+    return image * inside[..., None], shapes
+
+
+def train_batch(gen: torch.Generator, batch: int = BATCH, canvas=CANVAS) -> dict:
+    """``padded_images`` on ``canvas`` (default 800 x 1216) and 1-20 gt
+    boxes an image (16-400 px, labels 1-80) inside each image, padded to
+    100."""
+    image, shapes = padded_images(gen, batch, canvas)
     boxes, labels, valid = seeded_gts(gen, shapes)
     return dict(image=image, gt_boxes=boxes, gt_labels=labels, gt_valid=valid, img_shape=shapes)
 
@@ -2614,6 +2638,288 @@ def phase_sparse_reference() -> None:
     log("sparse reference check, GPU vs CPU float32: " + "; ".join(checks))
 
 
+def detr_config():
+    """The DETR config, its canvas and its training batch."""
+    cfg = Config.fromfile(DETR_CONFIG)
+    return cfg, tuple(cfg.data["canvas"]), cfg.data["sample_per_replica"]
+
+
+def detr_tokens(images, img_shape) -> str:
+    """The encoder's tokens an image (C5 of the canvas, stride 32) and how
+    many of them the key mask keeps."""
+    c5_hw = [(s + 31) // 32 for s in images.shape[1:3]]
+    valid = detr_mod.valid_cells(img_shape, images.shape[0], tuple(images.shape[1:3]),
+                                 tuple(c5_hw), images.device)
+    return (f"{c5_hw[0]} x {c5_hw[1]} = {c5_hw[0] * c5_hw[1]} encoder tokens an image, "
+            f"{[int(v) for v in valid.sum((1, 2)).tolist()]} inside the images")
+
+
+def check_detr_detections(res, det_cfg, img_shape) -> None:
+    """Shapes, finite values, at ``score_thr`` 0 every slot valid with a
+    query id among the queries and a label among the classes, and every box
+    inside its own image."""
+    b = img_shape.shape[0]
+    if res.boxes.shape != (b, det_cfg.max_detections, 4):
+        raise AssertionError(f"boxes shape {tuple(res.boxes.shape)}")
+    if not (torch.isfinite(res.boxes).all() and torch.isfinite(res.scores).all()):
+        raise AssertionError("non-finite detections")
+    if not bool(res.valid.all()):
+        raise AssertionError("an invalid detection at score_thr 0")
+    if not bool(((res.indices >= 0) & (res.indices < det_cfg.num_queries)).all()):
+        raise AssertionError("a query id outside the queries")
+    if not bool(((res.labels >= 0) & (res.labels < det_cfg.num_classes)).all()):
+        raise AssertionError("labels out of range")
+    h, w = img_shape[:, 0, None], img_shape[:, 1, None]
+    bx = res.boxes
+    if not (bool((bx >= 0).all()) and bool((bx[..., 0::2] <= w[..., None] - 1).all())
+            and bool((bx[..., 1::2] <= h[..., None] - 1).all())):
+        raise AssertionError("boxes outside their image")
+
+
+def detr_stage_breakdown(model, det_cfg, args, card: str, repeats: int = 5) -> None:
+    """A DETR serving batch stage by stage, a device sync between stages:
+    the backbone to C5, ``input_proj`` with the encoding and the key mask,
+    each encoder layer, each decoder layer with ``decoder_norm``, the heads
+    and the top-k decode; the median host ms of each over ``repeats``."""
+    images, img_shape, scale = args
+    canvas = tuple(images.shape[1:3])
+    times = {}
+    stage = stage_timer(times)
+    with torch.inference_mode():
+        for _ in range(repeats):
+            c5 = stage("backbone C5", lambda: model.features(images))
+            src, pos, mask = stage("input_proj, sine encoding, key mask",
+                                   lambda: model.embed(c5, canvas, img_shape))
+            memory = src
+            for i in range(model.num_encoder_layers):
+                memory = stage(f"encoder layer {i}",
+                               lambda: model.encoder_layer(i, memory, pos, mask))
+            tgt, qpos = model.queries(memory)
+            outs = []
+            for i in range(model.num_decoder_layers):
+                tgt = stage(f"decoder layer {i}",
+                            lambda: model.decoder_layer(i, tgt, qpos, memory, pos, mask))
+                outs.append(stage(f"decoder_norm {i}", lambda: model.decoder_norm(tgt)))
+            cls, box = stage("heads", lambda: model.heads(torch.stack(outs)))
+            stage("top-k decode", lambda: decode_detr(det_cfg, cls, box, img_shape, scale))
+    log_breakdown(f"detr serving stage breakdown, median of {repeats} batches", times, card)
+
+
+def phase_detr_serving(card: str) -> dict:
+    """Full-width DETR R50 serving, b4 bf16 on the config's canvas (800 x
+    1344, 25 x 42 = 1050 encoder tokens an image), of every four images two
+    smaller than the canvas (so the key mask drops tokens), through
+    ``make_inference_fn``: 2 warm-up and 10 timed batches, K1, K2 and the
+    matcher never launched, every batch's detections checked; a stage
+    breakdown, one profiled batch and peak memory."""
+    cfg, canvas, _ = detr_config()
+    model = build_detector(cfg.model, "bfloat16", device="cuda", seed=SEED)
+    det_cfg = build_detection_cfg(cfg.detection)
+    infer = make_inference_fn(model, det_cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 49)
+    batches = []
+    for _ in range(WARMUP_BATCHES + TIMED_BATCHES):
+        image, shapes = padded_images(gen, BATCH, canvas)
+        batches.append((image.to(torch.bfloat16), shapes, torch.ones(BATCH, device="cuda")))
+    log(f"detr serving: {detr_tokens(*batches[0][:2])}")
+    for args in batches[:WARMUP_BATCHES]:
+        infer(*args)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    timed = iter(batches[WARMUP_BATCHES:])
+    ms, results = timed_batches(lambda: infer(*next(timed)), TIMED_BATCHES)
+    launches = read_launches()
+    log(f"detr serving path: {TIMED_BATCHES} batches, launches {launches}")
+    expect_launches("detr serving", launches, 0, 0, 0)
+    for res, args in zip(results, batches[WARMUP_BATCHES:]):
+        check_detr_detections(res, det_cfg, args[1])
+    mean_ms = sum(ms) / len(ms)
+    log(f"detr serving path: ms a batch {[round(t, 3) for t in ms]}, mean {mean_ms:.3f} ms, "
+        f"{BATCH / (mean_ms / 1e3):.2f} images/s, median {statistics.median(ms):.3f} ms [{card}]; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    detr_stage_breakdown(model, det_cfg, batches[1], card)
+    device_profile(lambda: infer(*batches[1]), mean_ms, card)
+    return dict(launches=launches, ms_per_batch=mean_ms)
+
+
+def detr_reference_gts(device) -> dict:
+    """Three and two gts inside the reference phase's two images."""
+    boxes = [[[16, 20, 120, 140], [150, 40, 300, 230], [60, 150, 110, 250]],
+             [[30, 30, 200, 180], [210, 100, 250, 200], [0] * 4]]
+    return dict(gt_boxes=torch.tensor(boxes, dtype=torch.float32, device=device),
+                gt_labels=torch.tensor([[3, 17, 80], [1, 45, 0]], device=device),
+                gt_valid=torch.tensor([[True, True, True], [True, True, False]], device=device))
+
+
+def phase_detr_reference() -> None:
+    """DETR in float32 on the GPU and on the CPU on a small canvas (2 x 256 x
+    320, the second image 224 x 256 inside it). Serving, stage by stage on
+    equal inputs (each GPU stage's output feeds the CPU counterpart of the
+    next): C5, ``input_proj``, the encoding and the key mask, each encoder
+    and decoder layer, the heads, the top-k decode. Training, each device
+    its own chain from the same C5 and the same matching (the kernel's,
+    itself held to the plain version on the GPU's costs): the losses and the
+    gradients into C5 and ``query_embed``."""
+    cfg, _, _ = detr_config()
+    det_cfg = build_detection_cfg(cfg.detection)
+    gpu = build_detector(cfg.model, "float32", "cuda", seed=SEED).train()
+    cpu = build_detector(cfg.model, "float32", "cpu", seed=SEED).train()
+    gen = torch.Generator().manual_seed(SEED + 50)
+    x = torch.randn((2, 256, 320, 3), generator=gen)
+    x[1, 224:], x[1, :, 256:] = 0.0, 0.0
+    shapes = torch.tensor([[256.0, 320.0], [224.0, 256.0]])
+    canvas = (256, 320)
+    checks = []
+
+    def check(name, err, limit):
+        checks.append(f"{name} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"detr reference check {name}: {err} > {limit}")
+
+    with torch.no_grad():
+        c5 = gpu.features(x.cuda())
+        # cuDNN and the CPU pick other convolution algorithms and sum orders
+        check("C5", rel_err(c5, cpu.features(x)), 1e-3)
+        src, pos, mask = gpu.embed(c5, canvas, shapes.cuda())
+        src_c, pos_c, mask_c = cpu.embed(c5.cpu(), canvas, shapes)
+        check("input_proj", rel_err(src, src_c), 1e-5)
+        check("sine encoding", rel_err(pos, pos_c), 1e-5)
+        check("key mask mismatches", float((mask.cpu() != mask_c).sum()), 0)
+        if bool(mask.all()) or not bool(mask[0].all()):
+            raise AssertionError("the key mask should drop the second image's padding alone")
+        memory = src
+        for i in range(gpu.num_encoder_layers):
+            out = gpu.encoder_layer(i, memory, pos, mask)
+            check(f"encoder layer {i}", rel_err(out, cpu.encoder_layer(
+                i, memory.cpu(), pos.cpu(), mask.cpu())), 1e-4)
+            memory = out
+        tgt, qpos = gpu.queries(memory)
+        outs = []
+        for i in range(gpu.num_decoder_layers):
+            out = gpu.decoder_layer(i, tgt, qpos, memory, pos, mask)
+            check(f"decoder layer {i}", rel_err(out, cpu.decoder_layer(
+                i, tgt.cpu(), qpos.cpu(), memory.cpu(), pos.cpu(), mask.cpu())), 1e-4)
+            tgt = out
+            outs.append(gpu.decoder_norm(tgt))
+        hs = torch.stack(outs)
+        cls, box = gpu.heads(hs)
+        cls_c, box_c = cpu.heads(hs.cpu())
+        check("heads (logits, boxes)", max(rel_err(cls, cls_c), rel_err(box, box_c)), 1e-4)
+        dets_g = decode_detr(det_cfg, cls, box, shapes.cuda())
+        dets_c = decode_detr(det_cfg, cls.cpu(), box.cpu(), shapes)
+        for field in ("valid", "labels", "indices"):
+            check(f"top-k decode {field} mismatches",
+                  float((getattr(dets_g, field).cpu() != getattr(dets_c, field)).sum()), 0)
+        # the devices' softmax may differ by an ulp
+        check("top-k decode scores", rel_err(dets_g.scores, dets_c.scores), 1e-6)
+        check("top-k decode boxes", rel_err(dets_g.boxes, dets_c.boxes), 1e-6)
+
+    gt = detr_reference_gts("cpu")
+    c5_g = c5.detach().requires_grad_()
+    c5_c = c5.detach().cpu().requires_grad_()
+    col4row, results = None, []
+    for model, leaf, device in ((gpu, c5_g, "cuda"), (cpu, c5_c, "cpu")):
+        batch = {k: v.to(device) for k, v in gt.items()}
+        outputs = model.predict(leaf, canvas, shapes.to(device))
+        cls, box = detr_mod.loss_layers(det_cfg, *outputs)
+        gt_c = detr_mod.gt_to_cxcywh(batch["gt_boxes"], batch["gt_valid"], shapes.to(device))
+        if col4row is None:
+            cost = detr_mod.matching_cost(det_cfg, cls, box, gt_c, batch["gt_labels"])
+            col4row = detr_mod.match(cost, batch["gt_valid"])  # the kernel
+            check("matching: kernel vs plain on the GPU's costs, mismatches",
+                  float((detr_mod.match(cost.cpu(), gt["gt_valid"]) != col4row.cpu()).sum()), 0)
+        losses = detr_mod.set_losses(det_cfg, cls, box, gt_c, batch["gt_labels"],
+                                     batch["gt_valid"], col4row.to(device))
+        results.append((losses, torch.autograd.grad(losses["loss"], [leaf, model.query_embed])))
+    (lg, gg), (lc, gc) = results
+    check("losses", max(rel_err(lg[k], lc[k]) for k in ("loss_cls", "loss_l1", "loss_giou")), 1e-4)
+    check("gradients into C5", rel_err(gg[0], gc[0]), 1e-3)
+    check("gradients into query_embed", rel_err(gg[1], gc[1]), 1e-3)
+    if not (float(gg[0].abs().sum()) > 0 and float(gg[1].abs().sum()) > 0):
+        raise AssertionError("no gradient into C5 or query_embed")
+    log("detr reference check, GPU vs CPU float32: " + "; ".join(checks))
+
+
+def phase_detr_train(card: str) -> dict:
+    """Full-width DETR R50 training, float32 parameters and bf16 compute, b8
+    (the config's ``sample_per_replica``) on its 800 x 1344 canvas, two
+    images of 640 x 960 and 704 x 1088 in every four, 1-20 gts an image
+    padded to 100, the config's AdamW and clip, through the entry points a
+    user calls: 2 warm-up and 10 timed steps, K1 and K2 never and the
+    matcher once a step, finite losses, no step skipped, every parameter
+    group moved and no frozen parameter; one profiled step."""
+    cfg, canvas, b = detr_config()
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
+    if not isinstance(optimizer.torch_optimizer, torch.optim.AdamW):
+        raise AssertionError(f"the config's optimizer built {type(optimizer.torch_optimizer)}")
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    batches = [train_batch(gen, b, canvas) for _ in range(steps)]
+    log(f"detr training: {detr_tokens(batches[0]['image'], batches[0]['img_shape'])}")
+    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"detr training path: {TIMED_BATCHES} steps, launches {launches}")
+    expect_launches("detr training", launches, 0, 0, TIMED_BATCHES)
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"{len(history)} steps logged, {trainer.skipped_steps} skipped")
+    keys = ("loss", "loss_cls", "loss_l1", "loss_giou")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in keys) or not h["num_pos"] > 0:
+            raise AssertionError(f"non-finite loss or no gt at step {h['step']}: {h}")
+    moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    groups = sorted({n.split(".")[0] for n in trainable})
+    still_groups = [g for g in groups if not any(n.split(".")[0] == g for n in moved)]
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    frozen_moved = [n for n in frozen if n in moved]
+    still = [n for n in trainable if n not in moved]
+    log(f"detr training path: {len(moved)} of {len(trainable)} trainable parameter tensors moved "
+        f"in the groups {groups}; those that did not: {still}; {len(frozen)} frozen (the stem "
+        "and stage 1)")
+    if (still_groups or frozen_moved or "query_embed" not in moved
+            or not all(n.startswith(("backbone.stem.", "backbone.layer1_")) for n in frozen)):
+        raise AssertionError(f"groups that did not move {still_groups}; frozen parameters that "
+                             f"moved {frozen_moved}")
+    step_ms = [b / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    log(f"detr training path b{b}: ms a step {[round(t, 3) for t in step_ms]}, mean "
+        f"{mean_ms:.3f} ms, {b / (mean_ms / 1e3):.2f} images/s, median "
+        f"{statistics.median(step_ms):.3f} ms [{card}]; skipped steps {trainer.skipped_steps}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses first "
+        + ", ".join(f"{k} {history[0][k]:.4f}" for k in keys)
+        + "; last " + ", ".join(f"{k} {history[-1][k]:.4f}" for k in keys)
+        + f"; gts an image {history[0]['num_pos']:.2f}")
+    device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    return dict(launches=launches, ms_per_step=mean_ms, model=model, det_cfg=det_cfg,
+                batch=batches[-1])
+
+
+def phase_detr_step_data(model, det_cfg, batch) -> dict:
+    """The matcher kernel against its plain version on a DETR training
+    step's own costs: every decoder layer and image, (48, 100, 100) at b8,
+    softmax probabilities, L1 of the normalised boxes x 5 and per-pair GIoU
+    x 2; timed against its bound."""
+    with torch.no_grad():
+        cls, box = detr_mod.loss_layers(det_cfg, *model(batch["image"], batch["img_shape"]))
+        gt = detr_mod.gt_to_cxcywh(batch["gt_boxes"], batch["gt_valid"], batch["img_shape"])
+        cost = detr_mod.matching_cost(det_cfg, cls, box, gt, batch["gt_labels"])
+    layers, b, g, q = cost.shape
+    valid = batch["gt_valid"][None].expand(layers, b, g).reshape(layers * b, g)
+    return hungarian_at("hungarian on a DETR training step's own costs",
+                        cost.reshape(layers * b, g, q), valid, time_plain=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -2684,6 +2990,11 @@ def main() -> int:
     sparse_train = phase_sparse_train(card)
     sparse_step = phase_sparse_step_data(sparse_train.pop("model"), sparse_train.pop("det_cfg"),
                                          sparse_train.pop("batch"))
+    detr_serve = phase_detr_serving(card)
+    phase_detr_reference()
+    detr_train = phase_detr_train(card)
+    detr_step = phase_detr_step_data(detr_train.pop("model"), detr_train.pop("det_cfg"),
+                                     detr_train.pop("batch"))
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -2709,7 +3020,9 @@ def main() -> int:
                     "fast_training": fast_train["launches"]}
     slice7_paths = {"sparse_serving": sparse_serve["launches"],
                     "sparse_training": sparse_train["launches"]}
-    later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths}
+    slice8_paths = {"detr_serving": detr_serve["launches"],
+                    "detr_training": detr_train["launches"]}
+    later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],
@@ -2730,7 +3043,7 @@ def main() -> int:
               {"serving": serve["matcher"], "training": train["matcher"],
                **{path: n["matcher"] for path, n in later_paths.items()}}, sparse_step["matcher"],
               note="replaces a lax.while_loop (the reference's on-device matcher), not a Pallas "
-                   "kernel", at_edge_sets=matcher_edges),
+                   "kernel", at_edge_sets=matcher_edges, at_detr_training=detr_step),
     ]}
     log(f"chip_smoke wall time {time.perf_counter() - started:.1f} s (the kernels' build included)")
     log(card)

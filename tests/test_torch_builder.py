@@ -43,7 +43,7 @@ def test_detection_cfg_matches_reference():
 @pytest.mark.parametrize(
     "det_cfg,match",
     [
-        (dict(style="detr"), "style"),  # DETR: a later slice
+        (dict(style="gfl"), "style"),  # GFL: a later slice
         (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
         (dict(style="fast_rcnn", anchor=dict(strides=(4,))), "anchor"),  # Fast R-CNN has none
     ],
@@ -85,7 +85,7 @@ def test_entry_points_default_to_cuda():
         build_detector(Config.fromfile(CONFIG).model)
 
 
-# each two-stage style (and Sparse R-CNN's), its loss and its inference
+# each two-stage style (and Sparse R-CNN's and DETR's), its loss and its inference
 # (box and, where it has one, mask); the cascade configs subclass
 # FasterRCNNConfig, so a dispatch that tested a base class first would send
 # them down Faster R-CNN's path
@@ -97,6 +97,7 @@ _FAMILIES = {
                           "cascade_mask_rcnn_inference"),
     "fast_rcnn": ("fast_rcnn_loss", "fast_rcnn_inference", None),
     "sparse_rcnn": ("sparse_rcnn_train_loss", "sparse_rcnn_inference", None),
+    "detr": ("detr_train_loss", "detr_inference", None),
 }
 
 

@@ -3,8 +3,8 @@ optimizer with its learning-rate schedule.
 
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
 (the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
-``cascade_mask_rcnn``, ``fast_rcnn`` and ``sparse_rcnn`` styles; the other
-families arrive with their slices.
+``cascade_mask_rcnn``, ``fast_rcnn``, ``sparse_rcnn`` and ``detr`` styles;
+the other families arrive with their slices.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from .engine.trainer import detection_lr_schedule
 from .models.detectors import (
     CascadeMaskRCNNConfig,
     CascadeRCNNConfig,
+    DETRConfig,
     FasterRCNNConfig,
     FastRCNNConfig,
     MaskRCNNConfig,
@@ -26,6 +27,7 @@ from .models.detectors import (
     SparseRCNNConfig,
     cascade_mask_rcnn_loss,
     cascade_rcnn_loss,
+    detr_train_loss,
     fast_rcnn_loss,
     faster_rcnn_loss,
     mask_rcnn_loss,
@@ -51,6 +53,8 @@ _MASK_KEYS = ("mask_size", "mask_roi_size", "mask_loss_weight")
 _CASCADE_KEYS = ("num_stages", "stage_pos_ious", "stage_loss_weights", "stage_target_stds")
 _SPARSE_KEYS = ("num_classes", "num_proposals", "cls_weight", "l1_weight", "giou_weight",
                 "focal_gamma", "focal_alpha", "score_thr", "max_detections")
+_DETR_KEYS = ("num_classes", "num_queries", "cls_weight", "bbox_weight", "giou_weight",
+              "eos_coef", "aux_loss", "score_thr", "max_detections")
 # style -> (config class, its keys, the field the ``assigner`` key sets or None)
 _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS, None),
@@ -59,8 +63,10 @@ _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "cascade_mask_rcnn": (CascadeMaskRCNNConfig,
                                  _FASTER_RCNN_KEYS + _CASCADE_KEYS + _MASK_KEYS, None),
            "fast_rcnn": (FastRCNNConfig, _FASTER_RCNN_KEYS, "rcnn_assigner"),
-           "sparse_rcnn": (SparseRCNNConfig, _SPARSE_KEYS, None)}
-DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig, SparseRCNNConfig]
+           "sparse_rcnn": (SparseRCNNConfig, _SPARSE_KEYS, None),
+           "detr": (DETRConfig, _DETR_KEYS, None)}
+DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig, SparseRCNNConfig,
+                        DETRConfig]
 
 
 def _tuples(value):
@@ -103,9 +109,10 @@ def _build_anchor_generator(anchor: Dict[str, Any]) -> AnchorGenerator:
 def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     """The static detection config of a ``style='retina'`` (the default),
     ``'faster_rcnn'``, ``'mask_rcnn'``, ``'cascade_rcnn'``,
-    ``'cascade_mask_rcnn'``, ``'fast_rcnn'`` or ``'sparse_rcnn'`` config. RetinaNet's
-    ``assigner`` is its ``assigner``, Fast R-CNN's its ``rcnn_assigner``.
-    Keys the port does not read yet raise instead of being dropped."""
+    ``'cascade_mask_rcnn'``, ``'fast_rcnn'``, ``'sparse_rcnn'`` or ``'detr'``
+    config. RetinaNet's ``assigner`` is its ``assigner``, Fast R-CNN's its
+    ``rcnn_assigner``. Keys the port does not read yet raise instead of
+    being dropped."""
     cfg = dict(det_cfg)
     style = cfg.pop("style", "retina")
     if style not in _STYLES:
@@ -133,8 +140,16 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     repeats exactly (the counterpart of the reference's ``_step_rng``).
     A mask config adds the mask losses, whose batch carries ``gt_masks``;
     a ``FastRCNNConfig``'s batch carries ``proposals`` and
-    ``proposal_valid``. RetinaNet and Sparse R-CNN draw nothing; Sparse
-    R-CNN's forward and loss take the batch's ``img_shape``."""
+    ``proposal_valid``. RetinaNet, Sparse R-CNN and DETR draw nothing;
+    Sparse R-CNN's and DETR's forward and loss take the batch's
+    ``img_shape``. The set-prediction configs are tested first: no R-CNN
+    config class is their base."""
+    if isinstance(det_cfg, DETRConfig):
+        def detr_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
+            losses = detr_train_loss(det_cfg, model, batch)
+            return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
+
+        return detr_loss_fn
     if isinstance(det_cfg, SparseRCNNConfig):
         def sparse_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
             losses = sparse_rcnn_train_loss(det_cfg, model, batch)

@@ -2,8 +2,8 @@
 
 Counterpart of ``torch_detection_tpu/engine/validate.py::make_inference_fn``
 for the Faster R-CNN, Mask R-CNN, Cascade R-CNN, Cascade Mask R-CNN, Fast
-R-CNN, RetinaNet and Sparse R-CNN families. The port's modules hold their weights, so
-``infer`` takes the batch alone.
+R-CNN, RetinaNet, Sparse R-CNN and DETR families. The port's modules hold
+their weights, so ``infer`` takes the batch alone.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 from ..models.detectors import (
     CascadeMaskRCNNConfig,
     CascadeRCNNConfig,
+    DETRConfig,
     FasterRCNNConfig,
     FastRCNNConfig,
     MaskRCNNConfig,
@@ -22,6 +23,7 @@ from ..models.detectors import (
     SparseRCNNConfig,
     cascade_mask_rcnn_inference,
     cascade_rcnn_inference,
+    detr_inference,
     fast_rcnn_inference,
     faster_rcnn_inference,
     mask_rcnn_inference,
@@ -41,7 +43,8 @@ def _inference(det_cfg, segm: bool) -> Callable:
                                      (FasterRCNNConfig, faster_rcnn_inference, None),
                                      (FastRCNNConfig, fast_rcnn_inference, None),
                                      (RetinaNetConfig, retina_inference, None),
-                                     (SparseRCNNConfig, sparse_rcnn_inference, None)):
+                                     (SparseRCNNConfig, sparse_rcnn_inference, None),
+                                     (DETRConfig, detr_inference, None)):
         if isinstance(det_cfg, config_cls):
             if segm and masks is None:
                 raise ValueError("segm=True needs a mask-capable detector (MaskRCNNConfig or "
@@ -60,7 +63,9 @@ def make_inference_fn(model, det_cfg, segm: bool = False) -> Callable:
     R-CNN's ``infer(image, img_shape, scale_factor, proposals,
     proposal_valid)`` also takes its proposals, (B, P, 4|5) in the canvas
     frame, and their (B, P) validity. Sparse R-CNN's ``img_shape`` also
-    sizes its initial slate (the canvas where it is None)."""
+    sizes its initial slate (the canvas where it is None); DETR's masks the
+    canvas padding out of its attention (every cell valid where it is
+    None)."""
     inference = _inference(det_cfg, segm)
 
     if isinstance(det_cfg, FastRCNNConfig):

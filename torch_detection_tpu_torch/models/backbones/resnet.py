@@ -138,6 +138,8 @@ class ResNet(nn.Module):
             raise ValueError(f"bad num_stages {num_stages} / out_indices {out_indices}")
         block_cls, stage_blocks = ARCH_SETTINGS[depth]
         self.out_indices = tuple(out_indices)
+        # each output's channels, which flax infers at init and a consumer here needs
+        self.out_channels = tuple(64 * 2**i * block_cls.expansion for i in self.out_indices)
         norm = norm_cfg or {"type": "FrozenBN"}
 
         self.stem = ConvModule(in_channels, 64, 7, stride=2, padding=3, norm_cfg=norm,

@@ -10,6 +10,7 @@ from .cascade_rcnn import (
     cascade_rcnn_inference,
     cascade_rcnn_loss,
 )
+from .detr import DETR, DETRConfig, decode_detr, detr_inference, detr_loss, detr_train_loss
 from .fast_rcnn import FastRCNN, FastRCNNConfig, fast_rcnn_inference, fast_rcnn_loss
 from .mask_rcnn import (
     MaskDetections,
@@ -42,6 +43,7 @@ from .two_stage import (
 )
 
 __all__ = ["CascadeMaskRCNN", "CascadeMaskRCNNConfig", "CascadeRCNN", "CascadeRCNNConfig",
+           "DETR", "DETRConfig", "decode_detr", "detr_inference", "detr_loss", "detr_train_loss",
            "FastRCNN", "FastRCNNConfig", "FasterRCNNConfig", "MaskDetections", "MaskRCNN",
            "MaskRCNNConfig", "RetinaNetConfig", "SingleStageDetector", "TwoStageDetector",
            "cascade_mask_rcnn_inference", "cascade_mask_rcnn_loss", "cascade_rcnn_inference",

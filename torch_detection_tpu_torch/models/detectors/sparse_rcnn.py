@@ -142,7 +142,7 @@ def _whwh(img_shapes: Tensor) -> Tensor:
     return torch.stack([hw[:, 1], hw[:, 0], hw[:, 1], hw[:, 0]], dim=-1)
 
 
-def _cxcywh_to_xyxy(boxes: Tensor) -> Tensor:
+def cxcywh_to_xyxy(boxes: Tensor) -> Tensor:
     cx, cy, w, h = boxes.unbind(-1)
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
 
@@ -196,7 +196,7 @@ class SparseRCNN(RoIDetector):
         pb = self.proposal_boxes
         # keep the learnable slate well-formed whatever the optimizer does
         pb = torch.cat([pb[:, :2], torch.clamp(pb[:, 2:], min=1e-2)], dim=-1)
-        boxes = _cxcywh_to_xyxy(pb)[None] * _whwh(img_shapes)[:, None, :]
+        boxes = cxcywh_to_xyxy(pb)[None] * _whwh(img_shapes)[:, None, :]
         obj = self.proposal_features[None].expand(b, -1, -1).to(feats[0].dtype)
         return boxes, obj
 
@@ -289,9 +289,9 @@ def matching_cost(cfg: SparseRCNNConfig, cls_logits: Tensor, pred_boxes: Tensor,
 
 
 def match(cost: Tensor, gt_valid: Tensor) -> Tensor:
-    """``col4row`` (S, B, G) int32 of every stage's and image's problem in
-    one call of ``batched_linear_sum_assignment`` (on the card one kernel
-    launch); invalid gts get -1."""
+    """``col4row`` (S, B, G) int32 of every stage's (DETR: decoder layer's)
+    and image's problem in one call of ``batched_linear_sum_assignment`` (on
+    the card one kernel launch); invalid gts get -1."""
     s, b, g, q = cost.shape
     valid = gt_valid.bool()[None].expand(s, b, g).reshape(s * b, g)
     return batched_linear_sum_assignment(cost.reshape(s * b, g, q), valid).reshape(s, b, g)
@@ -357,25 +357,20 @@ def sparse_rcnn_train_loss(cfg: SparseRCNNConfig, model: SparseRCNN,
                             batch["gt_valid"], shapes)
 
 
-def decode_sparse_rcnn(
-    cfg: SparseRCNNConfig,
-    cls_logits: Tensor,  # (S, B, N, C)
-    pred_boxes: Tensor,  # (S, B, N, 4) absolute continuous xyxy
-    img_shapes: Optional[Tensor] = None,  # (B, 2) (h, w)
-    scale_factors: Optional[Tensor] = None,  # (B,) or (B, 4)
-) -> NMSResult:
-    """The top ``max_detections`` (query, class) pairs of the last stage's
-    sigmoid scores, with no NMS (set prediction is one-to-one, paper §3.4):
-    inclusive boxes, clipped to ``img_shapes``, scale factors undone per
-    image; ``indices`` are the query ids. The top-k is stable, so equal
-    scores go to the lower index, as XLA's ``top_k``."""
-    logits, boxes = cls_logits[-1], pred_boxes[-1]
-    b, q, c = logits.shape
-    probs = torch.sigmoid(logits.float()).reshape(b, q * c)
-    k = min(cfg.max_detections, q * c)
-    scores, flat = top_k_stable(probs, k)
+def top_k_detections(probs: Tensor, boxes: Tensor, img_shapes: Optional[Tensor],
+                     scale_factors: Optional[Tensor], max_detections: int,
+                     score_thr: float) -> NMSResult:
+    """The set-prediction decode, with no NMS (set prediction is
+    one-to-one): the top ``max_detections`` (query, class) pairs of
+    ``probs`` (B, Q, C), their ``boxes`` (B, Q, 4) continuous xyxy made
+    inclusive, clipped to ``img_shapes``, scale factors (B,) or (B, 4)
+    undone per image; ``indices`` are the query ids. The top-k is stable, so
+    equal scores go to the lower index, as XLA's ``top_k``."""
+    b, q, c = probs.shape
+    k = min(max_detections, q * c)
+    scores, flat = top_k_stable(probs.reshape(b, q * c), k)
     query, label = flat // c, flat % c
-    bx = torch.gather(boxes.float(), 1, query[..., None].expand(-1, -1, 4))
+    bx = torch.gather(boxes, 1, query[..., None].expand(-1, -1, 4))
     bx = torch.cat([bx[..., :2], bx[..., 2:] - 1.0], dim=-1)
     if img_shapes is not None:
         hw = img_shapes.float()
@@ -384,14 +379,27 @@ def decode_sparse_rcnn(
         bx = torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)
     if scale_factors is not None:
         bx = bx / scale_factors.reshape(b, 1, -1).to(bx.dtype)
-    valid = scores > cfg.score_thr
-    pad = cfg.max_detections - k
+    valid = scores > score_thr
+    pad = max_detections - k
     if pad:  # fewer (query, class) pairs than detections: padded rows are invalid
         bx = torch.cat([bx, bx.new_zeros((b, pad, 4))], dim=1)
         scores, label, query, valid = (torch.cat([t, t.new_zeros((b, pad))], dim=1)
                                        for t in (scores, label, query, valid))
     return NMSResult(bx, torch.where(valid, scores, 0.0), torch.where(valid, label, -1), valid,
                      torch.where(valid, query, -1))
+
+
+def decode_sparse_rcnn(
+    cfg: SparseRCNNConfig,
+    cls_logits: Tensor,  # (S, B, N, C)
+    pred_boxes: Tensor,  # (S, B, N, 4) absolute continuous xyxy
+    img_shapes: Optional[Tensor] = None,  # (B, 2) (h, w)
+    scale_factors: Optional[Tensor] = None,  # (B,) or (B, 4)
+) -> NMSResult:
+    """``top_k_detections`` of the last stage's sigmoid scores and boxes
+    (paper §3.4)."""
+    return top_k_detections(torch.sigmoid(cls_logits[-1].float()), pred_boxes[-1].float(),
+                            img_shapes, scale_factors, cfg.max_detections, cfg.score_thr)
 
 
 def sparse_rcnn_inference(

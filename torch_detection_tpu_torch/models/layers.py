@@ -1,11 +1,12 @@
 """Shared model building blocks.
 
 Counterpart of ``torch_detection_tpu/models/layers.py``, cut to what the
-ported slices run, with the flax building blocks Sparse R-CNN takes from
-``flax.linen`` (``LayerNorm``, ``MultiHeadDotProductAttention`` and a
-float32 ``Dense``). These blocks take NCHW tensors, PyTorch's
-convention; the detector keeps them in ``torch.channels_last`` memory, so a
-``permute(0, 2, 3, 1)`` gives the reference's NHWC layout without a copy.
+ported slices run, with the flax building blocks Sparse R-CNN and DETR
+take from ``flax.linen`` (``LayerNorm``, ``MultiHeadDotProductAttention``
+with its key mask, and a float32 ``Dense``). These blocks take NCHW
+tensors, PyTorch's convention; the detector keeps them in
+``torch.channels_last`` memory, so a ``permute(0, 2, 3, 1)`` gives the
+reference's NHWC layout without a copy.
 
 Parameters are created in ``dtype`` (the compute dtype, as the reference's
 flax ``dtype`` attribute), except FrozenBN's, which stay float32: the fold
@@ -167,11 +168,17 @@ class HeadsLinear(nn.Linear):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax's ``MultiHeadDotProductAttention`` as self-attention without a
-    mask or dropout: ``query``, ``key``, ``value`` and ``out`` projections
-    (flax's names), the query divided by sqrt(head_dim) in the compute dtype
-    before the product, the softmax's result cast to the compute dtype, as
-    flax computes them. Parameters in ``dtype``; the compute dtype is the
+    """flax's ``MultiHeadDotProductAttention`` without dropout: ``query``,
+    ``key``, ``value`` and ``out`` projections (flax's names), the query
+    divided by sqrt(head_dim) in the compute dtype before the product, the
+    softmax's result cast to the compute dtype, as flax computes them.
+    ``attn(x)`` is self-attention; ``attn(inputs_q, inputs_k, inputs_v,
+    mask)`` attends from ``inputs_q`` to ``inputs_k`` (default
+    ``inputs_q``) with the values of ``inputs_v`` (default ``inputs_k``).
+    The boolean ``mask`` broadcasts against the (..., heads, q, k) weights,
+    True where a key may be attended; a masked weight is set to the least
+    finite value of the weights' dtype before the softmax, as flax's
+    ``big_neg``. Parameters in ``dtype``; the compute dtype is the
     projections' output dtype (autocast's, where it is on)."""
 
     def __init__(self, features: int, num_heads: int, dtype=None, device=None):
@@ -185,17 +192,23 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = HeadsLinear(features, features, "out", **kw)
         self.out = HeadsLinear(features, features, "in", **kw)
 
-    def forward(self, x: Tensor) -> Tensor:  # (..., N, features)
-        *lead, n, features = x.shape
-        heads = (*lead, n, self.num_heads, features // self.num_heads)
-        q = self.query(x).view(heads)
-        k = self.key(x).view(heads)
-        v = self.value(x).view(heads)
+    def forward(self, inputs_q: Tensor, inputs_k: Optional[Tensor] = None,
+                inputs_v: Optional[Tensor] = None, mask: Optional[Tensor] = None
+                ) -> Tensor:  # (..., N, features)
+        inputs_k = inputs_q if inputs_k is None else inputs_k
+        inputs_v = inputs_k if inputs_v is None else inputs_v
+        *lead, n, features = inputs_q.shape
+        head_dim = features // self.num_heads
+        q = self.query(inputs_q).view(*lead, n, self.num_heads, head_dim)
+        k = self.key(inputs_k).view(*inputs_k.shape[:-1], self.num_heads, head_dim)
+        v = self.value(inputs_v).view(*inputs_v.shape[:-1], self.num_heads, head_dim)
         dtype = q.dtype
         # a 0-d tensor on the device, so that the division is correctly
         # rounded there too (CUDA divides by a Python scalar's reciprocal)
-        depth = torch.full((), math.sqrt(heads[-1]), dtype=torch.float32, device=x.device)
+        depth = torch.full((), math.sqrt(head_dim), dtype=torch.float32, device=q.device)
         weights = torch.einsum("...qhd,...khd->...hqk", q / depth.to(dtype), k)
+        if mask is not None:
+            weights = weights.masked_fill(~mask, torch.finfo(weights.dtype).min)
         weights = torch.softmax(weights, dim=-1).to(dtype)
         out = torch.einsum("...hqk,...khd->...qhd", weights, v)
         return self.out(out.reshape(*lead, n, features))
