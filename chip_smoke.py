@@ -121,7 +121,28 @@ Phases, each fatal on failure:
    the matcher once a step (all six decoder layers and eight images in one
    launch), K1 and K2 never, every parameter group moved; then the matcher
    on the step's own (48, 100, 100) costs against its plain version and its
-   bound.
+   bound;
+26. the system's own entry points on Faster R-CNN R50-FPN at full width: a
+   seeded COCO folder under build/smoke_coco (64 train and 16 val PNGs at
+   COCO's landscape and square sizes, 1-20 boxes an image over COCO's
+   category ids, a crowd box in every fourth image), a config whose
+   ``_base_`` is configs/faster_rcnn_r50_fpn_coco.py (b8 on its 800 x 1344
+   canvas, ``score_thr`` 0 so that random weights leave detections);
+   ``tools.train`` on a portrait image raises the R8 ``ValueError``;
+   ``tools.train`` for two epochs (K1 and K2 once a step: twice the
+   loader's length each), ``epoch_N/`` and ``metrics.jsonl`` checked; a
+   resume from ``epoch_1`` (the state loads bit for bit, the step and the
+   learning rate continue, the epoch-2 losses within 1e-3 relative);
+   ``tools.test`` on the val set (K1 once a batch, its model equal to
+   ``epoch_2``'s bit for bit, 12 finite metrics, a non-empty COCO results
+   JSON inside each image, its detections matched to ``evaluate_detector``
+   through the plain RoIAlign on the same model); the val gts as detections
+   through the dump and ``eval_coco_map`` (mAP 1.0); K1 and K2 against
+   their plain versions on a training batch, K1 on a ``tools.test`` batch's
+   own levels and proposals; the host's ms to decode and prepare an image
+   and to collate a batch, the trainer's wait on the loader, images/s over
+   all of epoch 2 from the trainer's log, one profiled step fed by the
+   loader, and peak memory.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -130,13 +151,17 @@ last line is the device JSON. Without a GPU it exits with 2 and prints no result
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -150,7 +175,16 @@ from torch_detection_tpu_torch.builder import (
     build_loss_fn,
     build_train_objects,
 )
+from torch_detection_tpu_torch.data import collate, get_datasets, prefetch_to_device
+from torch_detection_tpu_torch.data.ops.image import img_read
 from torch_detection_tpu_torch.engine import Trainer, make_inference_fn
+from torch_detection_tpu_torch.engine.checkpoint import (
+    load_checkpoint,
+    load_checkpoint_file,
+    optimizer_state,
+)
+from torch_detection_tpu_torch.engine.eval import eval_coco_map
+from torch_detection_tpu_torch.engine.validate import coco_detection_dump, evaluate_detector
 from torch_detection_tpu_torch.models.backbones.resnet import space_to_depth_2x2
 from torch_detection_tpu_torch.models.inits import init_weights
 from torch_detection_tpu_torch.models.detectors import (
@@ -204,6 +238,8 @@ from torch_detection_tpu_torch.ops.preprocess import (
     fused_normalize_pad_s2d,
     space_to_depth_2x2_np,
 )
+from torch_detection_tpu_torch.tools import test as test_cli
+from torch_detection_tpu_torch.tools import train as train_cli
 from torch_detection_tpu_torch.utils.config import Config
 from torch_detection_tpu_torch.utils.registry import DETECTORS
 
@@ -728,10 +764,11 @@ def log_breakdown(title: str, times: dict, card: str) -> None:
         f"{k} {v:.3f} ms ({100 * v / total:.1f}%)" for k, v in median.items()))
 
 
-def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -> None:
+def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -> dict:
     """One batch (or step) under torch.profiler: the time in which the
     device ran a kernel, its share of an unprofiled one (``batch_ms``), and
-    the PyTorch operators whose kernels took most of it."""
+    the PyTorch operators whose kernels took most of it; returns the busy
+    ms and the idle share (empty where the profiler saw no device event)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -742,7 +779,7 @@ def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -
     if not kernels:
         log(f"device profile, one {what} [{card}]: not measured (the profiler recorded no device "
             "events)")
-        return
+        return {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy_us, end = 0.0, float("-inf")
     for s, e in spans:  # union of the kernels' intervals
@@ -760,6 +797,7 @@ def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -
     roi = [(key, us, n) for key, us, n in ops if "RoIAlign" in key]
     log(f"device profile, one {what} [{card}]: RoIAlign operators "
         + ("; ".join(f"{key} {us / 1e3:.3f} ms ({n} calls)" for key, us, n in roi) or "none"))
+    return dict(busy_ms=busy_ms, idle=1 - busy_ms / batch_ms)
 
 
 def stage_breakdown(model, det_cfg, images, img_shape, card: str, repeats: int = 5) -> None:
@@ -856,8 +894,8 @@ class Batches:
     def set_epoch(self, epoch: int) -> None:
         pass
 
-    def iter_batches(self):
-        return (dict(b) for b in self.batches)
+    def iter_batches(self, skip_batches: int = 0):
+        return (dict(b) for b in self.batches[skip_batches:])
 
     def __len__(self) -> int:
         return len(self.batches)
@@ -909,15 +947,16 @@ def phase_train(card: str) -> dict:
     calls; K1's and K2's launches are counted over the timed steps."""
     cfg = Config.fromfile(CONFIG)
     steps = WARMUP_BATCHES + TIMED_BATCHES
-    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
-    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     batches = [train_batch(gen) for _ in range(steps)]
-    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
 
     reset_launches()
     t0 = time.perf_counter()
@@ -955,10 +994,10 @@ def phase_train(card: str) -> dict:
         + ", ".join(f"{k} {history[0][k]:.4f}" for k in LOSS_KEYS)
         + "; last " + ", ".join(f"{k} {history[-1][k]:.4f}" for k in LOSS_KEYS)
         + f"; positive rois a step {[int(h['num_pos_rois']) for h in history]}")
-    device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    profile = device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
     train_stage_breakdown(model, det_cfg, optimizer, batches[-1], card)
-    return dict(k1=k1, k2=k2, matcher=matcher, ms_per_step=mean_ms, model=model, det_cfg=det_cfg,
-                batch=batches[-1])
+    return dict(k1=k1, k2=k2, matcher=matcher, ms_per_step=mean_ms, profile=profile, model=model,
+                det_cfg=det_cfg, batch=batches[-1])
 
 
 def train_stage_breakdown(model, det_cfg, optimizer, batch, card: str, repeats: int = 5) -> None:
@@ -1328,17 +1367,18 @@ def phase_mask_train(card: str) -> dict:
     steps."""
     cfg = Config.fromfile(MASK_CONFIG)
     steps = WARMUP_BATCHES + TIMED_BATCHES
-    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
-    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     batches = [mask_train_batch(gen) for _ in range(steps)]
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
     log(f"mask training batches: gt mask rows {[b['gt_masks'].shape[1] for b in batches]}, gts an "
         f"image {[b['gt_valid'].sum(1).tolist() for b in batches[:3]]} ...")
-    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1656,15 +1696,16 @@ def phase_retina_train(card: str) -> dict:
     calls; K1 and K2 counted (none expected)."""
     cfg = Config.fromfile(RETINA_CONFIG)
     steps = WARMUP_BATCHES + TIMED_BATCHES
-    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
-    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
     batches = [retina_train_batch(gen) for _ in range(steps)]
-    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1949,15 +1990,16 @@ def phase_rcnn_train(card: str, path: str, config: Path, make_batch, k: int, see
     step."""
     cfg = Config.fromfile(config)
     steps = WARMUP_BATCHES + TIMED_BATCHES
-    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
-    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     batches = [make_batch(gen) for _ in range(steps)]
-    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
     reset_launches()
     t0 = time.perf_counter()
     history = trainer.run(1)
@@ -2444,17 +2486,18 @@ def phase_sparse_train(card: str) -> dict:
     profiled step."""
     cfg = Config.fromfile(SPARSE_CONFIG)
     steps = WARMUP_BATCHES + TIMED_BATCHES
-    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
+    batches = [train_batch(gen, SPARSE_TRAIN_BATCH) for _ in range(steps)]
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
     if not isinstance(optimizer.torch_optimizer, torch.optim.AdamW):
         raise AssertionError(f"the config's optimizer built {type(optimizer.torch_optimizer)}")
     loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 46)
-    batches = [train_batch(gen, SPARSE_TRAIN_BATCH) for _ in range(steps)]
-    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
     reset_launches()
     t0 = time.perf_counter()
     history = trainer.run(1)
@@ -2851,18 +2894,19 @@ def phase_detr_train(card: str) -> dict:
     group moved and no frozen parameter; one profiled step."""
     cfg, canvas, b = detr_config()
     steps = WARMUP_BATCHES + TIMED_BATCHES
-    model, det_cfg, optimizer = build_train_objects(cfg, steps, device="cuda", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    batches = [train_batch(gen, b, canvas) for _ in range(steps)]
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
     if not isinstance(optimizer.torch_optimizer, torch.optim.AdamW):
         raise AssertionError(f"the config's optimizer built {type(optimizer.torch_optimizer)}")
     loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
-    batches = [train_batch(gen, b, canvas) for _ in range(steps)]
     log(f"detr training: {detr_tokens(batches[0]['image'], batches[0]['img_shape'])}")
-    Trainer(loss_fn, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    trainer = Trainer(loss_fn, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
     reset_launches()
     t0 = time.perf_counter()
     history = trainer.run(1)
@@ -2918,6 +2962,441 @@ def phase_detr_step_data(model, det_cfg, batch) -> dict:
     valid = batch["gt_valid"][None].expand(layers, b, g).reshape(layers * b, g)
     return hungarian_at("hungarian on a DETR training step's own costs",
                         cost.reshape(layers * b, g, q), valid, time_plain=True)
+
+
+# ---------------------------------------------------------------- the system's own entry points
+# COCO's 80 category ids (1-90 with ten gaps) and its usual landscape and
+# square image sizes (w, h): the config's fixed canvas (800, 1344) holds no
+# portrait image at (1333, 800), in the reference as in the port (R8), so
+# the portrait size goes to a folder of its own that training must refuse
+COCO_CATEGORY_IDS = tuple(i for i in range(1, 91)
+                          if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+CLI_SIZES = ((640, 480), (640, 427), (500, 375), (612, 612))
+CLI_PORTRAIT = ((480, 640),)
+CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_EPOCHS = 64, 16, 2
+SMOKE_COCO = ROOT / "build" / "smoke_coco"
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """An RGB uint8 image as a PNG, every row unfiltered (filter 0)."""
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_smoke_coco(split: str, n: int, seed: int, sizes=CLI_SIZES) -> Path:
+    """``n`` seeded PNGs of ``sizes`` (noise with filled rectangles) under
+    ``SMOKE_COCO/split`` and their instances JSON: 1-20 boxes an image over
+    COCO's category ids, and one crowd box in every fourth image."""
+    rng = np.random.default_rng(seed)
+    img_dir = SMOKE_COCO / split
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i in range(n):
+        w, h = sizes[i % len(sizes)]
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        boxes = int(rng.integers(1, 21))
+        for j in range(boxes + (i % 4 == 3)):
+            bw, bh = int(rng.integers(16, w // 2)), int(rng.integers(16, h // 2))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y:y + bh, x:x + bw] = rng.integers(0, 256, 3, dtype=np.uint8)
+            annotations.append(dict(id=len(annotations) + 1, image_id=i + 1,
+                                    category_id=int(rng.choice(COCO_CATEGORY_IDS)),
+                                    bbox=[x, y, bw, bh], area=bw * bh, iscrowd=int(j == boxes)))
+        name = f"{i + 1:012d}.png"
+        (img_dir / name).write_bytes(png_bytes(img))
+        images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+    ann_file = SMOKE_COCO / f"instances_{split}.json"
+    ann_file.write_text(json.dumps(dict(
+        images=images, annotations=annotations,
+        categories=[dict(id=c, name=f"category_{c}") for c in COCO_CATEGORY_IDS])))
+    return ann_file
+
+
+def write_smoke_config(train_ann: Path, val_ann: Path) -> Path:
+    """A config whose ``_base_`` is the Faster R-CNN R50-FPN config, with
+    only the data paths, the work dir, the warmup, the log interval and
+    ``score_thr`` overridden: at 0 every valid proposal's class scores
+    compete for the 100 detections an image, so a model with random weights
+    still writes detections for ``tools.test`` to check."""
+    path = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke.py"
+    path.write_text(
+        f"_base_ = {str(CONFIG)!r}\n"
+        f"data = dict(train=dict(ann_file={str(train_ann)!r}, img_prefix={str(SMOKE_COCO / 'train')!r}),\n"
+        f"            val=dict(ann_file={str(val_ann)!r}, img_prefix={str(SMOKE_COCO / 'val')!r}))\n"
+        "detection = dict(score_thr=0.0)\n"
+        "schedule = dict(warmup_steps=100)\n"
+        f"runtime = dict(work_dir={str(SMOKE_COCO / 'work')!r}, log_interval=1)\n")
+    return path
+
+
+def write_portrait_config(base: Path, train_ann: Path) -> Path:
+    """The smoke config with a training set of portrait images."""
+    path = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke_portrait.py"
+    path.write_text(
+        f"_base_ = {str(base)!r}\n"
+        f"data = dict(train=dict(ann_file={str(train_ann)!r}, "
+        f"img_prefix={str(SMOKE_COCO / 'portrait')!r}))\n")
+    return path
+
+
+def host_data_costs(cfg, card: str) -> None:
+    """Host ms an image to read and decode, and to prepare a training
+    sample (decode, normalise, resize, flip, pad), and ms a batch to
+    collate, on the training set's first 16 images and two batches."""
+    dataset = get_datasets(dict(cfg["data"]["train"]))
+    paths = [str(Path(dataset.img_prefix) / info["filename"]) for info in dataset.img_infos[:16]]
+    t0 = time.perf_counter()
+    for p in paths:
+        img_read(p)
+    decode_ms = (time.perf_counter() - t0) / len(paths) * 1e3
+    t0 = time.perf_counter()
+    samples = [dataset[i] for i in range(16)]
+    sample_ms = (time.perf_counter() - t0) / len(samples) * 1e3
+    batch = cfg["data"]["sample_per_replica"]
+    t0 = time.perf_counter()
+    for k in range(0, 16, batch):
+        collate(samples[k:k + batch], max_gts=cfg["data"]["max_gts"],
+                canvas=tuple(cfg["data"]["canvas"]))
+    collate_ms = (time.perf_counter() - t0) / (16 // batch) * 1e3
+    log(f"cli host data path [{card}, host clock]: read and decode {decode_ms:.2f} ms an image, "
+        f"a training sample (decode, normalise, resize, flip, pad) {sample_ms:.2f} ms an image, "
+        f"collate {collate_ms:.2f} ms a batch of {batch} on {tuple(cfg['data']['canvas'])}")
+
+
+def equal_state(what: str, got: dict, want: dict) -> None:
+    """Every tensor of ``got`` (on any device) equals ``want``'s bit for bit."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: keys differ")
+    for k in got:
+        a, b = got[k], want[k]
+        if isinstance(a, dict):
+            equal_state(f"{what} {k}", a, b)
+        elif isinstance(a, torch.Tensor):
+            if not torch.equal(a.detach().cpu(), b.detach().cpu()):
+                raise AssertionError(f"{what}: {k} differs")
+        elif a != b:
+            raise AssertionError(f"{what}: {k} is {a}, saved {b}")
+
+
+def cli_kernels(model, det_cfg, batch) -> dict:
+    """K1 and K2 against their plain versions on one CLI training batch's
+    own FPN levels and sampled rois (512 an image), K2 on the box head's
+    cotangent scaled by a power of two to a largest value in [1, 2); each
+    timed against its bound."""
+    noise = functools.partial(sampling_noise, torch.Generator(device="cuda").manual_seed(SEED + 60))
+    feats, rpn_s, rpn_d = model(batch["image"])
+    props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator,
+                               [s.detach() for s in rpn_s], [d.detach() for d in rpn_d],
+                               batch["img_shape"])
+    sampled = sample_rois(det_cfg, props.boxes, props.valid, batch["gt_boxes"], batch["gt_labels"],
+                          batch["gt_valid"], noise)
+    maps = [f.detach() for f in feats[: len(det_cfg.roi_strides)]]
+    rois = sampled.rois
+    routed = roi_align.map_rois_to_levels(rois, len(maps), det_cfg.finest_scale)
+    b, n = rois.shape[:2]
+    c = maps[0].shape[-1]
+    flops = 2 * 4 * b * n * (OUT_SIZE * RATIO) ** 2 * c
+    small = rois.numel() * 4 + routed.numel() * 4
+    out_bytes = b * n * OUT_SIZE * OUT_SIZE * c * maps[0].element_size()
+    name = f"roi_align_fwd on a CLI training batch's levels and sampled rois ({n} an image)"
+    k1 = kernel_at(name, roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align,
+                   (maps, rois, routed, det_cfg.roi_strides), check_bf16,
+                   touched_bytes(maps, rois) + small, out_bytes, flops)
+    leaves = [m.requires_grad_() for m in maps]
+    roi_feats = roi_align.batched_multilevel_roi_align(leaves, rois, det_cfg.roi_strides,
+                                                      det_cfg.roi_size)
+    (cotangent,) = torch.autograd.grad(
+        sum(rcnn_losses(det_cfg, *model.roi_forward(roi_feats), sampled)), roi_feats)
+    top = float(cotangent.abs().max())
+    if not top > 0:
+        raise AssertionError("the CLI batch's box-head cotangent is all zero")
+    cotangent = cotangent * 2.0 ** -math.floor(math.log2(top))  # K2 is linear in it
+    args = (cotangent.detach(), rois, routed, [tuple(f.shape[1:3]) for f in maps],
+            det_cfg.roi_strides, det_cfg.roi_size)
+    name = "roi_align_bwd on a CLI training batch's levels, sampled rois and scaled cotangent"
+    check_deterministic(name, roi_align.multilevel_roi_align_backward_cuda, args)
+    k2 = kernel_at(name, roi_align.multilevel_roi_align_backward_cuda,
+                   roi_align.multilevel_roi_align_backward, args,
+                   lambda nm, g, w: check_grads(nm, g, w, cotangent.dtype),
+                   cotangent.numel() * cotangent.element_size() + small,
+                   sum(m.numel() for m in maps) * cotangent.element_size(), flops)
+    return dict(k1=k1, k2=k2)
+
+
+def cli_test_kernel(model, det_cfg, image, img_shape) -> dict:
+    """K1 against its plain version on one ``tools.test`` batch's own FPN
+    levels and test proposals, timed against its bound."""
+    with torch.inference_mode():
+        feats, rpn_s, rpn_d = model(image)
+        props = generate_proposals(det_cfg.proposal_test, det_cfg.anchor_generator, rpn_s, rpn_d,
+                                   img_shape)
+        maps = list(feats[: len(det_cfg.roi_strides)])
+        rois = props.boxes
+        routed = roi_align.map_rois_to_levels(rois, len(maps), det_cfg.finest_scale)
+        b, n = rois.shape[:2]
+        c = maps[0].shape[-1]
+        name = (f"roi_align_fwd on a tools.test batch's levels and proposals (b{b} on "
+                f"{tuple(image.shape[1:3])}, {n} an image)")
+        return kernel_at(name, roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align,
+                         (maps, rois, routed, det_cfg.roi_strides), check_bf16,
+                         touched_bytes(maps, rois) + rois.numel() * 4 + routed.numel() * 4,
+                         b * n * OUT_SIZE * OUT_SIZE * c * maps[0].element_size(),
+                         2 * 4 * b * n * (OUT_SIZE * RATIO) ** 2 * c)
+
+
+@contextlib.contextmanager
+def plain_roi_align():
+    """RoIAlign's plain PyTorch forward on CUDA tensors in place of K1."""
+    kernel = roi_align.multilevel_roi_align_cuda
+    roi_align.multilevel_roi_align_cuda = roi_align.multilevel_roi_align
+    try:
+        yield
+    finally:
+        roi_align.multilevel_roi_align_cuda = kernel
+
+
+def match_detections(got: list, want: list, box_px: float = 1.0, score_rel: float = 0.02) -> tuple:
+    """The share of ``got``'s COCO result records with a partner in
+    ``want`` (same image and category, every xywh value within ``box_px``,
+    the score within ``score_rel`` relative), and of ``want``'s in ``got``.
+    K1 and the plain RoIAlign part by at most one bf16 ulp, which moves the
+    scores and boxes by little but may swap near-tied candidates at the
+    top-k's cut."""
+
+    def share(a_all: list, b_all: list) -> float:
+        by_key = {}
+        for r in b_all:
+            by_key.setdefault((r["image_id"], r["category_id"]), []).append(r)
+        hits = 0
+        for r in a_all:
+            hits += any(max(abs(u - v) for u, v in zip(r["bbox"], o["bbox"])) <= box_px
+                        and abs(r["score"] - o["score"]) <= score_rel * abs(r["score"])
+                        for o in by_key.get((r["image_id"], r["category_id"]), ()))
+        return hits / max(len(a_all), 1)
+
+    return share(got, want), share(want, got)
+
+
+def phase_cli(card: str, seeded_train: dict) -> dict:
+    """The system's own entry points at full width: a seeded PNG COCO
+    folder, ``tools.train`` refusing a portrait image (R8), two epochs of
+    Faster R-CNN R50-FPN (b8 on 800 x 1344, the config's), a resume from
+    ``epoch_1``, ``tools.test`` on the val set against the same evaluation
+    through the plain RoIAlign, the gt oracle through the evaluator, and K1
+    and K2 on the paths' own batches."""
+    shutil.rmtree(SMOKE_COCO, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_ann = write_smoke_coco("train", CLI_TRAIN_IMAGES, SEED + 70)
+    val_ann = write_smoke_coco("val", CLI_VAL_IMAGES, SEED + 71)
+    portrait_ann = write_smoke_coco("portrait", 1, SEED + 72, CLI_PORTRAIT)
+    config = write_smoke_config(train_ann, val_ann)
+    cfg = Config.fromfile(config)
+    log(f"cli: wrote {CLI_TRAIN_IMAGES} train and {CLI_VAL_IMAGES} val PNGs of {CLI_SIZES}, one "
+        f"of {CLI_PORTRAIT} and their instances JSONs in {time.perf_counter() - t0:.1f} s; "
+        f"config {config.name}")
+    host_data_costs(cfg, card)
+
+    # R8 pinned: the config's fixed canvas holds no portrait image, so training refuses one
+    portrait = write_portrait_config(config, portrait_ann)
+    try:
+        train_cli.main([str(portrait), "--epochs", "1", "--work-dir", str(SMOKE_COCO / "work_portrait")])
+    except ValueError as e:
+        if "canvas" not in str(e):
+            raise
+        log(f"cli training on a {CLI_PORTRAIT[0][0]}x{CLI_PORTRAIT[0][1]} portrait image (R8): "
+            f"refused as expected: {e}")
+    else:
+        raise AssertionError("cli training on a portrait image: no R8 ValueError; if the canvas "
+                             "now holds it, R8 is repaired and this pin goes")
+
+    # the straight run: two epochs through tools.train, launches counted over it
+    work = SMOKE_COCO / "work"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([str(config), "--epochs", str(CLI_EPOCHS), "--work-dir", str(work)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = len(trainer.dataloader)
+    expect_launches("cli training", launches, CLI_EPOCHS * steps, CLI_EPOCHS * steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    if len(records) != CLI_EPOCHS * steps or not all(
+            math.isfinite(r["loss"]) for r in records) or records[-1]["skipped_steps"]:
+        raise AssertionError(f"cli training: {len(records)} records for {CLI_EPOCHS * steps} "
+                             f"steps, or a non-finite loss, or a skipped step: {records[-1]}")
+    for name in (f"epoch_{e + 1}" for e in range(CLI_EPOCHS)):
+        if not (work / name / "model.pt").is_file() or not (work / name / "optimizer.pt").is_file():
+            raise AssertionError(f"cli training: no checkpoint {name}")
+    # log_interval 1: each record's window is one step, from the previous
+    # record (or the epoch's start) to its metrics read, loader waits included
+    batch_size = cfg["data"]["sample_per_replica"]
+    last = [r for r in records if r["epoch"] == CLI_EPOCHS - 1]
+    step_ms = [batch_size / r["images_per_sec"] * 1e3 for r in last]
+    epoch_ips = batch_size * len(last) / (sum(step_ms) / 1e3)
+    wait_ms = trainer.loader_wait_s / len(records) * 1e3
+    log(f"cli training [{card}]: {steps} steps an epoch at b{batch_size} on "
+        f"{tuple(cfg['data']['canvas'])}, {CLI_EPOCHS} epochs in {wall:.1f} s (the build and "
+        f"checkpoints included); launches {launches}; epoch {CLI_EPOCHS} ms a step "
+        f"{[round(m, 1) for m in step_ms]}, median {statistics.median(step_ms):.1f} ms; images/s "
+        f"over all of epoch {CLI_EPOCHS} from the trainer's log: {epoch_ips:.2f} "
+        f"({batch_size * len(last)} images in {sum(step_ms) / 1e3:.3f} s), a step's median "
+        f"{batch_size / statistics.median(step_ms) * 1e3:.2f}; the trainer's wait on the loader "
+        f"{wait_ms:.1f} ms a step over both epochs; peak memory {peak:.2f} GiB; losses first "
+        + ", ".join(f"{k} {records[0][k]:.4f}" for k in LOSS_KEYS)
+        + "; last " + ", ".join(f"{k} {records[-1][k]:.4f}" for k in LOSS_KEYS))
+
+    # one profiled step fed by the loader: the next batch through the device prefetch, then the step
+    det_cfg = build_detection_cfg(cfg["detection"])
+    loader = trainer.dataloader
+    loader.set_epoch(CLI_EPOCHS)
+    batches = prefetch_to_device(loader.iter_batches(), 2, "cuda")
+    first = next(batches)
+    first.pop("img_meta")
+    trainer.train_step(first)
+
+    def loader_step():
+        batch = next(batches)
+        batch.pop("img_meta")
+        trainer.train_step(batch)
+
+    cli_profile = device_profile(loader_step, statistics.median(step_ms), card,
+                                 "CLI training step (the next loader batch, then the step)")
+    seeded = seeded_train["profile"]
+    log(f"cli training [{card}]: a step fed by the loader, b8 on "
+        f"{tuple(cfg['data']['canvas'])}: {statistics.median(step_ms):.3f} ms, device busy "
+        f"{cli_profile.get('busy_ms', float('nan')):.3f} ms, idle "
+        f"{cli_profile.get('idle', float('nan')):.3f}; the seeded-batch step of this run, b{BATCH} on "
+        f"{CANVAS}: {seeded_train['ms_per_step']:.3f} ms, device busy "
+        f"{seeded.get('busy_ms', float('nan')):.3f} ms, idle {seeded.get('idle', float('nan')):.3f}")
+    batches.close()
+    kernel_checks = cli_kernels(trainer.model, det_cfg, first)
+    del trainer, first
+
+    # resume from epoch_1 into another work dir: the state loads bit for bit, the run continues
+    saved = load_checkpoint_file(str(work / "epoch_1"))
+    model, _, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED)
+    meta = load_checkpoint(model, str(work / "epoch_1"), strict=True, optimizer=optimizer)
+    equal_state("the resumed model", model.state_dict(), saved["model"])
+    equal_state("the resumed optimizer", optimizer_state(model, optimizer), saved["optimizer"])
+    del model, optimizer
+    resumed = train_cli.main([str(config), "--epochs", str(CLI_EPOCHS), "--work-dir",
+                              str(SMOKE_COCO / "work_resumed"), "--resume", str(work / "epoch_1")])
+    got = resumed.history
+    want = records[steps:]
+    if [r["step"] for r in got] != [r["step"] for r in want] or got[0]["step"] != meta["step"] + 1:
+        raise AssertionError(f"resumed steps {[r['step'] for r in got]}")
+    if any(abs(g["lr"] - w["lr"]) > 1e-12 for g, w in zip(got, want)):
+        raise AssertionError("the resumed learning rate does not continue the straight run's")
+    rel = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-6) for g, w in zip(got, want)
+              for k in LOSS_KEYS)
+    log(f"cli resume from epoch_1: the model and optimizer state loaded bit for bit; steps "
+        f"{got[0]['step']}-{got[-1]['step']}, lr {got[0]['lr']:.6g} continued; epoch-2 losses "
+        f"within {rel:.2e} relative of the straight run's (limit 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"resumed losses {rel} relative from the straight run's")
+    del resumed
+
+    # tools.test on the val set, K1 counted over it; the model, the dataset
+    # and the first batch that the CLI's evaluation used are kept for checks
+    out = SMOKE_COCO / "results.json"
+    seen = {}
+
+    def recorded_evaluate(model, det_cfg, dataset, **kwargs):
+        infer = make_inference_fn(model, det_cfg)
+
+        def recorded_infer(*args):
+            seen.setdefault("batch", args)
+            return infer(*args)
+
+        seen.update(model=model, det_cfg=det_cfg, dataset=dataset, kwargs=kwargs)
+        return evaluate_detector(model, det_cfg, dataset, infer=recorded_infer, **kwargs)
+
+    test_cli.evaluate_detector = recorded_evaluate
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        metrics = test_cli.main([str(config), str(work / f"epoch_{CLI_EPOCHS}"), "--out", str(out)])
+    finally:
+        test_cli.evaluate_detector = evaluate_detector
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = read_launches()
+    batches_test = -(-CLI_VAL_IMAGES // 8)
+    expect_launches("cli test", test_launches, batches_test, 0)
+    # the serving model keeps its convolutions and linears in the compute
+    # dtype: loading rounds the float32 checkpoint to it, as load_state_dict casts
+    served = seen["model"].state_dict()
+    equal_state(f"the tools.test model against epoch_{CLI_EPOCHS}", served,
+                {k: v.to(served[k].dtype) if k in served else v for k, v in
+                 load_checkpoint_file(str(work / f"epoch_{CLI_EPOCHS}"))["model"].items()})
+    if len(metrics) != 12 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cli test metrics {metrics}")
+    results = json.loads(out.read_text())
+    frames = {img["id"]: (img["width"], img["height"])
+              for img in json.loads(val_ann.read_text())["images"]}
+    if not isinstance(results, list) or not results:
+        raise AssertionError(f"cli test results JSON holds no detection: {str(results)[:200]}")
+    for r in results:  # COCO ids; xywh (inclusive +1 pixel widths) in the original frame, within
+        x, y, w, h = r["bbox"]  # 1% of its edge for the resize's rounding
+        fw, fh = frames.get(r["image_id"], (0, 0))
+        if not (r["category_id"] in COCO_CATEGORY_IDS and w > 0 and h > 0 and x >= 0 and y >= 0
+                and x + w <= (fw + 1) * 1.01 and y + h <= (fh + 1) * 1.01):
+            raise AssertionError(f"cli test result outside its image or category ids: {r}")
+    log(f"cli test [{card}]: {CLI_VAL_IMAGES} images in {test_s:.1f} s (the build included), "
+        f"launches {test_launches}; the model equals epoch_{CLI_EPOCHS}'s bit for bit (its "
+        f"{sorted({str(v.dtype)[6:] for v in served.values()})} tensors, the checkpoint cast to "
+        f"them); "
+        f"{len(results)} detections in the COCO results JSON over "
+        f"{len({r['image_id'] for r in results})} images, each inside its original frame; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+
+    # the same evaluation through the plain RoIAlign on the card, and K1 on the CLI's first batch
+    with plain_roi_align():
+        plain_metrics, plain_dets = evaluate_detector(seen["model"], seen["det_cfg"],
+                                                      seen["dataset"], **seen["kwargs"])
+    plain_results = coco_detection_dump(seen["dataset"], plain_dets)
+    kept, found = match_detections(results, plain_results)
+    metric_err = max(abs(metrics[k] - plain_metrics[k]) for k in metrics)
+    log(f"cli test against evaluate_detector through the plain RoIAlign on the same model: "
+        f"{len(results)} and {len(plain_results)} "
+        f"detections; {kept:.4f} of the CLI's have a partner in the plain run's and {found:.4f} "
+        f"the other way (same label, boxes within 1 px, scores within 2%; limit 0.95); the 12 "
+        f"metrics within {metric_err:.2e} (limit 0.01)")
+    if not (kept >= 0.95 and found >= 0.95 and metric_err <= 0.01):
+        raise AssertionError("tools.test's detections part from the plain RoIAlign's")
+    image, img_shape = seen["batch"][:2]
+    k1_test = cli_test_kernel(seen["model"], seen["det_cfg"], image, img_shape)
+    del seen
+
+    # the oracle: each val image's own gts as detections of score 1
+    val = get_datasets(dict(cfg["data"]["val"]))
+    anns = [val.get_ann_info(i) for i in range(len(val))]
+    dets = [dict(boxes=a["bboxes"], scores=np.ones(len(a["bboxes"])), labels=a["labels"])
+            for a in anns]
+    oracle = eval_coco_map(dets, anns, det_cfg.num_classes)
+    dumped = sorted((r["image_id"], r["category_id"], tuple(r["bbox"]))
+                    for r in coco_detection_dump(val, dets))
+    source = json.loads(val_ann.read_text())["annotations"]
+    want_dump = sorted((a["image_id"], a["category_id"], tuple(float(v) for v in a["bbox"]))
+                       for a in source if not a["iscrowd"])
+    crowds = sum(a["iscrowd"] for a in source)
+    log(f"cli oracle: the val gts as detections give mAP {oracle['mAP']:.6f}, AR_100 "
+        f"{oracle['AR_100']:.6f}; the dump gives back the {len(want_dump)} non-crowd annotations "
+        f"({crowds} crowds as ignore regions): {dumped == want_dump}")
+    if abs(oracle["mAP"] - 1.0) > 1e-12 or dumped != want_dump:
+        raise AssertionError("the gt oracle does not score 1.0 or the dump does not invert the "
+                             "dataset")
+    return dict(training=launches, test=test_launches, k1_test=k1_test, **kernel_checks)
 
 
 def main() -> int:
@@ -2995,6 +3474,7 @@ def main() -> int:
     detr_train = phase_detr_train(card)
     detr_step = phase_detr_step_data(detr_train.pop("model"), detr_train.pop("det_cfg"),
                                      detr_train.pop("batch"))
+    cli = phase_cli(card, train)
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -3022,7 +3502,9 @@ def main() -> int:
                     "sparse_training": sparse_train["launches"]}
     slice8_paths = {"detr_serving": detr_serve["launches"],
                     "detr_training": detr_train["launches"]}
-    later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths}
+    cli_paths = {"cli_training": cli["training"], "cli_test": cli["test"]}
+    later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
+                   **cli_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],
@@ -3032,13 +3514,15 @@ def main() -> int:
               at_sparse_serving_stage0=sparse_serve["k1_stage0"],
               at_sparse_serving_stage5=sparse_serve["k1_stage5"],
               at_sparse_training_stage0=sparse_step["k1_stage0"],
-              at_sparse_training_stage5=sparse_step["k1_stage5"]),
+              at_sparse_training_stage5=sparse_step["k1_stage5"], at_cli_training=cli["k1"],
+              at_cli_test=cli["k1_test"]),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
               {"serving": serve["bwd_launches"], "training": train["k2"],
                **{path: n["k2"] for path, n in later_paths.items()}}, bwd,
               at_mask_training=mask_step["k2"], at_mask_positives_only=mask_step["k2_hot"],
               at_cascade_stage3=cascade_k2, at_cascade_mask_stage3=cascade_mask_k2,
-              at_sparse_stage0=sparse_step["k2_stage0"], at_sparse_stage5=sparse_step["k2_stage5"]),
+              at_sparse_stage0=sparse_step["k2_stage0"], at_sparse_stage5=sparse_step["k2_stage5"],
+              at_cli_training=cli["k2"]),
         entry("hungarian", "torch_detection_tpu/ops/hungarian.py:38",
               {"serving": serve["matcher"], "training": train["matcher"],
                **{path: n["matcher"] for path, n in later_paths.items()}}, sparse_step["matcher"],

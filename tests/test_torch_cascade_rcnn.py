@@ -366,7 +366,7 @@ def test_trainer_steps_the_cascade_mask_rcnn(cascade):
     before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
     optimizer = make_optimizer(model.parameters(), detection_lr_schedule(0.01, 2), 0.9, 1e-4, 1.0)
     batch = cascade["batch"]
-    history = Trainer(loss_fn, optimizer, _Loader([batch, batch]), log_interval=1).run(1)
+    history = Trainer(loss_fn, model, optimizer, _Loader([batch, batch]), log_interval=1).run(1)
     assert len(history) == 2 and all(h["skipped_steps"] == 0 for h in history)
     for t in range(STAGES):
         assert all(np.isfinite(h[f"loss_s{t}_{k}"]) for h in history for k in ("cls", "reg", "mask"))

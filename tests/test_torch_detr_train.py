@@ -258,14 +258,15 @@ def test_trainer_steps_detr_with_adamw(detr_train):
     cfg = Config.fromfile(CONFIG)
     small = dict(cfg, model=dict(MODEL, type="DETR"),
                  detection=dict(cfg.detection, num_classes=3, num_queries=8))
-    model, det_cfg, optimizer = builder.build_train_objects(small, 2, device="cpu")
+    b = detr_train["torch_batch"]
+    model, det_cfg, loader, optimizer = builder.build_train_objects(small, "cpu",
+                                                                    loader=_Loader([b, b]))
     assert isinstance(det_cfg, DETRConfig) and det_cfg.eos_coef == 0.1 and det_cfg.aux_loss
     assert isinstance(optimizer.torch_optimizer, torch.optim.AdamW)
     group = optimizer.torch_optimizer.param_groups[0]
     assert (group["weight_decay"], group["betas"], group["eps"]) == (1e-4, (0.9, 0.999), 1e-8)
     assert optimizer.grad_clip_norm == 0.1 and optimizer.schedule(0) == pytest.approx(1e-4 / 3)
     assert model.dtype == torch.bfloat16 and model.query_embed.dtype == torch.float32
-    b = detr_train["torch_batch"]
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     loss_fn = builder.build_loss_fn(model, det_cfg)
     reached = set()
@@ -278,7 +279,7 @@ def test_trainer_steps_detr_with_adamw(detr_train):
         reached.update(n for (n, _), g in zip(params, grads) if g is not None and g.any())
         return loss, metrics
 
-    history = Trainer(recording_loss, optimizer, _Loader([b, b]), log_interval=1).run(1)
+    history = Trainer(recording_loss, model, optimizer, loader, log_interval=1).run(1)
     assert len(history) == 2 and all(h["skipped_steps"] == 0 for h in history)
     for h in history:
         assert all(np.isfinite(h[k]) for k in ("loss", "loss_cls", "loss_l1", "loss_giou"))

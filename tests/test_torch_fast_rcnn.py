@@ -235,7 +235,7 @@ def test_trainer_steps_the_fast_rcnn(fast):
     before = model.bbox_head.fc1.weight.detach().clone()
     optimizer = make_optimizer(model.parameters(), detection_lr_schedule(0.01, 2), 0.9, 1e-4, 1.0)
     batch = fast["batches"]["proposals"]
-    history = Trainer(loss_fn, optimizer, _Loader([batch, batch]), log_interval=1).run(1)
+    history = Trainer(loss_fn, model, optimizer, _Loader([batch, batch]), log_interval=1).run(1)
     assert len(history) == 2 and all(h["skipped_steps"] == 0 for h in history)
     assert all(np.isfinite(h["loss_rcnn_cls"]) and h["num_pos_rois"] > 0 for h in history)
     assert not torch.equal(model.bbox_head.fc1.weight.detach(), before)

@@ -270,8 +270,8 @@ class _Loader:
     def set_epoch(self, epoch):
         pass
 
-    def iter_batches(self):
-        return iter([dict(b) for b in self.batches])
+    def iter_batches(self, skip_batches=0):
+        return iter([dict(b) for b in self.batches[skip_batches:]])
 
     def __len__(self):
         return len(self.batches)
@@ -291,7 +291,8 @@ def test_trainer_carries_gt_masks_to_the_loss(mrcnn):
 
     before = model.mask_head.upsample.weight.detach().clone()
     optimizer = make_optimizer(model.parameters(), detection_lr_schedule(0.01, 2), 0.9, 1e-4, 1.0)
-    history = Trainer(recording_loss, optimizer, _Loader([batch, batch]), log_interval=1).run(1)
+    history = Trainer(recording_loss, model, optimizer, _Loader([batch, batch]),
+                      log_interval=1).run(1)
     assert len(history) == 2 and all(h["skipped_steps"] == 0 for h in history)
     assert all(np.isfinite(h["loss_mask"]) and h["loss_mask"] > 0 for h in history)
     assert all(m is batch["gt_masks"] and m.dtype == torch.uint8 for m in seen)

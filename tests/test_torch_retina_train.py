@@ -172,8 +172,8 @@ class _Loader:
     def set_epoch(self, epoch):
         pass
 
-    def iter_batches(self):
-        return iter([dict(b) for b in self.batches])
+    def iter_batches(self, skip_batches=0):
+        return iter([dict(b) for b in self.batches[skip_batches:]])
 
     def __len__(self):
         return len(self.batches)
@@ -187,10 +187,11 @@ def test_a_step_through_the_entry_points(train_setup):
     cfg = Config.fromfile(CONFIG)
     cfg = dict(cfg, model=dict(TRAIN_MODEL, type="SingleStageDetector"),
                detection=dict(cfg.detection, num_classes=3))
-    model, det_cfg, optimizer = builder.build_train_objects(cfg, 1, device="cpu", seed=3)
+    model, det_cfg, loader, optimizer = builder.build_train_objects(cfg, "cpu", seed=3,
+                                                                    loader=_Loader([batch]))
     assert isinstance(det_cfg, RetinaNetConfig) and model.dtype == torch.bfloat16
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    trainer = Trainer(builder.build_loss_fn(model, det_cfg), optimizer, _Loader([batch]),
+    trainer = Trainer(builder.build_loss_fn(model, det_cfg), model, optimizer, loader,
                       log_interval=1)
     (h,) = trainer.run(1)
     assert trainer.skipped_steps == 0 and np.isfinite(h["loss"]) and h["num_pos"] > 0

@@ -456,13 +456,14 @@ def test_trainer_steps_sparse_rcnn_with_adamw():
     cfg = Config.fromfile(CONFIG)
     small = dict(cfg, model=dict(MODEL, type="SparseRCNN"),
                  detection=dict(cfg.detection, num_classes=3, num_proposals=8))
-    model, det_cfg, optimizer = builder.build_train_objects(small, 2, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(np.random.default_rng(5)).items()}
+    model, det_cfg, loader, optimizer = builder.build_train_objects(
+        small, "cpu", loader=_Loader([batch, batch]))
     assert isinstance(optimizer.torch_optimizer, torch.optim.AdamW)
     group = optimizer.torch_optimizer.param_groups[0]
     assert (group["weight_decay"], group["betas"], group["eps"]) == (1e-4, (0.9, 0.999), 1e-8)
     assert optimizer.grad_clip_norm == 1.0 and optimizer.schedule(0) == pytest.approx(2.5e-5 / 3)
     assert model.dtype == torch.bfloat16 and model.proposal_boxes.dtype == torch.float32
-    batch = {k: torch.from_numpy(v) for k, v in _batch(np.random.default_rng(5)).items()}
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     loss_fn = builder.build_loss_fn(model, det_cfg)
     reached = set()
@@ -475,7 +476,7 @@ def test_trainer_steps_sparse_rcnn_with_adamw():
         reached.update(n for (n, _), g in zip(params, grads) if g is not None and g.any())
         return loss, metrics
 
-    history = Trainer(recording_loss, optimizer, _Loader([batch, batch]), log_interval=1).run(1)
+    history = Trainer(recording_loss, model, optimizer, loader, log_interval=1).run(1)
     assert len(history) == 2 and all(h["skipped_steps"] == 0 for h in history)
     for h in history:
         assert all(np.isfinite(h[k]) for k in ("loss", "loss_cls", "loss_l1", "loss_giou"))

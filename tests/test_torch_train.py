@@ -380,7 +380,7 @@ def test_schedule_and_optimizer_come_from_the_config():
     for step in (0, 499, 500, 400, 550, 5000):
         np.testing.assert_allclose(got(step), float(want(step)), rtol=1e-6, err_msg=str(step))
     small = dict(cfg, model=dict(TRAIN_MODEL, type="TwoStageDetector"))
-    model, det_cfg, optimizer = builder.build_train_objects(small, 50, device="cpu")
+    model, det_cfg, _, optimizer = builder.build_train_objects(small, "cpu", loader=_Loader([]))
     assert model.training and det_cfg.rpn_num_samples == 256
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert model.dtype == torch.bfloat16  # the runtime's compute dtype
@@ -418,8 +418,8 @@ class _Loader:
     def set_epoch(self, epoch):
         self.epochs.append(epoch)
 
-    def iter_batches(self):
-        return iter([dict(b) for b in self.batches])
+    def iter_batches(self, skip_batches=0):
+        return iter([dict(b) for b in self.batches[skip_batches:]])
 
     def __len__(self):
         return len(self.batches)
@@ -431,7 +431,7 @@ def test_trainer_runs_steps_and_logs(train_setup):
     loader = _Loader([batch, batch])
     optimizer = make_optimizer(model.parameters(), detection_lr_schedule(LR, len(loader)),
                                MOMENTUM, WD, CLIP)
-    trainer = Trainer(builder.build_loss_fn(model, cfg), optimizer, loader, log_interval=1)
+    trainer = Trainer(builder.build_loss_fn(model, cfg), model, optimizer, loader, log_interval=1)
     history = trainer.run(2)
     assert loader.epochs == [0, 1] and optimizer.steps == 4 and len(history) == 4
     assert all(np.isfinite(h["loss"]) and h["skipped_steps"] == 0 for h in history)

@@ -1,5 +1,5 @@
-"""Config -> objects: the detector, its detection config, its loss, and the
-optimizer with its learning-rate schedule.
+"""Config -> objects: the detector, its detection config, its loss, the
+training loader, and the optimizer with its learning-rate schedule.
 
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
 (the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from .data import build_dataloader, get_datasets
 from .engine.trainer import detection_lr_schedule
 from .models.detectors import (
     CascadeMaskRCNNConfig,
@@ -205,26 +206,43 @@ def build_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
 
 def build_train_objects(
     cfg,
-    steps_per_epoch: int,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
-) -> Tuple[Any, DetectionConfig, Optimizer]:
-    """(model, det_cfg, optimizer) from a full config tree: the training
-    build of the detector (float32 parameters, the runtime's compute dtype,
-    train mode) and the config's optimizer (``type`` ``sgd``, the default,
-    or ``adamw``) with its momentum, weight decay, clip and schedule. The
-    data loader is the caller's; ``steps_per_epoch`` is its length."""
+    loader=None,
+) -> Tuple[Any, DetectionConfig, Any, Optimizer]:
+    """(model, det_cfg, loader, optimizer) from a full config tree: the
+    training build of the detector (float32 parameters, the runtime's
+    compute dtype, train mode), the training loader of ``cfg['data']``
+    unless the caller passes one (any object with ``set_epoch``,
+    ``iter_batches`` and ``__len__``, such as ready batches), and the
+    config's optimizer (``type`` ``sgd``, the default, or
+    ``adamw``) with its momentum, weight decay, clip and a schedule of
+    ``len(loader)`` steps an epoch."""
     runtime = cfg.get("runtime", {})
     model = build_detector(cfg["model"], runtime.get("compute_dtype"), device, seed,
                            param_dtype="float32").train()
     det_cfg = build_detection_cfg(cfg["detection"])
+    if loader is None:
+        # the ``train`` dataset, grouped sampling, ``collate`` at the canvas;
+        # ``workers_per_host`` threads decode the samples
+        data_cfg = cfg["data"]
+        loader = build_dataloader(
+            get_datasets(dict(data_cfg["train"])),
+            sample_per_replica=data_cfg.get("sample_per_replica", 2),
+            max_gts=data_cfg.get("max_gts", 100),
+            canvas=tuple(data_cfg["canvas"]) if data_cfg.get("canvas") else None,
+            size_divisor=data_cfg["train"].get("size_divisor", 32) or 32,
+            workers=int(data_cfg.get("workers_per_host", 0)),
+            max_proposals=data_cfg.get("max_proposals"),
+            s2d=bool(cfg["model"].get("backbone", {}).get("stem_s2d", False)),
+        )
     opt_cfg = cfg.get("optimizer", {})
     optimizer = make_optimizer(
         model.parameters(),
-        learning_rate=build_lr_schedule(cfg, steps_per_epoch),
+        learning_rate=build_lr_schedule(cfg, len(loader)),
         momentum=opt_cfg.get("momentum", 0.9),
         weight_decay=opt_cfg.get("weight_decay", 1e-4),
         grad_clip_norm=opt_cfg.get("grad_clip_norm"),
         kind=opt_cfg.get("type", "sgd"),
     )
-    return model, det_cfg, optimizer
+    return model, det_cfg, loader, optimizer

@@ -1,0 +1,147 @@
+"""Train a detector from a config file.
+
+    python -m torch_detection_tpu_torch.tools.train CONFIG [--epochs N]
+        [--work-dir DIR] [--resume CKPT | --auto-resume] [--seed S]
+        [--device cuda|cpu]
+
+Counterpart of ``tools/train.py``: COCO folder -> ``CocoDataset`` ->
+``GroupSampler`` -> ``DataLoader`` -> the device -> ``Trainer.run``, with
+``epoch_N/`` checkpoints, ``metrics.jsonl`` and the validation hook when
+``runtime.val_interval_epochs > 0``. ``--resume`` continues from a
+checkpoint (a mid-epoch ``step_N`` at its batch), ``--auto-resume`` from the
+newest in the work directory. Runs on ``cuda`` unless ``--device cpu``.
+Knobs the port does not do yet raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..builder import build_loss_fn, build_train_objects
+from ..engine.checkpoint import latest_checkpoint, load_checkpoint
+from ..engine.trainer import Trainer
+from ..utils.config import Config
+from ..utils.device import resolve_device
+
+
+def refuse_unported(cfg, profile_dir: Optional[str] = None) -> None:
+    """Raise ``NotImplementedError`` naming a training knob the port does
+    not do yet."""
+    runtime = cfg.get("runtime", {})
+    knobs = {
+        "ema_decay": runtime.get("ema_decay") is not None,
+        "accum_steps > 1": int(runtime.get("accum_steps", 1) or 1) > 1,
+        "fsdp": bool(runtime.get("fsdp", False)),
+        "profile_dir": profile_dir is not None,
+        "val_segm": bool(runtime.get("val_segm", False)),
+        "val_voc_metric": bool(runtime.get("val_voc_metric", False)),
+    }
+    for knob, asked in knobs.items():
+        if asked:
+            raise NotImplementedError(f"{knob} is not ported yet")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+    parser = argparse.ArgumentParser(description="train a detector")
+    parser.add_argument("config")
+    parser.add_argument("--epochs", type=int, default=None)
+    parser.add_argument("--work-dir", default=None)
+    parser.add_argument("--resume", default=None, help="checkpoint dir to resume from")
+    parser.add_argument("--auto-resume", action="store_true",
+                        help="resume from the newest epoch_N or step_N in the work dir if any")
+    parser.add_argument("--pretrained", default=None, help="a checkpoint dir of the port")
+    parser.add_argument("--profile-dir", default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    cfg = Config.fromfile(args.config)
+    refuse_unported(cfg, args.profile_dir)
+    runtime = cfg.get("runtime", {})
+    work_dir = args.work_dir or runtime.get("work_dir", "work_dirs/default")
+    total_epochs = args.epochs or cfg.get("schedule", {}).get("total_epochs", 12)
+    device = resolve_device(args.device)
+
+    model, det_cfg, loader, optimizer = build_train_objects(cfg, device, seed=args.seed)
+    pretrained = args.pretrained or runtime.get("pretrained")
+    if pretrained:
+        load_checkpoint(model, pretrained, strict=False)
+        logging.info("loaded pretrained weights from %s", pretrained)
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=args.seed)
+
+    # validation in training: the val split every N epochs, the best kept in best/
+    val_hook = None
+    val_interval = int(runtime.get("val_interval_epochs", 0) or 0)
+    if val_interval > 0 and cfg["data"].get("val"):
+        from ..data import get_datasets
+        from ..engine.validate import make_validation_hook
+
+        val_cfg = dict(cfg["data"]["val"])
+        sizes = val_cfg.get("img_expected_sizes")
+        if isinstance(sizes, list):  # single-scale evaluation in training
+            val_cfg["img_expected_sizes"] = sizes[0]
+        val_cfg["flip_ratio"] = 0
+        val_hook = make_validation_hook(
+            model, det_cfg, get_datasets(val_cfg),
+            batch=int(runtime.get("val_batch", 8)),
+            canvas=tuple(cfg["data"].get("canvas") or (800, 1344)),
+            max_images=runtime.get("val_max_images"),
+        )
+
+    trainer = Trainer(
+        loss_fn, model, optimizer, loader,
+        work_dir=work_dir,
+        log_interval=runtime.get("log_interval", 50),
+        checkpoint_interval_epochs=runtime.get("checkpoint_interval_epochs", 1),
+        val_hook=val_hook,
+        val_interval_epochs=val_interval or 1,
+        checkpoint_interval_steps=runtime.get("checkpoint_interval_steps"),
+        handle_preemption=bool(runtime.get("handle_preemption", True)),
+    )
+    resume = args.resume
+    if args.auto_resume and not resume:
+        resume = latest_checkpoint(work_dir)
+        if resume:
+            logging.info("auto-resume found %s", resume)
+    start_epoch = skip_batches = 0
+    if resume:
+        # the model's and the optimizer's state by name, the step counts with them
+        meta = load_checkpoint(model, resume, strict=True, optimizer=optimizer)
+        start_epoch = int(meta.get("epoch", 0))
+        # a mid-epoch checkpoint carries its batch position; those batches are not decoded
+        skip_batches = int(meta.get("batches_done", 0))
+        logging.info("resuming from %s at epoch %d batch %d (step %d)", resume, start_epoch,
+                     skip_batches, optimizer.steps)
+
+    trainer.run(total_epochs, start_epoch=start_epoch, skip_batches=skip_batches)
+
+    # the run's summary from its curve, work_dir/metrics.jsonl
+    if os.path.exists(trainer.metrics_path):
+        with open(trainer.metrics_path) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        steps = [r for r in records if "loss" in r]
+        if steps:
+            last = steps[-1]
+            logging.info(
+                "run summary: %d logged windows, final loss %.4f @ step %d, mean %.1f img/s, "
+                "%d skipped steps, loader wait %.1f s - curve at %s",
+                len(steps), last["loss"], int(last["step"]),
+                float(np.mean([r["images_per_sec"] for r in steps])),
+                int(last["skipped_steps"]), trainer.loader_wait_s, trainer.metrics_path,
+            )
+        vals = [r for r in records if "val_mAP" in r]
+        if vals:
+            best = max(vals, key=lambda r: r["val_mAP"])
+            logging.info("best val mAP %.4f at epoch %d", best["val_mAP"], int(best["epoch"]))
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

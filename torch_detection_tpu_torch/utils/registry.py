@@ -70,3 +70,4 @@ BACKBONES = Registry("backbones")
 NECKS = Registry("necks")
 HEADS = Registry("heads")
 DETECTORS = Registry("detectors")
+DATASETS = Registry("datasets")
