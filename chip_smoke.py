@@ -142,7 +142,30 @@ Phases, each fatal on failure:
    own levels and proposals; the host's ms to decode and prepare an image
    and to collate a batch, the trainer's wait on the loader, images/s over
    all of epoch 2 from the trainer's log, one profiled step fed by the
-   loader, and peak memory.
+   loader, and peak memory;
+27. the same entry points on Mask R-CNN R50-FPN at full width: a seeded
+   COCO folder under build/smoke_coco_masks (64 train and 16 val PNGs,
+   1-20 objects an image, each a filled polygon of 6-40 vertices, some
+   concave, some of two parts; a few non-crowd masks as compressed RLE
+   strings, a crowd with an uncompressed RLE in every fourth image), a seeded
+   torchvision-named ResNet-50 ``.pth`` (with ``fc.*`` and
+   ``num_batches_tracked``, in a ``{"state_dict": ...}`` envelope), a config
+   whose ``_base_`` is configs/mask_rcnn_r50_fpn_coco.py; ``tools.train``
+   for two epochs with ``--pretrained torch://`` (the log reports every
+   backbone tensor loaded; the frozen stem and stage 1 of ``epoch_2`` equal
+   the file's bit for bit; the losses, ``loss_mask`` among them, finite; K1
+   and K2 twice a step each, once at out 7 and once at out 14);
+   ``tools.test --segm`` (K1 twice a batch, 24 finite metrics, every RLE of
+   ``results.segm.json`` at its image's original size); the masks of a
+   ``tools.test`` batch pasted through K1 and through the plain RoIAlign on
+   the same detections (at least 0.99 of their pixels agree, and 0.999 of
+   the pixels either marks); the val gt
+   masks through ``coco_segm_dump`` and ``eval_coco_segm_map`` (segm mAP
+   1.0); K1 and K2 at out 14 on a training batch's mask slate and K1 at out
+   14 on a ``tools.test`` batch's detections against their plain versions;
+   the host's ms for a masked sample and collate, the masked batch's copy to
+   the card, the trainer's wait on the loader, images/s, one profiled step
+   fed by the loader, and peak memory.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -151,9 +174,11 @@ last line is the device JSON. Without a GPU it exits with 2 and prints no result
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import json
+import logging
 import math
 import shutil
 import statistics
@@ -177,14 +202,20 @@ from torch_detection_tpu_torch.builder import (
 )
 from torch_detection_tpu_torch.data import collate, get_datasets, prefetch_to_device
 from torch_detection_tpu_torch.data.ops.image import img_read
+from torch_detection_tpu_torch.data.ops.mask import poly_to_mask, rle_decode, rle_encode, segm_to_mask
 from torch_detection_tpu_torch.engine import Trainer, make_inference_fn
 from torch_detection_tpu_torch.engine.checkpoint import (
     load_checkpoint,
     load_checkpoint_file,
     optimizer_state,
 )
-from torch_detection_tpu_torch.engine.eval import eval_coco_map
-from torch_detection_tpu_torch.engine.validate import coco_detection_dump, evaluate_detector
+from torch_detection_tpu_torch.engine.eval import eval_coco_map, eval_coco_segm_map
+from torch_detection_tpu_torch.engine.tta import masks_to_original
+from torch_detection_tpu_torch.engine.validate import (
+    coco_detection_dump,
+    coco_segm_dump,
+    evaluate_detector,
+)
 from torch_detection_tpu_torch.models.backbones.resnet import space_to_depth_2x2
 from torch_detection_tpu_torch.models.inits import init_weights
 from torch_detection_tpu_torch.models.detectors import (
@@ -206,7 +237,7 @@ from torch_detection_tpu_torch.models.detectors.single_stage import (
     preselect,
     retina_targets,
 )
-from torch_detection_tpu_torch.models.detectors.mask_rcnn import sample_mask_rois
+from torch_detection_tpu_torch.models.detectors.mask_rcnn import mask_frame, sample_mask_rois
 from torch_detection_tpu_torch.models.detectors.sparse_rcnn import (
     match,
     matching_cost,
@@ -227,6 +258,11 @@ from torch_detection_tpu_torch.models.heads.mask_head import (
     mask_target_means,
     mask_targets_for_rois,
     select_class,
+)
+from torch_detection_tpu_torch.models.torch_import import (
+    RESNET_KEY_RULES,
+    convert_state_dict,
+    prefixed_rules,
 )
 from torch_detection_tpu_torch.ops import hungarian
 from torch_detection_tpu_torch.ops import nms as nms_ops
@@ -3046,10 +3082,11 @@ def write_portrait_config(base: Path, train_ann: Path) -> Path:
     return path
 
 
-def host_data_costs(cfg, card: str) -> None:
+def host_data_costs(cfg, card: str, what: str = "cli") -> dict:
     """Host ms an image to read and decode, and to prepare a training
-    sample (decode, normalise, resize, flip, pad), and ms a batch to
-    collate, on the training set's first 16 images and two batches."""
+    sample (decode, normalise, resize, flip, pad; with the config's masks,
+    rasterise, resize, flip and pad them), and ms a batch to collate, on the
+    training set's first 16 images and two batches."""
     dataset = get_datasets(dict(cfg["data"]["train"]))
     paths = [str(Path(dataset.img_prefix) / info["filename"]) for info in dataset.img_infos[:16]]
     t0 = time.perf_counter()
@@ -3065,9 +3102,10 @@ def host_data_costs(cfg, card: str) -> None:
         collate(samples[k:k + batch], max_gts=cfg["data"]["max_gts"],
                 canvas=tuple(cfg["data"]["canvas"]))
     collate_ms = (time.perf_counter() - t0) / (16 // batch) * 1e3
-    log(f"cli host data path [{card}, host clock]: read and decode {decode_ms:.2f} ms an image, "
+    log(f"{what} host data path [{card}, host clock]: read and decode {decode_ms:.2f} ms an image, "
         f"a training sample (decode, normalise, resize, flip, pad) {sample_ms:.2f} ms an image, "
         f"collate {collate_ms:.2f} ms a batch of {batch} on {tuple(cfg['data']['canvas'])}")
+    return dict(decode_ms=decode_ms, sample_ms=sample_ms, collate_ms=collate_ms)
 
 
 def equal_state(what: str, got: dict, want: dict) -> None:
@@ -3398,6 +3436,490 @@ def phase_cli(card: str, seeded_train: dict) -> dict:
                              "dataset")
     return dict(training=launches, test=test_launches, k1_test=k1_test, **kernel_checks)
 
+# ---------------------------------------------------------------- the entry points on Mask R-CNN
+CLI_MASK_TRAIN_IMAGES, CLI_MASK_VAL_IMAGES, CLI_MASK_EPOCHS = 64, 16, 2
+SMOKE_COCO_MASKS = ROOT / "build" / "smoke_coco_masks"
+MASK_OUT = 14  # the mask branch's RoIAlign size, configs/mask_rcnn_r50_fpn_coco.py's
+
+
+def smoke_object(rng, w: int, h: int, two_parts: bool):
+    """One object's COCO polygons: 6-40 vertices around a centre, every
+    other one concave; with ``two_parts`` a second, smaller part beside it.
+    Vertices lie inside the image."""
+    parts = []
+    cx, cy = rng.uniform(0.2 * w, 0.8 * w), rng.uniform(0.2 * h, 0.8 * h)
+    r = rng.uniform(12, min(w, h) / 4)
+    for k in range(2 if two_parts else 1):
+        n = int(rng.integers(6, 41))
+        angles = np.sort(rng.uniform(0, 2 * np.pi, n))
+        radii = r * (1 - (0.6 if rng.random() < 0.5 else 0.0) * rng.uniform(0, 1, n)) / (k + 1)
+        ox = cx + (1.6 * r if k else 0.0)
+        pts = np.stack([ox + radii * np.cos(angles), cy + radii * np.sin(angles)], 1)
+        parts.append(np.clip(pts, 0, [w - 1, h - 1]).round(2).reshape(-1).tolist())
+    return parts
+
+
+def write_smoke_coco_masks(split: str, n: int, seed: int) -> Path:
+    """``n`` seeded PNGs at COCO's landscape and square sizes under
+    ``SMOKE_COCO_MASKS/split`` and their instances JSON: 1-20 objects an
+    image over COCO's category ids, each a filled polygon of 6-40 vertices
+    (some concave, every fifth of two parts); every seventh non-crowd object
+    carries its mask as a compressed RLE string, and every fourth image a
+    crowd with an uncompressed RLE."""
+    rng = np.random.default_rng(seed)
+    img_dir = SMOKE_COCO_MASKS / split
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i in range(n):
+        w, h = CLI_SIZES[i % len(CLI_SIZES)]
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        objects = int(rng.integers(1, 21))
+        for j in range(objects + (i % 4 == 3)):
+            crowd = j == objects
+            polys = smoke_object(rng, w, h, two_parts=len(annotations) % 5 == 4)
+            m = poly_to_mask(polys, h, w)
+            if crowd:
+                segm = rle_encode(m, compress=False)
+                segm["counts"] = [int(c) for c in segm["counts"]]
+            elif len(annotations) % 7 == 6:
+                segm = rle_encode(m)
+                segm["counts"] = segm["counts"].decode("ascii")
+            else:
+                segm = polys
+            img[m.astype(bool)] = rng.integers(0, 256, 3, dtype=np.uint8)
+            ys, xs = np.nonzero(m)
+            bbox = [int(xs.min()), int(ys.min()), int(xs.max() - xs.min() + 1),
+                    int(ys.max() - ys.min() + 1)]
+            annotations.append(dict(id=len(annotations) + 1, image_id=i + 1,
+                                    category_id=int(rng.choice(COCO_CATEGORY_IDS)), bbox=bbox,
+                                    area=int(m.sum()), iscrowd=int(crowd), segmentation=segm))
+        name = f"{i + 1:012d}.png"
+        (img_dir / name).write_bytes(png_bytes(img))
+        images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+    ann_file = SMOKE_COCO_MASKS / f"instances_{split}.json"
+    ann_file.write_text(json.dumps(dict(
+        images=images, annotations=annotations,
+        categories=[dict(id=c, name=f"category_{c}") for c in COCO_CATEGORY_IDS])))
+    return ann_file
+
+
+def write_smoke_mask_config(train_ann: Path, val_ann: Path) -> Path:
+    """The Mask R-CNN R50-FPN config with what ``write_smoke_config``
+    overrides and nothing else."""
+    path = SMOKE_COCO_MASKS / "mask_rcnn_r50_fpn_smoke.py"
+    path.write_text(
+        f"_base_ = {str(MASK_CONFIG)!r}\n"
+        f"data = dict(train=dict(ann_file={str(train_ann)!r}, img_prefix={str(SMOKE_COCO_MASKS / 'train')!r}),\n"
+        f"            val=dict(ann_file={str(val_ann)!r}, img_prefix={str(SMOKE_COCO_MASKS / 'val')!r}))\n"
+        "detection = dict(score_thr=0.0)\n"
+        "schedule = dict(warmup_steps=100)\n"
+        f"runtime = dict(work_dir={str(SMOKE_COCO_MASKS / 'work')!r}, log_interval=1)\n")
+    return path
+
+
+def write_torchvision_resnet50(path: Path, seed: int) -> dict:
+    """A seeded ResNet-50 ``state_dict`` under torchvision's names (with the
+    classifier ``fc.*`` and every BatchNorm's ``num_batches_tracked``),
+    saved in a ``{"state_dict": ...}`` envelope; returns the state. Each
+    residual branch's last BatchNorm scales by about 0.15, so that the
+    random features keep a moderate size through the 16 blocks."""
+    g = torch.Generator().manual_seed(seed)
+
+    def conv(cout, cin, k):
+        return torch.randn((cout, cin, k, k), generator=g) * (2.0 / (cin * k * k)) ** 0.5
+
+    def bn(prefix, c, scale=1.0):
+        return {f"{prefix}.weight": scale * (0.5 + 0.5 * torch.rand(c, generator=g)),
+                f"{prefix}.bias": 0.1 * torch.randn(c, generator=g),
+                f"{prefix}.running_mean": 0.1 * torch.randn(c, generator=g),
+                f"{prefix}.running_var": 0.5 + torch.rand(c, generator=g),
+                f"{prefix}.num_batches_tracked": torch.tensor(1000)}
+
+    state = {"conv1.weight": conv(64, 3, 7), **bn("bn1", 64)}
+    inplanes = 64
+    for i, (planes, blocks) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3)), start=1):
+        for j in range(blocks):
+            p = f"layer{i}.{j}"
+            state.update({f"{p}.conv1.weight": conv(planes, inplanes, 1), **bn(f"{p}.bn1", planes),
+                          f"{p}.conv2.weight": conv(planes, planes, 3), **bn(f"{p}.bn2", planes),
+                          f"{p}.conv3.weight": conv(planes * 4, planes, 1),
+                          **bn(f"{p}.bn3", planes * 4, 0.2)})
+            if j == 0:
+                state.update({f"{p}.downsample.0.weight": conv(planes * 4, inplanes, 1),
+                              **bn(f"{p}.downsample.1", planes * 4, 0.5)})
+            inplanes = planes * 4
+    state.update({"fc.weight": 0.01 * torch.randn((1000, 2048), generator=g),
+                  "fc.bias": torch.zeros(1000)})
+    torch.save({"state_dict": state}, str(path))
+    return state
+
+
+class LaunchSizes:
+    """Stands in for a kernel wrapper in ``ops.roi_align`` and counts its
+    calls by RoIAlign output size (``size_of`` reads it from the call); the
+    wrapper's own ``launches`` count stays where it is, and this object's
+    ``launches`` reads and writes it."""
+
+    def __init__(self, fn, size_of):
+        self.fn, self.size_of, self.sizes = fn, size_of, collections.Counter()
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.sizes[self.size_of(args, out)] += 1
+        return out
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+@contextlib.contextmanager
+def launches_by_out_size():
+    """K1's and K2's launches by output size while the block runs."""
+    k1, k2 = roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align_backward_cuda
+    fwd = LaunchSizes(k1, lambda args, out: int(out.shape[2]))
+    bwd = LaunchSizes(k2, lambda args, out: int(args[0].shape[2]))
+    roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align_backward_cuda = fwd, bwd
+    sizes = dict(k1=fwd.sizes, k2=bwd.sizes)
+    try:
+        yield sizes
+    finally:
+        roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align_backward_cuda = k1, k2
+
+
+class LogLines(logging.Handler):
+    """The root logger's INFO records while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def logged_lines():
+    """The INFO lines logged while the block runs."""
+    root, lines = logging.getLogger(), LogLines()
+    level = root.level
+    root.setLevel(min(level, logging.INFO))
+    root.addHandler(lines)
+    try:
+        yield lines.lines
+    finally:
+        root.removeHandler(lines)
+        root.setLevel(level)
+
+
+def staged_batch_ms(batch: dict, card: str) -> None:
+    """The pinned, side-stream copy of one collated masked batch to the card
+    (``prefetch_to_device``), its bytes by key and its rate."""
+    sizes = {k: v.nbytes for k, v in batch.items() if isinstance(v, np.ndarray)}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = next(prefetch_to_device(iter([batch]), 1, "cuda"))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del staged
+    total = sum(sizes.values())
+    log(f"cli mask batch to the card [{card}, host clock, pinned copy on a side stream]: "
+        f"{total / 1e6:.1f} MB (gt_masks {sizes['gt_masks'] / 1e6:.1f} MB, "
+        f"{tuple(batch['gt_masks'].shape)} uint8; image {sizes['image'] / 1e6:.1f} MB float32), "
+        f"{[round(t, 2) for t in times]} ms, {total / 1e6 / min(times):.2f} GB/s at best")
+
+
+def cli_mask_kernels(model, det_cfg, batch) -> dict:
+    """K1 and K2 against their plain versions at out 14 on one CLI training
+    batch's own mask slate (positives first, 128 rois an image), FPN levels
+    and mask-head cotangent, scaled by a power of two to a largest value in
+    [1, 2); each timed against its bound."""
+    noise = functools.partial(sampling_noise, torch.Generator(device="cuda").manual_seed(SEED + 80))
+    gt = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    feats, rpn_s, rpn_d = model(batch["image"])
+    props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator,
+                               [s.detach() for s in rpn_s], [d.detach() for d in rpn_d],
+                               batch["img_shape"])
+    sample_rois(det_cfg, props.boxes, props.valid, *gt, noise)  # the box slate's draws first
+    slate = sample_mask_rois(det_cfg, props, *gt, noise)
+    b = slate.rois.shape[0]
+    log(f"cli mask slate: {slate.rois.shape[1]} rois an image, positives "
+        f"{slate.is_pos.sum(1).tolist()}; gt_masks {tuple(batch['gt_masks'].shape)}")
+    targets = mask_targets_for_rois(batch["gt_masks"], slate.rois, slate.matched, det_cfg.mask_size)
+    levels_in = list(feats[: len(det_cfg.roi_strides)])
+    m = det_cfg.mask_roi_size
+    roi_feats = roi_align.batched_multilevel_roi_align(levels_in, slate.rois, det_cfg.roi_strides, m)
+    logits = model.mask_forward(roi_feats)
+    (cotangent,) = torch.autograd.grad(mask_loss(logits, targets, slate.labels, slate.is_pos),
+                                       roi_feats)
+    top = float(cotangent.abs().max())
+    if not top > 0:
+        raise AssertionError("the CLI mask slate's cotangent is all zero")
+    cotangent = cotangent * 2.0 ** -math.floor(math.log2(top))  # K2 is linear in it
+    routed = roi_align.map_rois_to_levels(slate.rois, len(levels_in))
+    maps = [f.detach() for f in levels_in]
+    n = slate.rois.shape[1]
+    c = maps[0].shape[-1]
+    flops = 2 * 4 * b * n * (m * RATIO) ** 2 * c
+    small = slate.rois.numel() * 4 + routed.numel() * 4
+    roi_bytes = b * n * m * m * c * cotangent.element_size()
+    k1 = kernel_at(f"roi_align_fwd on a CLI training batch's mask slate, out {m}",
+                   roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align,
+                   (maps, slate.rois, routed, det_cfg.roi_strides, m), check_bf16,
+                   touched_bytes(maps, slate.rois, m) + small, roi_bytes, flops)
+    args = (cotangent, slate.rois, routed, [tuple(f.shape[1:3]) for f in maps], det_cfg.roi_strides, m)
+    name = f"roi_align_bwd on a CLI training batch's mask slate and scaled cotangent, out {m}"
+    check_deterministic(name, roi_align.multilevel_roi_align_backward_cuda, args)
+    k2 = kernel_at(name, roi_align.multilevel_roi_align_backward_cuda,
+                   roi_align.multilevel_roi_align_backward, args,
+                   lambda nm, g, w: check_grads(nm, g, w, cotangent.dtype), roi_bytes + small,
+                   sum(f.numel() for f in maps) * cotangent.element_size(), flops)
+    return dict(k1=k1, k2=k2)
+
+
+def mask_probs_of(model, det_cfg, feats, dets, roi_boxes) -> torch.Tensor:
+    """The mask branch of ``mask_rcnn_inference`` on given detections."""
+    logits = select_class(model.mask_forward(roi_features(det_cfg, feats, roi_boxes,
+                                                          det_cfg.mask_roi_size)), dets.labels)
+    return torch.sigmoid(logits.float()) * dets.valid[..., None, None]
+
+
+def cli_mask_test_checks(model, det_cfg, image, img_shape, metas, card: str) -> dict:
+    """On one ``tools.test --segm`` batch: K1 at out 14 on its detections
+    against the plain version and its bound; and the batch's masks pasted in
+    the original frame through K1 and through the plain RoIAlign, on the
+    same detections, pixel for pixel."""
+    with torch.inference_mode():
+        dets, feats = _faster_rcnn_inference_core(det_cfg, model, image, img_shape)
+        ones = torch.ones(image.shape[0], device=image.device)
+        dets, roi_boxes = mask_frame(dets, ones)
+        maps = list(feats[: len(det_cfg.roi_strides)])
+        routed = roi_align.map_rois_to_levels(roi_boxes, len(maps), det_cfg.finest_scale)
+        b, n = roi_boxes.shape[:2]
+        c, m = maps[0].shape[-1], det_cfg.mask_roi_size
+        k1 = kernel_at(f"roi_align_fwd on a tools.test batch's detections (b{b}, {n} an image), "
+                       f"out {m}", roi_align.multilevel_roi_align_cuda,
+                       roi_align.multilevel_roi_align, (maps, roi_boxes, routed, det_cfg.roi_strides, m),
+                       check_bf16, touched_bytes(maps, roi_boxes, m) + roi_boxes.numel() * 4
+                       + routed.numel() * 4, b * n * m * m * c * maps[0].element_size(),
+                       2 * 4 * b * n * (m * RATIO) ** 2 * c)
+        kernel_probs = mask_probs_of(model, det_cfg, feats, dets, roi_boxes)
+        with plain_roi_align():
+            plain_probs = mask_probs_of(model, det_cfg, feats, dets, roi_boxes)
+    same = total = fg_same = fg = 0
+    valid, boxes = dets.valid.cpu().numpy(), dets.boxes.float().cpu().numpy()
+    for j, meta in enumerate(metas):
+        v = valid[j]
+        got, _ = masks_to_original(kernel_probs[j].cpu().numpy()[v], boxes[j][v], meta)
+        want, _ = masks_to_original(plain_probs[j].cpu().numpy()[v], boxes[j][v], meta)
+        same, total = same + int((got == want).sum()), total + got.size
+        fg_same, fg = fg_same + int((got & want).sum()), fg + int((got | want).sum())
+    share, fg_share = same / max(total, 1), fg_same / max(fg, 1)
+    log(f"cli test --segm masks of one batch pasted in the original frame through K1 and through "
+        f"the plain RoIAlign on the same {int(valid.sum())} detections: {share:.6f} of their "
+        f"{total} pixels agree (limit 0.99); {fg_share:.6f} of the {fg} pixels either "
+        f"marks agree (limit 0.999); max |prob difference| "
+        f"{float((kernel_probs - plain_probs).abs().max()):.3e}")
+    if not (share >= 0.99 and fg > 0 and fg_share >= 0.999):
+        raise AssertionError("the pasted masks part from the plain RoIAlign's")
+    return k1
+
+
+def phase_cli_mask(card: str) -> dict:
+    """The system's own entry points on Mask R-CNN R50-FPN at full width: a
+    seeded PNG COCO folder with polygon and RLE masks, ``tools.train`` from a
+    seeded torchvision-named ResNet-50 ``.pth`` (``--pretrained torch://``)
+    for two epochs, ``tools.test --segm``, the gt masks' oracle, and K1 and
+    K2 at out 14 on the paths' own batches."""
+    shutil.rmtree(SMOKE_COCO_MASKS, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_ann = write_smoke_coco_masks("train", CLI_MASK_TRAIN_IMAGES, SEED + 90)
+    val_ann = write_smoke_coco_masks("val", CLI_MASK_VAL_IMAGES, SEED + 91)
+    config = write_smoke_mask_config(train_ann, val_ann)
+    pth = SMOKE_COCO_MASKS / "resnet50_torchvision.pth"
+    state = write_torchvision_resnet50(pth, SEED + 92)
+    cfg = Config.fromfile(config)
+    source = json.loads(train_ann.read_text())["annotations"]
+    kinds = collections.Counter("crowd" if a["iscrowd"] else "rle" if isinstance(
+        a["segmentation"], dict) else f"polygon of {len(a['segmentation'])}" for a in source)
+    log(f"cli mask: wrote {CLI_MASK_TRAIN_IMAGES} train and {CLI_MASK_VAL_IMAGES} val PNGs of "
+        f"{CLI_SIZES}, their instances JSONs ({dict(sorted(kinds.items()))} in training) and a "
+        f"torchvision-named ResNet-50 .pth of {len(state)} tensors in "
+        f"{time.perf_counter() - t0:.1f} s; config {config.name}")
+    host = host_data_costs(cfg, card, "cli mask")
+    dataset = get_datasets(dict(cfg["data"]["train"]))
+    samples = [dataset[i] for i in range(cfg["data"]["sample_per_replica"])]
+    staged_batch_ms(collate(samples, max_gts=cfg["data"]["max_gts"],
+                            canvas=tuple(cfg["data"]["canvas"])), card)
+    del dataset, samples
+
+    # two epochs through tools.train from the .pth, launches counted by output size
+    work = SMOKE_COCO_MASKS / "work"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    with logged_lines() as lines, launches_by_out_size() as sizes:
+        trainer = train_cli.main([str(config), "--epochs", str(CLI_MASK_EPOCHS), "--work-dir",
+                                  str(work), "--pretrained", f"torch://{pth}"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = len(trainer.dataloader)
+    n = CLI_MASK_EPOCHS * steps
+    expect_launches("cli mask training", launches, 2 * n, 2 * n)
+    if sizes != dict(k1={OUT_SIZE: n, MASK_OUT: n}, k2={OUT_SIZE: n, MASK_OUT: n}):
+        raise AssertionError(f"cli mask training: launches by out size {sizes}; expected one at "
+                             f"out {OUT_SIZE} and one at out {MASK_OUT} a step, each kernel")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    backbone = [k for k in trainer.model.state_dict() if k.startswith("backbone.")]
+    loaded = [line for line in lines if line.startswith("loaded ") and str(pth) in line]
+    want_line = f", {len(backbone)} of the backbone's {len(backbone)}"
+    log(f"cli mask training: the loader's report: {loaded}")
+    if len(loaded) != 1 or want_line not in loaded[0]:
+        raise AssertionError(f"the .pth did not set every backbone tensor: {loaded}")
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    keys = LOSS_KEYS + ("loss_mask",)
+    if len(records) != n or not all(math.isfinite(r[k]) for r in records for k in keys) or \
+            records[-1]["skipped_steps"]:
+        raise AssertionError(f"cli mask training: {len(records)} records for {n} steps, or a "
+                             f"non-finite loss, or a skipped step: {records[-1]}")
+    batch_size = cfg["data"]["sample_per_replica"]
+    last = [r for r in records if r["epoch"] == CLI_MASK_EPOCHS - 1]
+    step_ms = [batch_size / r["images_per_sec"] * 1e3 for r in last]
+    epoch_ips = batch_size * len(last) / (sum(step_ms) / 1e3)
+    wait_ms = trainer.loader_wait_s / len(records) * 1e3
+    log(f"cli mask training [{card}]: {steps} steps an epoch at b{batch_size} on "
+        f"{tuple(cfg['data']['canvas'])}, {CLI_MASK_EPOCHS} epochs in {wall:.1f} s (the build, the "
+        f".pth and checkpoints included); launches {launches}, by out size "
+        f"{ {k: dict(v) for k, v in sizes.items()} }; epoch {CLI_MASK_EPOCHS} ms a step "
+        f"{[round(m, 1) for m in step_ms]}, median {statistics.median(step_ms):.1f} ms; images/s "
+        f"over all of epoch {CLI_MASK_EPOCHS}: {epoch_ips:.2f}, a step's median "
+        f"{batch_size / statistics.median(step_ms) * 1e3:.2f}; the trainer's wait on the loader "
+        f"{wait_ms:.1f} ms a step; peak memory {peak:.2f} GiB; losses first "
+        + ", ".join(f"{k} {records[0][k]:.4f}" for k in keys)
+        + "; last " + ", ".join(f"{k} {records[-1][k]:.4f}" for k in keys))
+
+    # the frozen stem and stage 1 (frozen_stages=1) keep the .pth's values through training
+    converted, _ = convert_state_dict(trainer.model, state,
+                                      prefixed_rules(RESNET_KEY_RULES, "", "backbone."))
+    saved = load_checkpoint_file(str(work / f"epoch_{CLI_MASK_EPOCHS}"))["model"]
+    frozen = [k for k in converted if k.startswith(("backbone.stem.", "backbone.layer1_"))]
+    moved = [k for k in frozen if not torch.equal(saved[k].cpu(), converted[k])]
+    trained = [k for k in converted if k.startswith("backbone.layer2_")
+               and not torch.equal(saved[k].cpu(), converted[k])]
+    log(f"cli mask training: epoch_{CLI_MASK_EPOCHS}'s frozen stem and stage 1 equal the .pth's "
+        f"{len(frozen) - len(moved)} of {len(frozen)} tensors bit for bit; stage 2 moved in "
+        f"{len(trained)} tensors")
+    if moved or not frozen or not trained:
+        raise AssertionError(f"frozen tensors moved {moved[:4]}, or stage 2 did not train")
+
+    # one profiled step fed by the loader
+    det_cfg = build_detection_cfg(cfg["detection"])
+    loader = trainer.dataloader
+    loader.set_epoch(CLI_MASK_EPOCHS)
+    batches = prefetch_to_device(loader.iter_batches(), 2, "cuda")
+    first = next(batches)
+    first.pop("img_meta")
+    trainer.train_step(first)
+
+    def loader_step():
+        batch = next(batches)
+        batch.pop("img_meta")
+        trainer.train_step(batch)
+
+    profile = device_profile(loader_step, statistics.median(step_ms), card,
+                             "CLI mask training step (the next loader batch, then the step)")
+    batches.close()
+    kernel_checks = cli_mask_kernels(trainer.model, det_cfg, first)
+    del trainer, first
+
+    # tools.test --segm on the val set, K1 counted by output size
+    out = SMOKE_COCO_MASKS / "results.json"
+    seen = {}
+
+    def recorded_evaluate(model, det_cfg, dataset, **kwargs):
+        infer = make_inference_fn(model, det_cfg, segm=kwargs.get("segm", False))
+
+        def recorded_infer(*args):
+            seen.setdefault("batch", args)
+            return infer(*args)
+
+        seen.update(model=model, det_cfg=det_cfg, dataset=dataset)
+        return evaluate_detector(model, det_cfg, dataset, infer=recorded_infer, **kwargs)
+
+    test_cli.evaluate_detector = recorded_evaluate
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with launches_by_out_size() as test_sizes:
+            metrics = test_cli.main([str(config), str(work / f"epoch_{CLI_MASK_EPOCHS}"), "--segm",
+                                     "--out", str(out)])
+            torch.cuda.synchronize()
+    finally:
+        test_cli.evaluate_detector = evaluate_detector
+    test_s = time.perf_counter() - t0
+    test_launches = read_launches()
+    batches_test = -(-CLI_MASK_VAL_IMAGES // 8)
+    expect_launches("cli mask test", test_launches, 2 * batches_test, 0)
+    if test_sizes != dict(k1={OUT_SIZE: batches_test, MASK_OUT: batches_test}, k2={}):
+        raise AssertionError(f"cli mask test: launches by out size {test_sizes}")
+    if len(metrics) != 24 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cli mask test metrics {metrics}")
+    segm_path = SMOKE_COCO_MASKS / "results.segm.json"
+    segm = json.loads(segm_path.read_text())
+    frames = {img["id"]: (img["height"], img["width"])
+              for img in json.loads(val_ann.read_text())["images"]}
+    if not segm or len(segm) != len(json.loads(out.read_text())):
+        raise AssertionError(f"cli mask test: {len(segm)} segm records")
+    for r in segm:
+        decoded = rle_decode(r["segmentation"])
+        if decoded.shape != frames[r["image_id"]] or r["category_id"] not in COCO_CATEGORY_IDS:
+            raise AssertionError(f"a segm record of shape {decoded.shape} for image "
+                                 f"{r['image_id']} of {frames[r['image_id']]}")
+    log(f"cli test --segm [{card}]: {CLI_MASK_VAL_IMAGES} images in {test_s:.1f} s (the build "
+        f"included), launches {test_launches}, by out size "
+        f"{ {k: dict(v) for k, v in test_sizes.items()} }; {len(segm)} segm records, each RLE "
+        f"decoding to its image's original size; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    image, img_shape = seen["batch"][:2]
+    metas = [seen["dataset"][i]["img_meta"][0].data for i in range(image.shape[0])]
+    k1_test = cli_mask_test_checks(seen["model"], seen["det_cfg"], image, img_shape, metas, card)
+    del seen
+
+    # the oracle: each val image's own gt masks as detections of score 1
+    val = get_datasets(dict(cfg["data"]["val"], with_mask=True))
+    anns, dets = [], []
+    for i in range(len(val)):
+        a = val.get_ann_info(i)
+        a = dict(a, masks=[rle_encode(m) for m in a["masks"]],
+                 masks_ignore=[rle_encode(m) for m in a["masks_ignore"]])
+        anns.append(a)
+        dets.append(dict(boxes=a["bboxes"], scores=np.ones(len(a["bboxes"])), labels=a["labels"],
+                         masks=a["masks"]))
+    oracle = eval_coco_segm_map(dets, anns, det_cfg.num_classes)
+    dumped = coco_segm_dump(val, dets)
+    source = [a for a in json.loads(val_ann.read_text())["annotations"] if not a["iscrowd"]]
+    inverted = len(dumped) == len(source) and all(
+        r["image_id"] == a["image_id"] and r["category_id"] == a["category_id"]
+        and np.array_equal(rle_decode(r["segmentation"]),
+                           segm_to_mask(a["segmentation"], *frames[a["image_id"]]))
+        for r, a in zip(dumped, source))
+    log(f"cli mask oracle: the val gt masks as detections give segm mAP {oracle['mAP']:.6f}, "
+        f"AR_100 {oracle['AR_100']:.6f}; the segm dump gives back the {len(source)} non-crowd "
+        f"masks: {inverted}")
+    if abs(oracle["mAP"] - 1.0) > 1e-12 or not inverted:
+        raise AssertionError("the segm oracle does not score 1.0 or the dump does not invert the "
+                             "dataset's masks")
+    return dict(training=launches, test=test_launches, k1_test=k1_test, host=host,
+                profile=profile, **kernel_checks)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3475,6 +3997,7 @@ def main() -> int:
     detr_step = phase_detr_step_data(detr_train.pop("model"), detr_train.pop("det_cfg"),
                                      detr_train.pop("batch"))
     cli = phase_cli(card, train)
+    cli_mask = phase_cli_mask(card)
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -3502,7 +4025,8 @@ def main() -> int:
                     "sparse_training": sparse_train["launches"]}
     slice8_paths = {"detr_serving": detr_serve["launches"],
                     "detr_training": detr_train["launches"]}
-    cli_paths = {"cli_training": cli["training"], "cli_test": cli["test"]}
+    cli_paths = {"cli_training": cli["training"], "cli_test": cli["test"],
+                 "cli_mask_training": cli_mask["training"], "cli_mask_test": cli_mask["test"]}
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
                    **cli_paths}
     line = {"kernels": [
@@ -3515,14 +4039,15 @@ def main() -> int:
               at_sparse_serving_stage5=sparse_serve["k1_stage5"],
               at_sparse_training_stage0=sparse_step["k1_stage0"],
               at_sparse_training_stage5=sparse_step["k1_stage5"], at_cli_training=cli["k1"],
-              at_cli_test=cli["k1_test"]),
+              at_cli_test=cli["k1_test"], at_cli_mask_training=cli_mask["k1"],
+              at_cli_mask_test=cli_mask["k1_test"]),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
               {"serving": serve["bwd_launches"], "training": train["k2"],
                **{path: n["k2"] for path, n in later_paths.items()}}, bwd,
               at_mask_training=mask_step["k2"], at_mask_positives_only=mask_step["k2_hot"],
               at_cascade_stage3=cascade_k2, at_cascade_mask_stage3=cascade_mask_k2,
               at_sparse_stage0=sparse_step["k2_stage0"], at_sparse_stage5=sparse_step["k2_stage5"],
-              at_cli_training=cli["k2"]),
+              at_cli_training=cli["k2"], at_cli_mask_training=cli_mask["k2"]),
         entry("hungarian", "torch_detection_tpu/ops/hungarian.py:38",
               {"serving": serve["matcher"], "training": train["matcher"],
                **{path: n["matcher"] for path, n in later_paths.items()}}, sparse_step["matcher"],

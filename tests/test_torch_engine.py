@@ -235,8 +235,20 @@ def test_load_checkpoint_reports_keys_by_name(tmp_path, caplog):
         checkpoint.load_checkpoint(wider, str(tmp_path / "ck"), strict=True)
     assert checkpoint.load_checkpoint(wider, str(tmp_path / "ck"))["step"] == 4
     assert "2.weight" in caplog.text and torch.equal(wider[0].weight, model[0].weight)
-    with pytest.raises(NotImplementedError, match="torch_import"):
-        checkpoint.load_checkpoint(model, "torch://w.pth")
+    # a torch .pth: torchvision ResNet names onto a ResNet's own, the
+    # envelope unwrapped and the classifier dropped
+    from torch_detection_tpu_torch.models.backbones import ResNet
+
+    net = ResNet(depth=18, num_stages=4, out_indices=(0, 1, 2, 3), device="cpu")
+    state = {"conv1.weight": torch.ones_like(net.stem.conv.weight),
+             "bn1.running_var": torch.full_like(net.stem.norm.var, 2.0),
+             "fc.weight": torch.ones(10, 512)}
+    torch.save({"state_dict": state}, str(tmp_path / "w.pth"))
+    meta = checkpoint.load_checkpoint(net, "torch://" + str(tmp_path / "w.pth"))
+    assert meta["loaded"] == ["stem.conv.weight", "stem.norm.var"]
+    assert torch.equal(net.stem.conv.weight, state["conv1.weight"])
+    assert torch.equal(net.stem.norm.var, state["bn1.running_var"])
+    assert "layer1_0.block1.conv.weight" in caplog.text  # missing, reported by name
 
 
 def test_latest_checkpoint_is_the_newest(tmp_path):

@@ -19,7 +19,9 @@ import shutil
 import pytest
 import torch
 
+import torch_refs
 from test_torch_data import write_png_coco
+from test_torch_detr import MODEL as DETR_MODEL
 from test_torch_engine import METRICS
 from test_torch_train import TRAIN_MODEL
 from torch_detection_tpu_torch.data import build_dataloader
@@ -125,15 +127,47 @@ def test_test_cli_dumps_coco_results(trained, tmp_path):
         assert w > 0 and h > 0 and x + w <= 101 and y + h <= 101 and 0 < r["score"] <= 1
 
 
-@pytest.mark.parametrize("knob", [dict(ema_decay=0.999), dict(accum_steps=2), dict(fsdp=True),
-                                  dict(val_segm=True)])
+def test_clis_train_and_test_detr_from_a_torchvision_pth(tmp_path):
+    """A model without a neck through both CLIs: ``tools.train`` on the tiny
+    DETR from a torchvision-named ResNet-18 ``.pth`` (every backbone tensor
+    loads), then ``tools.test`` on its ``epoch_1`` and on the ``.pth``."""
+    coco = write_png_coco(tmp_path / "coco")
+    base = os.path.join(os.path.dirname(BASE), "detr_r50_coco.py")
+    ann, prefix = coco["ann_file"], coco["img_prefix"]
+    config = tmp_path / "detr.py"
+    config.write_text(f"""_base_ = {os.path.abspath(base)!r}
+model = dict(_delete_=True, **{dict(DETR_MODEL, type="DETR", num_classes=2)!r})
+detection = dict(num_classes=2, num_queries=8, max_detections=8)
+data = dict(
+    train=dict(ann_file={ann!r}, img_prefix={prefix!r}, img_expected_sizes=(64, 48)),
+    val=dict(ann_file={ann!r}, img_prefix={prefix!r}, img_expected_sizes=(64, 48)),
+    sample_per_replica=2, max_gts=8, canvas=(64, 64),
+)
+schedule = dict(warmup_steps=2)
+runtime = dict(compute_dtype="float32", log_interval=1)
+""")
+    torch.manual_seed(0)
+    state = torch_refs.torch_resnet18().state_dict()
+    pth = tmp_path / "resnet18.pth"
+    torch.save(state, str(pth))
+    trainer = train_cli.main([str(config), "--epochs", "1", "--work-dir", str(tmp_path / "work"),
+                              "--pretrained", f"torch://{pth}", "--device", "cpu"])
+    saved = load_checkpoint_file(str(tmp_path / "work" / "epoch_1"))["model"]
+    assert torch.equal(saved["backbone.stem.conv.weight"], state["conv1.weight"])  # frozen
+    assert trainer.optimizer.steps == 2
+    for ckpt in (str(tmp_path / "work" / "epoch_1"), f"torch://{pth}"):
+        metrics = test_cli.main([str(config), ckpt, "--batch", "2", "--device", "cpu"])
+        assert set(metrics) == set(METRICS) and all(math.isfinite(v) for v in metrics.values())
+
+
+@pytest.mark.parametrize("knob", [dict(ema_decay=0.999), dict(accum_steps=2), dict(fsdp=True)])
 def test_train_cli_refuses_unported_knobs(tmp_path, knob):
     config = _write_config(tmp_path / "knob.py", dict(ann_file="a.json", img_prefix="."), **knob)
     with pytest.raises(NotImplementedError, match=next(iter(knob))):
         train_cli.main([config, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag", ["--tta", "--segm", "--voc-metric"])
+@pytest.mark.parametrize("flag", ["--tta", "--voc-metric"])
 def test_test_cli_refuses_unported_flags(tmp_path, flag):
     config = _write_config(tmp_path / "flag.py", dict(ann_file="a.json", img_prefix="."))
     with pytest.raises(NotImplementedError, match=flag):

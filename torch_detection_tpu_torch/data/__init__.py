@@ -8,7 +8,7 @@ from .container import DataContainer
 from .device import prefetch_to_device
 from .loader import DataLoader, build_dataloader
 from .sampler import GroupSampler
-from .transforms import BackgroundErasing, BboxTransforms, ImageTransforms
+from .transforms import BackgroundErasing, BboxTransforms, ImageTransforms, MaskTransforms
 
 __all__ = [
     "ops",
@@ -28,4 +28,5 @@ __all__ = [
     "BackgroundErasing",
     "BboxTransforms",
     "ImageTransforms",
+    "MaskTransforms",
 ]

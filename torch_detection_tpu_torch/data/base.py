@@ -4,7 +4,8 @@ Counterpart of ``torch_detection_tpu/data/base.py``: samples are dicts of
 numpy arrays and DataContainers, images HWC; every random draw of a sample
 comes from ``(seed, epoch, idx)``, so an epoch's augmentations repeat
 exactly (and on every process); retry-on-empty redraws within the same
-aspect group. Gt masks (``with_mask``) wait for the mask tier of the port.
+aspect group. ``with_mask`` adds the annotations' masks, resized, flipped
+and padded as the image (``gt_masks``, (K, H, W) uint8).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ..utils.file_handler import load
 from ..utils.misc import is_list_of, random_scale
 from .container import DataContainer
 from .ops.image import img_aspect_ratio_flag
-from .transforms import BackgroundErasing, BboxTransforms, ImageTransforms
+from .transforms import BackgroundErasing, BboxTransforms, ImageTransforms, MaskTransforms
 
 
 class BaseDataset:
@@ -32,6 +33,7 @@ class BaseDataset:
             'bboxes': (n, 4) float32 xyxy,
             'labels': (n,) int64 (1-based; 0 is background),
             'bboxes_ignore': (k, 4) float32,
+            ['masks': list of (H, W) uint8, 'mask_polys': ..., 'poly_lens': ...]
         }
     }
     """
@@ -59,8 +61,6 @@ class BaseDataset:
         size_mode: str = "value",
         normalize_on_device: bool = False,
     ):
-        if with_mask:
-            raise NotImplementedError("with_mask: gt masks wait for the mask tier of the port")
         self.img_infos = self.load_annotations(ann_file)
         self.img_prefix = img_prefix
         self.img_means, self.img_stds = img_means, img_stds
@@ -86,6 +86,7 @@ class BaseDataset:
             if self.proposals is not None:
                 self.proposals = [self.proposals[i] for i in valid_inds]
 
+        self.with_mask = with_mask
         self.with_crowd = with_crowd
         self.with_label = with_label
         self.test_mode = test_mode
@@ -102,6 +103,7 @@ class BaseDataset:
             size_divisor=self.size_divisor, normalize_on_device=normalize_on_device,
         )
         self.bbox_transforms = BboxTransforms()
+        self.mask_transforms = MaskTransforms()
         self.background_erasing = BackgroundErasing()
 
     # ------------------------------------------------------------- loading
@@ -208,6 +210,9 @@ class BaseDataset:
             )
         if self.with_crowd and len(gt_bboxes_ignore):
             gt_bboxes_ignore = self.bbox_transforms(gt_bboxes_ignore, *geometry)
+        if self.with_mask:
+            gt_masks = self.mask_transforms(ann["masks"], scale_factor, pad_shape, flipped_flag,
+                                            flipped_direction)
 
         img_meta = self._meta(img_info, img_shape, pad_shape, scale_factor, flipped_flag,
                               flipped_direction)
@@ -222,6 +227,8 @@ class BaseDataset:
             data["gt_labels"] = DataContainer(gt_labels)
         if self.with_crowd:
             data["gt_bboxes_ignore"] = DataContainer(gt_bboxes_ignore)
+        if self.with_mask:
+            data["gt_masks"] = DataContainer(gt_masks, cpu_only=True)
         return data
 
     # ------------------------------------------------------------- test

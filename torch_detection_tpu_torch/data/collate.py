@@ -4,8 +4,9 @@ Counterpart of ``torch_detection_tpu/data/collate.py``: images padded to a
 canvas (an explicit (H, W), the smallest fitting bucket, or the batch's
 max rounded up to ``size_divisor``), ragged gt boxes and labels padded to
 ``max_gts`` rows with a validity mask, crowd boxes likewise, proposals to a
-fixed slate, and the ``stem_s2d`` wire. The batch stays numpy;
-``data/device.py`` puts it on the device. Gt masks wait for the mask tier.
+fixed slate, gt masks to (B, G, H, W) uint8 with G bucketed, and the
+``stem_s2d`` wire. The batch stays numpy; ``data/device.py`` puts it on the
+device.
 """
 
 from __future__ import annotations
@@ -74,7 +75,10 @@ def collate(
     float32, ``img_meta`` (the host's list of dicts); with crowds
     ``gt_boxes_ignore`` and ``gt_ignore_valid``; with proposals
     ``proposals`` and ``proposal_valid`` (``max_proposals`` rows, else the
-    batch's most). ``s2d=True`` relays the images 2x2 space-to-depth."""
+    batch's most); with masks ``gt_masks`` (B, G, H, W) uint8, G the smallest
+    of 8, 16, 32, 64 below ``max_gts`` that holds the batch's gts, else
+    ``max_gts`` (the valid gts come first, so rows past G are never
+    matched). ``s2d=True`` relays the images 2x2 space-to-depth."""
     assert len(samples) > 0
     imgs = [s["img"].data for s in samples]
     hw = pick_canvas([im.shape[:2] for im in imgs], canvas, canvas_buckets, size_divisor)
@@ -104,6 +108,15 @@ def collate(
         props = [s["proposals"].data for s in samples]
         n_prop = max_proposals or max(len(p) for p in props)
         batch["proposals"], batch["proposal_valid"] = _pad_rows(props, n_prop, props[0].shape[-1])
+    if "gt_masks" in samples[0]:
+        masks = [s["gt_masks"].data for s in samples]
+        n_max = max(min(len(m), max_gts) for m in masks)
+        g = next((bk for bk in (8, 16, 32, 64) if n_max <= bk < max_gts), max_gts)
+        out = np.zeros((b, g, hw[0], hw[1]), np.uint8)
+        for i, m in enumerate(masks):
+            n = min(len(m), g)
+            out[i, :n, : m.shape[1], : m.shape[2]] = m[:n]
+        batch["gt_masks"] = out
     if s2d:
         batch["image"] = space_to_depth_2x2_np(batch["image"])
     return batch

@@ -19,6 +19,19 @@ from .image import (
     pad_shape_divisor,
     png_decode,
     rescale_size,
+    resize_nearest,
+)
+from .mask import (
+    mask_flip,
+    mask_pad,
+    mask_parse,
+    mask_resize,
+    poly_to_mask,
+    rle_area,
+    rle_decode,
+    rle_encode,
+    rle_iou_matrix,
+    segm_to_mask,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -8,7 +8,9 @@ Counterpart of ``torch_detection_tpu/data/ops/image.py`` without OpenCV:
 * ``img_resize`` resizes bilinearly with ``torch.nn.functional.interpolate``
   (``align_corners=False``, no antialias) on a float32 CPU tensor, the
   sampling of ``cv2.resize(..., INTER_LINEAR)``; a uint8 image is rounded
-  back to uint8, within one grey level of cv2's 11-bit fixed-point weights;
+  back to uint8, within one grey level of cv2's 11-bit fixed-point weights.
+  ``interpolation="nearest"`` (the masks') is cv2's ``INTER_NEAREST``
+  exactly: source index ``floor(i / (new / old))`` in doubles, clamped;
 * sizes, flips, pads and the aspect-ratio flag are numpy copies, so
   ``img_shape``, ``pad_shape`` and ``scale_factor`` are the reference's
   exactly.
@@ -178,6 +180,22 @@ def resize_bilinear(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
     return out.astype(img.dtype, copy=False)
 
 
+def resize_nearest(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """(H, W[, C]) -> (new_h, new_w[, C]) as ``cv2.resize(..., INTER_NEAREST)``
+    picks its pixels: output pixel i reads source pixel
+    ``min(floor(i * (1 / (new / old))), old - 1)`` along each axis, the scale
+    and its inverse in doubles as cv2 computes them."""
+    h, w = img.shape[:2]
+    if (new_h, new_w) == (h, w):
+        return img.copy()
+    sy = np.minimum(np.floor(np.arange(new_h) * (1.0 / (new_h / h))).astype(np.int64), h - 1)
+    sx = np.minimum(np.floor(np.arange(new_w) * (1.0 / (new_w / w))).astype(np.int64), w - 1)
+    return np.take(img, sx, axis=1)[sy]  # the narrower gather first
+
+
+_RESIZERS = {"bilinear": resize_bilinear, "nearest": resize_nearest}
+
+
 def img_resize(
     img: np.ndarray,
     size=None,
@@ -188,11 +206,12 @@ def img_resize(
 ):
     """Resize by target ``size`` (int short-edge or (long, short) caps) or by
     ``scale_factor`` (float, or a sequence to sample from via ``rng``).
-    Bilinear only."""
+    Bilinear or nearest."""
     if (size is None) == (scale_factor is None):
         raise ValueError("exactly one of size / scale_factor must be given")
-    if interpolation != "bilinear":
-        raise NotImplementedError(f"interpolation {interpolation!r} is not ported (bilinear only)")
+    if interpolation not in _RESIZERS:
+        raise NotImplementedError(f"interpolation {interpolation!r} is not ported "
+                                  "(bilinear and nearest only)")
     h, w = img.shape[:2]
     if size is not None:
         if not return_scale:
@@ -203,7 +222,7 @@ def img_resize(
             rand = rng if rng is not None else np.random.default_rng()
             scale_factor = float(rand.choice(scale_factor))
         (new_h, new_w), sf = rescale_size((h, w), float(scale_factor))
-    resized = resize_bilinear(img, new_h, new_w)
+    resized = _RESIZERS[interpolation](img, new_h, new_w)
     if return_scale:
         return resized, sf
     return resized
@@ -224,6 +243,17 @@ def img_flip(
     if flipped:
         img = np.flip(img, 1 if direction == "horizontal" else 0)
     return img, flipped, direction
+
+
+# ---------------------------------------------------------------- crop
+def img_crop(img: np.ndarray, size_crop: Tuple[int, int], min_w: int = 0, min_h: int = 0) -> np.ndarray:
+    """Crop a (width, height) = ``size_crop`` window anchored at (min_w, min_h)."""
+    assert isinstance(size_crop, tuple) and len(size_crop) == 2
+    assert min_w >= 0 and min_h >= 0
+    cw, ch = size_crop
+    h, w = img.shape[:2]
+    assert min_h + ch <= h and min_w + cw <= w, "crop window exceeds image bounds"
+    return img[min_h: min_h + ch, min_w: min_w + cw, ...]
 
 
 # ---------------------------------------------------------------- pad

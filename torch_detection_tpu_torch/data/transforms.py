@@ -2,9 +2,9 @@
 
 Counterpart of ``torch_detection_tpu/data/transforms.py``: ImageTransforms
 (read -> normalize -> keep-ratio resize -> flip -> pad-to-divisor, HWC),
-BboxTransforms (resize + flip) and BackgroundErasing (zero grid cells with
-no gt overlap). Randomness flows through an injected ``np.random.Generator``.
-``MaskTransforms`` waits for the mask tier of the port.
+BboxTransforms (resize + flip), MaskTransforms (nearest resize + flip + pad
++ stack) and BackgroundErasing (zero grid cells with no gt overlap).
+Randomness flows through an injected ``np.random.Generator``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 
 from .ops.bbox import bbox_flip, bbox_resize
 from .ops.image import img_flip, img_normalize, img_pad_size_divisor, img_read, img_resize
+from .ops.mask import mask_flip, mask_pad, mask_resize
 
 
 class ImageTransforms:
@@ -64,6 +65,22 @@ class BboxTransforms:
     def __call__(self, bbox, img_shape, scale_factor, flipped_flag, flipped_direction):
         bbox = bbox_resize(bbox, scale_factor)
         return bbox_flip(bbox, tuple(img_shape[:2]), flipped_flag=flipped_flag, direction=flipped_direction)
+
+
+class MaskTransforms:
+    """Resize each mask by the image's scale factor (nearest), mirror it if
+    the image flipped, pad it to the image's ``pad_shape``; stack (K, H, W)
+    uint8."""
+
+    def __call__(self, masks, scale_factor, pad_shape, flipped_flag, flipped_direction):
+        out = [
+            mask_pad(mask_flip(mask_resize(m, scale_factor=scale_factor), flipped_flag=flipped_flag,
+                               direction=flipped_direction), expected_shape=tuple(pad_shape[:2]))
+            for m in masks
+        ]
+        if not out:
+            return np.zeros((0,) + tuple(pad_shape[:2]), np.uint8)
+        return np.stack(out, axis=0)
 
 
 class BackgroundErasing:

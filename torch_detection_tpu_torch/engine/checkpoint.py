@@ -5,9 +5,10 @@ a directory: ``model.pt`` (the model's ``state_dict``), ``optimizer.pt``
 (the optimizer's state keyed by parameter name, its step and update counts)
 and ``meta.json`` (epoch, step, ``batches_done`` of a mid-epoch save, time).
 Loading reports missing and unexpected keys by name, and the optimizer's
-state is restored by parameter name, never by position. Importing
-torchvision or mmdetection weights (``torch://``, ``modelzoo://``) waits for
-the port's ``models/torch_import.py``.
+state is restored by parameter name, never by position. ``torch://`` loads
+a torchvision or mmdetection ``.pth`` through ``models/torch_import.py``;
+``modelzoo://<arch>``, ``http(s)://`` and ``file://`` sources are fetched
+into a cache directory once and loaded from there.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+
+from ..models.torch_import import detector_key_rules, load_torch_checkpoint, load_torch_weights
 
 logger = logging.getLogger(__name__)
 
@@ -156,13 +159,77 @@ def load_optimizer_state(model, optimizer, state: Dict[str, Any], strict: bool =
     optimizer.count = int(state["count"])
 
 
-def load_checkpoint(model, filename: str, strict: bool = False, optimizer=None) -> Dict[str, Any]:
-    """Load a checkpoint directory saved by ``save_checkpoint`` into
-    ``model`` (and ``optimizer``'s state, where given and saved); returns
-    its meta. ``torch://`` and ``modelzoo://`` sources are not ported yet."""
-    if "://" in filename:
-        raise NotImplementedError(f"checkpoint source {filename!r}: importing torch or model-zoo "
-                                  "weights waits for the port's models/torch_import.py")
+# ``modelzoo://<arch>`` aliases: torchvision's ImageNet weights, as the
+# reference resolves them, for the backbones the importer has tables for
+MODELZOO_URLS = {
+    "resnet18": "https://download.pytorch.org/models/resnet18-5c106cde.pth",
+    "resnet34": "https://download.pytorch.org/models/resnet34-333f7ec4.pth",
+    "resnet50": "https://download.pytorch.org/models/resnet50-19c8e357.pth",
+    "resnet101": "https://download.pytorch.org/models/resnet101-5d3b4d8f.pth",
+    "resnet152": "https://download.pytorch.org/models/resnet152-b121ed2d.pth",
+    "resnext50_32x4d": "https://download.pytorch.org/models/resnext50_32x4d-7cdf4587.pth",
+    "resnext101_32x8d": "https://download.pytorch.org/models/resnext101_32x8d-8ba56ff5.pth",
+}
+
+
+def default_cache_dir() -> str:
+    return os.path.join(os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
+                        "torch_detection_tpu", "checkpoints")
+
+
+def resolve_checkpoint_source(filename: str, cache_dir: Optional[str] = None) -> str:
+    """A checkpoint source -> what ``load_checkpoint`` reads:
+
+    * ``modelzoo://<arch>`` -> its torchvision URL (``MODELZOO_URLS``), then
+      as a URL;
+    * ``http(s)://`` and ``file://`` -> a copy in ``cache_dir`` (default
+      ``~/.cache/torch_detection_tpu/checkpoints``), fetched once by its
+      file name and reused; a ``.pth``/``.pt`` comes back as ``torch://``;
+    * ``torch://`` and local paths pass through.
+
+    A fetch that is not cached and cannot reach its host raises the
+    ``URLError``."""
+    if filename.startswith("modelzoo://"):
+        arch = filename[len("modelzoo://"):]
+        if arch not in MODELZOO_URLS:
+            raise KeyError(f"unknown modelzoo alias {arch!r}; known: {sorted(MODELZOO_URLS)}")
+        filename = MODELZOO_URLS[arch]
+    if filename.startswith(("http://", "https://", "file://")):
+        from urllib.parse import urlparse
+        from urllib.request import urlretrieve
+
+        cache_dir = cache_dir or default_cache_dir()
+        os.makedirs(cache_dir, exist_ok=True)
+        local = os.path.join(cache_dir, os.path.basename(urlparse(filename).path) or "checkpoint")
+        if not os.path.exists(local):
+            logger.info("fetching %s -> %s", filename, local)
+            urlretrieve(filename, local + ".part")
+            os.replace(local + ".part", local)
+        return "torch://" + local if local.endswith((".pth", ".pt")) else local
+    return filename
+
+
+def load_checkpoint(model, filename: str, strict: bool = False, optimizer=None,
+                    cache_dir: Optional[str] = None) -> Dict[str, Any]:
+    """Load weights into ``model`` and return the checkpoint's meta.
+
+    * ``torch://<file.pth>`` imports a torch state dict through the rules
+      ``detector_key_rules`` picks for the model and the file: a backbone's
+      state dict into a detector's ``backbone.``, a whole mmdetection
+      detector's through its table, a ResNet's into a ResNet; the meta names
+      the source and the port keys loaded;
+    * ``modelzoo://``, ``http(s)://`` and ``file://`` resolve first
+      (``resolve_checkpoint_source``);
+    * anything else is a directory saved by ``save_checkpoint``, with the
+      optimizer's state too where ``optimizer`` is given.
+
+    Missing and unexpected keys are logged by name, or raised when
+    ``strict``."""
+    filename = resolve_checkpoint_source(filename, cache_dir=cache_dir)
+    if filename.startswith("torch://"):
+        state = load_torch_checkpoint(filename[len("torch://"):])
+        loaded = load_torch_weights(model, state, detector_key_rules(model, state), strict=strict)
+        return {"source": filename, "loaded": loaded}
     payload = load_checkpoint_file(filename)
     load_model_state(model, payload["model"], strict=strict)
     if optimizer is not None:

@@ -4,9 +4,11 @@ Counterpart of ``torch_detection_tpu/engine/eval.py``: per-class PR curves
 matched greedily by descending score at IoU thresholds 0.50:0.05:0.95,
 101-point interpolated AP, area ranges (all/small/medium/large), maxDets
 1/10/100, crowd boxes as ignore regions (IoU = intersection / detection
-area), the full 12-metric summary. The matchers are the reference's Python
-versions, which its C++ matcher (``native/eval_match.cpp``) only speeds up.
-Segmentation mAP and VOC AP wait for later slices.
+area), the full 12-metric summary; the same protocol on mask IoU
+(``eval_coco_segm_map``), computed on the masks' RLE runs. The matchers are
+the reference's Python versions, which its C++ matcher
+(``native/eval_match.cpp``, boxes only) only speeds up. VOC AP waits for a
+later slice.
 
 Box convention: xyxy with the inclusive +1 area rule.
 """
@@ -16,6 +18,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..data.ops.mask import rle_area, rle_encode, rle_iou_matrix
 
 
 def _iou_matrix(det: np.ndarray, gt: np.ndarray, offset: float = 1.0) -> np.ndarray:
@@ -341,6 +345,89 @@ def eval_coco_map(
             per_class[c + 1] = float(np.mean(s))
     out["per_class"] = per_class
     # absent classes contribute -1 in COCO; report 0.0 when nothing evaluable
+    for key, val in list(out.items()):
+        if isinstance(val, float) and val == -1.0:
+            out[key] = 0.0
+    return out
+
+
+def mask_iou_matrix(det_masks: np.ndarray, gt_masks: np.ndarray) -> np.ndarray:
+    """IoU between (D, H, W) and (G, H, W) binary masks -> (D, G)."""
+    if len(det_masks) == 0 or len(gt_masks) == 0:
+        return np.zeros((len(det_masks), len(gt_masks)))
+    d = np.asarray(det_masks, bool).reshape(len(det_masks), -1)
+    g = np.asarray(gt_masks, bool).reshape(len(gt_masks), -1)
+    inter = d.astype(np.float64) @ g.astype(np.float64).T
+    area_d = d.sum(axis=1)[:, None]
+    area_g = g.sum(axis=1)[None, :]
+    return inter / np.maximum(area_d + area_g - inter, 1e-9)
+
+
+def _as_rles(masks) -> List[Dict]:
+    """A mask collection ((N, H, W) dense, a list of (H, W) dense masks, or
+    a list of RLE dicts) -> a list of RLE dicts."""
+    return [m if isinstance(m, dict) else rle_encode(np.asarray(m, np.uint8), compress=False)
+            for m in masks]
+
+
+def eval_coco_segm_map(
+    detections: List[Dict[str, np.ndarray]],
+    annotations: List[Dict[str, np.ndarray]],
+    num_classes: int,
+    iou_thrs: Optional[Sequence[float]] = None,
+    max_dets: Sequence[int] = (1, 10, 100),
+    area_range: str = "all",
+) -> Dict[str, float]:
+    """Protocol-exact COCO segmentation evaluation (mask-IoU matching).
+
+    detections[i] also carries ``masks``, (D, H, W) dense or a list of D RLE
+    dicts; annotations[i] ``masks`` (aligned with ``labels``) and optionally
+    ``masks_ignore`` with ``labels_ignore`` for crowds (crowd IoU =
+    intersection / detection-mask area). Areas (for the size buckets) and
+    IoUs are computed on the RLE runs, never on dense masks. The same
+    accumulation and summary as ``eval_coco_map``."""
+    if iou_thrs is None:
+        iou_thrs = np.linspace(0.5, 0.95, 10)
+    iou_thrs = np.asarray(iou_thrs, np.float64)
+    max_dets = tuple(sorted(max_dets))
+    area_ranges = ("all", "small", "medium", "large")
+    top_k = max_dets[-1]
+
+    per_class_images = [[] for _ in range(num_classes)]
+    for det, ann in zip(detections, annotations):
+        ann_labels = np.asarray(ann["labels"])
+        det_labels = np.asarray(det["labels"])
+        det_rles = _as_rles(det["masks"])
+        gt_rles = _as_rles(ann["masks"])
+        crowd_rles = _as_rles(ann.get("masks_ignore", []))
+        crowd_labels = ann.get("labels_ignore")
+        for c in range(1, num_classes + 1):
+            keep = np.nonzero(det_labels == c)[0]
+            scores = np.asarray(det["scores"])[keep]
+            order = np.argsort(-scores, kind="mergesort")[:top_k]
+            scores = scores[order]
+            masks = [det_rles[keep[j]] for j in order]
+            dt_areas = np.array([float(rle_area(m)) for m in masks])
+
+            gt_masks = [m for m, k in zip(gt_rles, ann_labels == c) if k]
+            if crowd_labels is not None and len(crowd_rles):
+                crowds = [m for m, lab in zip(crowd_rles, crowd_labels) if lab == c]
+            else:
+                crowds = list(crowd_rles)
+            g_areas = np.array([float(rle_area(m)) for m in gt_masks])
+            iou = rle_iou_matrix(masks, gt_masks)
+            if crowds:
+                iou_crowd = rle_iou_matrix(masks, crowds, crowd=True)
+                iou = np.concatenate([iou, iou_crowd], axis=1) if iou.size else iou_crowd
+                g_areas = np.concatenate([g_areas, [float(rle_area(m)) for m in crowds]])
+                gt_crowd = np.concatenate([np.zeros(len(gt_masks), bool), np.ones(len(crowds), bool)])
+            else:
+                gt_crowd = np.zeros(len(gt_masks), bool)
+            per_class_images[c - 1].append((scores, dt_areas, iou, g_areas, gt_crowd))
+
+    precision, recall = _coco_eval_core(per_class_images, num_classes, iou_thrs, area_ranges,
+                                        max_dets)
+    out = _coco_summarize(precision, recall, iou_thrs, area_ranges, max_dets, area_range)
     for key, val in list(out.items()):
         if isinstance(val, float) and val == -1.0:
             out[key] = 0.0

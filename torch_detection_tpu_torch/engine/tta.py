@@ -4,9 +4,10 @@ Counterpart of the box part of ``torch_detection_tpu/engine/tta.py``: each
 augmentation's boxes are unflipped in their resized frame and unscaled
 (``debox_to_original``), then all of them pass one class-wise NMS
 (``merge_tta_detections``). ``evaluate_detector`` fuses a single
-augmentation the same way, as the reference does. The mask part
-(``masks_to_original``, mask provenance through the fusion) waits for the
-mask tier of the port.
+augmentation the same way, as the reference does. ``masks_to_original``
+pastes one augmentation's mask probabilities in the original frame; mask
+provenance through the fusion of several waits for the port's multi-scale
+and flip evaluation.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..data.ops.bbox import bbox_flip
+from ..models.heads.mask_head import paste_masks_np
 from ..ops.nms import multiclass_nms
 
 
@@ -67,3 +69,19 @@ def merge_tta_detections(
     valid = res.valid.numpy()
     return dict(boxes=res.boxes.numpy()[valid], scores=res.scores.numpy()[valid],
                 labels=res.labels.numpy()[valid])
+
+
+def masks_to_original(mask_probs: np.ndarray, boxes: np.ndarray, meta: Dict, threshold: float = 0.5):
+    """One augmentation's (D, M, M) mask probabilities and (D, 4) boxes ->
+    ``(masks (D, oh, ow) bool, boxes (D, 4))`` in the original frame. A
+    flipped input mirrored its content, so each patch is mirrored back
+    before it is pasted at the unflipped box."""
+    probs = np.asarray(mask_probs, np.float32)
+    if meta.get("flipped_flag"):
+        if meta.get("flipped_direction", "horizontal") == "horizontal":
+            probs = probs[:, :, ::-1]
+        else:
+            probs = probs[:, ::-1, :]
+    boxes = debox_to_original(np.asarray(boxes), meta)
+    oh, ow = meta["ori_shape"][:2]
+    return paste_masks_np(probs, boxes, (oh, ow), threshold=threshold), boxes

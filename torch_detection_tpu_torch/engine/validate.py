@@ -4,9 +4,9 @@ Counterpart of ``torch_detection_tpu/engine/validate.py``:
 ``make_inference_fn`` for the Faster R-CNN, Mask R-CNN, Cascade R-CNN,
 Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN and DETR families
 (the port's modules hold their weights, so ``infer`` takes the batch
-alone); ``evaluate_detector``, the COCO results dump and the Trainer's
-validation hook, the one protocol of the test CLI and of validation in
-training.
+alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
+results dumps (boxes and RLE masks) and the Trainer's validation hook, the
+one protocol of the test CLI and of validation in training.
 """
 
 from __future__ import annotations
@@ -36,8 +36,9 @@ from ..models.detectors import (
     retina_inference,
     sparse_rcnn_inference,
 )
-from .eval import eval_coco_map
-from .tta import merge_tta_detections
+from ..data.ops.mask import _rle_compress, rle_encode
+from .eval import eval_coco_map, eval_coco_segm_map
+from .tta import masks_to_original, merge_tta_detections
 
 logger = logging.getLogger(__name__)
 
@@ -102,6 +103,7 @@ def evaluate_detector(
     max_images: Optional[int] = None,
     infer: Optional[Callable] = None,
     return_detections: bool = False,
+    segm: bool = False,
 ):
     """Run inference over ``dataset`` (a test-mode dataset) on the model's
     device and return the COCO box mAP metrics (``eval_coco_map``'s 12).
@@ -113,11 +115,17 @@ def evaluate_detector(
     image's augmentations (``merge_tta_detections``, one augmentation
     included). ``infer`` reuses an inference function across calls. With
     ``return_detections`` also the per-image detection dicts (xyxy in the
-    original frame, 1-based labels). Test-time augmentation of the CLI,
-    segmentation and VOC metrics and sharded evaluation wait for later
-    slices."""
+    original frame, 1-based labels).
+
+    ``segm=True`` (the mask families) also pastes each detection's mask in
+    the original frame (``masks_to_original``; its boxes are then the
+    detections' own, not fused) and adds the 12 mask-IoU metrics as
+    ``segm_*``; each image's masks are RLE-encoded at once, so the
+    detections carry ``masks`` as RLE dicts and no dense mask outlives its
+    image. Test-time augmentation of the CLI, VOC metrics and sharded
+    evaluation wait for later slices."""
     if infer is None:
-        infer = make_inference_fn(model, det_cfg)
+        infer = make_inference_fn(model, det_cfg, segm=segm)
     device = next(model.parameters()).device
     needs_props = isinstance(det_cfg, FastRCNNConfig)
     prop_cap = int(getattr(dataset, "num_max_proposals", 1000)) if needs_props else 0
@@ -145,10 +153,13 @@ def evaluate_detector(
         res = infer(*(torch.from_numpy(a).to(device) for a in args))
         boxes, scores = (t.float().cpu().numpy() for t in (res.boxes, res.scores))
         labels, valid = res.labels.cpu().numpy(), res.valid.cpu().numpy()
+        mask_probs = res.mask_probs.float().cpu().numpy() if segm else None
         for j, (img_idx, aug_idx, _, _, _) in enumerate(items):
             v = valid[j]
             results[(img_idx, aug_idx)] = dict(boxes=boxes[j][v], scores=scores[j][v],
                                                labels=labels[j][v])
+            if segm:
+                results[(img_idx, aug_idx)]["mask_probs"] = mask_probs[j][v]
 
     for i in range(n):
         sample = dataset[i]
@@ -173,38 +184,82 @@ def evaluate_detector(
     detections, annotations = [], []
     for i in range(n):
         per_aug = [results[(i, a)] for a in range(len(metas_all[i]))]
-        fused = merge_tta_detections(
-            per_aug, metas_all[i], iou_thr=getattr(det_cfg, "nms_iou_thr", 0.5))
-        detections.append(dict(boxes=fused["boxes"], scores=fused["scores"],
-                               labels=fused["labels"] + 1))
-        annotations.append(dataset.get_ann_info(i))
+        ann = dataset.get_ann_info(i)
+        if segm:
+            if len(per_aug) > 1:
+                raise ValueError("segm evaluation takes one test augmentation an image; the "
+                                 "dataset yields several (multi-scale and flip evaluation is "
+                                 "not ported yet)")
+            masks, boxes = masks_to_original(per_aug[0]["mask_probs"], per_aug[0]["boxes"],
+                                             metas_all[i][0])
+            detections.append(dict(boxes=boxes.astype(np.float32), scores=per_aug[0]["scores"],
+                                   labels=per_aug[0]["labels"] + 1,
+                                   masks=[rle_encode(m) for m in masks.astype(np.uint8)]))
+            ann = dict(ann, **{k: [m if isinstance(m, dict) else rle_encode(np.asarray(m, np.uint8))
+                                   for m in ann.get(k, [])] for k in ("masks", "masks_ignore")})
+        else:
+            fused = merge_tta_detections(
+                per_aug, metas_all[i], iou_thr=getattr(det_cfg, "nms_iou_thr", 0.5))
+            detections.append(dict(boxes=fused["boxes"], scores=fused["scores"],
+                                   labels=fused["labels"] + 1))
+        annotations.append(ann)
 
     out = eval_coco_map(detections, annotations, det_cfg.num_classes)
     metrics = {k: v for k, v in out.items() if not isinstance(v, dict)}
+    if segm:
+        segm_out = eval_coco_segm_map(detections, annotations, det_cfg.num_classes)
+        metrics.update({f"segm_{k}": v for k, v in segm_out.items() if not isinstance(v, dict)})
     if return_detections:
         return metrics, detections
     return metrics
 
 
+def _coco_ids(dataset):
+    """(dataset index -> COCO image id, 1-based label -> COCO category id):
+    the inverse of ``cat2label``; a dataset without COCO metadata gives its
+    index and the label."""
+    label2cat = {v: k for k, v in getattr(dataset, "cat2label", {}).items()}
+    infos = getattr(dataset, "img_infos", None)
+    return ((lambda idx: infos[idx]["id"]) if infos is not None else (lambda idx: idx),
+            lambda label: label2cat.get(int(label), int(label)))
+
+
 def coco_detection_dump(dataset, detections) -> list:
     """Per-image detection dicts (xyxy in the original frame, inclusive +1
     pixel convention, 1-based labels) -> COCO results records: the
-    dataset's image ids and category ids (the inverse of ``cat2label``),
-    xywh boxes. A dataset without COCO metadata gives its index and the
-    label."""
-    label2cat = None
-    if hasattr(dataset, "cat2label"):
-        label2cat = {v: k for k, v in dataset.cat2label.items()}
+    dataset's image ids and category ids, xywh boxes."""
+    img_id, cat_id = _coco_ids(dataset)
     records = []
     for idx, det in enumerate(detections):
-        img_id = dataset.img_infos[idx]["id"] if hasattr(dataset, "img_infos") else idx
         for box, score, label in zip(det["boxes"], det["scores"], det["labels"]):
             x1, y1, x2, y2 = (float(v) for v in box[:4])
-            label = int(label)
             records.append({
-                "image_id": img_id,
-                "category_id": label2cat.get(label, label) if label2cat else label,
+                "image_id": img_id(idx),
+                "category_id": cat_id(label),
                 "bbox": [x1, y1, x2 - x1 + 1.0, y2 - y1 + 1.0],
+                "score": float(score),
+            })
+    return records
+
+
+def coco_segm_dump(dataset, detections) -> list:
+    """Per-image detections with ``masks`` (RLE dicts, or dense masks) ->
+    COCO segmentation results records: ``{"size", "counts"}`` with the
+    compressed counts as a string, the ids as ``coco_detection_dump``'s."""
+    img_id, cat_id = _coco_ids(dataset)
+    records = []
+    for idx, det in enumerate(detections):
+        for mask, score, label in zip(det["masks"], det["scores"], det["labels"]):
+            rle = mask if isinstance(mask, dict) else rle_encode(np.asarray(mask, np.uint8))
+            counts = rle["counts"]
+            if not isinstance(counts, (bytes, str)):
+                counts = _rle_compress(counts)
+            if isinstance(counts, bytes):
+                rle = dict(rle, counts=counts.decode("ascii"))
+            records.append({
+                "image_id": img_id(idx),
+                "category_id": cat_id(label),
+                "segmentation": rle,
                 "score": float(score),
             })
     return records
@@ -217,18 +272,19 @@ def make_validation_hook(
     batch: int = 8,
     canvas=None,
     max_images: Optional[int] = None,
+    segm: bool = False,
 ) -> Callable[[], Dict[str, float]]:
     """``hook() -> metrics`` for the Trainer's validation: the model as it
     stands, in eval mode for the call, through one inference function
-    built once."""
-    infer = make_inference_fn(model, det_cfg)
+    built once; ``segm`` adds the mask metrics."""
+    infer = make_inference_fn(model, det_cfg, segm=segm)
 
     def hook() -> Dict[str, float]:
         was_training = model.training
         model.eval()
         try:
             return evaluate_detector(model, det_cfg, dataset, batch=batch, canvas=canvas,
-                                     max_images=max_images, infer=infer)
+                                     max_images=max_images, infer=infer, segm=segm)
         finally:
             model.train(was_training)
 

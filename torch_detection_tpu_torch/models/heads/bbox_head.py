@@ -24,6 +24,7 @@ class BBoxHead(nn.Module):
                  device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        self.roi_size = roi_size
         self.fc1 = nn.Linear(roi_size * roi_size * in_channels, fc_channels, **kw)
         self.fc2 = nn.Linear(fc_channels, fc_channels, **kw)
         self.cls = nn.Linear(fc_channels, num_classes + 1, **kw)

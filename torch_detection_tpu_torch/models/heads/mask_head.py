@@ -1,5 +1,6 @@
 """FCN mask head (Mask R-CNN), its fixed-shape mask targets and loss, and
-the on-device paste of roi masks onto the image.
+the paste of roi masks onto the image, on the device (``paste_masks``) and
+on the host at any size (``paste_masks_np``, the evaluator's).
 
 Counterpart of ``torch_detection_tpu/models/heads/mask_head.py``. RoI
 features arrive as (B, R, S, S, C), NHWC as the box head takes them; the
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
@@ -198,3 +200,42 @@ def paste_masks(
     )
     inside = (ys >= y1) & (ys <= y2) & (xs >= x1) & (xs <= x2)
     return (vals >= threshold) & inside
+
+
+def paste_masks_np(
+    mask_probs: np.ndarray,  # (R, M, M) probabilities
+    boxes: np.ndarray,  # (R, 4) xyxy in image coordinates
+    img_shape: Tuple[int, int],
+    threshold: float = 0.5,
+) -> np.ndarray:
+    """``paste_masks`` on the host, in numpy float32 -> (R, H, W) bool: the
+    same sampling, computed over each box's pixel window only, so that any
+    original image size costs only its boxes' pixels. The evaluator calls it
+    once an image at the original size."""
+    h, w = int(img_shape[0]), int(img_shape[1])
+    probs = np.asarray(mask_probs, np.float32)
+    boxes = np.asarray(boxes, np.float32)
+    r = probs.shape[0]
+    m = probs.shape[-1] if r else 1
+    out = np.zeros((r, h, w), bool)
+    for i in range(r):
+        x1, y1, x2, y2 = boxes[i]
+        bw, bh = max(x2 - x1, 1.0), max(y2 - y1, 1.0)
+        xa, xb = max(int(np.floor(x1)), 0), min(int(np.ceil(x2)), w - 1)
+        ya, yb = max(int(np.floor(y1)), 0), min(int(np.ceil(y2)), h - 1)
+        if xb < xa or yb < ya:
+            continue
+        ys = np.arange(ya, yb + 1, dtype=np.float32)[:, None]
+        xs = np.arange(xa, xb + 1, dtype=np.float32)[None, :]
+        my = (ys - y1) / bh * m - 0.5
+        mx = (xs - x1) / bw * m - 0.5
+        y0, x0 = np.floor(my), np.floor(mx)
+        wy, wx = my - y0, mx - x0
+        y0i, x0i = np.clip(y0.astype(np.int32), 0, m - 1), np.clip(x0.astype(np.int32), 0, m - 1)
+        y1i, x1i = np.clip(y0i + 1, 0, m - 1), np.clip(x0i + 1, 0, m - 1)
+        p = probs[i]
+        vals = (p[y0i, x0i] * (1 - wy) * (1 - wx) + p[y0i, x1i] * (1 - wy) * wx
+                + p[y1i, x0i] * wy * (1 - wx) + p[y1i, x1i] * wy * wx)
+        inside = (ys >= y1) & (ys <= y2) & (xs >= x1) & (xs <= x2)
+        out[i, ya: yb + 1, xa: xb + 1] = (vals >= threshold) & inside
+    return out

@@ -2,15 +2,20 @@
 
     python -m torch_detection_tpu_torch.tools.train CONFIG [--epochs N]
         [--work-dir DIR] [--resume CKPT | --auto-resume] [--seed S]
-        [--device cuda|cpu]
+        [--pretrained torch://W.pth | modelzoo://resnet50 | CKPT] [--device cuda|cpu]
 
 Counterpart of ``tools/train.py``: COCO folder -> ``CocoDataset`` ->
 ``GroupSampler`` -> ``DataLoader`` -> the device -> ``Trainer.run``, with
 ``epoch_N/`` checkpoints, ``metrics.jsonl`` and the validation hook when
 ``runtime.val_interval_epochs > 0``. ``--resume`` continues from a
 checkpoint (a mid-epoch ``step_N`` at its batch), ``--auto-resume`` from the
-newest in the work directory. Runs on ``cuda`` unless ``--device cpu``.
-Knobs the port does not do yet raise ``NotImplementedError``.
+newest in the work directory. ``--pretrained`` (or ``runtime.pretrained``)
+initialises the model from a torchvision or mmdetection ``.pth``
+(``torch://``, ``modelzoo://``, ``file://``): a state dict with
+``backbone.`` keys loads as a whole detector, one without them as the
+backbone. Validation in training reports the mask metrics too under
+``runtime.val_segm``. Runs on ``cuda`` unless ``--device cpu``. Knobs the
+port does not do yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,7 +44,6 @@ def refuse_unported(cfg, profile_dir: Optional[str] = None) -> None:
         "accum_steps > 1": int(runtime.get("accum_steps", 1) or 1) > 1,
         "fsdp": bool(runtime.get("fsdp", False)),
         "profile_dir": profile_dir is not None,
-        "val_segm": bool(runtime.get("val_segm", False)),
         "val_voc_metric": bool(runtime.get("val_voc_metric", False)),
     }
     for knob, asked in knobs.items():
@@ -55,7 +59,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     parser.add_argument("--resume", default=None, help="checkpoint dir to resume from")
     parser.add_argument("--auto-resume", action="store_true",
                         help="resume from the newest epoch_N or step_N in the work dir if any")
-    parser.add_argument("--pretrained", default=None, help="a checkpoint dir of the port")
+    parser.add_argument("--pretrained", default=None,
+                        help="torch://w.pth, modelzoo://resnet50, file://... or a checkpoint dir")
     parser.add_argument("--profile-dir", default=None)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
@@ -72,8 +77,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     model, det_cfg, loader, optimizer = build_train_objects(cfg, device, seed=args.seed)
     pretrained = args.pretrained or runtime.get("pretrained")
     if pretrained:
-        load_checkpoint(model, pretrained, strict=False)
-        logging.info("loaded pretrained weights from %s", pretrained)
+        meta = load_checkpoint(model, pretrained)
+        if "loaded" in meta:
+            backbone = [k for k in model.state_dict() if k.startswith("backbone.")]
+            logging.info("loaded %d tensors from %s, %d of the backbone's %d", len(meta["loaded"]),
+                         pretrained, sum(k.startswith("backbone.") for k in meta["loaded"]),
+                         len(backbone))
+        else:
+            logging.info("loaded pretrained weights from %s", pretrained)
     loss_fn = build_loss_fn(model, det_cfg, rng_seed=args.seed)
 
     # validation in training: the val split every N epochs, the best kept in best/
@@ -88,11 +99,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         if isinstance(sizes, list):  # single-scale evaluation in training
             val_cfg["img_expected_sizes"] = sizes[0]
         val_cfg["flip_ratio"] = 0
+        segm = bool(runtime.get("val_segm", False))
+        if segm:
+            val_cfg["with_mask"] = True  # the gt masks of the mask-IoU metrics
         val_hook = make_validation_hook(
             model, det_cfg, get_datasets(val_cfg),
             batch=int(runtime.get("val_batch", 8)),
             canvas=tuple(cfg["data"].get("canvas") or (800, 1344)),
-            max_images=runtime.get("val_max_images"),
+            max_images=runtime.get("val_max_images"), segm=segm,
         )
 
     trainer = Trainer(
