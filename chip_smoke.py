@@ -165,7 +165,38 @@ Phases, each fatal on failure:
    14 on a ``tools.test`` batch's detections against their plain versions;
    the host's ms for a masked sample and collate, the masked batch's copy to
    the card, the trainer's wait on the loader, images/s, one profiled step
-   fed by the loader, and peak memory.
+   fed by the loader, and peak memory;
+28. the port's JPEG decoder, right after the build of phase 2:
+   ``native/jpeg.cpp`` built by g++ (its seconds printed), every committed
+   fixture under tests/torch_jpeg decoded to the shape and sha256 of
+   ``cv2.imread``'s array in its manifest and each refused file refused by
+   its kind, and ``img_read`` of a 640 x 480 4:2:0 fixture timed beside the
+   port's PNG decode of the same pixels (median of 20, host clock);
+29. RetinaNet R101-FPN on Pascal VOC through the entry points at full
+   width (configs/retinanet_r101_fpn_voc.py, b8 on its 608 x 1024 canvas): a
+   seeded VOC2007 folder under build/smoke_voc (32 trainval and 8 test
+   images copied from the committed landscape fixtures, 1-20 objects an
+   image over the 20 classes, every fifth difficult); ``tools.train`` on a
+   375 x 500 portrait image raises R10's ``ValueError``; ``tools.train`` for
+   two epochs with ``runtime.val_voc_metric`` (VOC validation after each
+   epoch, K1 and K2 never launched); ``tools.test --voc-metric --out`` (a
+   finite VOC07 mAP, equal to ``eval_voc_map`` on the dumped pkl to 1e-12);
+   the test gts as detections score 1.0 under both VOC metrics; host ms to
+   decode a JPEG and to prepare a sample, images/s over epoch 2, the wait on
+   the loader, one profiled loader-fed step and peak memory;
+30. the Fast R-CNN proposal workflow through the entry points at full
+   width on a seeded COCO folder under build/smoke_coco_jpeg (32 train and
+   8 val images copied from the committed fixtures at COCO's sizes, phase
+   26's seeded boxes and crowds): ``tools.dump_proposals`` of phase 26's
+   ``epoch_2`` over both splits (1000 an image, K1 and K2 never; each slate
+   inside its frame, scores in order; the first 8 val images against a
+   ``--device cpu`` dump, 0.95 matched each way at IoU 0.99);
+   ``tools.train`` of configs/fast_rcnn_r50_fpn_coco.py (b8 on 800 x 1344)
+   on the dumped pkls for two epochs (K1 and K2 once a step); ``tools.test``
+   on the val pkl (K1 once a batch, K2 never, 12 finite metrics); K1 and K2
+   against their plain versions on a step's own levels and sampled slate,
+   K1 on a ``tools.test`` batch's levels and dumped proposals; the dump's ms
+   an image, images/s over epoch 2, one profiled step and peak memory.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -177,6 +208,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import hashlib
 import json
 import logging
 import math
@@ -193,15 +225,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from torch_detection_tpu_torch import kernels
+from torch_detection_tpu_torch import kernels, native
 from torch_detection_tpu_torch.builder import (
     build_detection_cfg,
     build_detector,
     build_loss_fn,
     build_train_objects,
 )
-from torch_detection_tpu_torch.data import collate, get_datasets, prefetch_to_device
+from torch_detection_tpu_torch.data import VOC_CLASSES, collate, get_datasets, prefetch_to_device
 from torch_detection_tpu_torch.data.ops.image import img_read
+from torch_detection_tpu_torch.data.ops.jpeg import jpeg_read
 from torch_detection_tpu_torch.data.ops.mask import poly_to_mask, rle_decode, rle_encode, segm_to_mask
 from torch_detection_tpu_torch.engine import Trainer, make_inference_fn
 from torch_detection_tpu_torch.engine.checkpoint import (
@@ -209,7 +242,7 @@ from torch_detection_tpu_torch.engine.checkpoint import (
     load_checkpoint_file,
     optimizer_state,
 )
-from torch_detection_tpu_torch.engine.eval import eval_coco_map, eval_coco_segm_map
+from torch_detection_tpu_torch.engine.eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
 from torch_detection_tpu_torch.engine.tta import masks_to_original
 from torch_detection_tpu_torch.engine.validate import (
     coco_detection_dump,
@@ -274,9 +307,11 @@ from torch_detection_tpu_torch.ops.preprocess import (
     fused_normalize_pad_s2d,
     space_to_depth_2x2_np,
 )
+from torch_detection_tpu_torch.tools import dump_proposals as dump_cli
 from torch_detection_tpu_torch.tools import test as test_cli
 from torch_detection_tpu_torch.tools import train as train_cli
 from torch_detection_tpu_torch.utils.config import Config
+from torch_detection_tpu_torch.utils.file_handler import load
 from torch_detection_tpu_torch.utils.registry import DETECTORS
 
 ROOT = Path(__file__).resolve().parent
@@ -3125,9 +3160,7 @@ def equal_state(what: str, got: dict, want: dict) -> None:
 
 def cli_kernels(model, det_cfg, batch) -> dict:
     """K1 and K2 against their plain versions on one CLI training batch's
-    own FPN levels and sampled rois (512 an image), K2 on the box head's
-    cotangent scaled by a power of two to a largest value in [1, 2); each
-    timed against its bound."""
+    own FPN levels and sampled rois (512 an image)."""
     noise = functools.partial(sampling_noise, torch.Generator(device="cuda").manual_seed(SEED + 60))
     feats, rpn_s, rpn_d = model(batch["image"])
     props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator,
@@ -3135,6 +3168,14 @@ def cli_kernels(model, det_cfg, batch) -> dict:
                                batch["img_shape"])
     sampled = sample_rois(det_cfg, props.boxes, props.valid, batch["gt_boxes"], batch["gt_labels"],
                           batch["gt_valid"], noise)
+    return slate_kernels("a CLI training batch", model, det_cfg, feats, sampled)
+
+
+def slate_kernels(what: str, model, det_cfg, feats, sampled) -> dict:
+    """K1 and K2 against their plain versions on a training batch's own FPN
+    levels and sampled slate, K2 on the box head's cotangent scaled by a
+    power of two to a largest value in [1, 2) and twice bitwise equal; each
+    timed against its bound."""
     maps = [f.detach() for f in feats[: len(det_cfg.roi_strides)]]
     rois = sampled.rois
     routed = roi_align.map_rois_to_levels(rois, len(maps), det_cfg.finest_scale)
@@ -3143,7 +3184,7 @@ def cli_kernels(model, det_cfg, batch) -> dict:
     flops = 2 * 4 * b * n * (OUT_SIZE * RATIO) ** 2 * c
     small = rois.numel() * 4 + routed.numel() * 4
     out_bytes = b * n * OUT_SIZE * OUT_SIZE * c * maps[0].element_size()
-    name = f"roi_align_fwd on a CLI training batch's levels and sampled rois ({n} an image)"
+    name = f"roi_align_fwd on {what}'s levels and sampled rois ({n} an image)"
     k1 = kernel_at(name, roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align,
                    (maps, rois, routed, det_cfg.roi_strides), check_bf16,
                    touched_bytes(maps, rois) + small, out_bytes, flops)
@@ -3154,11 +3195,11 @@ def cli_kernels(model, det_cfg, batch) -> dict:
         sum(rcnn_losses(det_cfg, *model.roi_forward(roi_feats), sampled)), roi_feats)
     top = float(cotangent.abs().max())
     if not top > 0:
-        raise AssertionError("the CLI batch's box-head cotangent is all zero")
+        raise AssertionError(f"{what}: the box-head cotangent is all zero")
     cotangent = cotangent * 2.0 ** -math.floor(math.log2(top))  # K2 is linear in it
     args = (cotangent.detach(), rois, routed, [tuple(f.shape[1:3]) for f in maps],
             det_cfg.roi_strides, det_cfg.roi_size)
-    name = "roi_align_bwd on a CLI training batch's levels, sampled rois and scaled cotangent"
+    name = f"roi_align_bwd on {what}'s levels, sampled rois and scaled cotangent"
     check_deterministic(name, roi_align.multilevel_roi_align_backward_cuda, args)
     k2 = kernel_at(name, roi_align.multilevel_roi_align_backward_cuda,
                    roi_align.multilevel_roi_align_backward, args,
@@ -3175,18 +3216,47 @@ def cli_test_kernel(model, det_cfg, image, img_shape) -> dict:
         feats, rpn_s, rpn_d = model(image)
         props = generate_proposals(det_cfg.proposal_test, det_cfg.anchor_generator, rpn_s, rpn_d,
                                    img_shape)
-        maps = list(feats[: len(det_cfg.roi_strides)])
-        rois = props.boxes
-        routed = roi_align.map_rois_to_levels(rois, len(maps), det_cfg.finest_scale)
-        b, n = rois.shape[:2]
-        c = maps[0].shape[-1]
-        name = (f"roi_align_fwd on a tools.test batch's levels and proposals (b{b} on "
-                f"{tuple(image.shape[1:3])}, {n} an image)")
-        return kernel_at(name, roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align,
-                         (maps, rois, routed, det_cfg.roi_strides), check_bf16,
-                         touched_bytes(maps, rois) + rois.numel() * 4 + routed.numel() * 4,
-                         b * n * OUT_SIZE * OUT_SIZE * c * maps[0].element_size(),
-                         2 * 4 * b * n * (OUT_SIZE * RATIO) ** 2 * c)
+        return test_slate_kernel("a tools.test batch's levels and proposals", det_cfg, image,
+                                 feats, props.boxes)
+
+
+def test_slate_kernel(what: str, det_cfg, image, feats, rois) -> dict:
+    """K1 against its plain version on a test batch's FPN levels and its
+    (B, R, 4) slate as the path feeds it, timed against its bound."""
+    maps = list(feats[: len(det_cfg.roi_strides)])
+    routed = roi_align.map_rois_to_levels(rois, len(maps), det_cfg.finest_scale)
+    b, n = rois.shape[:2]
+    c = maps[0].shape[-1]
+    name = f"roi_align_fwd on {what} (b{b} on {tuple(image.shape[1:3])}, {n} an image)"
+    return kernel_at(name, roi_align.multilevel_roi_align_cuda, roi_align.multilevel_roi_align,
+                     (maps, rois, routed, det_cfg.roi_strides), check_bf16,
+                     touched_bytes(maps, rois) + rois.numel() * 4 + routed.numel() * 4,
+                     b * n * OUT_SIZE * OUT_SIZE * c * maps[0].element_size(),
+                     2 * 4 * b * n * (OUT_SIZE * RATIO) ** 2 * c)
+
+
+@contextlib.contextmanager
+def recorded_evaluation():
+    """``tools.test``'s evaluation, with its model, detection config,
+    dataset, keyword arguments and first inference batch (``batch``, the
+    inference function's arguments) kept in the yielded dict."""
+    seen = {}
+
+    def recorded_evaluate(model, det_cfg, dataset, **kwargs):
+        infer = make_inference_fn(model, det_cfg, segm=kwargs.get("segm", False))
+
+        def recorded_infer(*args):
+            seen.setdefault("batch", args)
+            return infer(*args)
+
+        seen.update(model=model, det_cfg=det_cfg, dataset=dataset, kwargs=kwargs)
+        return evaluate_detector(model, det_cfg, dataset, infer=recorded_infer, **kwargs)
+
+    test_cli.evaluate_detector = recorded_evaluate
+    try:
+        yield seen
+    finally:
+        test_cli.evaluate_detector = evaluate_detector
 
 
 @contextlib.contextmanager
@@ -3220,6 +3290,37 @@ def match_detections(got: list, want: list, box_px: float = 1.0, score_rel: floa
         return hits / max(len(a_all), 1)
 
     return share(got, want), share(want, got)
+
+
+def epoch_rate(records: list, epoch: int, batch_size: int) -> tuple:
+    """(images/s over all of ``epoch`` from the trainer's log, its steps'
+    ms): with log_interval 1 each step record's window runs from the
+    previous record (or the epoch's start) to its metrics read."""
+    step_ms = [batch_size / r["images_per_sec"] * 1e3 for r in records
+               if "loss" in r and r["epoch"] == epoch]
+    return batch_size * len(step_ms) / (sum(step_ms) / 1e3), step_ms
+
+
+def loader_fed_profile(trainer, epoch: int, step_ms: float, card: str, what: str) -> dict:
+    """One step fed by the trainer's own loader through the device prefetch,
+    under the profiler: its busy ms and idle share, and (``batch``) the batch
+    of the step before it, on the device, for the kernel checks."""
+    loader = trainer.dataloader
+    loader.set_epoch(epoch)
+    batches = prefetch_to_device(loader.iter_batches(), 2, "cuda")
+    first = next(batches)
+    first.pop("img_meta")
+    trainer.train_step(first)
+
+    def loader_step():
+        batch = next(batches)
+        batch.pop("img_meta")
+        trainer.train_step(batch)
+
+    profile = device_profile(loader_step, step_ms, card, f"{what} (the next loader batch, then "
+                                                         "the step)")
+    batches.close()
+    return dict(profile, batch=first)
 
 
 def phase_cli(card: str, seeded_train: dict) -> dict:
@@ -3275,40 +3376,24 @@ def phase_cli(card: str, seeded_train: dict) -> dict:
     for name in (f"epoch_{e + 1}" for e in range(CLI_EPOCHS)):
         if not (work / name / "model.pt").is_file() or not (work / name / "optimizer.pt").is_file():
             raise AssertionError(f"cli training: no checkpoint {name}")
-    # log_interval 1: each record's window is one step, from the previous
-    # record (or the epoch's start) to its metrics read, loader waits included
     batch_size = cfg["data"]["sample_per_replica"]
-    last = [r for r in records if r["epoch"] == CLI_EPOCHS - 1]
-    step_ms = [batch_size / r["images_per_sec"] * 1e3 for r in last]
-    epoch_ips = batch_size * len(last) / (sum(step_ms) / 1e3)
+    epoch_ips, step_ms = epoch_rate(records, CLI_EPOCHS - 1, batch_size)
     wait_ms = trainer.loader_wait_s / len(records) * 1e3
     log(f"cli training [{card}]: {steps} steps an epoch at b{batch_size} on "
         f"{tuple(cfg['data']['canvas'])}, {CLI_EPOCHS} epochs in {wall:.1f} s (the build and "
         f"checkpoints included); launches {launches}; epoch {CLI_EPOCHS} ms a step "
         f"{[round(m, 1) for m in step_ms]}, median {statistics.median(step_ms):.1f} ms; images/s "
         f"over all of epoch {CLI_EPOCHS} from the trainer's log: {epoch_ips:.2f} "
-        f"({batch_size * len(last)} images in {sum(step_ms) / 1e3:.3f} s), a step's median "
+        f"({batch_size * len(step_ms)} images in {sum(step_ms) / 1e3:.3f} s), a step's median "
         f"{batch_size / statistics.median(step_ms) * 1e3:.2f}; the trainer's wait on the loader "
         f"{wait_ms:.1f} ms a step over both epochs; peak memory {peak:.2f} GiB; losses first "
         + ", ".join(f"{k} {records[0][k]:.4f}" for k in LOSS_KEYS)
         + "; last " + ", ".join(f"{k} {records[-1][k]:.4f}" for k in LOSS_KEYS))
 
-    # one profiled step fed by the loader: the next batch through the device prefetch, then the step
     det_cfg = build_detection_cfg(cfg["detection"])
-    loader = trainer.dataloader
-    loader.set_epoch(CLI_EPOCHS)
-    batches = prefetch_to_device(loader.iter_batches(), 2, "cuda")
-    first = next(batches)
-    first.pop("img_meta")
-    trainer.train_step(first)
-
-    def loader_step():
-        batch = next(batches)
-        batch.pop("img_meta")
-        trainer.train_step(batch)
-
-    cli_profile = device_profile(loader_step, statistics.median(step_ms), card,
-                                 "CLI training step (the next loader batch, then the step)")
+    cli_profile = loader_fed_profile(trainer, CLI_EPOCHS, statistics.median(step_ms), card,
+                                     "CLI training step")
+    first = cli_profile.pop("batch")
     seeded = seeded_train["profile"]
     log(f"cli training [{card}]: a step fed by the loader, b8 on "
         f"{tuple(cfg['data']['canvas'])}: {statistics.median(step_ms):.3f} ms, device busy "
@@ -3316,7 +3401,6 @@ def phase_cli(card: str, seeded_train: dict) -> dict:
         f"{cli_profile.get('idle', float('nan')):.3f}; the seeded-batch step of this run, b{BATCH} on "
         f"{CANVAS}: {seeded_train['ms_per_step']:.3f} ms, device busy "
         f"{seeded.get('busy_ms', float('nan')):.3f} ms, idle {seeded.get('idle', float('nan')):.3f}")
-    batches.close()
     kernel_checks = cli_kernels(trainer.model, det_cfg, first)
     del trainer, first
 
@@ -3347,25 +3431,10 @@ def phase_cli(card: str, seeded_train: dict) -> dict:
     # tools.test on the val set, K1 counted over it; the model, the dataset
     # and the first batch that the CLI's evaluation used are kept for checks
     out = SMOKE_COCO / "results.json"
-    seen = {}
-
-    def recorded_evaluate(model, det_cfg, dataset, **kwargs):
-        infer = make_inference_fn(model, det_cfg)
-
-        def recorded_infer(*args):
-            seen.setdefault("batch", args)
-            return infer(*args)
-
-        seen.update(model=model, det_cfg=det_cfg, dataset=dataset, kwargs=kwargs)
-        return evaluate_detector(model, det_cfg, dataset, infer=recorded_infer, **kwargs)
-
-    test_cli.evaluate_detector = recorded_evaluate
     reset_launches()
     t0 = time.perf_counter()
-    try:
+    with recorded_evaluation() as seen:
         metrics = test_cli.main([str(config), str(work / f"epoch_{CLI_EPOCHS}"), "--out", str(out)])
-    finally:
-        test_cli.evaluate_detector = evaluate_detector
     torch.cuda.synchronize()
     test_s = time.perf_counter() - t0
     test_launches = read_launches()
@@ -3791,9 +3860,7 @@ def phase_cli_mask(card: str) -> dict:
         raise AssertionError(f"cli mask training: {len(records)} records for {n} steps, or a "
                              f"non-finite loss, or a skipped step: {records[-1]}")
     batch_size = cfg["data"]["sample_per_replica"]
-    last = [r for r in records if r["epoch"] == CLI_MASK_EPOCHS - 1]
-    step_ms = [batch_size / r["images_per_sec"] * 1e3 for r in last]
-    epoch_ips = batch_size * len(last) / (sum(step_ms) / 1e3)
+    epoch_ips, step_ms = epoch_rate(records, CLI_MASK_EPOCHS - 1, batch_size)
     wait_ms = trainer.loader_wait_s / len(records) * 1e3
     log(f"cli mask training [{card}]: {steps} steps an epoch at b{batch_size} on "
         f"{tuple(cfg['data']['canvas'])}, {CLI_MASK_EPOCHS} epochs in {wall:.1f} s (the build, the "
@@ -3820,50 +3887,21 @@ def phase_cli_mask(card: str) -> dict:
     if moved or not frozen or not trained:
         raise AssertionError(f"frozen tensors moved {moved[:4]}, or stage 2 did not train")
 
-    # one profiled step fed by the loader
     det_cfg = build_detection_cfg(cfg["detection"])
-    loader = trainer.dataloader
-    loader.set_epoch(CLI_MASK_EPOCHS)
-    batches = prefetch_to_device(loader.iter_batches(), 2, "cuda")
-    first = next(batches)
-    first.pop("img_meta")
-    trainer.train_step(first)
-
-    def loader_step():
-        batch = next(batches)
-        batch.pop("img_meta")
-        trainer.train_step(batch)
-
-    profile = device_profile(loader_step, statistics.median(step_ms), card,
-                             "CLI mask training step (the next loader batch, then the step)")
-    batches.close()
+    profile = loader_fed_profile(trainer, CLI_MASK_EPOCHS, statistics.median(step_ms), card,
+                                 "CLI mask training step")
+    first = profile.pop("batch")
     kernel_checks = cli_mask_kernels(trainer.model, det_cfg, first)
     del trainer, first
 
     # tools.test --segm on the val set, K1 counted by output size
     out = SMOKE_COCO_MASKS / "results.json"
-    seen = {}
-
-    def recorded_evaluate(model, det_cfg, dataset, **kwargs):
-        infer = make_inference_fn(model, det_cfg, segm=kwargs.get("segm", False))
-
-        def recorded_infer(*args):
-            seen.setdefault("batch", args)
-            return infer(*args)
-
-        seen.update(model=model, det_cfg=det_cfg, dataset=dataset)
-        return evaluate_detector(model, det_cfg, dataset, infer=recorded_infer, **kwargs)
-
-    test_cli.evaluate_detector = recorded_evaluate
     reset_launches()
     t0 = time.perf_counter()
-    try:
-        with launches_by_out_size() as test_sizes:
-            metrics = test_cli.main([str(config), str(work / f"epoch_{CLI_MASK_EPOCHS}"), "--segm",
-                                     "--out", str(out)])
-            torch.cuda.synchronize()
-    finally:
-        test_cli.evaluate_detector = evaluate_detector
+    with recorded_evaluation() as seen, launches_by_out_size() as test_sizes:
+        metrics = test_cli.main([str(config), str(work / f"epoch_{CLI_MASK_EPOCHS}"), "--segm",
+                                 "--out", str(out)])
+        torch.cuda.synchronize()
     test_s = time.perf_counter() - t0
     test_launches = read_launches()
     batches_test = -(-CLI_MASK_VAL_IMAGES // 8)
@@ -3921,6 +3959,465 @@ def phase_cli_mask(card: str) -> dict:
                 profile=profile, **kernel_checks)
 
 
+# ---------------------------------------------------------------- JPEG, VOC and the Fast R-CNN workflow
+JPEG_FIXTURES = ROOT / "tests" / "torch_jpeg"
+JPEG_TIMED = "landscape_640x480_0.jpg"  # 4:2:0, cv2's default sampling
+VOC_CONFIG = ROOT / "configs" / "retinanet_r101_fpn_voc.py"
+VOC_SIZES = CLI_SIZES + ((500, 333),)  # COCO's landscape and square sizes, and VOC's
+SMOKE_VOC = ROOT / "build" / "smoke_voc"
+VOC_TRAIN_IMAGES, VOC_TEST_IMAGES, VOC_EPOCHS = 32, 8, 2
+SMOKE_COCO_JPEG = ROOT / "build" / "smoke_coco_jpeg"
+FAST_TRAIN_IMAGES, FAST_VAL_IMAGES, FAST_EPOCHS, FAST_TOP_K = 32, 8, 2, 1000
+# 612 x 612 images of a training split: square images form an aspect group
+# of their own, so eight of them fill one batch and the split 4 batches of 8
+SQUARES = 8
+
+
+def median_ms(fn, n: int = 20) -> float:
+    """Median host milliseconds of ``n`` calls after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_jpeg(card: str) -> dict:
+    """The port's JPEG decoder: built with g++ from ``native/jpeg.cpp``,
+    every committed fixture decoded to the shape and sha256 of cv2's array
+    in the manifest (each refused file refused by its kind), and a 640 x 480
+    4:2:0 file's decode timed beside the port's PNG decode of its pixels."""
+    t0 = time.perf_counter()
+    native.build("jpeg")
+    build_s = time.perf_counter() - t0
+    manifest = json.loads((JPEG_FIXTURES / "manifest.json").read_text())
+    refused = {}
+    for name, entry in sorted(manifest.items()):
+        path = str(JPEG_FIXTURES / name)
+        if entry["refused"]:
+            try:
+                jpeg_read(path)
+            except ValueError as e:
+                if entry["refused"] not in str(e):
+                    raise AssertionError(f"jpeg {name}: refused as {e!r}, not as {entry['refused']}")
+                refused[name] = str(e)
+                continue
+            raise AssertionError(f"jpeg {name}: decoded; its manifest says {entry['refused']}")
+        img = jpeg_read(path)
+        if (list(img.shape) != entry["shape"]
+                or hashlib.sha256(img.tobytes()).hexdigest() != entry["sha256"]):
+            raise AssertionError(f"jpeg {name}: shape {img.shape} or sha256 differs from cv2's")
+    log(f"jpeg: native/jpeg.cpp built by g++ in {build_s:.2f} s "
+        f"({'built now' if 'jpeg' in native.BUILD_SECONDS else 'already built'}); "
+        f"{len(manifest) - len(refused)} committed fixtures decoded to cv2's shape and sha256; "
+        f"{len(refused)} refused by kind: " + "; ".join(f"{k}: {v}" for k, v in refused.items()))
+    path = JPEG_FIXTURES / JPEG_TIMED
+    rgb = img_read(str(path))
+    png = ROOT / "build" / "smoke_jpeg_timed.png"
+    png.write_bytes(png_bytes(rgb))
+    if not np.array_equal(img_read(str(png)), rgb):
+        raise AssertionError("the PNG of the timed JPEG's pixels does not decode to them")
+    jpeg_ms = median_ms(lambda: img_read(str(path)))
+    png_ms = median_ms(lambda: img_read(str(png)))
+    log(f"jpeg decode [{card}, host clock, img_read from the file, median of 20]: {JPEG_TIMED} "
+        f"({rgb.shape[1]}x{rgb.shape[0]}, 4:2:0, {path.stat().st_size} bytes) {jpeg_ms:.3f} ms an "
+        f"image; the port's PNG decode of the same pixels ({png.stat().st_size} bytes, zlib "
+        f"level 1, filter 0) {png_ms:.3f} ms")
+    return dict(build_s=build_s, decode_ms=jpeg_ms, png_ms=png_ms)
+
+
+def fixture_size(path: Path) -> tuple:
+    """(w, h) from a committed fixture's name, ``<kind>_<w>x<h>[_<i>].jpg``."""
+    w, h = path.stem.split("_")[1].split("x")
+    return int(w), int(h)
+
+
+def pick_fixtures(rng, sizes, n: int, squares: int) -> list:
+    """``n`` committed landscape fixtures of ``sizes`` in a seeded order,
+    ``squares`` of them 612 x 612, the rest drawn from the other sizes."""
+    square = sorted(JPEG_FIXTURES.glob("landscape_612x612_*.jpg"))
+    others = sorted(p for w, h in sizes if (w, h) != (612, 612)
+                    for p in JPEG_FIXTURES.glob(f"landscape_{w}x{h}_*.jpg"))
+    picks = ([square[i % len(square)] for i in range(squares)]
+             + [others[int(i)] for i in rng.integers(0, len(others), n - squares)])
+    return [picks[int(i)] for i in rng.permutation(n)]
+
+
+def seeded_boxes(rng, w: int, h: int, n: int) -> list:
+    """``n`` (x, y, bw, bh) boxes inside a w x h frame, 16 pixels to half
+    the frame on a side."""
+    out = []
+    for _ in range(n):
+        bw, bh = int(rng.integers(16, w // 2)), int(rng.integers(16, h // 2))
+        out.append((int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh)), bw, bh))
+    return out
+
+
+def write_smoke_voc(root: Path, picks: list, n_train: int, seed: int) -> dict:
+    """A VOC2007 folder: ``picks`` copied into ``JPEGImages/`` under seeded
+    names, ``Annotations/*.xml`` with 1-20 objects over the 20 classes (every
+    fifth difficult, 1-based pixel indices), the first ``n_train`` listed in
+    ``ImageSets/Main/trainval.txt`` and the rest in ``test.txt``; returns the
+    objects' counts."""
+    rng = np.random.default_rng(seed)
+    for sub in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    names = [f"{int(i):06d}" for i in rng.choice(1_000_000, len(picks), replace=False)]
+    counts = collections.Counter()
+    for name, src in zip(names, picks):
+        shutil.copyfile(src, root / "JPEGImages" / f"{name}.jpg")
+        w, h = fixture_size(src)
+        objects = []
+        for x, y, bw, bh in seeded_boxes(rng, w, h, int(rng.integers(1, 21))):
+            difficult = sum(counts.values()) % 5 == 4
+            counts["difficult" if difficult else "objects"] += 1
+            objects.append(f"<object><name>{VOC_CLASSES[int(rng.integers(0, 20))]}</name>"
+                           f"<difficult>{int(difficult)}</difficult><bndbox><xmin>{x + 1}</xmin>"
+                           f"<ymin>{y + 1}</ymin><xmax>{x + bw}</xmax><ymax>{y + bh}</ymax>"
+                           "</bndbox></object>")
+        (root / "Annotations" / f"{name}.xml").write_text(
+            f"<annotation><filename>{name}.jpg</filename><size><width>{w}</width><height>{h}"
+            f"</height><depth>3</depth></size>{''.join(objects)}</annotation>")
+    (root / "ImageSets/Main/trainval.txt").write_text("\n".join(names[:n_train]) + "\n")
+    (root / "ImageSets/Main/test.txt").write_text("\n".join(names[n_train:]) + "\n")
+    return dict(counts)
+
+
+def write_smoke_voc_config(root: Path, name: str, **runtime) -> Path:
+    """A config whose ``_base_`` is the RetinaNet R101-FPN VOC config, with
+    the dataset root, the cache dir, the work dir, the warmup, the log
+    interval and ``score_thr`` (0, so that random weights leave detections)
+    overridden, and ``runtime`` added."""
+    path = SMOKE_VOC / f"{name}.py"
+    data = dict(dataset_root=f"{root}/", cache_dir=str(root / "cache"))
+    runtime = dict(work_dir=str(SMOKE_VOC / "work"), log_interval=1, **runtime)
+    path.write_text(f"_base_ = {str(VOC_CONFIG)!r}\n"
+                    f"data = dict(train=dict(**{data!r}), val=dict(**{data!r}))\n"
+                    "detection = dict(score_thr=0.0)\n"
+                    "schedule = dict(warmup_steps=100)\n"
+                    f"runtime = dict(**{runtime!r})\n")
+    return path
+
+
+def phase_cli_voc(card: str) -> dict:
+    """RetinaNet R101-FPN on Pascal VOC through the entry points at full
+    width: a seeded VOC2007 folder of the committed JPEG fixtures,
+    ``tools.train`` refusing a portrait VOC image (R10), two epochs with VOC
+    validation after each (``runtime.val_voc_metric``), ``tools.test
+    --voc-metric --out``, and the gt oracle under both VOC metrics."""
+    shutil.rmtree(SMOKE_VOC, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 110)
+    root = SMOKE_VOC / "VOC2007"
+    picks = (pick_fixtures(rng, VOC_SIZES, VOC_TRAIN_IMAGES, SQUARES)
+             + pick_fixtures(rng, VOC_SIZES, VOC_TEST_IMAGES, 2))
+    counts = write_smoke_voc(root, picks, VOC_TRAIN_IMAGES, SEED + 111)
+    config = write_smoke_voc_config(root, "retinanet_r101_fpn_voc_smoke", val_interval_epochs=1,
+                                    val_voc_metric=True)
+    cfg = Config.fromfile(config)
+    log(f"cli voc: {VOC_TRAIN_IMAGES} trainval and {VOC_TEST_IMAGES} test JPEGs from the committed "
+        f"fixtures of {VOC_SIZES} in {root}, objects {counts}; config {config.name}")
+    host = host_data_costs(cfg, card, "cli voc")
+
+    # R10 pinned: the VOC config's canvas holds no portrait VOC image
+    portrait_root = SMOKE_VOC / "portrait" / "VOC2007"
+    write_smoke_voc(portrait_root, [JPEG_FIXTURES / "portrait_375x500.jpg"] * 2, 1, SEED + 112)
+    portrait = write_smoke_voc_config(portrait_root, "retinanet_r101_fpn_voc_smoke_portrait")
+    try:
+        train_cli.main([str(portrait), "--epochs", "1", "--work-dir", str(SMOKE_VOC / "work_portrait")])
+    except ValueError as e:
+        if "canvas" not in str(e):
+            raise
+        log(f"cli voc training on a 375x500 portrait VOC image (R10): refused as expected: {e}")
+    else:
+        raise AssertionError("cli voc training on a portrait image: no R10 ValueError; if the "
+                             "canvas now holds it, R10 is repaired and this pin goes")
+
+    work = SMOKE_VOC / "work"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([str(config), "--epochs", str(VOC_EPOCHS), "--work-dir", str(work)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches("cli voc training and validation", launches, 0, 0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(trainer.dataloader)
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    step_records = [r for r in records if "loss" in r]
+    vals = [r for r in records if "val_mAP" in r]
+    if (steps != VOC_TRAIN_IMAGES // 8 or len(step_records) != VOC_EPOCHS * steps
+            or not all(math.isfinite(r["loss"]) for r in step_records)
+            or step_records[-1]["skipped_steps"]):
+        raise AssertionError(f"cli voc training: {steps} steps an epoch, {len(step_records)} step "
+                             f"records, or a non-finite loss or a skipped step")
+    if (len(vals) != VOC_EPOCHS or not all(math.isfinite(r["val_mAP"]) for r in vals)
+            or any(k.startswith("val_AP") for r in vals for k in r)):
+        raise AssertionError(f"cli voc validation records {vals}")
+    batch_size = cfg["data"]["sample_per_replica"]
+    ips, step_ms = epoch_rate(records, VOC_EPOCHS - 1, batch_size)
+    wait_ms = trainer.loader_wait_s / len(step_records) * 1e3
+    log(f"cli voc training [{card}]: {steps} steps an epoch at b{batch_size} on "
+        f"{tuple(cfg['data']['canvas'])}, {VOC_EPOCHS} epochs with VOC validation after each in "
+        f"{wall:.1f} s (the build, checkpoints and validation included); launches {launches}; "
+        f"epoch {VOC_EPOCHS} ms a step {[round(m, 1) for m in step_ms]}; images/s over all of "
+        f"epoch {VOC_EPOCHS} from the trainer's log {ips:.2f}; the trainer's wait on the loader "
+        f"{wait_ms:.1f} ms a step; peak memory {peak:.2f} GiB; validation "
+        + ", ".join(f"epoch {int(r['epoch']) + 1} VOC07 mAP {r['val_mAP']:.6f}" for r in vals)
+        + "; losses first " + ", ".join(f"{k} {step_records[0][k]:.4f}" for k in RETINA_LOSS_KEYS)
+        + "; last " + ", ".join(f"{k} {step_records[-1][k]:.4f}" for k in RETINA_LOSS_KEYS))
+    profile = loader_fed_profile(trainer, VOC_EPOCHS, statistics.median(step_ms), card,
+                                 "CLI VOC training step")
+    del trainer, profile["batch"]
+
+    out = SMOKE_VOC / "detections.pkl"
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = test_cli.main([str(config), str(work / f"epoch_{VOC_EPOCHS}"), "--voc-metric",
+                             "--out", str(out)])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = read_launches()
+    expect_launches("cli voc test", test_launches, 0, 0)
+    if set(metrics) != {"mAP"} or not math.isfinite(metrics["mAP"]):
+        raise AssertionError(f"cli voc test metrics {metrics}")
+    val = get_datasets(dict(cfg["data"]["val"]))
+    anns = [val.get_ann_info(i) for i in range(len(val))]
+    dets = load(str(out))
+    again = eval_voc_map(dets, anns, len(VOC_CLASSES), use_07_metric=True)["mAP"]
+    oracle = [dict(boxes=a["bboxes"], scores=np.ones(len(a["bboxes"])), labels=a["labels"])
+              for a in anns]
+    oracle_maps = [eval_voc_map(oracle, anns, len(VOC_CLASSES), use_07_metric=m)["mAP"]
+                   for m in (True, False)]
+    log(f"cli voc test --voc-metric [{card}]: {len(dets)} images in {test_s:.1f} s (the build "
+        f"included), launches {test_launches}, {sum(len(d['boxes']) for d in dets)} detections; "
+        f"VOC07 mAP {metrics['mAP']:.6f}, eval_voc_map on the dumped pkl {again:.6f} (difference "
+        f"{abs(again - metrics['mAP']):.1e}, limit 1e-12); the test gts as detections: 11-point "
+        f"mAP {oracle_maps[0]:.6f}, all-point {oracle_maps[1]:.6f}, "
+        f"{sum(len(a['bboxes_ignore']) for a in anns)} difficult objects ignored")
+    if abs(again - metrics["mAP"]) > 1e-12 or any(abs(m - 1.0) > 1e-12 for m in oracle_maps):
+        raise AssertionError("the dumped VOC detections do not give the CLI's mAP, or the gt "
+                             "oracle does not score 1.0")
+    return dict(training=launches, test=test_launches, images_per_s=ips, wait_ms=wait_ms,
+                peak_gib=peak, host=host, profile=profile)
+
+
+def write_smoke_coco_jpeg(split: str, picks: list, seed: int) -> Path:
+    """The committed fixtures ``picks`` under ``SMOKE_COCO_JPEG/split`` and
+    their instances JSON with the CLI path's seeded annotations: 1-20 boxes
+    an image over COCO's category ids, a crowd box in every fourth image."""
+    rng = np.random.default_rng(seed)
+    img_dir = SMOKE_COCO_JPEG / split
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i, src in enumerate(picks):
+        w, h = fixture_size(src)
+        name = f"{i + 1:012d}.jpg"
+        shutil.copyfile(src, img_dir / name)
+        boxes = int(rng.integers(1, 21))
+        for j, (x, y, bw, bh) in enumerate(seeded_boxes(rng, w, h, boxes + (i % 4 == 3))):
+            annotations.append(dict(id=len(annotations) + 1, image_id=i + 1,
+                                    category_id=int(rng.choice(COCO_CATEGORY_IDS)),
+                                    bbox=[x, y, bw, bh], area=bw * bh, iscrowd=int(j == boxes)))
+        images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+    ann_file = SMOKE_COCO_JPEG / f"instances_{split}.json"
+    ann_file.write_text(json.dumps(dict(
+        images=images, annotations=annotations,
+        categories=[dict(id=c, name=f"category_{c}") for c in COCO_CATEGORY_IDS])))
+    return ann_file
+
+
+def write_smoke_fast_configs(train_ann: Path, val_ann: Path, pkls: dict) -> tuple:
+    """The Faster R-CNN config on the JPEG folder (its data paths alone
+    overridden), and the Fast R-CNN config on the same folder with the
+    dumped proposals, ``score_thr`` 0, the warmup and the log interval."""
+    data = {split: dict(ann_file=str(ann), img_prefix=str(SMOKE_COCO_JPEG / split))
+            for split, ann in (("train", train_ann), ("val", val_ann))}
+    faster = SMOKE_COCO_JPEG / "faster_rcnn_r50_fpn_jpeg.py"
+    faster.write_text(f"_base_ = {str(CONFIG)!r}\ndata = dict(**{data!r})\n")
+    fast = SMOKE_COCO_JPEG / "fast_rcnn_r50_fpn_jpeg.py"
+    fast_data = {split: dict(d, proposal_file=str(pkls[split])) for split, d in data.items()}
+    fast.write_text(f"_base_ = {str(FAST_CONFIG)!r}\ndata = dict(**{fast_data!r})\n"
+                    "detection = dict(score_thr=0.0)\n"
+                    "schedule = dict(warmup_steps=100)\n"
+                    f"runtime = dict(work_dir={str(SMOKE_COCO_JPEG / 'work')!r}, log_interval=1)\n")
+    return faster, fast
+
+
+def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(N, M) IoU of xyxy boxes with the inclusive +1 pixel rule."""
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:4], b[None, :, 2:4])
+    inter = np.prod(np.clip(rb - lt + 1, 0, None), axis=-1)
+    area = lambda x: (x[:, 2] - x[:, 0] + 1) * (x[:, 3] - x[:, 1] + 1)
+    return inter / (area(a)[:, None] + area(b)[None, :] - inter)
+
+
+def check_proposals(split: str, props: list, ann_file: Path) -> None:
+    """Each image's proposals: (n, 5) float32 with 0 < n <= the top-k, inside
+    the original frame, scores in non-increasing order."""
+    frames = [(img["width"], img["height"]) for img in
+              sorted(json.loads(ann_file.read_text())["images"], key=lambda i: i["id"])]
+    if len(props) != len(frames):
+        raise AssertionError(f"cli fast dump {split}: {len(props)} images of {len(frames)}")
+    for p, (w, h) in zip(props, frames):
+        if not (p.dtype == np.float32 and p.ndim == 2 and p.shape[1] == 5
+                and 0 < len(p) <= FAST_TOP_K and (p[:, :4] >= 0).all()
+                and (p[:, [0, 2]] <= w).all() and (p[:, [1, 3]] <= h).all()
+                and (np.diff(p[:, 4]) <= 0).all()):
+            raise AssertionError(f"cli fast dump {split}: a slate of shape {p.shape} outside its "
+                                 f"{w}x{h} frame or out of order")
+
+
+def dump_agreement(faster: Path, checkpoint: Path, card_bf16: list, card: str) -> dict:
+    """The card's dump of the first 8 val images against a ``--device cpu``
+    dump of the same checkpoint, in the config's bf16 and in float32 on both
+    devices: for each, the share of the card's proposals with a CPU partner
+    at IoU >= 0.99 and the share the other way. The bf16 dumps part further:
+    the two devices' bf16 convolutions round apart, and the top-k and NMS
+    cuts carry a score's rounding into which boxes are kept, so the float32
+    pair is the one held to 0.95, as every GPU-against-CPU check of this
+    script runs in float32."""
+    faster32 = SMOKE_COCO_JPEG / "faster_rcnn_r50_fpn_jpeg_float32.py"
+    faster32.write_text(f"_base_ = {str(faster)!r}\nruntime = dict(compute_dtype='float32')\n")
+    shares, seconds = {}, {}
+    for dtype, config in (("bfloat16", faster), ("float32", faster32)):
+        argv = [str(config), str(checkpoint), "--split", "val", "--top-k", str(FAST_TOP_K),
+                "--max-images", "8"]
+        got = card_bf16 if dtype == "bfloat16" else dump_cli.main(
+            argv + ["--out", str(SMOKE_COCO_JPEG / f"proposals_val_{dtype}.pkl")])
+        t0 = time.perf_counter()
+        cpu = dump_cli.main(argv + ["--out", str(SMOKE_COCO_JPEG / f"proposals_val_{dtype}_cpu.pkl"),
+                                    "--device", "cpu"])
+        seconds[dtype] = time.perf_counter() - t0
+        hits, totals = np.zeros(2), np.zeros(2)
+        for card_p, cpu_p in zip(got, cpu, strict=True):
+            iou = box_iou(card_p[:, :4].astype(np.float64), cpu_p[:, :4].astype(np.float64))
+            hits += [(iou.max(1) >= 0.99).sum(), (iou.max(0) >= 0.99).sum()]
+            totals += iou.shape
+        shares[dtype] = hits / totals
+    log(f"cli fast dump against a CPU dump of the first 8 val images [{card}]: "
+        + "; ".join(f"{dtype} on both ({seconds[dtype]:.1f} s on the CPU): {sh[0]:.4f} of the "
+                    f"card's proposals have a CPU partner at IoU >= 0.99 and {sh[1]:.4f} the "
+                    "other way" for dtype, sh in shares.items())
+        + " (limit 0.95 in float32)")
+    return shares
+
+
+def cli_fast_kernels(model, det_cfg, batch) -> dict:
+    """K1 and K2 on one Fast R-CNN training batch's own levels and its slate
+    sampled from the dumped proposals (512 an image)."""
+    noise = functools.partial(sampling_noise, torch.Generator(device="cuda").manual_seed(SEED + 61))
+    feats = model(batch["image"])
+    sampled = sample_rois(det_cfg, batch["proposals"][..., :4].float(), batch["proposal_valid"],
+                          batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"], noise)
+    return slate_kernels("a CLI Fast R-CNN training batch", model, det_cfg, feats, sampled)
+
+
+def phase_cli_fast(card: str, checkpoint: Path) -> dict:
+    """The Fast R-CNN proposal workflow through the entry points at full
+    width, on a seeded COCO folder of the committed JPEG fixtures:
+    ``tools.dump_proposals`` of a Faster R-CNN checkpoint (``phase_cli``'s
+    ``epoch_2``) over both splits, the card's dump against a CPU dump, two
+    epochs of Fast R-CNN R50-FPN on the dumped proposals, ``tools.test`` on
+    the val pkl, and K1 and K2 on the path's own batches."""
+    shutil.rmtree(SMOKE_COCO_JPEG, ignore_errors=True)
+    rng = np.random.default_rng(SEED + 120)
+    train_ann = write_smoke_coco_jpeg("train", pick_fixtures(rng, CLI_SIZES, FAST_TRAIN_IMAGES,
+                                                             SQUARES), SEED + 121)
+    val_ann = write_smoke_coco_jpeg("val", pick_fixtures(rng, CLI_SIZES, FAST_VAL_IMAGES, 2),
+                                    SEED + 122)
+    pkls = {split: SMOKE_COCO_JPEG / f"proposals_{split}.pkl" for split in ("train", "val")}
+    faster, fast = write_smoke_fast_configs(train_ann, val_ann, pkls)
+    log(f"cli fast: {FAST_TRAIN_IMAGES} train and {FAST_VAL_IMAGES} val JPEGs from the committed "
+        f"fixtures of {CLI_SIZES} with their instances JSONs; configs {faster.name}, {fast.name}")
+
+    dump_s, dumps = {}, {}
+    reset_launches()
+    for split, ann in (("val", val_ann), ("train", train_ann)):
+        t0 = time.perf_counter()
+        dumps[split] = dump_cli.main([str(faster), str(checkpoint), "--split", split, "--out",
+                                      str(pkls[split]), "--top-k", str(FAST_TOP_K)])
+        torch.cuda.synchronize()
+        dump_s[split] = time.perf_counter() - t0
+        check_proposals(split, dumps[split], ann)
+    dump_launches = read_launches()
+    expect_launches("cli fast dumps", dump_launches, 0, 0)
+    # the build and the checkpoint's load cancel in the difference of the two runs
+    dump_ms = (dump_s["train"] - dump_s["val"]) / (FAST_TRAIN_IMAGES - FAST_VAL_IMAGES) * 1e3
+    counts = [len(p) for p in dumps["train"] + dumps["val"]]
+    log(f"cli fast dump_proposals [{card}]: val {FAST_VAL_IMAGES} images in {dump_s['val']:.1f} s, "
+        f"train {FAST_TRAIN_IMAGES} in {dump_s['train']:.1f} s (the build and the checkpoint's "
+        f"load included), {dump_ms:.1f} ms an image from their difference; proposals an image "
+        f"min {min(counts)} max {max(counts)}, each slate inside its frame with scores in order; "
+        f"launches {dump_launches}")
+    shares = dump_agreement(faster, checkpoint, dumps["val"][:8], card)
+    if not (shares["float32"] >= 0.95).all():
+        raise AssertionError("the card's float32 proposals part from the CPU's")
+
+    cfg = Config.fromfile(fast)
+    det_cfg = build_detection_cfg(cfg["detection"])
+    work = SMOKE_COCO_JPEG / "work"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([str(fast), "--epochs", str(FAST_EPOCHS), "--work-dir", str(work)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = len(trainer.dataloader)
+    if steps != FAST_TRAIN_IMAGES // 8:
+        raise AssertionError(f"cli fast training: {steps} steps an epoch")
+    expect_launches("cli fast training", launches, FAST_EPOCHS * steps, FAST_EPOCHS * steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    if len(records) != FAST_EPOCHS * steps or not all(math.isfinite(r["loss"]) for r in records):
+        raise AssertionError(f"cli fast training: {len(records)} records or a non-finite loss")
+    batch_size = cfg["data"]["sample_per_replica"]
+    ips, step_ms = epoch_rate(records, FAST_EPOCHS - 1, batch_size)
+    wait_ms = trainer.loader_wait_s / len(records) * 1e3
+    keys = ("loss", "loss_rcnn_cls", "loss_rcnn_reg")
+    log(f"cli fast training [{card}]: {steps} steps an epoch at b{batch_size} on "
+        f"{tuple(cfg['data']['canvas'])}, {cfg['data']['max_proposals']} dumped proposals an "
+        f"image, {FAST_EPOCHS} epochs in {wall:.1f} s; launches {launches}; epoch {FAST_EPOCHS} ms "
+        f"a step {[round(m, 1) for m in step_ms]}; images/s over all of epoch {FAST_EPOCHS} from "
+        f"the trainer's log {ips:.2f}; the trainer's wait on the loader {wait_ms:.1f} ms a step; "
+        f"peak memory {peak:.2f} GiB; losses first "
+        + ", ".join(f"{k} {records[0][k]:.4f}" for k in keys)
+        + "; last " + ", ".join(f"{k} {records[-1][k]:.4f}" for k in keys))
+    profile = loader_fed_profile(trainer, FAST_EPOCHS, statistics.median(step_ms), card,
+                                 "CLI Fast R-CNN training step")
+    kernel_checks = cli_fast_kernels(trainer.model, det_cfg, profile.pop("batch"))
+    del trainer
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_evaluation() as seen:
+        metrics = test_cli.main([str(fast), str(work / f"epoch_{FAST_EPOCHS}")])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = read_launches()
+    expect_launches("cli fast test", test_launches, -(-FAST_VAL_IMAGES // 8), 0)
+    if len(metrics) != 12 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cli fast test metrics {metrics}")
+    log(f"cli fast test [{card}]: {FAST_VAL_IMAGES} images on the dumped val proposals in "
+        f"{test_s:.1f} s (the build included), launches {test_launches}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    image, _, _, proposals, _ = seen["batch"]
+    with torch.inference_mode():
+        k1_test = test_slate_kernel("a tools.test batch's levels and dumped proposals",
+                                    seen["det_cfg"], image, seen["model"](image),
+                                    proposals[..., :4].float())
+    del seen
+    return dict(dump=dump_launches, training=launches, test=test_launches,
+                k1_test=k1_test, images_per_s=ips, wait_ms=wait_ms, peak_gib=peak,
+                dump_ms=dump_ms, profile=profile, **kernel_checks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -3938,6 +4435,7 @@ def main() -> int:
     for name, text in kernels.BUILD_LOGS.items():
         log(f"ptxas {name}: " + " | ".join(
             line.strip() for line in text.splitlines() if "registers" in line or "spill" in line))
+    phase_jpeg(card)
 
     fwd = phase_roi_align(ROIS)[torch.bfloat16]
     fwd_train = phase_roi_align(TRAIN_ROIS)[torch.bfloat16]
@@ -3998,6 +4496,8 @@ def main() -> int:
                                      detr_train.pop("batch"))
     cli = phase_cli(card, train)
     cli_mask = phase_cli_mask(card)
+    cli_voc = phase_cli_voc(card)
+    cli_fast = phase_cli_fast(card, SMOKE_COCO / "work" / f"epoch_{CLI_EPOCHS}")
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -4026,7 +4526,10 @@ def main() -> int:
     slice8_paths = {"detr_serving": detr_serve["launches"],
                     "detr_training": detr_train["launches"]}
     cli_paths = {"cli_training": cli["training"], "cli_test": cli["test"],
-                 "cli_mask_training": cli_mask["training"], "cli_mask_test": cli_mask["test"]}
+                 "cli_mask_training": cli_mask["training"], "cli_mask_test": cli_mask["test"],
+                 "cli_voc_training": cli_voc["training"], "cli_voc_test": cli_voc["test"],
+                 "cli_fast_dump": cli_fast["dump"], "cli_fast_training": cli_fast["training"],
+                 "cli_fast_test": cli_fast["test"]}
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
                    **cli_paths}
     line = {"kernels": [
@@ -4040,14 +4543,16 @@ def main() -> int:
               at_sparse_training_stage0=sparse_step["k1_stage0"],
               at_sparse_training_stage5=sparse_step["k1_stage5"], at_cli_training=cli["k1"],
               at_cli_test=cli["k1_test"], at_cli_mask_training=cli_mask["k1"],
-              at_cli_mask_test=cli_mask["k1_test"]),
+              at_cli_mask_test=cli_mask["k1_test"], at_cli_fast_training=cli_fast["k1"],
+              at_cli_fast_test=cli_fast["k1_test"]),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
               {"serving": serve["bwd_launches"], "training": train["k2"],
                **{path: n["k2"] for path, n in later_paths.items()}}, bwd,
               at_mask_training=mask_step["k2"], at_mask_positives_only=mask_step["k2_hot"],
               at_cascade_stage3=cascade_k2, at_cascade_mask_stage3=cascade_mask_k2,
               at_sparse_stage0=sparse_step["k2_stage0"], at_sparse_stage5=sparse_step["k2_stage5"],
-              at_cli_training=cli["k2"], at_cli_mask_training=cli_mask["k2"]),
+              at_cli_training=cli["k2"], at_cli_mask_training=cli_mask["k2"],
+              at_cli_fast_training=cli_fast["k2"]),
         entry("hungarian", "torch_detection_tpu/ops/hungarian.py:38",
               {"serving": serve["matcher"], "training": train["matcher"],
                **{path: n["matcher"] for path, n in later_paths.items()}}, sparse_step["matcher"],

@@ -124,10 +124,15 @@ def test_img_read_refuses_what_it_does_not_decode(tmp_path, monkeypatch):
         image.img_read(str(bmp))
     jpg = tmp_path / "x.jpg"
     assert cv2.imwrite(str(jpg), np.full((8, 8, 3), 77, np.uint8))
-    assert np.array_equal(image.img_read(str(jpg)), jax_image.img_read(str(jpg)))
-    monkeypatch.setitem(sys.modules, "cv2", None)  # an install without OpenCV
-    with pytest.raises(ImportError, match="opencv-python"):
-        image.img_read(str(jpg))
+    want = jax_image.img_read(str(jpg))
+    assert np.array_equal(image.img_read(str(jpg)), want)
+    monkeypatch.setitem(sys.modules, "cv2", None)  # an install without OpenCV decodes it too
+    assert np.array_equal(image.img_read(str(jpg)), want)
+    progressive = tmp_path / "p.jpg"
+    progressive.write_bytes(cv2.imencode(".jpg", np.zeros((8, 8, 3), np.uint8),
+                                         [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes())
+    with pytest.raises(ValueError, match="progressive"):
+        image.img_read(str(progressive))
 
 
 @pytest.mark.parametrize("size", [(1333, 800), (50, 30), (200, 120), 0.37, 2.5])

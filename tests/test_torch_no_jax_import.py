@@ -1,5 +1,6 @@
 """The port and its chip scripts import no JAX, no flax and nothing of the JAX
-package, not even its pure-Python modules.
+package, not even its pure-Python modules, and no OpenCV: the card's machine
+has none, so the port decodes PNG and JPEG itself.
 
 An AST scan of the sources: a check of ``sys.modules`` cannot work here,
 where the interpreter may import jax at start-up.
@@ -11,7 +12,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torch_detection_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torch_detection_tpu", "cv2")
 SOURCES = sorted((ROOT / "torch_detection_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
                                                                       ROOT / "conv_precision.py"]
 
@@ -43,3 +44,4 @@ def test_no_jax_import(path):
 def test_scan_sees_the_port():
     assert len(SOURCES) > 20
     assert _forbidden("torch_detection_tpu.ops") and not _forbidden("torch_detection_tpu_torch.ops")
+    assert _forbidden("cv2") and ROOT / "torch_detection_tpu_torch/data/ops/jpeg.py" in SOURCES

@@ -9,6 +9,7 @@ from .device import prefetch_to_device
 from .loader import DataLoader, build_dataloader
 from .sampler import GroupSampler
 from .transforms import BackgroundErasing, BboxTransforms, ImageTransforms, MaskTransforms
+from .voc import VOC_CLASSES, VOCDataset
 
 __all__ = [
     "ops",
@@ -29,4 +30,6 @@ __all__ = [
     "BboxTransforms",
     "ImageTransforms",
     "MaskTransforms",
+    "VOC_CLASSES",
+    "VOCDataset",
 ]

@@ -2,7 +2,8 @@
 
 The port's own copy of ``torch_detection_tpu/data/coco_api.py``: the slice
 of the pycocotools ``COCO`` API the data and eval tiers use (lookup by id,
-per-image annotation lists). ``ann_to_mask`` waits for the mask tier.
+per-image annotation lists, ``ann_to_mask`` through the mask tier's
+``segm_to_mask``).
 """
 
 from __future__ import annotations
@@ -10,6 +11,10 @@ from __future__ import annotations
 import json
 from collections import defaultdict
 from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from .ops.mask import segm_to_mask
 
 
 class COCO:
@@ -66,3 +71,10 @@ class COCO:
 
     def load_cats(self, ids: Sequence[int]) -> List[Dict]:
         return [self.cats[i] for i in ids]
+
+    def ann_to_mask(self, ann: Dict) -> np.ndarray:
+        """The annotation's polygon or RLE as an (H, W) uint8 mask of its image."""
+        img = self.imgs[ann["image_id"]]
+        return segm_to_mask(ann["segmentation"], img["height"], img["width"])
+
+    annToMask = ann_to_mask

@@ -3,8 +3,9 @@
 Counterpart of ``torch_detection_tpu/data/ops/image.py`` without OpenCV:
 
 * ``img_read`` decodes PNG itself (zlib and numpy: 8-bit gray, RGB or RGBA,
-  not interlaced, all five row filters) and hands JPEG to cv2, imported
-  when a JPEG is read; each format has one decoder and no fallback;
+  not interlaced, all five row filters) and baseline JPEG with the port's
+  own decoder (``data/ops/jpeg.py``: libjpeg-turbo's pixels, as cv2 gives
+  them); each format has one decoder and no fallback;
 * ``img_resize`` resizes bilinearly with ``torch.nn.functional.interpolate``
   (``align_corners=False``, no antialias) on a float32 CPU tensor, the
   sampling of ``cv2.resize(..., INTER_LINEAR)``; a uint8 image is rounded
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ...utils.misc import file_is_exist, is_str
+from .jpeg import jpeg_read
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # color type -> samples a pixel: gray, RGB, RGBA
@@ -106,23 +108,12 @@ def png_decode(data: bytes) -> np.ndarray:
     return out.reshape(h, w, bpp)
 
 
-def _jpeg_decode_bgr(img_path: str) -> np.ndarray:
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"reading the JPEG {img_path} needs OpenCV (pip install "
-                          "opencv-python); PNG needs nothing") from e
-    img = cv2.imread(img_path, cv2.IMREAD_COLOR)
-    if img is None:
-        raise IOError(f"cv2 failed to decode {img_path}")
-    return img
-
-
 def img_read(img_path: str, img_mode: str = "rgb") -> np.ndarray:
     """Read an image as HWC uint8 with three channels, RGB unless
     ``img_mode='bgr'``, as ``cv2.imread(path, IMREAD_COLOR)`` does: gray
-    repeats to three channels, alpha is dropped. ``.png`` is decoded here,
-    ``.jpg``/``.jpeg`` by cv2; any other extension raises."""
+    repeats to three channels, alpha is dropped, a JPEG's EXIF orientation
+    is applied. ``.png`` and ``.jpg``/``.jpeg`` are decoded by the port; any
+    other extension raises."""
     if not is_str(img_path):
         raise TypeError("image path must be a string")
     if not file_is_exist(img_path):
@@ -136,8 +127,7 @@ def img_read(img_path: str, img_mode: str = "rgb") -> np.ndarray:
         img = np.repeat(img, 3, axis=2) if img.shape[2] == 1 else img[..., :3]
         return np.ascontiguousarray(img if img_mode == "rgb" else img[..., ::-1])
     if ext in (".jpg", ".jpeg"):
-        img = _jpeg_decode_bgr(img_path)
-        return np.ascontiguousarray(img[..., ::-1] if img_mode == "rgb" else img)
+        return jpeg_read(img_path, rgb=img_mode == "rgb")
     raise ValueError(f"unsupported image format {ext!r} ({img_path}): PNG or JPEG only")
 
 

@@ -7,8 +7,9 @@ matched greedily by descending score at IoU thresholds 0.50:0.05:0.95,
 area), the full 12-metric summary; the same protocol on mask IoU
 (``eval_coco_segm_map``), computed on the masks' RLE runs. The matchers are
 the reference's Python versions, which its C++ matcher
-(``native/eval_match.cpp``, boxes only) only speeds up. VOC AP waits for a
-later slice.
+(``native/eval_match.cpp``, boxes only) only speeds up. ``eval_voc_map``
+is VOC AP at IoU 0.5 (11-point for VOC2007, all-point otherwise), difficult
+objects as ignore regions.
 
 Box convention: xyxy with the inclusive +1 area rule.
 """
@@ -432,6 +433,55 @@ def eval_coco_segm_map(
         if isinstance(val, float) and val == -1.0:
             out[key] = 0.0
     return out
+
+
+def eval_voc_map(
+    detections: List[Dict[str, np.ndarray]],
+    annotations: List[Dict[str, np.ndarray]],
+    num_classes: int,
+    iou_thr: float = 0.5,
+    use_07_metric: bool = False,
+) -> Dict[str, float]:
+    """VOC AP at ``iou_thr``, per class and averaged over the classes with a
+    gt: ``{"mAP": float, "per_class": {label: AP}}``. Each image's
+    detections are matched greedily by descending score (stable order) to
+    its gts, ``bboxes_ignore`` as ignore regions whose detections are not
+    scored; ``use_07_metric`` takes VOC2007's 11-point interpolation."""
+    aps = {}
+    for c in range(1, num_classes + 1):
+        all_scores, all_matched = [], []
+        n_pos = 0
+        for det, ann in zip(detections, annotations):
+            keep = det["labels"] == c
+            order = np.argsort(-det["scores"][keep], kind="mergesort")
+            boxes, scores = det["boxes"][keep][order], det["scores"][keep][order]
+            gts = ann["bboxes"][ann["labels"] == c]
+            n_pos += len(gts)
+            matched, det_ignored = _match_image(boxes, gts, np.zeros(len(gts), bool),
+                                                ann.get("bboxes_ignore", np.zeros((0, 4))), iou_thr)
+            all_scores.append(scores[~det_ignored])
+            all_matched.append(matched[~det_ignored])
+        if n_pos == 0:
+            continue
+        scores_cat = np.concatenate(all_scores) if all_scores else np.zeros(0)
+        matched_cat = np.concatenate(all_matched) if all_matched else np.zeros(0, bool)
+        tp = matched_cat[np.argsort(-scores_cat, kind="mergesort")]
+        tp_cum, fp_cum = np.cumsum(tp), np.cumsum(~tp)
+        recall = tp_cum / n_pos
+        precision = tp_cum / np.maximum(tp_cum + fp_cum, 1e-9)
+        if use_07_metric:
+            ap = 0.0
+            for r in np.arange(0.0, 1.1, 0.1):
+                ap += (precision[recall >= r].max() if (recall >= r).any() else 0.0) / 11.0
+        else:
+            for i in range(len(precision) - 1, 0, -1):
+                precision[i - 1] = max(precision[i - 1], precision[i])
+            idx = np.where(recall[1:] != recall[:-1])[0]
+            ap = float(np.sum((recall[idx + 1] - recall[idx]) * precision[idx + 1])) if len(recall) else 0.0
+            if len(recall) and recall[0] > 0:
+                ap += recall[0] * precision[0]
+        aps[c] = float(ap)
+    return {"mAP": float(np.mean(list(aps.values()))) if aps else 0.0, "per_class": aps}
 
 
 def detections_from_nms(nms_result, valid_only: bool = True) -> List[Dict[str, np.ndarray]]:

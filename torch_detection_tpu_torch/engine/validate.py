@@ -6,7 +6,8 @@ Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN and DETR families
 (the port's modules hold their weights, so ``infer`` takes the batch
 alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
 results dumps (boxes and RLE masks) and the Trainer's validation hook, the
-one protocol of the test CLI and of validation in training.
+one protocol of the test CLI and of validation in training; with
+``voc_metric`` VOC2007's 11-point AP at IoU 0.5 instead of COCO's metrics.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..models.detectors import (
     sparse_rcnn_inference,
 )
 from ..data.ops.mask import _rle_compress, rle_encode
-from .eval import eval_coco_map, eval_coco_segm_map
+from .eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
 from .tta import masks_to_original, merge_tta_detections
 
 logger = logging.getLogger(__name__)
@@ -104,9 +105,12 @@ def evaluate_detector(
     infer: Optional[Callable] = None,
     return_detections: bool = False,
     segm: bool = False,
+    voc_metric: bool = False,
 ):
     """Run inference over ``dataset`` (a test-mode dataset) on the model's
-    device and return the COCO box mAP metrics (``eval_coco_map``'s 12).
+    device and return the COCO box mAP metrics (``eval_coco_map``'s 12), or
+    with ``voc_metric`` VOC2007's 11-point AP at IoU 0.5 (``{"mAP"}``; the
+    annotations' ``bboxes_ignore`` as ignore regions).
 
     Counterpart of the reference's ``evaluate_detector``: every (image,
     augmentation) goes to a canvas bucket (``canvas``, else its size rounded
@@ -122,8 +126,8 @@ def evaluate_detector(
     detections' own, not fused) and adds the 12 mask-IoU metrics as
     ``segm_*``; each image's masks are RLE-encoded at once, so the
     detections carry ``masks`` as RLE dicts and no dense mask outlives its
-    image. Test-time augmentation of the CLI, VOC metrics and sharded
-    evaluation wait for later slices."""
+    image. Test-time augmentation of the CLI and sharded evaluation wait for
+    later slices."""
     if infer is None:
         infer = make_inference_fn(model, det_cfg, segm=segm)
     device = next(model.parameters()).device
@@ -204,7 +208,10 @@ def evaluate_detector(
                                    labels=fused["labels"] + 1))
         annotations.append(ann)
 
-    out = eval_coco_map(detections, annotations, det_cfg.num_classes)
+    if voc_metric:
+        out = eval_voc_map(detections, annotations, det_cfg.num_classes, use_07_metric=True)
+    else:
+        out = eval_coco_map(detections, annotations, det_cfg.num_classes)
     metrics = {k: v for k, v in out.items() if not isinstance(v, dict)}
     if segm:
         segm_out = eval_coco_segm_map(detections, annotations, det_cfg.num_classes)
@@ -273,10 +280,12 @@ def make_validation_hook(
     canvas=None,
     max_images: Optional[int] = None,
     segm: bool = False,
+    voc_metric: bool = False,
 ) -> Callable[[], Dict[str, float]]:
     """``hook() -> metrics`` for the Trainer's validation: the model as it
     stands, in eval mode for the call, through one inference function
-    built once; ``segm`` adds the mask metrics."""
+    built once; ``segm`` adds the mask metrics, ``voc_metric`` scores VOC
+    AP instead of COCO's."""
     infer = make_inference_fn(model, det_cfg, segm=segm)
 
     def hook() -> Dict[str, float]:
@@ -284,7 +293,8 @@ def make_validation_hook(
         model.eval()
         try:
             return evaluate_detector(model, det_cfg, dataset, batch=batch, canvas=canvas,
-                                     max_images=max_images, infer=infer, segm=segm)
+                                     max_images=max_images, infer=infer, segm=segm,
+                                     voc_metric=voc_metric)
         finally:
             model.train(was_training)
 

@@ -1,19 +1,20 @@
 """Evaluate a detector checkpoint: inference over the val set, COCO mAP.
 
     python -m torch_detection_tpu_torch.tools.test CONFIG CKPT [--batch B]
-        [--max-images N] [--segm] [--out res.json] [--device cuda|cpu]
+        [--max-images N] [--segm] [--voc-metric] [--out res.json] [--device cuda|cpu]
 
 Counterpart of ``tools/test.py``: the test-mode ``CocoDataset`` at the
 config's first scale, canvas buckets of ``--batch`` images through
 ``make_inference_fn``, detections in the original frame, ``eval_coco_map``'s
-12 metrics, and with ``--out`` the detections (``.json``: COCO results
+12 metrics (``--voc-metric``: VOC2007's 11-point AP at IoU 0.5, difficult
+objects ignored), and with ``--out`` the detections (``.json``: COCO results
 format; otherwise a pickle of per-image dicts). ``--segm`` (the mask
 families) loads the val split's gt masks, adds the 12 mask metrics
 (``segm_*``) and with a ``.json`` ``--out`` writes ``<out>.segm.json``, the
 masks as COCO RLE. CKPT is a checkpoint directory of the port or a torch
 ``.pth`` (``torch://``; with ``backbone.`` keys a whole mmdetection
-detector). Runs on ``cuda`` unless ``--device cpu``. ``--tta`` and
-``--voc-metric`` are not ported yet and raise ``NotImplementedError``.
+detector). Runs on ``cuda`` unless ``--device cpu``. ``--tta`` is not
+ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,9 +48,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                         help="dump detections: .json = COCO results format, .pkl = per-image dicts")
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
-    for flag in ("tta", "voc_metric"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported yet")
+    if args.tta:
+        raise NotImplementedError("--tta is not ported yet")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     cfg = Config.fromfile(args.config)
@@ -70,7 +70,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     canvas = tuple(cfg["data"].get("canvas") or (800, 1344))
     results = evaluate_detector(
         model, det_cfg, dataset, batch=args.batch, canvas=canvas, max_images=args.max_images,
-        return_detections=bool(args.out), segm=args.segm,
+        return_detections=bool(args.out), segm=args.segm, voc_metric=args.voc_metric,
     )
     if args.out:
         results, detections = results

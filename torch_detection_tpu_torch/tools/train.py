@@ -14,8 +14,9 @@ initialises the model from a torchvision or mmdetection ``.pth``
 (``torch://``, ``modelzoo://``, ``file://``): a state dict with
 ``backbone.`` keys loads as a whole detector, one without them as the
 backbone. Validation in training reports the mask metrics too under
-``runtime.val_segm``. Runs on ``cuda`` unless ``--device cpu``. Knobs the
-port does not do yet raise ``NotImplementedError``.
+``runtime.val_segm``, and VOC2007's AP instead of COCO's under
+``runtime.val_voc_metric``. Runs on ``cuda`` unless ``--device cpu``. Knobs
+the port does not do yet raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ def refuse_unported(cfg, profile_dir: Optional[str] = None) -> None:
         "accum_steps > 1": int(runtime.get("accum_steps", 1) or 1) > 1,
         "fsdp": bool(runtime.get("fsdp", False)),
         "profile_dir": profile_dir is not None,
-        "val_voc_metric": bool(runtime.get("val_voc_metric", False)),
     }
     for knob, asked in knobs.items():
         if asked:
@@ -107,6 +107,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
             batch=int(runtime.get("val_batch", 8)),
             canvas=tuple(cfg["data"].get("canvas") or (800, 1344)),
             max_images=runtime.get("val_max_images"), segm=segm,
+            voc_metric=bool(runtime.get("val_voc_metric", False)),
         )
 
     trainer = Trainer(
