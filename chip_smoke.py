@@ -198,6 +198,34 @@ Phases, each fatal on failure:
    K1 on a ``tools.test`` batch's levels and dumped proposals; the dump's ms
    an image, images/s over epoch 2, one profiled step and peak memory.
 
+31. FCOS, ATSS and GFL R50-FPN (configs/fcos_r50_fpn_coco.py,
+   atss_r50_fpn_coco.py and gfl_r50_fpn_coco.py, unchanged: the folded s2d
+   stem, FrozenBN, FPN 256 x 5 with extra convs on the inputs, four GN towers
+   of 256, 80 classes; ``cls_out``'s bias at 0 so that random weights score
+   above ``score_thr``) each served b4 bf16 from the uint8 s2d wire through
+   ``fused_normalize_pad_s2d`` and ``make_inference_fn`` (K1, K2 and the
+   matcher never launched, a stage breakdown and one profiled batch); then
+   the three against the CPU in float32 stage by stage on a small canvas
+   (FPN levels, GroupNorm alone and the head to 1e-4, the targets exactly
+   and the centerness within one ulp, the candidates, the NMS on equal
+   inputs exactly, the losses to 1e-4 and every gradient to 1e-2 in
+   relative norm); then each trained b8 (its config's ``sample_per_replica``)
+   on the two-stage cells' canvas and gts, float32 parameters with bf16
+   compute, SGD with clip 35, through ``build_train_objects`` and
+   ``Trainer.run``: 2 warm-up and 10 timed steps, none launching K1, K2 or
+   the matcher, finite losses and positives in every step, the losses and
+   ``num_pos`` of the 10 steps, ms a step, images/s, peak memory, one
+   profiled step and a stage breakdown;
+32. multi-scale and flip evaluation: ``tools.test --tta --segm`` on phase
+   27's ``epoch_2`` with a config whose val data has two
+   ``img_expected_sizes`` (1333 x 800 and 1000 x 600) and flips, four
+   augmentations an image, each bucketed at its size rounded up to 128 (K1
+   twice a batch, out 7 and out 14, K2 never), 24 finite metrics, every RLE
+   decoding to its image's original size; K1 held to its plain version at
+   out 14 on a batch of one flipped augmentation's levels and detections,
+   and that batch's masks pasted in the original frame through K1 and the
+   plain RoIAlign agreeing.
+
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
 last line is the device JSON. Without a GPU it exits with 2 and prints no result.
@@ -233,6 +261,7 @@ from torch_detection_tpu_torch.builder import (
     build_train_objects,
 )
 from torch_detection_tpu_torch.data import VOC_CLASSES, collate, get_datasets, prefetch_to_device
+from torch_detection_tpu_torch.data.collate import pick_canvas
 from torch_detection_tpu_torch.data.ops.image import img_read
 from torch_detection_tpu_torch.data.ops.jpeg import jpeg_read
 from torch_detection_tpu_torch.data.ops.mask import poly_to_mask, rle_decode, rle_encode, segm_to_mask
@@ -259,6 +288,13 @@ from torch_detection_tpu_torch.models.detectors import (
     sampling_noise,
 )
 from torch_detection_tpu_torch.models.detectors import detr as detr_mod
+from torch_detection_tpu_torch.models.detectors.atss import (
+    assign_and_match,
+    atss_candidates,
+    atss_loss,
+    atss_targets,
+    level_counts,
+)
 from torch_detection_tpu_torch.models.detectors.cascade_rcnn import (
     _cascade_rcnn_loss_core,
     next_candidates,
@@ -270,6 +306,14 @@ from torch_detection_tpu_torch.models.detectors.single_stage import (
     preselect,
     retina_targets,
 )
+from torch_detection_tpu_torch.models.detectors.fcos import (
+    dense_nms,
+    fcos_candidates,
+    fcos_loss,
+    fcos_targets,
+    flat_points,
+)
+from torch_detection_tpu_torch.models.detectors.gfl import gfl_candidates, gfl_loss
 from torch_detection_tpu_torch.models.detectors.mask_rcnn import mask_frame, sample_mask_rois
 from torch_detection_tpu_torch.models.detectors.sparse_rcnn import (
     match,
@@ -3238,8 +3282,9 @@ def test_slate_kernel(what: str, det_cfg, image, feats, rois) -> dict:
 @contextlib.contextmanager
 def recorded_evaluation():
     """``tools.test``'s evaluation, with its model, detection config,
-    dataset, keyword arguments and first inference batch (``batch``, the
-    inference function's arguments) kept in the yielded dict."""
+    dataset, keyword arguments, first inference batch (``batch``, the
+    inference function's arguments) and every batch's canvas (``canvases``)
+    kept in the yielded dict."""
     seen = {}
 
     def recorded_evaluate(model, det_cfg, dataset, **kwargs):
@@ -3247,6 +3292,7 @@ def recorded_evaluation():
 
         def recorded_infer(*args):
             seen.setdefault("batch", args)
+            seen.setdefault("canvases", []).append(tuple(args[0].shape[1:3]))
             return infer(*args)
 
         seen.update(model=model, det_cfg=det_cfg, dataset=dataset, kwargs=kwargs)
@@ -4418,6 +4464,341 @@ def phase_cli_fast(card: str, checkpoint: Path) -> dict:
                 dump_ms=dump_ms, profile=profile, **kernel_checks)
 
 
+# ---------------------------------------------------------------- FCOS, ATSS and GFL; TTA
+FCOS_CONFIG = ROOT / "configs" / "fcos_r50_fpn_coco.py"
+ATSS_CONFIG = ROOT / "configs" / "atss_r50_fpn_coco.py"
+GFL_CONFIG = ROOT / "configs" / "gfl_r50_fpn_coco.py"
+DENSE = (("fcos", FCOS_CONFIG), ("atss", ATSS_CONFIG), ("gfl", GFL_CONFIG))
+DENSE_LOSS_KEYS = {"fcos": ("loss", "loss_cls", "loss_reg", "loss_centerness"),
+                   "atss": ("loss", "loss_cls", "loss_reg", "loss_centerness"),
+                   "gfl": ("loss", "loss_qfl", "loss_giou", "loss_dfl")}
+DENSE_CANDIDATES = {"fcos": fcos_candidates, "atss": atss_candidates, "gfl": gfl_candidates}
+TTA_SIZES = ((1333, 800), (1000, 600))  # two of COCO's test scales, each flipped too
+
+
+def load_dense(config: Path, dtype: str, device):
+    """An FCOS, ATSS or GFL build with ``cls_out``'s bias at 0, as
+    ``load_retina``: the focal prior would put every score under
+    ``score_thr`` on random weights."""
+    model, det_cfg = load_model(dtype, device, config)
+    with torch.no_grad():
+        model.head.cls_out.bias.zero_()
+    return model, det_cfg
+
+
+def dense_stage_breakdown(name: str, model, det_cfg, wire, shapes, card: str,
+                          repeats: int = 5) -> None:
+    """A serving batch stage by stage, a device sync between stages; the
+    median host ms of each over ``repeats`` batches."""
+    times = {}
+    stage = stage_timer(times)
+    with torch.inference_mode():
+        for _ in range(repeats):
+            x = stage("preprocess (u8 s2d wire)", lambda: fused_normalize_pad_s2d(
+                wire, shapes, out_dtype=torch.bfloat16))
+            feats = stage("backbone (folded stem, R50)", lambda: model.backbone(x))
+            levels = stage("fpn", lambda: model.neck(feats))
+            outs = stage(f"{name} head (GN towers)", lambda: model.head(levels))
+            scores, boxes = stage("preselect, sigmoid, decode, clip", lambda: DENSE_CANDIDATES[name](
+                det_cfg, *outs, shapes))
+            stage("multiclass NMS", lambda: dense_nms(det_cfg, scores, boxes))
+    log_breakdown(f"{name} stage breakdown, median of {repeats} batches", times, card)
+
+
+def phase_dense_serving(card: str, name: str, config: Path, seed: int) -> dict:
+    """Full-width FCOS, ATSS or GFL R50-FPN, bf16, b4 on the 800 x 1216 s2d
+    wire through ``fused_normalize_pad_s2d`` and ``make_inference_fn``;
+    K1, K2 and the matcher counted (none expected)."""
+    model, det_cfg = load_dense(config, "bfloat16", "cuda")
+    infer = make_inference_fn(model, det_cfg)
+    h, w = CANVAS
+    wire, shapes = retina_wire(seed, BATCH)
+    run = serve_s2d(infer, wire, shapes)
+    timed_batches(run, WARMUP_BATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms, results = timed_batches(run, TIMED_BATCHES)
+    launches = read_launches()
+    expect_launches(f"{name} serving", launches, 0, 0)
+    for res in results:
+        check_detections(res, det_cfg, BATCH, h, w)
+    mean_ms = sum(ms) / len(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{name} serving path b{BATCH}: ms a batch {[round(m, 3) for m in ms]}, mean {mean_ms:.3f} "
+        f"ms, {BATCH / (mean_ms / 1e3):.2f} images/s, median {statistics.median(ms):.3f} ms "
+        f"[{card}]; launches {launches}; valid detections an image "
+        f"{results[-1].valid.sum(1).tolist()}; peak memory {peak:.2f} GiB")
+    dense_stage_breakdown(name, model, det_cfg, wire, shapes, card)
+    profile = device_profile(run, mean_ms, card)
+    return dict(launches=launches, ms_per_batch=mean_ms, profile=profile, peak_gib=peak)
+
+
+def dense_train_stage_breakdown(name: str, model, det_cfg, optimizer, batch, card: str,
+                                repeats: int = 5) -> None:
+    """A training step stage by stage: the forward, the targets, the whole
+    loss (targets included), the backward and the optimizer; the median
+    host ms of each over ``repeats`` steps."""
+    times = {}
+    stage = stage_timer(times)
+    gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    for _ in range(repeats):
+        optimizer.zero_grad()
+        outs = stage("backbone+fpn+head", lambda: model(batch["image"]))
+        stage("targets (assignment)", lambda: dense_targets(name, det_cfg, outs, *gts,
+                                                            batch["img_shape"]))
+        loss, _ = stage("targets + losses", lambda: dense_losses(name, det_cfg, outs, batch))
+        stage("backward", loss.backward)
+        stage("grad norm, clip, SGD", lambda: optimizer.apply(optimizer.global_norm()))
+    optimizer.zero_grad()
+    log_breakdown(f"{name} training stage breakdown, median of {repeats} steps", times, card)
+
+
+def dense_losses(name: str, det_cfg, outs, batch):
+    """The family's loss dict on the head's outputs, as ``build_loss_fn``'s."""
+    gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    if name == "fcos":
+        out = fcos_loss(det_cfg, *outs, *gts)
+    elif name == "atss":
+        out = atss_loss(det_cfg, *outs, *gts, img_shapes=batch["img_shape"])
+    else:
+        out = gfl_loss(det_cfg, *outs, *gts, img_shapes=batch["img_shape"])
+    return out["loss"], out
+
+
+def dense_targets(name: str, det_cfg, outs, gt_boxes, gt_labels, gt_valid, img_shape):
+    """The family's per-anchor targets: FCOS's (label, ltrb, centerness),
+    ATSS's (label, matched gt, centerness), GFL's (label, matched gt)."""
+    sizes = [tuple(c.shape[1:3]) for c in outs[0]]
+    device = gt_boxes.device
+    if name == "fcos":
+        points, ranges = flat_points(det_cfg, sizes, device)
+        return fcos_targets(det_cfg, points, ranges, gt_boxes, gt_labels, gt_valid)
+    anchors = det_cfg.anchor_generator.flat_anchors(sizes, device)
+    counts = level_counts(det_cfg.anchor_generator, sizes)
+    if name == "atss":
+        return atss_targets(det_cfg, anchors, counts, gt_boxes, gt_labels, gt_valid, img_shape)
+    return assign_and_match(det_cfg.assigner, anchors, counts, gt_boxes, gt_labels, gt_valid,
+                            img_shape)
+
+
+def phase_dense_train(card: str, name: str, config: Path, seed: int) -> dict:
+    """Full-width FCOS, ATSS or GFL R50-FPN training, float32 parameters and
+    bf16 compute, b8 (the configs' ``sample_per_replica``) on the 800 x 1216
+    canvas of the two-stage cells with their gts, SGD with clip 35, through
+    ``build_train_objects``, ``build_loss_fn`` and ``Trainer.run``; K1, K2
+    and the matcher counted (none expected)."""
+    cfg = Config.fromfile(config)
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [retina_train_batch(gen) for _ in range(steps)]
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
+    if optimizer.grad_clip_norm != 35.0 or cfg["data"]["sample_per_replica"] != RETINA_TRAIN_BATCH:
+        raise AssertionError(f"{name}: clip {optimizer.grad_clip_norm}, batch "
+                             f"{cfg['data']['sample_per_replica']}")
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches(f"{name} training", launches, 0, 0)
+    keys = DENSE_LOSS_KEYS[name]
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"{name}: {len(history)} steps logged, {trainer.skipped_steps} skipped")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in keys) or not h["num_pos"] > 0:
+            raise AssertionError(f"{name}: non-finite loss or no positive at step {h['step']}: {h}")
+    still = [n for n, p in model.named_parameters() if p.requires_grad and torch.equal(p, before[n])]
+    moved = [n for n, p in model.named_parameters()
+             if not p.requires_grad and not torch.equal(p, before[n])]
+    if still or moved or not any(n.startswith("head.cls_tower0.norm.") for n in before):
+        raise AssertionError(f"{name}: trainable parameters that did not move {still}; frozen "
+                             f"ones that moved {moved}")
+    b = RETINA_TRAIN_BATCH
+    step_ms = [b / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{name} training path b{b}: ms a step {[round(m, 3) for m in step_ms]}, mean "
+        f"{mean_ms:.3f} ms, {b / (mean_ms / 1e3):.2f} images/s, median "
+        f"{statistics.median(step_ms):.3f} ms [{card}]; launches {launches}; skipped steps "
+        f"{trainer.skipped_steps}; peak memory {peak:.2f} GiB; over the {TIMED_BATCHES} steps "
+        + "; ".join(f"{k} {[round(h[k], 4) for h in history]}" for k in keys + ("num_pos",)))
+    profile = device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    dense_train_stage_breakdown(name, model, det_cfg, optimizer, batches[-1], card)
+    return dict(launches=launches, ms_per_step=mean_ms, profile=profile, peak_gib=peak)
+
+
+def dense_reference_batch() -> dict:
+    """Two seeded 256 x 320 images on the s2d wire, the second smaller than
+    its canvas, with 3 and 2 gts (``retina_reference_setup``'s), and a
+    duplicate of one gt."""
+    gen = torch.Generator().manual_seed(SEED + 120)
+    return dict(
+        image=space_to_depth_2x2(torch.randn((2, 256, 320, 3), generator=gen)),
+        gt_boxes=torch.tensor([[[16, 20, 120, 140], [150, 40, 300, 230], [60, 150, 110, 250],
+                                [16, 20, 120, 140]],
+                               [[30, 30, 200, 180], [210, 100, 290, 200], [0] * 4, [0] * 4]],
+                              dtype=torch.float32),
+        gt_labels=torch.tensor([[3, 17, 80, 5], [1, 45, 0, 0]]),
+        gt_valid=torch.tensor([[True, True, True, True], [True, True, False, False]]),
+        img_shape=torch.tensor([[256.0, 320.0], [240.0, 300.0]]),
+    )
+
+
+def phase_dense_reference() -> None:
+    """FCOS, ATSS and GFL in float32 on the GPU and on the CPU, stage by
+    stage on a small canvas, each GPU stage fed to its CPU counterpart: the
+    FPN levels, GroupNorm alone, the head, the targets, the candidates, the
+    NMS on equal inputs, the losses on equal inputs, and every parameter's
+    gradient through the whole model."""
+    batch = dense_reference_batch()
+    on_gpu = {k: v.cuda() for k, v in batch.items()}
+    for name, config in DENSE:
+        gpu, det_cfg = load_dense(config, "float32", "cuda")
+        cpu, _ = load_dense(config, "float32", "cpu")
+        checks = []
+
+        def check(what, err, limit):
+            checks.append(f"{what} {err:.2e} (limit {limit:g})")
+            if not err <= limit:
+                raise AssertionError(f"{name} reference check {what}: {err} > {limit}")
+
+        with torch.inference_mode():
+            xg, xc = on_gpu["image"], batch["image"]
+            lg, lc = gpu.neck(gpu.backbone(xg)), cpu.neck(cpu.backbone(xc))
+            check("fpn levels", max(rel_err(g, c) for g, c in zip(lg, lc)), 1e-3)
+            lh = [f.cpu() for f in lg]
+            conv_g = gpu.head.cls_tower0.conv(lg[0].permute(0, 3, 1, 2))
+            check("GroupNorm", rel_err(gpu.head.cls_tower0.norm(conv_g),
+                                       cpu.head.cls_tower0.norm(conv_g.cpu())), 1e-4)
+            outs_g, outs_c = gpu.head(lg), cpu.head(lh)
+            check("head outputs", max(rel_err(g, c) for og, oc in zip(outs_g, outs_c)
+                                      for g, c in zip(og, oc)), 1e-4)
+            outs_h = tuple(tuple(t.cpu() for t in o) for o in outs_g)
+            gts = ("gt_boxes", "gt_labels", "gt_valid")
+            tg = dense_targets(name, det_cfg, outs_g, *(on_gpu[k] for k in gts), on_gpu["img_shape"])
+            tc = dense_targets(name, det_cfg, outs_h, *(batch[k] for k in gts), batch["img_shape"])
+            check("target labels mismatches", float((tg[0].cpu() != tc[0]).sum()), 0)
+            check("target boxes or distances mismatches", float((tg[1].cpu() != tc[1]).sum()), 0)
+            if len(tg) == 3:  # a square root: one float32 ulp apart at most
+                ulp = torch.finfo(torch.float32).eps * tc[2].abs().clamp_min(1e-30)
+                check("centerness targets beyond one ulp",
+                      float(((tg[2].cpu() - tc[2]).abs() > ulp).sum()), 0)
+            positives = int((tc[0] >= 0).sum())
+            sg, bg = DENSE_CANDIDATES[name](det_cfg, *outs_g, on_gpu["img_shape"])
+            sc, bc = DENSE_CANDIDATES[name](det_cfg, *outs_h, batch["img_shape"])
+            check("candidate scores", float((sg.cpu() - sc).abs().max()), 1e-6)
+            check("candidate boxes (px)", float((bg.cpu() - bc).abs().max()), 1e-3)
+            # one ulp can swap two of the many near-equal scores, so the NMS
+            # takes the GPU's candidates on both devices
+            ng, nc = dense_nms(det_cfg, sg, bg), dense_nms(det_cfg, sg.cpu(), bg.cpu())
+            for field in ("valid", "labels", "indices", "scores", "boxes"):
+                check(f"NMS on equal inputs, {field} mismatches",
+                      float((getattr(ng, field).cpu() != getattr(nc, field)).sum()), 0)
+            if not bool(nc.valid.any(dim=1).all()):
+                raise AssertionError(f"{name}: no detection in the reference batch")
+        with torch.no_grad():
+            _, lossg = dense_losses(name, det_cfg, outs_g, on_gpu)
+            _, lossc = dense_losses(name, det_cfg, outs_h, batch)
+        check("losses on equal inputs", max(rel_err(lossg[k], lossc[k])
+                                            for k in DENSE_LOSS_KEYS[name]), 1e-4)
+        check("num_pos mismatches", abs(float(lossg["num_pos"]) - float(lossc["num_pos"])), 0)
+        gpu.train(), cpu.train()
+        for model, data in ((gpu, on_gpu), (cpu, batch)):
+            loss, _ = build_loss_fn(model, det_cfg)(data)
+            loss.backward()
+
+        def rel_norm(a, b):
+            a, b = a.cpu().double(), b.cpu().double()
+            return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+        errs = {n: rel_norm(g.grad, c.grad) for (n, g), (_, c) in
+                zip(gpu.named_parameters(), cpu.named_parameters()) if g.requires_grad}
+        worst = max(errs, key=errs.get)
+        check(f"gradients' relative norm of the difference (worst at {worst})", errs[worst], 1e-2)
+        log(f"{name} reference check, GPU vs CPU float32 ({positives} positives, "
+            f"{nc.valid.sum(1).tolist()} detections, {len(errs)} gradients): " + "; ".join(checks))
+        del gpu, cpu
+
+
+def phase_cli_tta(card: str) -> dict:
+    """``tools.test --tta --segm`` on ``phase_cli_mask``'s ``epoch_2``, with a
+    config derived from its own whose val data has two
+    ``img_expected_sizes`` and flips: four augmentations an image, each at
+    its size rounded up to 128, fused by class-wise NMS in the original
+    frame, each mask from its source detection. K1 is counted by output
+    size (twice a batch, out 7 and out 14, K2 never) and held to its plain
+    version at out 14 on one flipped augmentation's levels and detections."""
+    base = SMOKE_COCO_MASKS / "mask_rcnn_r50_fpn_smoke.py"
+    config = SMOKE_COCO_MASKS / "mask_rcnn_r50_fpn_smoke_tta.py"
+    config.write_text(f"_base_ = {str(base)!r}\n"
+                      f"data = dict(val=dict(img_expected_sizes={list(TTA_SIZES)!r}, "
+                      "flip_ratio=0.5))\n")
+    checkpoint = SMOKE_COCO_MASKS / "work" / f"epoch_{CLI_MASK_EPOCHS}"
+    out = SMOKE_COCO_MASKS / "results_tta.json"
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_evaluation() as seen, launches_by_out_size() as sizes:
+        metrics = test_cli.main([str(config), str(checkpoint), "--tta", "--segm", "--out",
+                                 str(out)])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    calls = seen["canvases"]
+    n = len(calls)
+    dataset, kwargs = seen["dataset"], seen["kwargs"]
+    augs = len(dataset[0]["img"])
+    if not kwargs.get("tta") or augs != 2 * len(TTA_SIZES):
+        raise AssertionError(f"cli test --tta: tta {kwargs.get('tta')}, {augs} augmentations")
+    expect_launches("cli test --tta --segm", launches, 2 * n, 0)
+    if sizes != dict(k1={OUT_SIZE: n, MASK_OUT: n}, k2={}):
+        raise AssertionError(f"cli test --tta: launches by out size {sizes} for {n} batches")
+    if len(metrics) != 24 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cli test --tta metrics {metrics}")
+    val_ann = Path(Config.fromfile(config)["data"]["val"]["ann_file"])
+    frames = {img["id"]: (img["height"], img["width"])
+              for img in json.loads(val_ann.read_text())["images"]}
+    segm = json.loads((SMOKE_COCO_MASKS / "results_tta.segm.json").read_text())
+    if not segm or len(segm) != len(json.loads(out.read_text())):
+        raise AssertionError(f"cli test --tta: {len(segm)} segm records")
+    for r in segm:
+        if rle_decode(r["segmentation"]).shape != frames[r["image_id"]]:
+            raise AssertionError(f"a segm record for image {r['image_id']} of the wrong size")
+    log(f"cli test --tta --segm [{card}]: {len(dataset)} images x {augs} augmentations "
+        f"({TTA_SIZES}, flipped and not) in {n} batches at {sorted(collections.Counter(calls).items())} "
+        f"in {seconds:.1f} s (the build included), launches {launches}, by out size "
+        f"{ {k: dict(v) for k, v in sizes.items()} }; {len(segm)} segm records, each RLE decoding "
+        f"to its image's original size; " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+
+    # K1 at out 14 on the flipped augmentation of the larger size, one batch
+    aug = 1
+    items = [(dataset[i]["img"][aug], dataset[i]["img_meta"][aug].data) for i in range(8)]
+    bucket = pick_canvas([img.shape[:2] for img, _ in items[:1]], size_divisor=128)
+    items = [(img, meta) for img, meta in items
+             if pick_canvas([img.shape[:2]], size_divisor=128) == bucket]
+    image = np.zeros((len(items), *bucket, 3), np.float32)
+    for j, (img, _) in enumerate(items):
+        image[j, : img.shape[0], : img.shape[1]] = img
+    shapes = torch.tensor([meta["img_shape"][:2] for _, meta in items], dtype=torch.float32,
+                          device="cuda")
+    metas = [meta for _, meta in items]
+    if not all(m["flipped_flag"] for m in metas):
+        raise AssertionError("the checked augmentation is not a flipped one")
+    model = seen["model"]
+    k1 = cli_mask_test_checks(model, seen["det_cfg"],
+                              torch.from_numpy(image).cuda().to(next(model.parameters()).dtype),
+                              shapes, metas, card)
+    del seen
+    return dict(test=launches, k1_test=k1, batches=n, metrics=metrics)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -4494,8 +4875,14 @@ def main() -> int:
     detr_train = phase_detr_train(card)
     detr_step = phase_detr_step_data(detr_train.pop("model"), detr_train.pop("det_cfg"),
                                      detr_train.pop("batch"))
+    dense_serve = {name: phase_dense_serving(card, name, config, SEED + 130 + i)
+                   for i, (name, config) in enumerate(DENSE)}
+    phase_dense_reference()
+    dense_train = {name: phase_dense_train(card, name, config, SEED + 140 + i)
+                   for i, (name, config) in enumerate(DENSE)}
     cli = phase_cli(card, train)
     cli_mask = phase_cli_mask(card)
+    cli_tta = phase_cli_tta(card)
     cli_voc = phase_cli_voc(card)
     cli_fast = phase_cli_fast(card, SMOKE_COCO / "work" / f"epoch_{CLI_EPOCHS}")
 
@@ -4529,9 +4916,11 @@ def main() -> int:
                  "cli_mask_training": cli_mask["training"], "cli_mask_test": cli_mask["test"],
                  "cli_voc_training": cli_voc["training"], "cli_voc_test": cli_voc["test"],
                  "cli_fast_dump": cli_fast["dump"], "cli_fast_training": cli_fast["training"],
-                 "cli_fast_test": cli_fast["test"]}
+                 "cli_fast_test": cli_fast["test"], "cli_tta_test": cli_tta["test"]}
+    dense_paths = {f"{name}_{mode}": runs[name]["launches"] for name, _ in DENSE
+                   for mode, runs in (("serving", dense_serve), ("training", dense_train))}
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
-                   **cli_paths}
+                   **dense_paths, **cli_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],
@@ -4544,7 +4933,7 @@ def main() -> int:
               at_sparse_training_stage5=sparse_step["k1_stage5"], at_cli_training=cli["k1"],
               at_cli_test=cli["k1_test"], at_cli_mask_training=cli_mask["k1"],
               at_cli_mask_test=cli_mask["k1_test"], at_cli_fast_training=cli_fast["k1"],
-              at_cli_fast_test=cli_fast["k1_test"]),
+              at_cli_fast_test=cli_fast["k1_test"], at_cli_tta_test=cli_tta["k1_test"]),
         entry("roi_align_bwd", "torch_detection_tpu/ops/roi_align_pallas.py:301",
               {"serving": serve["bwd_launches"], "training": train["k2"],
                **{path: n["k2"] for path, n in later_paths.items()}}, bwd,

@@ -167,7 +167,7 @@ def test_train_cli_refuses_unported_knobs(tmp_path, knob):
         train_cli.main([config, "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flag", ["--tta"])
+@pytest.mark.parametrize("flag", ["--shard-eval"])
 def test_test_cli_refuses_unported_flags(tmp_path, flag):
     config = _write_config(tmp_path / "flag.py", dict(ann_file="a.json", img_prefix="."))
     with pytest.raises(NotImplementedError, match=flag):

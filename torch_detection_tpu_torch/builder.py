@@ -3,8 +3,8 @@ training loader, and the optimizer with its learning-rate schedule.
 
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
 (the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
-``cascade_mask_rcnn``, ``fast_rcnn``, ``sparse_rcnn`` and ``detr`` styles;
-the other families arrive with their slices.
+``cascade_mask_rcnn``, ``fast_rcnn``, ``sparse_rcnn``, ``detr``, ``fcos``,
+``atss`` and ``gfl`` styles; the other families arrive with their slices.
 """
 
 from __future__ import annotations
@@ -18,19 +18,25 @@ import torch
 from .data import build_dataloader, get_datasets
 from .engine.trainer import detection_lr_schedule
 from .models.detectors import (
+    ATSSConfig,
     CascadeMaskRCNNConfig,
     CascadeRCNNConfig,
     DETRConfig,
     FasterRCNNConfig,
     FastRCNNConfig,
+    FCOSConfig,
+    GFLConfig,
     MaskRCNNConfig,
     RetinaNetConfig,
     SparseRCNNConfig,
+    atss_loss,
     cascade_mask_rcnn_loss,
     cascade_rcnn_loss,
     detr_train_loss,
     fast_rcnn_loss,
     faster_rcnn_loss,
+    fcos_loss,
+    gfl_loss,
     mask_rcnn_loss,
     retina_loss,
     sampling_noise,
@@ -38,7 +44,7 @@ from .models.detectors import (
 )
 from .models.inits import init_weights
 from .ops.anchors import AnchorGenerator
-from .ops.assign import MaxIoUAssigner
+from .ops.assign import ATSSAssigner, MaxIoUAssigner
 from .parallel.train_step import Optimizer, make_optimizer
 from .utils.registry import DETECTORS
 
@@ -56,6 +62,15 @@ _SPARSE_KEYS = ("num_classes", "num_proposals", "cls_weight", "l1_weight", "giou
                 "focal_gamma", "focal_alpha", "score_thr", "max_detections")
 _DETR_KEYS = ("num_classes", "num_queries", "cls_weight", "bbox_weight", "giou_weight",
               "eos_coef", "aux_loss", "score_thr", "max_detections")
+_FCOS_KEYS = ("num_classes", "strides", "regress_ranges", "focal_gamma", "focal_alpha",
+              "score_thr", "nms_iou_thr", "pre_select_per_level", "pre_nms_top_k",
+              "max_detections")
+_ATSS_KEYS = ("num_classes", "target_means", "target_stds", "focal_gamma", "focal_alpha",
+              "reg_loss_weight", "score_thr", "nms_iou_thr", "pre_select_per_level",
+              "pre_nms_top_k", "max_detections")
+_GFL_KEYS = ("num_classes", "reg_max", "qfl_beta", "qfl_weight", "dfl_weight", "giou_weight",
+             "score_thr", "nms_iou_thr", "pre_select_per_level", "pre_nms_top_k",
+             "max_detections")
 # style -> (config class, its keys, the field the ``assigner`` key sets or None)
 _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS, None),
@@ -65,9 +80,14 @@ _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
                                  _FASTER_RCNN_KEYS + _CASCADE_KEYS + _MASK_KEYS, None),
            "fast_rcnn": (FastRCNNConfig, _FASTER_RCNN_KEYS, "rcnn_assigner"),
            "sparse_rcnn": (SparseRCNNConfig, _SPARSE_KEYS, None),
-           "detr": (DETRConfig, _DETR_KEYS, None)}
+           "detr": (DETRConfig, _DETR_KEYS, None),
+           "fcos": (FCOSConfig, _FCOS_KEYS, None),
+           "atss": (ATSSConfig, _ATSS_KEYS, "assigner"),
+           "gfl": (GFLConfig, _GFL_KEYS, "assigner")}
+# the assigner class of each config's assigner field (the R-CNNs' and RetinaNet's MaxIoUAssigner)
+_ASSIGNERS = {ATSSConfig: ATSSAssigner, GFLConfig: ATSSAssigner}
 DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig, SparseRCNNConfig,
-                        DETRConfig]
+                        DETRConfig, FCOSConfig, ATSSConfig, GFLConfig]
 
 
 def _tuples(value):
@@ -110,10 +130,11 @@ def _build_anchor_generator(anchor: Dict[str, Any]) -> AnchorGenerator:
 def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     """The static detection config of a ``style='retina'`` (the default),
     ``'faster_rcnn'``, ``'mask_rcnn'``, ``'cascade_rcnn'``,
-    ``'cascade_mask_rcnn'``, ``'fast_rcnn'``, ``'sparse_rcnn'`` or ``'detr'``
-    config. RetinaNet's ``assigner`` is its ``assigner``, Fast R-CNN's its
-    ``rcnn_assigner``. Keys the port does not read yet raise instead of
-    being dropped."""
+    ``'cascade_mask_rcnn'``, ``'fast_rcnn'``, ``'sparse_rcnn'``, ``'detr'``,
+    ``'fcos'``, ``'atss'`` or ``'gfl'`` config. RetinaNet's ``assigner`` is
+    its ``MaxIoUAssigner``, Fast R-CNN's its ``rcnn_assigner``, ATSS's and
+    GFL's their ``ATSSAssigner``. Keys the port does not read yet raise
+    instead of being dropped."""
     cfg = dict(det_cfg)
     style = cfg.pop("style", "retina")
     if style not in _STYLES:
@@ -124,7 +145,7 @@ def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     if anchor:
         kwargs["anchor_generator"] = _build_anchor_generator(dict(anchor))
     if assigner_field and "assigner" in cfg:
-        kwargs[assigner_field] = MaxIoUAssigner(**cfg.pop("assigner"))
+        kwargs[assigner_field] = _ASSIGNERS.get(config_cls, MaxIoUAssigner)(**cfg.pop("assigner"))
     for key in keys:
         if key in cfg:
             kwargs[key] = _tuples(cfg.pop(key))
@@ -143,8 +164,9 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     a ``FastRCNNConfig``'s batch carries ``proposals`` and
     ``proposal_valid``. RetinaNet, Sparse R-CNN and DETR draw nothing;
     Sparse R-CNN's and DETR's forward and loss take the batch's
-    ``img_shape``. The set-prediction configs are tested first: no R-CNN
-    config class is their base."""
+    ``img_shape``, as ATSS's and GFL's losses do (FCOS's does not). The
+    set-prediction and dense configs are tested first: no R-CNN config
+    class is their base."""
     if isinstance(det_cfg, DETRConfig):
         def detr_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
             losses = detr_train_loss(det_cfg, model, batch)
@@ -157,6 +179,13 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
             return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
 
         return sparse_loss_fn
+    dense = _dense_loss(det_cfg)
+    if dense is not None:
+        def dense_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
+            losses = dense(model(batch["image"]), batch)
+            return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
+
+        return dense_loss_fn
     if isinstance(det_cfg, RetinaNetConfig):
         def retina_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
             cls_scores, bbox_preds = model(batch["image"])
@@ -174,6 +203,22 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
         return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
 
     return loss_fn
+
+
+def _dense_loss(det_cfg) -> Optional[Callable]:
+    """``loss(head_outputs, batch)`` of the FCOS, ATSS and GFL configs, as
+    the reference's: ATSS's and GFL's take the batch's ``img_shape`` (the
+    valid anchors), FCOS's does not; None for another config."""
+    gts = ("gt_boxes", "gt_labels", "gt_valid")
+    if isinstance(det_cfg, GFLConfig):
+        return lambda out, batch: gfl_loss(det_cfg, *out, *(batch[k] for k in gts),
+                                           img_shapes=batch.get("img_shape"))
+    if isinstance(det_cfg, ATSSConfig):
+        return lambda out, batch: atss_loss(det_cfg, *out, *(batch[k] for k in gts),
+                                            img_shapes=batch.get("img_shape"))
+    if isinstance(det_cfg, FCOSConfig):
+        return lambda out, batch: fcos_loss(det_cfg, *out, *(batch[k] for k in gts))
+    return None
 
 
 def _rcnn_loss(det_cfg) -> Callable:

@@ -2,7 +2,8 @@
 
 Counterpart of ``torch_detection_tpu/engine/validate.py``:
 ``make_inference_fn`` for the Faster R-CNN, Mask R-CNN, Cascade R-CNN,
-Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN and DETR families
+Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN, DETR, FCOS, ATSS
+and GFL families
 (the port's modules hold their weights, so ``infer`` takes the batch
 alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
 results dumps (boxes and RLE masks) and the Trainer's validation hook, the
@@ -20,26 +21,33 @@ import torch
 
 from ..data.collate import pick_canvas
 from ..models.detectors import (
+    ATSSConfig,
     CascadeMaskRCNNConfig,
     CascadeRCNNConfig,
     DETRConfig,
     FasterRCNNConfig,
     FastRCNNConfig,
+    FCOSConfig,
+    GFLConfig,
     MaskRCNNConfig,
     RetinaNetConfig,
     SparseRCNNConfig,
+    atss_inference,
     cascade_mask_rcnn_inference,
     cascade_rcnn_inference,
     detr_inference,
     fast_rcnn_inference,
     faster_rcnn_inference,
+    fcos_inference,
+    gfl_inference,
     mask_rcnn_inference,
     retina_inference,
     sparse_rcnn_inference,
 )
 from ..data.ops.mask import _rle_compress, rle_encode
 from .eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
-from .tta import masks_to_original, merge_tta_detections
+from ..models.heads.mask_head import paste_masks_np
+from .tta import masks_to_original, merge_tta_detections, unflip_masks
 
 logger = logging.getLogger(__name__)
 
@@ -47,7 +55,7 @@ logger = logging.getLogger(__name__)
 def _inference(det_cfg, segm: bool) -> Callable:
     """The inference of ``det_cfg``'s family, its mask branch with ``segm``.
     The cascade configs subclass ``FasterRCNNConfig``, so each subclass is
-    tested before its base."""
+    tested before its base; no dense config subclasses another."""
     for config_cls, boxes, masks in ((CascadeMaskRCNNConfig, cascade_rcnn_inference,
                                       cascade_mask_rcnn_inference),
                                      (CascadeRCNNConfig, cascade_rcnn_inference, None),
@@ -56,7 +64,10 @@ def _inference(det_cfg, segm: bool) -> Callable:
                                      (FastRCNNConfig, fast_rcnn_inference, None),
                                      (RetinaNetConfig, retina_inference, None),
                                      (SparseRCNNConfig, sparse_rcnn_inference, None),
-                                     (DETRConfig, detr_inference, None)):
+                                     (DETRConfig, detr_inference, None),
+                                     (GFLConfig, gfl_inference, None),
+                                     (ATSSConfig, atss_inference, None),
+                                     (FCOSConfig, fcos_inference, None)):
         if isinstance(det_cfg, config_cls):
             if segm and masks is None:
                 raise ValueError("segm=True needs a mask-capable detector (MaskRCNNConfig or "
@@ -102,6 +113,7 @@ def evaluate_detector(
     batch: int = 8,
     canvas=None,
     max_images: Optional[int] = None,
+    tta: bool = False,
     infer: Optional[Callable] = None,
     return_detections: bool = False,
     segm: bool = False,
@@ -113,21 +125,26 @@ def evaluate_detector(
     annotations' ``bboxes_ignore`` as ignore regions).
 
     Counterpart of the reference's ``evaluate_detector``: every (image,
-    augmentation) goes to a canvas bucket (``canvas``, else its size rounded
-    up to 128) and each bucket flushes in padded batches of ``batch``; the
-    detections are mapped to the original frame and fused across the
-    image's augmentations (``merge_tta_detections``, one augmentation
-    included). ``infer`` reuses an inference function across calls. With
+    augmentation) goes to a canvas bucket (``canvas`` unless ``tta``, else
+    its size rounded up to 128) and each bucket flushes in padded batches of
+    ``batch``; the detections are mapped to the original frame and fused
+    across the image's augmentations (``merge_tta_detections``, one
+    augmentation included, at the config's ``nms_iou_thr``, 0.5 where it
+    has none). ``infer`` reuses an inference function across calls. With
     ``return_detections`` also the per-image detection dicts (xyxy in the
     original frame, 1-based labels).
 
     ``segm=True`` (the mask families) also pastes each detection's mask in
-    the original frame (``masks_to_original``; its boxes are then the
-    detections' own, not fused) and adds the 12 mask-IoU metrics as
-    ``segm_*``; each image's masks are RLE-encoded at once, so the
-    detections carry ``masks`` as RLE dicts and no dense mask outlives its
-    image. Test-time augmentation of the CLI and sharded evaluation wait for
-    later slices."""
+    the original frame and adds the 12 mask-IoU metrics as ``segm_*``; each
+    image's masks are RLE-encoded at once, so the detections carry
+    ``masks`` as RLE dicts and no dense mask outlives its image. With one
+    augmentation (``tta=False``; several raise ``ValueError``) the masks
+    are pasted at the detections' own boxes (``masks_to_original``). With
+    ``tta=True`` each flipped augmentation's (D, M, M) probabilities are
+    mirrored back, the boxes are fused with the probabilities as
+    ``extras``, and each kept detection's source patch is pasted at its
+    fused box: the NMS selects, so each has one source. Sharded evaluation
+    waits for a later slice."""
     if infer is None:
         infer = make_inference_fn(model, det_cfg, segm=segm)
     device = next(model.parameters()).device
@@ -169,7 +186,7 @@ def evaluate_detector(
         sample = dataset[i]
         metas_all[i] = [m.data for m in sample["img_meta"]]
         for aug_idx, (img, meta) in enumerate(zip(sample["img"], metas_all[i])):
-            if canvas is not None:
+            if canvas is not None and not tta:
                 bucket = pick_canvas([img.shape[:2]], canvas=canvas)
             else:
                 bucket = pick_canvas([img.shape[:2]], size_divisor=128)
@@ -185,25 +202,34 @@ def evaluate_detector(
         if items:
             flush(bucket, items)
 
+    iou_thr = getattr(det_cfg, "nms_iou_thr", 0.5)  # DETR has none; the fusion needs one
     detections, annotations = [], []
     for i in range(n):
         per_aug = [results[(i, a)] for a in range(len(metas_all[i]))]
         ann = dataset.get_ann_info(i)
         if segm:
-            if len(per_aug) > 1:
-                raise ValueError("segm evaluation takes one test augmentation an image; the "
-                                 "dataset yields several (multi-scale and flip evaluation is "
-                                 "not ported yet)")
-            masks, boxes = masks_to_original(per_aug[0]["mask_probs"], per_aug[0]["boxes"],
-                                             metas_all[i][0])
-            detections.append(dict(boxes=boxes.astype(np.float32), scores=per_aug[0]["scores"],
-                                   labels=per_aug[0]["labels"] + 1,
+            if len(per_aug) > 1 and not tta:
+                raise ValueError("the dataset yields several test augmentations but tta=False; "
+                                 "segm evaluation would drop all but the first: pass tta=True "
+                                 "(the fusion keeps each mask's source) or a single-augmentation "
+                                 "val dataset")
+            if tta:
+                fused = merge_tta_detections(
+                    per_aug, metas_all[i], iou_thr=iou_thr,
+                    extras=[unflip_masks(d["mask_probs"], m) for d, m in zip(per_aug, metas_all[i])])
+                boxes, scores, labels = fused["boxes"], fused["scores"], fused["labels"]
+                masks = paste_masks_np(fused["extras"], boxes, tuple(metas_all[i][0]["ori_shape"][:2]))
+            else:
+                masks, boxes = masks_to_original(per_aug[0]["mask_probs"], per_aug[0]["boxes"],
+                                                 metas_all[i][0])
+                scores, labels = per_aug[0]["scores"], per_aug[0]["labels"]
+            detections.append(dict(boxes=boxes.astype(np.float32), scores=scores,
+                                   labels=labels + 1,
                                    masks=[rle_encode(m) for m in masks.astype(np.uint8)]))
             ann = dict(ann, **{k: [m if isinstance(m, dict) else rle_encode(np.asarray(m, np.uint8))
                                    for m in ann.get(k, [])] for k in ("masks", "masks_ignore")})
         else:
-            fused = merge_tta_detections(
-                per_aug, metas_all[i], iou_thr=getattr(det_cfg, "nms_iou_thr", 0.5))
+            fused = merge_tta_detections(per_aug, metas_all[i], iou_thr=iou_thr)
             detections.append(dict(boxes=fused["boxes"], scores=fused["scores"],
                                    labels=fused["labels"] + 1))
         annotations.append(ann)

@@ -1,3 +1,4 @@
+from .atss import ATSSConfig, atss_inference, atss_loss, atss_targets, decode_atss
 from .cascade_mask_rcnn import (
     CascadeMaskRCNN,
     CascadeMaskRCNNConfig,
@@ -12,6 +13,8 @@ from .cascade_rcnn import (
 )
 from .detr import DETR, DETRConfig, decode_detr, detr_inference, detr_loss, detr_train_loss
 from .fast_rcnn import FastRCNN, FastRCNNConfig, fast_rcnn_inference, fast_rcnn_loss
+from .fcos import FCOSConfig, decode_fcos, fcos_inference, fcos_loss, fcos_targets
+from .gfl import GFLConfig, decode_gfl, gfl_inference, gfl_loss, integral
 from .mask_rcnn import (
     MaskDetections,
     MaskRCNN,
@@ -42,7 +45,10 @@ from .two_stage import (
     sampling_noise,
 )
 
-__all__ = ["CascadeMaskRCNN", "CascadeMaskRCNNConfig", "CascadeRCNN", "CascadeRCNNConfig",
+__all__ = ["ATSSConfig", "FCOSConfig", "GFLConfig", "atss_inference", "atss_loss",
+           "atss_targets", "decode_atss", "decode_fcos", "decode_gfl", "fcos_inference",
+           "fcos_loss", "fcos_targets", "gfl_inference", "gfl_loss", "integral",
+           "CascadeMaskRCNN", "CascadeMaskRCNNConfig", "CascadeRCNN", "CascadeRCNNConfig",
            "DETR", "DETRConfig", "decode_detr", "detr_inference", "detr_loss", "detr_train_loss",
            "FastRCNN", "FastRCNNConfig", "FasterRCNNConfig", "MaskDetections", "MaskRCNN",
            "MaskRCNNConfig", "RetinaNetConfig", "SingleStageDetector", "TwoStageDetector",

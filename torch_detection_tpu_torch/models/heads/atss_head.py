@@ -1,0 +1,17 @@
+"""ATSS head: FCOS's module tree, read downstream as anchor deltas.
+
+Counterpart of ``torch_detection_tpu/models/heads/atss_head.py``: the same
+parameter tree as ``FCOSHead`` (GN towers, ``scales``, a centerness
+branch); the regression output is one anchor's deltas
+(``models/detectors/atss.py``). PAA's head waits for PAA.
+"""
+
+from __future__ import annotations
+
+from ...utils.registry import HEADS
+from .fcos_head import FCOSHead
+
+
+@HEADS.register_module
+class ATSSHead(FCOSHead):
+    """FCOSHead's tree and outputs; the delta decode is ``decode_atss``'s."""

@@ -13,7 +13,9 @@ A conv that the reference initialises otherwise carries its rule as
 attributes: ``init_std`` for a plain normal kernel of that std (flax's
 ``normal``, not truncated) and ``init_bias`` for a constant bias, as the
 RetinaNet head's output convs (``bias_init_with_prob`` for the focal-loss
-prior). LayerNorm starts at the identity. A module with parameters of its
+prior). LayerNorm and GroupNorm start at the identity. The FCOS, ATSS and
+GFL heads take flax's defaults but for ``cls_out``'s prior bias, and their
+``scales`` start at 1 (``init_own``). A module with parameters of its
 own that none of these rules covers (Sparse R-CNN's proposal slate) draws
 them in its ``init_own(generator)``.
 """
@@ -25,7 +27,7 @@ import math
 import torch
 from torch import Tensor, nn
 
-from .layers import FrozenBatchNorm, LayerNorm
+from .layers import FrozenBatchNorm, GroupNorm, LayerNorm
 
 # std of a standard normal truncated to [-2, 2], as flax's truncated normal
 _TRUNC_STD = 0.87962566103423978
@@ -57,7 +59,7 @@ def bias_init_with_prob(prior_prob: float) -> float:
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded reference-default weights for every conv, transposed conv,
-    linear, FrozenBN and LayerNorm, a module's own ``init_std``/``init_bias``
+    linear, FrozenBN, LayerNorm and GroupNorm, a module's own ``init_std``/``init_bias``
     and its ``init_own``."""
     with torch.no_grad():
         for module in model.modules():
@@ -76,7 +78,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 module.bias.zero_()
                 module.mean.zero_()
                 module.var.fill_(1.0)
-            elif isinstance(module, LayerNorm):
+            elif isinstance(module, (LayerNorm, GroupNorm)):
                 module.scale.fill_(1.0)
                 module.bias.zero_()
             if hasattr(module, "init_own"):

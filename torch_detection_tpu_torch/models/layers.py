@@ -11,7 +11,8 @@ reference's NHWC layout without a copy.
 Parameters are created in ``dtype`` (the compute dtype, as the reference's
 flax ``dtype`` attribute), except FrozenBN's, which stay float32: the fold
 into ``x * k + b`` is computed in float32 and cast at use, as the reference
-computes it from its float32 params.
+computes it from its float32 params; GroupNorm's and LayerNorm's stay
+float32 too, as flax keeps them.
 """
 
 from __future__ import annotations
@@ -71,14 +72,48 @@ class FrozenBatchNorm(nn.Module):
         return torch.addcmul(b, x, k)
 
 
+class GroupNorm(nn.Module):
+    """flax's ``GroupNorm`` over NCHW: ``num_groups`` groups of channels,
+    float32 ``scale`` and ``bias`` (flax's names and dtype, float32 in every
+    build), statistics and normalisation in float32 with autocast off, the
+    result cast back to the input's dtype (bf16 under autocast: flax's
+    module rounds its output to its ``dtype`` before the activation).
+
+    flax computes the variance as E[x^2] - E[x]^2 clamped at 0
+    (``use_fast_variance``); this module takes ``F.group_norm``'s two-pass
+    variance, one fused kernel that saves only its input and the per-group
+    statistics for the backward. The two part by float32 rounding of order
+    1e-7 * mean^2 / var, almost all of it flax's cancellation (the same
+    formula summed in another order parts from flax's as much): the parity
+    tests hold them within 1e-5 at the towers' inputs, whose mean is within
+    a standard deviation of 0 (``tests/test_torch_fcos.py``)."""
+
+    def __init__(self, num_features: int, num_groups: int = 32, eps: float = 1e-5, device=None):
+        super().__init__()
+        if num_features % num_groups:
+            raise ValueError(f"{num_features} channels do not split into {num_groups} groups")
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = nn.Parameter(torch.ones(num_features, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, dtype=torch.float32, device=device))
+
+    def forward(self, x: Tensor) -> Tensor:  # (B, C, H, W)
+        with torch.autocast(x.device.type, enabled=False):
+            y = F.group_norm(x.float(), self.num_groups, self.scale, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
 def build_norm(norm_cfg: Optional[dict], num_features: int, device=None) -> Optional[nn.Module]:
-    """Norm layer from a config dict; the port has ``FrozenBN``."""
+    """Norm layer from a config dict: ``FrozenBN`` or ``GN`` (32 groups
+    unless ``num_groups``, eps 1e-5 unless ``eps``, as the reference)."""
     if norm_cfg is None:
         return None
     cfg = dict(norm_cfg)
     kind = cfg.pop("type")
     if kind == "FrozenBN":
         return FrozenBatchNorm(num_features, eps=cfg.pop("eps", 1e-5), device=device)
+    if kind == "GN":
+        return GroupNorm(num_features, num_groups=cfg.pop("num_groups", 32),
+                         eps=cfg.pop("eps", 1e-5), device=device)
     raise ValueError(f"norm type {kind!r} is not ported")
 
 

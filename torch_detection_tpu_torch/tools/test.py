@@ -1,10 +1,14 @@
 """Evaluate a detector checkpoint: inference over the val set, COCO mAP.
 
-    python -m torch_detection_tpu_torch.tools.test CONFIG CKPT [--batch B]
+    python -m torch_detection_tpu_torch.tools.test CONFIG CKPT [--tta] [--batch B]
         [--max-images N] [--segm] [--voc-metric] [--out res.json] [--device cuda|cpu]
 
 Counterpart of ``tools/test.py``: the test-mode ``CocoDataset`` at the
-config's first scale, canvas buckets of ``--batch`` images through
+config's first scale without flips (``--tta``: the val config as it is, each
+of its ``img_expected_sizes`` and, with a ``flip_ratio``, each flipped too,
+every augmentation bucketed at its size rounded up to 128 and the
+augmentations' detections fused by class-wise NMS in the original frame,
+masks by their source detection), canvas buckets of ``--batch`` images through
 ``make_inference_fn``, detections in the original frame, ``eval_coco_map``'s
 12 metrics (``--voc-metric``: VOC2007's 11-point AP at IoU 0.5, difficult
 objects ignored), and with ``--out`` the detections (``.json``: COCO results
@@ -13,8 +17,8 @@ families) loads the val split's gt masks, adds the 12 mask metrics
 (``segm_*``) and with a ``.json`` ``--out`` writes ``<out>.segm.json``, the
 masks as COCO RLE. CKPT is a checkpoint directory of the port or a torch
 ``.pth`` (``torch://``; with ``backbone.`` keys a whole mmdetection
-detector). Runs on ``cuda`` unless ``--device cpu``. ``--tta`` is not
-ported yet and raises ``NotImplementedError``.
+detector). Runs on ``cuda`` unless ``--device cpu``. ``--shard-eval``
+waits for multi-GPU evaluation and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,12 +48,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     parser.add_argument("--max-images", type=int, default=None)
     parser.add_argument("--voc-metric", action="store_true", help="VOC AP@0.5 instead of COCO mAP")
     parser.add_argument("--segm", action="store_true", help="mask-IoU COCO metrics too")
+    parser.add_argument("--shard-eval", action="store_true",
+                        help="shard eval batches over the devices (not ported: one GPU)")
     parser.add_argument("--out", default=None,
                         help="dump detections: .json = COCO results format, .pkl = per-image dicts")
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
-    if args.tta:
-        raise NotImplementedError("--tta is not ported yet")
+    if args.shard_eval:
+        raise NotImplementedError("--shard-eval waits for multi-GPU evaluation")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     cfg = Config.fromfile(args.config)
@@ -60,17 +66,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     load_checkpoint(model, args.checkpoint)
 
     val_cfg = dict(cfg["data"]["val"])
-    sizes = val_cfg.get("img_expected_sizes")
-    if isinstance(sizes, list):  # single-scale evaluation: the first size
-        val_cfg["img_expected_sizes"] = sizes[0]
-    val_cfg["flip_ratio"] = 0
+    if not args.tta:
+        sizes = val_cfg.get("img_expected_sizes")
+        if isinstance(sizes, list):  # single-scale evaluation: the first size
+            val_cfg["img_expected_sizes"] = sizes[0]
+        val_cfg["flip_ratio"] = 0
     if args.segm:
         val_cfg["with_mask"] = True  # the gt masks of the mask-IoU metrics
     dataset = get_datasets(val_cfg)
     canvas = tuple(cfg["data"].get("canvas") or (800, 1344))
     results = evaluate_detector(
         model, det_cfg, dataset, batch=args.batch, canvas=canvas, max_images=args.max_images,
-        return_detections=bool(args.out), segm=args.segm, voc_metric=args.voc_metric,
+        tta=args.tta, return_detections=bool(args.out), segm=args.segm, voc_metric=args.voc_metric,
     )
     if args.out:
         results, detections = results
