@@ -216,7 +216,22 @@ Phases, each fatal on failure:
    the matcher, finite losses and positives in every step, the losses and
    ``num_pos`` of the 10 steps, ms a step, images/s, peak memory, one
    profiled step and a stage breakdown;
-32. multi-scale and flip evaluation: ``tools.test --tta --segm`` on phase
+32. FoveaBox, FreeAnchor and PAA R50-FPN (configs/foveabox_r50_fpn_coco.py,
+   free_anchor_r50_fpn_coco.py and paa_r50_fpn_coco.py, unchanged; FoveaBox
+   the GN towers without ``scales`` or centerness, FreeAnchor RetinaNet's
+   graph, PAA ATSS's) through the same three phases as phase 31, after
+   GFL's: served b4 (PAA's breakdown splits the NMS from the score voting),
+   checked against the CPU in float32 (FoveaBox's labels exactly and its
+   log-space targets within one ulp; FreeAnchor's bags on the GPU's IoUs
+   exactly; PAA's MaxIoU assignment exactly, then on the GPU's candidate
+   losses the slates exactly, the EM's means, variances and weights to
+   1e-5 and the positives exactly except where a responsibility lies
+   within 1e-6 of 0.5, and the score voting on equal inputs to 1e-3 px),
+   and trained b8 (FreeAnchor's breakdown times the IoU and bag top-k, the
+   negative and the positive term; PAA's the MaxIoU assignment, the
+   candidate scores, the slates, the EM and the split); K1, K2 and the
+   matcher never launched on the six paths;
+33. multi-scale and flip evaluation: ``tools.test --tta --segm`` on phase
    27's ``epoch_2`` with a config whose val data has two
    ``img_expected_sizes`` (1333 x 800 and 1000 x 600) and flips, four
    augmentations an image, each bucketed at its size rounded up to 128 (K1
@@ -312,8 +327,32 @@ from torch_detection_tpu_torch.models.detectors.fcos import (
     fcos_loss,
     fcos_targets,
     flat_points,
+    flatten_outputs,
+)
+from torch_detection_tpu_torch.models.detectors.foveabox import (
+    flat_geometry,
+    fovea_candidates,
+    fovea_loss,
+    fovea_targets,
+)
+from torch_detection_tpu_torch.models.detectors.free_anchor import (
+    flat_inputs,
+    free_anchor_loss,
+    negative_term,
+    positive_term,
 )
 from torch_detection_tpu_torch.models.detectors.gfl import gfl_candidates, gfl_loss
+from torch_detection_tpu_torch.models.detectors.paa import (
+    candidate_losses,
+    candidate_slates,
+    initial_assignment,
+    paa_candidates,
+    paa_loss,
+    paa_reassign,
+    scatter_positives,
+    score_voting,
+    separate,
+)
 from torch_detection_tpu_torch.models.detectors.mask_rcnn import mask_frame, sample_mask_rois
 from torch_detection_tpu_torch.models.detectors.sparse_rcnn import (
     match,
@@ -344,7 +383,8 @@ from torch_detection_tpu_torch.models.torch_import import (
 from torch_detection_tpu_torch.ops import hungarian
 from torch_detection_tpu_torch.ops import nms as nms_ops
 from torch_detection_tpu_torch.ops import roi_align
-from torch_detection_tpu_torch.ops.boxes import clip_boxes, delta2bbox
+from torch_detection_tpu_torch.ops.boxes import bbox_overlaps, clip_boxes, delta2bbox
+from torch_detection_tpu_torch.ops.gmm import gmm_em_1d
 from torch_detection_tpu_torch.ops.losses import sigmoid_focal_loss_sparse, smooth_l1_loss
 from torch_detection_tpu_torch.ops.preprocess import (
     fused_normalize_pad,
@@ -4468,16 +4508,33 @@ def phase_cli_fast(card: str, checkpoint: Path) -> dict:
 FCOS_CONFIG = ROOT / "configs" / "fcos_r50_fpn_coco.py"
 ATSS_CONFIG = ROOT / "configs" / "atss_r50_fpn_coco.py"
 GFL_CONFIG = ROOT / "configs" / "gfl_r50_fpn_coco.py"
-DENSE = (("fcos", FCOS_CONFIG), ("atss", ATSS_CONFIG), ("gfl", GFL_CONFIG))
+FOVEA_CONFIG = ROOT / "configs" / "foveabox_r50_fpn_coco.py"
+FREE_ANCHOR_CONFIG = ROOT / "configs" / "free_anchor_r50_fpn_coco.py"
+PAA_CONFIG = ROOT / "configs" / "paa_r50_fpn_coco.py"
+DENSE = (("fcos", FCOS_CONFIG), ("atss", ATSS_CONFIG), ("gfl", GFL_CONFIG),
+         ("fovea", FOVEA_CONFIG), ("free_anchor", FREE_ANCHOR_CONFIG), ("paa", PAA_CONFIG))
 DENSE_LOSS_KEYS = {"fcos": ("loss", "loss_cls", "loss_reg", "loss_centerness"),
                    "atss": ("loss", "loss_cls", "loss_reg", "loss_centerness"),
-                   "gfl": ("loss", "loss_qfl", "loss_giou", "loss_dfl")}
-DENSE_CANDIDATES = {"fcos": fcos_candidates, "atss": atss_candidates, "gfl": gfl_candidates}
+                   "gfl": ("loss", "loss_qfl", "loss_giou", "loss_dfl"),
+                   "fovea": ("loss", "loss_cls", "loss_reg"),
+                   "free_anchor": ("loss", "loss_pos", "loss_neg"),
+                   "paa": ("loss", "loss_cls", "loss_reg", "loss_iou")}
+
+
+def retina_candidates(det_cfg, cls_scores, bbox_preds, img_shape):
+    """FreeAnchor's serving candidates: RetinaNet's preselection and decode."""
+    return decode_candidates(det_cfg, preselect(det_cfg, cls_scores, bbox_preds), img_shape)
+
+
+DENSE_CANDIDATES = {"fcos": fcos_candidates, "atss": atss_candidates, "gfl": gfl_candidates,
+                    "fovea": fovea_candidates, "free_anchor": retina_candidates,
+                    "paa": paa_candidates}
 TTA_SIZES = ((1333, 800), (1000, 600))  # two of COCO's test scales, each flipped too
 
 
 def load_dense(config: Path, dtype: str, device):
-    """An FCOS, ATSS or GFL build with ``cls_out``'s bias at 0, as
+    """A single-stage build (FCOS, ATSS, GFL, FoveaBox, FreeAnchor, PAA)
+    with ``cls_out``'s bias at 0, as
     ``load_retina``: the focal prior would put every score under
     ``score_thr`` on random weights."""
     model, det_cfg = load_model(dtype, device, config)
@@ -4498,17 +4555,21 @@ def dense_stage_breakdown(name: str, model, det_cfg, wire, shapes, card: str,
                 wire, shapes, out_dtype=torch.bfloat16))
             feats = stage("backbone (folded stem, R50)", lambda: model.backbone(x))
             levels = stage("fpn", lambda: model.neck(feats))
-            outs = stage(f"{name} head (GN towers)", lambda: model.head(levels))
+            outs = stage(f"{name} head" + ("" if name == "free_anchor" else " (GN towers)"),
+                         lambda: model.head(levels))
             scores, boxes = stage("preselect, sigmoid, decode, clip", lambda: DENSE_CANDIDATES[name](
                 det_cfg, *outs, shapes))
-            stage("multiclass NMS", lambda: dense_nms(det_cfg, scores, boxes))
+            dets = stage("multiclass NMS", lambda: dense_nms(det_cfg, scores, boxes))
+            if name == "paa":
+                stage("score voting", lambda: score_voting(det_cfg, dets, boxes, scores))
     log_breakdown(f"{name} stage breakdown, median of {repeats} batches", times, card)
 
 
 def phase_dense_serving(card: str, name: str, config: Path, seed: int) -> dict:
-    """Full-width FCOS, ATSS or GFL R50-FPN, bf16, b4 on the 800 x 1216 s2d
-    wire through ``fused_normalize_pad_s2d`` and ``make_inference_fn``;
-    K1, K2 and the matcher counted (none expected)."""
+    """Full-width FCOS, ATSS, GFL, FoveaBox, FreeAnchor or PAA R50-FPN,
+    bf16, b4 on the 800 x 1216 s2d wire through ``fused_normalize_pad_s2d``
+    and ``make_inference_fn``; K1, K2 and the matcher counted (none
+    expected)."""
     model, det_cfg = load_dense(config, "bfloat16", "cuda")
     infer = make_inference_fn(model, det_cfg)
     h, w = CANVAS
@@ -4533,19 +4594,71 @@ def phase_dense_serving(card: str, name: str, config: Path, seed: int) -> dict:
     return dict(launches=launches, ms_per_batch=mean_ms, profile=profile, peak_gib=peak)
 
 
+def dense_loss_stages(name: str, det_cfg, outs, batch):
+    """The (label, fn) parts of the family's loss that the training
+    breakdown times on their own, each without autograd: the targets of
+    FCOS, ATSS, GFL and FoveaBox; FreeAnchor's IoU and bag top-k, its
+    negative and its positive term; PAA's MaxIoU assignment, candidate
+    scores and the three parts of its reassignment (the EM alone)."""
+    gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    if name == "free_anchor":
+        flat = flat_inputs(det_cfg, *outs, batch["gt_boxes"], batch["gt_labels"])
+        anchors, _, _, boxes, _ = flat
+        held = {}
+
+        def bags():
+            held["bags"] = nms_ops.top_k_stable(bbox_overlaps(boxes, anchors),
+                                                det_cfg.pre_anchor_topk)[1]
+
+        return [("IoU and bag top-k", bags),
+                ("negative term (forward)", lambda: negative_term(det_cfg, *flat, gts[2])),
+                ("positive term (forward)", lambda: positive_term(det_cfg, *flat, gts[2],
+                                                                  held["bags"]))]
+    if name == "paa":
+        held = {}
+        sizes = [tuple(c.shape[1:3]) for c in outs[0]]
+        anchors = det_cfg.anchor_generator.flat_anchors(sizes, batch["image"].device)
+        counts = level_counts(det_cfg.anchor_generator, sizes)
+        fc, fr, _ = flatten_outputs(det_cfg.num_classes, *outs)
+
+        def assign():
+            held["assign"] = initial_assignment(det_cfg, anchors, *gts, batch["img_shape"])
+
+        def scores():
+            _, matched, label0 = held["assign"]
+            held["loss"] = candidate_losses(det_cfg, anchors, fc, fr, matched, label0)
+
+        def slates():
+            held["slates"] = candidate_slates(det_cfg, held["loss"], held["assign"][0], gts[2],
+                                              counts)
+
+        def em():
+            held["gmm"] = gmm_em_1d(held["slates"].loss, held["slates"].valid,
+                                    n_iter=det_cfg.gmm_iters)
+
+        return [("MaxIoU assignment", assign), ("candidate scores", scores),
+                ("reassignment: slates (top-k, sort)", slates),
+                (f"reassignment: EM ({det_cfg.gmm_iters} iterations)", em),
+                ("reassignment: split, scatter", lambda: scatter_positives(
+                    held["slates"], separate(held["slates"], held["gmm"]), anchors.shape[0]))]
+    return [("targets (assignment)", lambda: dense_targets(name, det_cfg, outs, *gts,
+                                                           batch["img_shape"]))]
+
+
 def dense_train_stage_breakdown(name: str, model, det_cfg, optimizer, batch, card: str,
                                 repeats: int = 5) -> None:
-    """A training step stage by stage: the forward, the targets, the whole
-    loss (targets included), the backward and the optimizer; the median
-    host ms of each over ``repeats`` steps."""
+    """A training step stage by stage: the forward, the parts of the loss
+    (``dense_loss_stages``), the whole loss (its parts included), the
+    backward and the optimizer; the median host ms of each over
+    ``repeats`` steps."""
     times = {}
     stage = stage_timer(times)
-    gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
     for _ in range(repeats):
         optimizer.zero_grad()
         outs = stage("backbone+fpn+head", lambda: model(batch["image"]))
-        stage("targets (assignment)", lambda: dense_targets(name, det_cfg, outs, *gts,
-                                                            batch["img_shape"]))
+        with torch.no_grad():
+            for label, fn in dense_loss_stages(name, det_cfg, outs, batch):
+                stage(label, fn)
         loss, _ = stage("targets + losses", lambda: dense_losses(name, det_cfg, outs, batch))
         stage("backward", loss.backward)
         stage("grad norm, clip, SGD", lambda: optimizer.apply(optimizer.global_norm()))
@@ -4560,30 +4673,52 @@ def dense_losses(name: str, det_cfg, outs, batch):
         out = fcos_loss(det_cfg, *outs, *gts)
     elif name == "atss":
         out = atss_loss(det_cfg, *outs, *gts, img_shapes=batch["img_shape"])
-    else:
+    elif name == "gfl":
         out = gfl_loss(det_cfg, *outs, *gts, img_shapes=batch["img_shape"])
+    elif name == "fovea":
+        out = fovea_loss(det_cfg, *outs, *gts)
+    elif name == "free_anchor":
+        out = free_anchor_loss(det_cfg, *outs, *gts)
+    else:
+        out = paa_loss(det_cfg, *outs, *gts, img_shapes=batch["img_shape"])
     return out["loss"], out
 
 
-def dense_targets(name: str, det_cfg, outs, gt_boxes, gt_labels, gt_valid, img_shape):
-    """The family's per-anchor targets: FCOS's (label, ltrb, centerness),
-    ATSS's (label, matched gt, centerness), GFL's (label, matched gt)."""
+def dense_targets(name: str, det_cfg, outs, gt_boxes, gt_labels, gt_valid, img_shape) -> dict:
+    """The family's per-anchor targets by name, those that a rounding of
+    a square root or a log may move by one float32 ulp marked so: FCOS's
+    labels, ltrb and centerness; ATSS's labels, matched gts and centerness;
+    GFL's labels and matched gts; FoveaBox's labels and log-space targets;
+    PAA's MaxIoU assignment, matched gts and labels (the candidate pools);
+    FreeAnchor's bags of the top-k anchors by IoU."""
     sizes = [tuple(c.shape[1:3]) for c in outs[0]]
     device = gt_boxes.device
+    gts = (gt_boxes, gt_labels, gt_valid)
     if name == "fcos":
         points, ranges = flat_points(det_cfg, sizes, device)
-        return fcos_targets(det_cfg, points, ranges, gt_boxes, gt_labels, gt_valid)
+        return dict(zip(("labels", "ltrb distances", "centerness (one ulp)"),
+                        fcos_targets(det_cfg, points, ranges, *gts)))
+    if name == "fovea":
+        return dict(zip(("labels", "log-space targets (one ulp)"),
+                        fovea_targets(det_cfg, *flat_geometry(det_cfg, sizes, device), *gts)))
     anchors = det_cfg.anchor_generator.flat_anchors(sizes, device)
+    if name == "free_anchor":
+        return {"bags": nms_ops.top_k_stable(bbox_overlaps(gt_boxes.float(), anchors),
+                                             det_cfg.pre_anchor_topk)[1]}
+    if name == "paa":
+        return dict(zip(("MaxIoU assigned gts", "matched boxes", "labels"),
+                        initial_assignment(det_cfg, anchors, *gts, img_shape)))
     counts = level_counts(det_cfg.anchor_generator, sizes)
     if name == "atss":
-        return atss_targets(det_cfg, anchors, counts, gt_boxes, gt_labels, gt_valid, img_shape)
-    return assign_and_match(det_cfg.assigner, anchors, counts, gt_boxes, gt_labels, gt_valid,
-                            img_shape)
+        return dict(zip(("labels", "matched boxes", "centerness (one ulp)"),
+                        atss_targets(det_cfg, anchors, counts, *gts, img_shape)))
+    return dict(zip(("labels", "matched boxes"),
+                    assign_and_match(det_cfg.assigner, anchors, counts, *gts, img_shape)))
 
 
 def phase_dense_train(card: str, name: str, config: Path, seed: int) -> dict:
-    """Full-width FCOS, ATSS or GFL R50-FPN training, float32 parameters and
-    bf16 compute, b8 (the configs' ``sample_per_replica``) on the 800 x 1216
+    """Full-width FCOS, ATSS, GFL, FoveaBox, FreeAnchor or PAA R50-FPN
+    training, float32 parameters and bf16 compute, b8 (the configs' ``sample_per_replica``) on the 800 x 1216
     canvas of the two-stage cells with their gts, SGD with clip 35, through
     ``build_train_objects``, ``build_loss_fn`` and ``Trainer.run``; K1, K2
     and the matcher counted (none expected)."""
@@ -4618,7 +4753,8 @@ def phase_dense_train(card: str, name: str, config: Path, seed: int) -> dict:
     still = [n for n, p in model.named_parameters() if p.requires_grad and torch.equal(p, before[n])]
     moved = [n for n, p in model.named_parameters()
              if not p.requires_grad and not torch.equal(p, before[n])]
-    if still or moved or not any(n.startswith("head.cls_tower0.norm.") for n in before):
+    tower = "head.cls_conv0." if name == "free_anchor" else "head.cls_tower0.norm."
+    if still or moved or not any(n.startswith(tower) for n in before):
         raise AssertionError(f"{name}: trainable parameters that did not move {still}; frozen "
                              f"ones that moved {moved}")
     b = RETINA_TRAIN_BATCH
@@ -4652,12 +4788,62 @@ def dense_reference_batch() -> dict:
     )
 
 
+def paa_reference_checks(det_cfg, outs_g, on_gpu, check) -> tuple:
+    """PAA's reassignment on equal inputs: the GPU's candidate losses and
+    MaxIoU assignment fed to both devices. The slates must agree exactly,
+    the GMM's means, variances and weights to 1e-5 of max(1, |want|), and
+    the positives exactly, except where a responsibility lies within 1e-6
+    of 0.5 (such flips are counted and reported). Returns the positives'
+    count and the counts of slates and flips, as text."""
+    sizes = [tuple(c.shape[1:3]) for c in outs_g[0]]
+    anchors = det_cfg.anchor_generator.flat_anchors(sizes, "cuda")
+    counts = level_counts(det_cfg.anchor_generator, sizes)
+    fc, fr, _ = flatten_outputs(det_cfg.num_classes, *outs_g)
+    gts = tuple(on_gpu[k] for k in ("gt_boxes", "gt_labels", "gt_valid"))
+    assigned, matched, label0 = initial_assignment(det_cfg, anchors, *gts, on_gpu["img_shape"])
+    loss = candidate_losses(det_cfg, anchors, fc, fr, matched, label0)
+    sl_g = candidate_slates(det_cfg, loss, assigned, gts[2], counts)
+    sl_c = candidate_slates(det_cfg, loss.cpu(), assigned.cpu(), gts[2].cpu(), counts)
+    for field in ("loss", "index", "valid"):
+        check(f"slates on equal inputs, {field} mismatches",
+              float((getattr(sl_g, field).cpu() != getattr(sl_c, field)).sum()), 0)
+    res_g = gmm_em_1d(sl_g.loss, sl_g.valid, n_iter=det_cfg.gmm_iters)
+    res_c = gmm_em_1d(sl_c.loss, sl_c.valid, n_iter=det_cfg.gmm_iters)
+    live = sl_c.valid.any(-1)  # the gts with candidates
+    for field in ("means", "variances", "weights"):
+        g, c = getattr(res_g, field).cpu()[live], getattr(res_c, field)[live]
+        check(f"GMM {field}", float(((g - c).abs() / c.abs().clamp_min(1.0)).max()), 1e-5)
+    def low_component(res, slates):
+        lo = res.means.argmin(-1)
+        r = torch.gather(res.resp, -1, lo[..., None, None].expand(*res.resp.shape[:-1], 1))[..., 0]
+        return r, (r >= 0.5) & slates.valid
+
+    r_c, comp_c = low_component(res_c, sl_c)
+    comp_g = low_component(res_g, sl_g)[1].cpu()
+    flips = comp_g != comp_c
+    near = (r_c - 0.5).abs() <= 1e-6
+    check("component flips where the responsibility is not within 1e-6 of 0.5",
+          float((flips & ~near).sum()), 0)
+    agree = ~flips.any(-1, keepdim=True)  # the slates whose components agree
+    check("positives mismatches in those slates",
+          float(((separate(sl_g, res_g).cpu() != separate(sl_c, res_c)) & agree).sum()), 0)
+    got = paa_reassign(det_cfg, loss, assigned, gts[2], counts).cpu()
+    want = paa_reassign(det_cfg, loss.cpu(), assigned.cpu(), gts[2].cpu(), counts)
+    if not bool(flips.any()):
+        check("reassignment on equal inputs mismatches", float((got != want).sum()), 0)
+    return (f"{int((got > 0).sum())} positives of {int((assigned > 0).sum())} candidates",
+            f"{int(live.sum())} slates, {int(flips.sum())} component flips within 1e-6 of 0.5")
+
+
 def phase_dense_reference() -> None:
-    """FCOS, ATSS and GFL in float32 on the GPU and on the CPU, stage by
-    stage on a small canvas, each GPU stage fed to its CPU counterpart: the
-    FPN levels, GroupNorm alone, the head, the targets, the candidates, the
-    NMS on equal inputs, the losses on equal inputs, and every parameter's
-    gradient through the whole model."""
+    """FCOS, ATSS, GFL, FoveaBox, FreeAnchor and PAA in float32 on the GPU
+    and on the CPU, stage by stage on a small canvas, each GPU stage fed to
+    its CPU counterpart: the FPN levels, GroupNorm alone, the head, the
+    targets (FreeAnchor's bags on the GPU's IoUs; PAA's MaxIoU assignment,
+    then its reassignment and EM on the GPU's candidate losses), the
+    candidates, the NMS on equal inputs (and PAA's score voting), the
+    losses on equal inputs, and every parameter's gradient through the
+    whole model."""
     batch = dense_reference_batch()
     on_gpu = {k: v.cuda() for k, v in batch.items()}
     for name, config in DENSE:
@@ -4675,23 +4861,41 @@ def phase_dense_reference() -> None:
             lg, lc = gpu.neck(gpu.backbone(xg)), cpu.neck(cpu.backbone(xc))
             check("fpn levels", max(rel_err(g, c) for g, c in zip(lg, lc)), 1e-3)
             lh = [f.cpu() for f in lg]
-            conv_g = gpu.head.cls_tower0.conv(lg[0].permute(0, 3, 1, 2))
-            check("GroupNorm", rel_err(gpu.head.cls_tower0.norm(conv_g),
-                                       cpu.head.cls_tower0.norm(conv_g.cpu())), 1e-4)
+            if name != "free_anchor":  # RetinaHead's towers have no norm
+                conv_g = gpu.head.cls_tower0.conv(lg[0].permute(0, 3, 1, 2))
+                check("GroupNorm", rel_err(gpu.head.cls_tower0.norm(conv_g),
+                                           cpu.head.cls_tower0.norm(conv_g.cpu())), 1e-4)
             outs_g, outs_c = gpu.head(lg), cpu.head(lh)
             check("head outputs", max(rel_err(g, c) for og, oc in zip(outs_g, outs_c)
                                       for g, c in zip(og, oc)), 1e-4)
             outs_h = tuple(tuple(t.cpu() for t in o) for o in outs_g)
             gts = ("gt_boxes", "gt_labels", "gt_valid")
             tg = dense_targets(name, det_cfg, outs_g, *(on_gpu[k] for k in gts), on_gpu["img_shape"])
-            tc = dense_targets(name, det_cfg, outs_h, *(batch[k] for k in gts), batch["img_shape"])
-            check("target labels mismatches", float((tg[0].cpu() != tc[0]).sum()), 0)
-            check("target boxes or distances mismatches", float((tg[1].cpu() != tc[1]).sum()), 0)
-            if len(tg) == 3:  # a square root: one float32 ulp apart at most
-                ulp = torch.finfo(torch.float32).eps * tc[2].abs().clamp_min(1e-30)
-                check("centerness targets beyond one ulp",
-                      float(((tg[2].cpu() - tc[2]).abs() > ulp).sum()), 0)
-            positives = int((tc[0] >= 0).sum())
+            if name == "free_anchor":  # the bags on equal IoUs
+                sizes = [tuple(c.shape[1:3]) for c in outs_g[0]]
+                iou = bbox_overlaps(on_gpu["gt_boxes"],
+                                    det_cfg.anchor_generator.flat_anchors(sizes, "cuda"))
+                tc = {"bags on the GPU's IoUs": nms_ops.top_k_stable(iou.cpu(),
+                                                                     det_cfg.pre_anchor_topk)[1]}
+                tg = {"bags on the GPU's IoUs": tg["bags"]}
+            else:
+                tc = dense_targets(name, det_cfg, outs_h, *(batch[k] for k in gts),
+                                   batch["img_shape"])
+            for what, t in tc.items():
+                g = tg[what].cpu()
+                if what.endswith(" (one ulp)"):  # a square root or a log
+                    ulp = torch.finfo(torch.float32).eps * t.abs().clamp_min(1e-30)
+                    check(f"{what[:-len(' (one ulp)')]} beyond one ulp",
+                          float(((g - t).abs() > ulp).sum()), 0)
+                else:
+                    check(f"{what} mismatches", float((g != t).sum()), 0)
+            extra = ""
+            if name == "free_anchor":
+                positives = f"{int(batch['gt_valid'].sum()) * det_cfg.pre_anchor_topk} bag members"
+            elif name == "paa":
+                positives, extra = paa_reference_checks(det_cfg, outs_g, on_gpu, check)
+            else:
+                positives = f"{int((tc['labels'] >= 0).sum())} positives"
             sg, bg = DENSE_CANDIDATES[name](det_cfg, *outs_g, on_gpu["img_shape"])
             sc, bc = DENSE_CANDIDATES[name](det_cfg, *outs_h, batch["img_shape"])
             check("candidate scores", float((sg.cpu() - sc).abs().max()), 1e-6)
@@ -4704,6 +4908,12 @@ def phase_dense_reference() -> None:
                       float((getattr(ng, field).cpu() != getattr(nc, field)).sum()), 0)
             if not bool(nc.valid.any(dim=1).all()):
                 raise AssertionError(f"{name}: no detection in the reference batch")
+            if name == "paa":
+                vg = score_voting(det_cfg, ng, bg, sg)
+                vc = score_voting(det_cfg, nc, bg.cpu(), sg.cpu())
+                check("voted boxes on equal inputs (px)", float((vg.cpu() - vc).abs().max()), 1e-3)
+                moved = int(((vg != ng.boxes).any(-1) & ng.valid).sum())
+                extra += f", the voting moved {moved} of {int(ng.valid.sum())} boxes"
         with torch.no_grad():
             _, lossg = dense_losses(name, det_cfg, outs_g, on_gpu)
             _, lossc = dense_losses(name, det_cfg, outs_h, batch)
@@ -4723,8 +4933,9 @@ def phase_dense_reference() -> None:
                 zip(gpu.named_parameters(), cpu.named_parameters()) if g.requires_grad}
         worst = max(errs, key=errs.get)
         check(f"gradients' relative norm of the difference (worst at {worst})", errs[worst], 1e-2)
-        log(f"{name} reference check, GPU vs CPU float32 ({positives} positives, "
-            f"{nc.valid.sum(1).tolist()} detections, {len(errs)} gradients): " + "; ".join(checks))
+        log(f"{name} reference check, GPU vs CPU float32 ({positives}, "
+            f"{nc.valid.sum(1).tolist()} detections, {len(errs)} gradients"
+            + (f"; {extra}" if extra else "") + "): " + "; ".join(checks))
         del gpu, cpu
 
 

@@ -43,7 +43,7 @@ def test_detection_cfg_matches_reference():
 @pytest.mark.parametrize(
     "det_cfg,match",
     [
-        (dict(style="paa"), "style"),  # PAA: a later slice
+        (dict(style="ssd"), "style"),  # SSD: a later slice
         (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
         (dict(style="fast_rcnn", anchor=dict(strides=(4,))), "anchor"),  # Fast R-CNN has none
     ],
@@ -99,27 +99,43 @@ _FAMILIES = {
     "sparse_rcnn": ("sparse_rcnn_train_loss", "sparse_rcnn_inference", None),
     "detr": ("detr_train_loss", "detr_inference", None),
 }
+# the single-stage styles; FreeAnchorConfig subclasses RetinaNetConfig, so a
+# dispatch that tested RetinaNet first would train it on retina_loss
+_DENSE_FAMILIES = {
+    "retina": ("retina_loss", "retina_inference", None),
+    "fcos": ("fcos_loss", "fcos_inference", None),
+    "atss": ("atss_loss", "atss_inference", None),
+    "gfl": ("gfl_loss", "gfl_inference", None),
+    "fovea": ("fovea_loss", "fovea_inference", None),
+    "free_anchor": ("free_anchor_loss", "retina_inference", None),
+    "paa": ("paa_loss", "paa_inference", None),
+}
+
+
+def _record_dispatch(monkeypatch):
+    """Every loss and inference the dispatch can pick replaced by a
+    recorder of its name."""
+    from torch_detection_tpu_torch import builder
+    from torch_detection_tpu_torch.engine import validate
+
+    def recorder(name):
+        def record(*args, **kwargs):
+            return {"loss": torch.zeros(()), "called": name}
+        return record
+
+    families = {**_FAMILIES, **_DENSE_FAMILIES}
+    for name in {loss for loss, _, _ in families.values()}:
+        monkeypatch.setattr(builder, name, recorder(name))
+    for name in {f for _, box, mask in families.values() for f in (box, mask) if f}:
+        monkeypatch.setattr(validate, name, recorder(name))
+    return builder
 
 
 @pytest.mark.parametrize("style", _FAMILIES)
 def test_each_two_stage_style_reaches_its_own_loss_and_inference(style, monkeypatch):
     """Every loss and inference the dispatch can pick is replaced by a
     recorder of its name; each style's config must reach its own."""
-    from torch_detection_tpu_torch import builder
-    from torch_detection_tpu_torch.engine import validate
-
-    def recorder(name):
-        def record(*args):
-            return {"loss": torch.zeros(()), "called": name}
-        return record
-
-    losses = {loss for loss, _, _ in _FAMILIES.values()}
-    inferences = {f for _, box, mask in _FAMILIES.values() for f in (box, mask) if f}
-    for name in losses:
-        monkeypatch.setattr(builder, name, recorder(name))
-    for name in inferences:
-        monkeypatch.setattr(validate, name, recorder(name))
-
+    builder = _record_dispatch(monkeypatch)
     loss, box, mask = _FAMILIES[style]
     det_cfg = build_detection_cfg(dict(style=style))
     loss_fn = builder.build_loss_fn(torch.nn.Linear(1, 1), det_cfg)
@@ -131,3 +147,40 @@ def test_each_two_stage_style_reaches_its_own_loss_and_inference(style, monkeypa
             make_inference_fn(None, det_cfg, segm=True)
     else:
         assert make_inference_fn(None, det_cfg, segm=True)(*args)["called"] == mask
+
+
+@pytest.mark.parametrize("style", _DENSE_FAMILIES)
+def test_each_single_stage_style_reaches_its_own_loss_and_inference(style, monkeypatch):
+    """As the two-stage test, for the single-stage styles: the model's
+    outputs go to the style's own loss (FreeAnchor's, never RetinaNet's)
+    and its own inference (FreeAnchor's is RetinaNet's)."""
+    builder = _record_dispatch(monkeypatch)
+    loss, box, _ = _DENSE_FAMILIES[style]
+    det_cfg = build_detection_cfg(dict(style=style))
+    batch = {k: None for k in ("image", "gt_boxes", "gt_labels", "gt_valid", "img_shape")}
+    loss_fn = builder.build_loss_fn(lambda image: ((), ()), det_cfg)
+    assert loss_fn(batch)[1]["called"] == loss
+    assert make_inference_fn(None, det_cfg)(None, None, None)["called"] == box
+    with pytest.raises(ValueError, match="mask-capable"):
+        make_inference_fn(None, det_cfg, segm=True)
+
+
+def test_paa_assigner_drops_foreign_keys_and_refuses_what_is_not_ported():
+    """A PAA config's merged ``assigner`` keeps MaxIoUAssigner's fields, as
+    the reference's builder (``_base_`` the ATSS config leaves ``topk``);
+    ``gt_max_assign_all=True`` is the port's rule; ``ignore_iof_thr`` and
+    ``gt_max_assign_all=False`` raise by name, for PAA as for RetinaNet."""
+    merged = dict(topk=9, pos_iou_thr=0.1, neg_iou_thr=0.1, min_pos_iou=0.0)
+    got = build_detection_cfg(dict(style="paa", assigner=merged))
+    want = jax_builder.build_detection_cfg(dict(style="paa", assigner=merged))
+    for field in ("pos_iou_thr", "neg_iou_thr", "min_pos_iou"):
+        assert getattr(got.assigner, field) == getattr(want.assigner, field) == merged[field]
+    assert want.assigner.gt_max_assign_all
+    build_detection_cfg(dict(style="paa", assigner=dict(merged, gt_max_assign_all=True)))
+    for style in ("paa", "free_anchor"):
+        for extra, name in ((dict(ignore_iof_thr=0.5), "ignore_iof_thr"),
+                            (dict(gt_max_assign_all=False), "gt_max_assign_all")):
+            with pytest.raises(NotImplementedError, match=name):
+                build_detection_cfg(dict(style=style, assigner=dict(merged, **extra)))
+    with pytest.raises(TypeError, match="topk"):  # only PAA drops foreign keys
+        build_detection_cfg(dict(style="free_anchor", assigner=merged))

@@ -49,8 +49,8 @@ from torch_detection_tpu.models.detectors.fcos import _flat_points as jax_flat_p
 from torch_detection_tpu.models.detectors.fcos import fcos_targets as jax_fcos_targets
 from torch_detection_tpu.ops import losses as jax_losses
 from torch_detection_tpu.parallel import make_optimizer as jax_make_optimizer
-from torch_detection_tpu_torch.builder import build_detection_cfg, build_detector
-from torch_detection_tpu_torch.engine import detection_lr_schedule, make_inference_fn
+from torch_detection_tpu_torch.builder import build_detection_cfg, build_detector, build_loss_fn
+from torch_detection_tpu_torch.engine import Trainer, detection_lr_schedule, make_inference_fn
 from torch_detection_tpu_torch.models import from_jax_variables
 from torch_detection_tpu_torch.models.detectors import (
     FCOSConfig,
@@ -108,7 +108,8 @@ def batch_of(rng):
 
 def randomise(variables, rng):
     """FrozenBN's statistics, GroupNorm's affine parameters, the head's
-    biases and ``scales`` from ``rng``; ``cls_out``'s bias 0."""
+    biases (a RetinaHead tower conv's too) and ``scales`` from ``rng``;
+    ``cls_out``'s bias 0."""
     variables = _randomise_frozen_bn(dict(variables), rng)
     head = variables["params"]["head"]
     for name, module in head.items():
@@ -118,8 +119,9 @@ def randomise(variables, rng):
             module["norm"]["scale"] = rng.uniform(0.5, 1.5, module["norm"]["scale"].shape).astype(np.float32)
             module["norm"]["bias"] = rng.normal(0, 0.2, module["norm"]["bias"].shape).astype(np.float32)
         else:
-            module["bias"] = (np.zeros_like(module["bias"]) if name == "cls_out"
-                              else rng.normal(0, 0.1, module["bias"].shape).astype(np.float32))
+            leaf = module["conv"] if "conv" in module else module
+            leaf["bias"] = (np.zeros_like(leaf["bias"]) if name == "cls_out"
+                            else rng.normal(0, 0.1, leaf["bias"].shape).astype(np.float32))
     return variables
 
 
@@ -138,15 +140,15 @@ def torch_batch(batch):
     return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
 
 
-def dense_setup(head, jax_cfg, jax_loss, seed=0):
+def dense_setup(head, jax_cfg, jax_loss, seed=0, make_batch=batch_of):
     """Both detectors on the same randomised weights, and from one jit of
     the JAX side: the levels, the head outputs, the loss dict, every
     parameter's gradient and the gradient into the levels; then one SGD
     step by its optax chain. ``jax_loss(cfg, outs, batch)`` is the family's
-    loss dict."""
+    loss dict; ``make_batch(rng)`` the batch."""
     rng = np.random.default_rng(seed)
     jax_model = JaxSingleStageDetector(**TRUNK, head=head)
-    batch = batch_of(rng)
+    batch = make_batch(rng)
     variables = jax.jit(jax_model.init)(jax.random.PRNGKey(seed), batch["image"])
     variables = randomise(variables, rng)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -282,17 +284,28 @@ def check_config(name, style_cls, fields, sub=()):
     return got
 
 
-def check_full_width(name, head_cls):
+def check_full_width(name, head_cls, scales=True):
     """The committed config at full width on the CPU: every tensor of the
     JAX model's variables (``jax.eval_shape``, nothing compiled) loads with
-    ``strict=True``, GroupNorm's and ``scales`` among them; without a GPU
-    the default device raises."""
+    ``strict=True``, GroupNorm's and ``scales`` (where the head has them)
+    among them; without a GPU the default device raises."""
     cfg = Config.fromfile(CONFIGS / f"{name}_r50_fpn_coco.py")
     model = build_detector(cfg.model, "float32", device="cpu", seed=0)
     assert type(model.head).__name__ == head_cls
-    assert model.head.scales.shape == (5,) and model.head.scales.dtype == torch.float32
+    if scales:
+        assert model.head.scales.shape == (5,) and model.head.scales.dtype == torch.float32
+    else:
+        assert model.head.scales is None
     assert isinstance(model.head.cls_tower0.norm, GroupNorm)
     assert model.head.cls_tower0.norm.num_groups == 32 and model.head.cls_tower0.conv.bias is None
+    check_reference_tree(cfg, model)
+    return cfg, model
+
+
+def check_reference_tree(cfg, model):
+    """Every tensor of the JAX model's variables (``jax.eval_shape``,
+    nothing compiled) loads into ``model`` with ``strict=True``, and the
+    parameter counts agree."""
     jax_model = JaxSingleStageDetector(**{k: v for k, v in cfg.model.items() if k != "type"})
     shapes = jax.eval_shape(jax_model.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 64, 12), jnp.float32))
@@ -301,7 +314,34 @@ def check_full_width(name, head_cls):
     model.load_state_dict(state, strict=True)
     assert sum(p.numel() for p in model.parameters()) == sum(
         int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(shapes["params"]))
-    return cfg, model
+
+
+def check_trainer_step(model, det_cfg, batch, loss_keys):
+    """One step of ``build_loss_fn`` and ``Trainer`` on a copy of ``model``:
+    the family's losses finite, positives, every trainable parameter moved
+    and every frozen one kept."""
+    class Loader:
+        def set_epoch(self, epoch):
+            pass
+
+        def iter_batches(self, skip_batches=0):
+            return iter([torch_batch(batch)][skip_batches:])
+
+        def __len__(self):
+            return 1
+
+    model = copy.deepcopy(model).train()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    optimizer = make_optimizer(model.parameters(), detection_lr_schedule(LR, 100), MOMENTUM, WD,
+                               CLIP)
+    history = Trainer(build_loss_fn(model, det_cfg), model, optimizer, Loader(),
+                      log_interval=1).run(1)
+    assert len(history) == 1 and history[0]["skipped_steps"] == 0
+    assert set(loss_keys) <= set(history[0]) and history[0]["num_pos"] > 0
+    assert all(np.isfinite(history[0][k]) for k in loss_keys)
+    for name, p in model.named_parameters():
+        assert torch.equal(p.detach(), before[name]) != p.requires_grad, name
+    return history[0]
 
 
 # ---------------------------------------------------------------- shared pieces

@@ -4,7 +4,8 @@ training loader, and the optimizer with its learning-rate schedule.
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
 (the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
 ``cascade_mask_rcnn``, ``fast_rcnn``, ``sparse_rcnn``, ``detr``, ``fcos``,
-``atss`` and ``gfl`` styles; the other families arrive with their slices.
+``atss``, ``gfl``, ``fovea``, ``free_anchor`` and ``paa`` styles; the other
+families arrive with their slices.
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ from .models.detectors import (
     FasterRCNNConfig,
     FastRCNNConfig,
     FCOSConfig,
+    FoveaConfig,
+    FreeAnchorConfig,
     GFLConfig,
     MaskRCNNConfig,
+    PAAConfig,
     RetinaNetConfig,
     SparseRCNNConfig,
     atss_loss,
@@ -36,8 +40,11 @@ from .models.detectors import (
     fast_rcnn_loss,
     faster_rcnn_loss,
     fcos_loss,
+    fovea_loss,
+    free_anchor_loss,
     gfl_loss,
     mask_rcnn_loss,
+    paa_loss,
     retina_loss,
     sampling_noise,
     sparse_rcnn_train_loss,
@@ -71,6 +78,15 @@ _ATSS_KEYS = ("num_classes", "target_means", "target_stds", "focal_gamma", "foca
 _GFL_KEYS = ("num_classes", "reg_max", "qfl_beta", "qfl_weight", "dfl_weight", "giou_weight",
              "score_thr", "nms_iou_thr", "pre_select_per_level", "pre_nms_top_k",
              "max_detections")
+_FOVEA_KEYS = ("num_classes", "strides", "base_edges", "scale_ranges", "sigma", "focal_gamma",
+               "focal_alpha", "smooth_l1_beta", "reg_loss_weight", "score_thr", "nms_iou_thr",
+               "pre_select_per_level", "pre_nms_top_k", "max_detections")
+_FREE_ANCHOR_KEYS = _RETINA_KEYS + ("pre_anchor_topk", "bbox_thr", "bag_gamma", "bag_alpha",
+                                    "loc_loss_weight")
+_PAA_KEYS = ("num_classes", "target_means", "target_stds", "topk", "gmm_iters", "focal_gamma",
+             "focal_alpha", "reg_loss_weight", "iou_loss_weight", "score_thr", "nms_iou_thr",
+             "pre_select_per_level", "pre_nms_top_k", "max_detections", "score_voting",
+             "voting_sigma")
 # style -> (config class, its keys, the field the ``assigner`` key sets or None)
 _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS, None),
@@ -83,11 +99,20 @@ _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "detr": (DETRConfig, _DETR_KEYS, None),
            "fcos": (FCOSConfig, _FCOS_KEYS, None),
            "atss": (ATSSConfig, _ATSS_KEYS, "assigner"),
-           "gfl": (GFLConfig, _GFL_KEYS, "assigner")}
-# the assigner class of each config's assigner field (the R-CNNs' and RetinaNet's MaxIoUAssigner)
+           "gfl": (GFLConfig, _GFL_KEYS, "assigner"),
+           "fovea": (FoveaConfig, _FOVEA_KEYS, None),
+           "free_anchor": (FreeAnchorConfig, _FREE_ANCHOR_KEYS, "assigner"),
+           "paa": (PAAConfig, _PAA_KEYS, "assigner")}
+# the assigner class of each config's assigner field (the R-CNNs', RetinaNet's, FreeAnchor's
+# and PAA's MaxIoUAssigner)
 _ASSIGNERS = {ATSSConfig: ATSSAssigner, GFLConfig: ATSSAssigner}
+# the reference MaxIoUAssigner's fields; a PAA config keeps only these of its merged
+# ``assigner`` (``_base_`` the ATSS config leaves ATSS's ``topk`` in it)
+_MAX_IOU_FIELDS = ("pos_iou_thr", "neg_iou_thr", "min_pos_iou", "gt_max_assign_all",
+                   "ignore_iof_thr")
 DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig, SparseRCNNConfig,
-                        DETRConfig, FCOSConfig, ATSSConfig, GFLConfig]
+                        DETRConfig, FCOSConfig, ATSSConfig, GFLConfig, FoveaConfig,
+                        FreeAnchorConfig, PAAConfig]
 
 
 def _tuples(value):
@@ -127,12 +152,32 @@ def _build_anchor_generator(anchor: Dict[str, Any]) -> AnchorGenerator:
     )
 
 
+def _build_assigner(config_cls, assigner: Dict[str, Any]):
+    """The assigner of ``config_cls`` from its config dict. PAA's keeps the
+    MaxIoUAssigner fields of a merged dict and drops the rest, as the
+    reference; a MaxIoUAssigner's ``gt_max_assign_all=True`` is the port's
+    rule, while ``gt_max_assign_all=False`` and ``ignore_iof_thr`` (the
+    ignore-region rule) wait for a caller and raise by name."""
+    cls = _ASSIGNERS.get(config_cls, MaxIoUAssigner)
+    if cls is not MaxIoUAssigner:
+        return cls(**assigner)
+    if config_cls is PAAConfig:
+        assigner = {k: v for k, v in assigner.items() if k in _MAX_IOU_FIELDS}
+    if not assigner.pop("gt_max_assign_all", True):
+        raise NotImplementedError("assigner gt_max_assign_all=False is not ported yet")
+    if "ignore_iof_thr" in assigner:
+        raise NotImplementedError("assigner ignore_iof_thr (the ignore-region rule) is not "
+                                  "ported yet")
+    return cls(**assigner)
+
+
 def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     """The static detection config of a ``style='retina'`` (the default),
     ``'faster_rcnn'``, ``'mask_rcnn'``, ``'cascade_rcnn'``,
     ``'cascade_mask_rcnn'``, ``'fast_rcnn'``, ``'sparse_rcnn'``, ``'detr'``,
-    ``'fcos'``, ``'atss'`` or ``'gfl'`` config. RetinaNet's ``assigner`` is
-    its ``MaxIoUAssigner``, Fast R-CNN's its ``rcnn_assigner``, ATSS's and
+    ``'fcos'``, ``'atss'``, ``'gfl'``, ``'fovea'``, ``'free_anchor'`` or
+    ``'paa'`` config. RetinaNet's, FreeAnchor's and PAA's ``assigner`` is
+    their ``MaxIoUAssigner``, Fast R-CNN's its ``rcnn_assigner``, ATSS's and
     GFL's their ``ATSSAssigner``. Keys the port does not read yet raise
     instead of being dropped."""
     cfg = dict(det_cfg)
@@ -145,7 +190,7 @@ def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     if anchor:
         kwargs["anchor_generator"] = _build_anchor_generator(dict(anchor))
     if assigner_field and "assigner" in cfg:
-        kwargs[assigner_field] = _ASSIGNERS.get(config_cls, MaxIoUAssigner)(**cfg.pop("assigner"))
+        kwargs[assigner_field] = _build_assigner(config_cls, dict(cfg.pop("assigner")))
     for key in keys:
         if key in cfg:
             kwargs[key] = _tuples(cfg.pop(key))
@@ -164,9 +209,11 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     a ``FastRCNNConfig``'s batch carries ``proposals`` and
     ``proposal_valid``. RetinaNet, Sparse R-CNN and DETR draw nothing;
     Sparse R-CNN's and DETR's forward and loss take the batch's
-    ``img_shape``, as ATSS's and GFL's losses do (FCOS's does not). The
-    set-prediction and dense configs are tested first: no R-CNN config
-    class is their base."""
+    ``img_shape``, as ATSS's, GFL's and PAA's losses do (FCOS's, FoveaBox's
+    and FreeAnchor's do not). The set-prediction and dense configs are
+    tested first: no R-CNN config class is their base, and
+    ``FreeAnchorConfig``, a ``RetinaNetConfig``, is a dense config tested
+    before RetinaNet's."""
     if isinstance(det_cfg, DETRConfig):
         def detr_loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
             losses = detr_train_loss(det_cfg, model, batch)
@@ -206,10 +253,19 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
 
 
 def _dense_loss(det_cfg) -> Optional[Callable]:
-    """``loss(head_outputs, batch)`` of the FCOS, ATSS and GFL configs, as
-    the reference's: ATSS's and GFL's take the batch's ``img_shape`` (the
-    valid anchors), FCOS's does not; None for another config."""
+    """``loss(head_outputs, batch)`` of the FCOS, ATSS, GFL, FoveaBox,
+    FreeAnchor and PAA configs, as the reference's: ATSS's, GFL's and PAA's
+    take the batch's ``img_shape`` (the valid anchors), the others do not;
+    None for another config. ``FreeAnchorConfig`` subclasses
+    ``RetinaNetConfig``, whose loss ``build_loss_fn`` tests after this."""
     gts = ("gt_boxes", "gt_labels", "gt_valid")
+    if isinstance(det_cfg, FreeAnchorConfig):
+        return lambda out, batch: free_anchor_loss(det_cfg, *out, *(batch[k] for k in gts))
+    if isinstance(det_cfg, PAAConfig):
+        return lambda out, batch: paa_loss(det_cfg, *out, *(batch[k] for k in gts),
+                                           img_shapes=batch.get("img_shape"))
+    if isinstance(det_cfg, FoveaConfig):
+        return lambda out, batch: fovea_loss(det_cfg, *out, *(batch[k] for k in gts))
     if isinstance(det_cfg, GFLConfig):
         return lambda out, batch: gfl_loss(det_cfg, *out, *(batch[k] for k in gts),
                                            img_shapes=batch.get("img_shape"))

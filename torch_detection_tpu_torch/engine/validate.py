@@ -2,8 +2,8 @@
 
 Counterpart of ``torch_detection_tpu/engine/validate.py``:
 ``make_inference_fn`` for the Faster R-CNN, Mask R-CNN, Cascade R-CNN,
-Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN, DETR, FCOS, ATSS
-and GFL families
+Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN, DETR, FCOS, ATSS,
+GFL, FoveaBox, FreeAnchor (RetinaNet's inference) and PAA families
 (the port's modules hold their weights, so ``infer`` takes the batch
 alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
 results dumps (boxes and RLE masks) and the Trainer's validation hook, the
@@ -28,8 +28,10 @@ from ..models.detectors import (
     FasterRCNNConfig,
     FastRCNNConfig,
     FCOSConfig,
+    FoveaConfig,
     GFLConfig,
     MaskRCNNConfig,
+    PAAConfig,
     RetinaNetConfig,
     SparseRCNNConfig,
     atss_inference,
@@ -39,8 +41,10 @@ from ..models.detectors import (
     fast_rcnn_inference,
     faster_rcnn_inference,
     fcos_inference,
+    fovea_inference,
     gfl_inference,
     mask_rcnn_inference,
+    paa_inference,
     retina_inference,
     sparse_rcnn_inference,
 )
@@ -55,7 +59,9 @@ logger = logging.getLogger(__name__)
 def _inference(det_cfg, segm: bool) -> Callable:
     """The inference of ``det_cfg``'s family, its mask branch with ``segm``.
     The cascade configs subclass ``FasterRCNNConfig``, so each subclass is
-    tested before its base; no dense config subclasses another."""
+    tested before its base. ``FreeAnchorConfig`` subclasses
+    ``RetinaNetConfig`` and takes its inference; no other dense config
+    subclasses another."""
     for config_cls, boxes, masks in ((CascadeMaskRCNNConfig, cascade_rcnn_inference,
                                       cascade_mask_rcnn_inference),
                                      (CascadeRCNNConfig, cascade_rcnn_inference, None),
@@ -67,7 +73,9 @@ def _inference(det_cfg, segm: bool) -> Callable:
                                      (DETRConfig, detr_inference, None),
                                      (GFLConfig, gfl_inference, None),
                                      (ATSSConfig, atss_inference, None),
-                                     (FCOSConfig, fcos_inference, None)):
+                                     (FCOSConfig, fcos_inference, None),
+                                     (FoveaConfig, fovea_inference, None),
+                                     (PAAConfig, paa_inference, None)):
         if isinstance(det_cfg, config_cls):
             if segm and masks is None:
                 raise ValueError("segm=True needs a mask-capable detector (MaskRCNNConfig or "

@@ -14,6 +14,8 @@ from .cascade_rcnn import (
 from .detr import DETR, DETRConfig, decode_detr, detr_inference, detr_loss, detr_train_loss
 from .fast_rcnn import FastRCNN, FastRCNNConfig, fast_rcnn_inference, fast_rcnn_loss
 from .fcos import FCOSConfig, decode_fcos, fcos_inference, fcos_loss, fcos_targets
+from .foveabox import FoveaConfig, decode_fovea, fovea_inference, fovea_loss, fovea_targets
+from .free_anchor import FreeAnchorConfig, free_anchor_loss
 from .gfl import GFLConfig, decode_gfl, gfl_inference, gfl_loss, integral
 from .mask_rcnn import (
     MaskDetections,
@@ -22,6 +24,7 @@ from .mask_rcnn import (
     mask_rcnn_inference,
     mask_rcnn_loss,
 )
+from .paa import PAAConfig, decode_paa, paa_inference, paa_loss, paa_reassign
 from .single_stage import (
     RetinaNetConfig,
     SingleStageDetector,
@@ -48,6 +51,9 @@ from .two_stage import (
 __all__ = ["ATSSConfig", "FCOSConfig", "GFLConfig", "atss_inference", "atss_loss",
            "atss_targets", "decode_atss", "decode_fcos", "decode_gfl", "fcos_inference",
            "fcos_loss", "fcos_targets", "gfl_inference", "gfl_loss", "integral",
+           "FoveaConfig", "decode_fovea", "fovea_inference", "fovea_loss", "fovea_targets",
+           "FreeAnchorConfig", "free_anchor_loss", "PAAConfig", "decode_paa", "paa_inference",
+           "paa_loss", "paa_reassign",
            "CascadeMaskRCNN", "CascadeMaskRCNNConfig", "CascadeRCNN", "CascadeRCNNConfig",
            "DETR", "DETRConfig", "decode_detr", "detr_inference", "detr_loss", "detr_train_loss",
            "FastRCNN", "FastRCNNConfig", "FasterRCNNConfig", "MaskDetections", "MaskRCNN",

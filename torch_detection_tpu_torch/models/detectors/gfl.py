@@ -60,16 +60,16 @@ def integral(reg: Tensor, reg_max: int) -> Tensor:
     return p @ torch.arange(n1, dtype=p.dtype, device=p.device)
 
 
-def _aligned_iou(a: Tensor, b: Tensor, offset: float = 1.0) -> Tensor:
+def _aligned_iou(a: Tensor, b: Tensor, offset: float = 1.0, eps: float = 1e-7) -> Tensor:
     """IoU of matching (..., 4) xyxy pairs, the +1 inclusive-pixel
-    convention."""
+    convention, the union at least ``eps`` (GFL's 1e-7, PAA's 1e-6)."""
     lt = torch.maximum(a[..., :2], b[..., :2])
     rb = torch.minimum(a[..., 2:4], b[..., 2:4])
     wh = torch.clamp(rb - lt + offset, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
     area_a = (a[..., 2] - a[..., 0] + offset) * (a[..., 3] - a[..., 1] + offset)
     area_b = (b[..., 2] - b[..., 0] + offset) * (b[..., 3] - b[..., 1] + offset)
-    return inter / torch.clamp(area_a + area_b - inter, min=1e-7)
+    return inter / torch.clamp(area_a + area_b - inter, min=eps)
 
 
 def _level_strides(cfg: GFLConfig, featmap_sizes, device) -> Tensor:

@@ -25,9 +25,10 @@ from ..layers import ConvModule
 
 class _GNTowers(nn.Module):
     """The two GN towers, ``cls_out``, a ``reg_out`` of ``reg_channels`` and
-    the per-level ``scales`` of FCOS, ATSS and GFL. ``scales`` is float32 in
-    every build, as flax's parameter, and is cast to the level's dtype
-    before the product, as the reference's ``scales[lvl].astype(f.dtype)``."""
+    the per-level ``scales`` of FCOS, ATSS and GFL (none with
+    ``num_levels=0``, as FoveaBox's head). ``scales`` is float32 in every
+    build, as flax's parameter, and is cast to the level's dtype before the
+    product, as the reference's ``scales[lvl].astype(f.dtype)``."""
 
     def __init__(self, num_classes: int, in_channels: int, feat_channels: int,
                  stacked_convs: int, reg_channels: int, norm: bool, num_levels: int,
@@ -44,20 +45,24 @@ class _GNTowers(nn.Module):
         self.cls_out = nn.Conv2d(feat_channels, num_classes, 3, padding=1, **kw)
         self.cls_out.init_bias = bias_init_with_prob(0.01)  # read by inits.init_weights
         self.reg_out = nn.Conv2d(feat_channels, reg_channels, 3, padding=1, **kw)
-        self.scales = nn.Parameter(torch.ones(num_levels, dtype=torch.float32, device=device))
+        self.scales = (nn.Parameter(torch.ones(num_levels, dtype=torch.float32, device=device))
+                       if num_levels else None)
 
     def init_own(self, generator: torch.Generator) -> None:
-        self.scales.data.fill_(1.0)
+        if self.scales is not None:
+            self.scales.data.fill_(1.0)
 
     def towers(self, level: int, feat: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-        """NHWC level -> (cls logits NHWC, scaled reg NHWC, reg tower NCHW)."""
+        """NHWC level -> (cls logits NHWC, reg NHWC, scaled where the head has
+        ``scales``, reg tower NCHW)."""
         c = r = feat.permute(0, 3, 1, 2)
         for i in range(self.stacked_convs):
             c = getattr(self, f"cls_tower{i}")(c)
         for i in range(self.stacked_convs):
             r = getattr(self, f"reg_tower{i}")(r)
         reg = self.reg_out(r)
-        reg = reg * self.scales[level].to(reg.dtype)
+        if self.scales is not None:
+            reg = reg * self.scales[level].to(reg.dtype)
         return self.cls_out(c).permute(0, 2, 3, 1), reg.permute(0, 2, 3, 1), r
 
 
