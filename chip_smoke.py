@@ -239,7 +239,36 @@ Phases, each fatal on failure:
    decoding to its image's original size; K1 held to its plain version at
    out 14 on a batch of one flipped augmentation's levels and detections,
    and that batch's masks pasted in the original frame through K1 and the
-   plain RoIAlign agreeing.
+   plain RoIAlign agreeing;
+34. SSD300, SSD512 and YOLOv3 Darknet-53 (configs/ssd300_vgg16_coco.py,
+   ssd512_vgg16_coco.py and yolov3_d53_coco.py, unchanged; YOLOv3's
+   objectness biases at 0 so that random weights score above ``score_thr``)
+   each served bf16 at its config's batch and canvas (b32 on 300 x 300, b16
+   on 512 x 512, b8 on 608 x 608) from a seeded uint8 batch of mixed aspect
+   ratios through ``fused_normalize_pad`` (the config's means and stds) and
+   ``make_inference_fn``: K1, K2 and the matcher never launched, a stage
+   breakdown and one profiled batch;
+35. SSD300 and a narrow YOLOv3 against the CPU in float32 on two images, one
+   padded: trunk, neck and head to 1e-4 of each map's largest value; on equal
+   inputs the assignments exactly, SSD's mined set exactly (from each
+   device's own cross-entropy, and on inputs whose padding anchors tie
+   exactly across the 3:1 cut, R11), YOLOv3's preselection exactly, the
+   candidates to 1e-6 (scores) and 1e-3 px, the NMS exactly, the losses to
+   1e-5; every
+   gradient to 1e-2 in relative norm; then the three trained at their
+   config's batch and canvas with its SGD (momentum 0.9, weight decay 5e-4,
+   clip 35), float32 parameters and bf16 compute, through
+   ``build_train_objects`` and ``Trainer.run``: 2 warm-up and 10 timed
+   steps, finite losses and positives in every step, a profiled step and a
+   breakdown that times the assignment and SSD's mining on their own;
+36. SSD300 through the entry points: a seeded COCO folder under
+   build/smoke_coco_ssd of the committed JPEG fixtures (landscape, square
+   and portrait: the square canvas holds a portrait), a seeded
+   torchvision-layout VGG16 ``.pth`` given as ``--pretrained file://``
+   (copied into a cache under the folder; the log reports its 26 trunk
+   tensors set), ``tools.train`` for one epoch of b32, ``tools.test`` on
+   ``epoch_1`` (12 finite metrics, every result inside its frame) and the
+   val gts' oracle (mAP 1.0).
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -255,6 +284,7 @@ import hashlib
 import json
 import logging
 import math
+import os
 import shutil
 import statistics
 import struct
@@ -298,9 +328,14 @@ from torch_detection_tpu_torch.models.inits import init_weights
 from torch_detection_tpu_torch.models.detectors import (
     FastRCNNConfig,
     MaskRCNNConfig,
+    YOLOV3Config,
     decode_detr,
     decode_sparse_rcnn,
     sampling_noise,
+    ssd_candidates,
+    ssd_loss,
+    yolo_candidates,
+    yolo_loss,
 )
 from torch_detection_tpu_torch.models.detectors import detr as detr_mod
 from torch_detection_tpu_torch.models.detectors.atss import (
@@ -360,6 +395,13 @@ from torch_detection_tpu_torch.models.detectors.sparse_rcnn import (
     set_losses,
     set_targets,
 )
+from torch_detection_tpu_torch.models.detectors.ssd import (
+    cross_entropy,
+    flatten_ssd_outputs,
+    hard_negatives,
+    ssd_targets,
+)
+from torch_detection_tpu_torch.models.detectors.yolov3 import preselect_yolo, yolo_targets
 from torch_detection_tpu_torch.models.detectors.two_stage import (
     _faster_rcnn_inference_core,
     class_nms,
@@ -952,7 +994,7 @@ def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -
     roi = [(key, us, n) for key, us, n in ops if "RoIAlign" in key]
     log(f"device profile, one {what} [{card}]: RoIAlign operators "
         + ("; ".join(f"{key} {us / 1e3:.3f} ms ({n} calls)" for key, us, n in roi) or "none"))
-    return dict(busy_ms=busy_ms, idle=1 - busy_ms / batch_ms)
+    return dict(busy_ms=busy_ms, idle=1 - busy_ms / batch_ms, kernels=len(kernels))
 
 
 def stage_breakdown(model, det_cfg, images, img_shape, card: str, repeats: int = 5) -> None:
@@ -5010,6 +5052,651 @@ def phase_cli_tta(card: str) -> dict:
     return dict(test=launches, k1_test=k1, batches=n, metrics=metrics)
 
 
+# ---------------------------------------------------------------- SSD300, SSD512 and YOLOv3
+SSD300_CONFIG = ROOT / "configs" / "ssd300_vgg16_coco.py"
+SSD512_CONFIG = ROOT / "configs" / "ssd512_vgg16_coco.py"
+YOLO_CONFIG = ROOT / "configs" / "yolov3_d53_coco.py"
+SINGLE = (("ssd300", SSD300_CONFIG), ("ssd512", SSD512_CONFIG), ("yolov3", YOLO_CONFIG))
+SINGLE_LOSS_KEYS = {"ssd300": ("loss", "loss_cls", "loss_reg"),
+                    "ssd512": ("loss", "loss_cls", "loss_reg"),
+                    "yolov3": ("loss", "loss_xy", "loss_wh", "loss_conf", "loss_cls")}
+# of every four images on a square canvas, keep-ratio resized onto it: a square, a 4:3
+# landscape, a 2:3 portrait and a 3:2 landscape (their (h, w) as fractions of the side)
+ASPECTS = ((1.0, 1.0), (0.75, 1.0), (1.0, 2 / 3), (2 / 3, 1.0))
+# the reference checks' narrow YOLOv3: Darknet with (1, 1, 2, 2, 1) blocks from 16 channels
+YOLO_NARROW = dict(
+    type="SingleStageDetector",
+    backbone=dict(type="Darknet", depth=53, stages=(1, 1, 2, 2, 1), base_channels=16,
+                  out_indices=(2, 3, 4)),
+    neck=dict(type="YOLOV3Neck", in_channels=(128, 256, 512), out_channels=(128, 64, 32)),
+    head=dict(type="YOLOV3Head", num_classes=80, in_channels=(128, 64, 32),
+              out_channels=(256, 128, 64)),
+)
+
+
+def single_setup(config: Path) -> tuple:
+    """(config, batch, canvas, means, stds) of an SSD or YOLOv3 config."""
+    cfg = Config.fromfile(config)
+    data = cfg["data"]
+    return (cfg, data["sample_per_replica"], tuple(data["canvas"]), tuple(data["val"]["img_means"]),
+            tuple(data["val"]["img_stds"]))
+
+
+def single_shapes(batch: int, canvas, device="cuda") -> torch.Tensor:
+    """(B, 2) (h, w) of ``batch`` images (a multiple of 4) of ``ASPECTS`` on
+    the square ``canvas``."""
+    h, w = canvas
+    return torch.tensor([[round(fh * h), round(fw * w)] for fh, fw in ASPECTS] * (batch // 4),
+                        dtype=torch.float32, device=device)
+
+
+def load_single(config: Path, dtype: str, device):
+    """An SSD or YOLOv3 build. YOLOv3's objectness biases are set to 0: with
+    the 0.01 prior every score of random weights is sigmoid(cls) * 0.01,
+    under ``score_thr`` 0.05, and the NMS pool would be empty; at 0 the
+    objectness sits near 0.5. SSD's softmax needs nothing: its seeded
+    weights leave about a tenth of the pairs above its ``score_thr``."""
+    model, det_cfg = load_model(dtype, device, config)
+    if isinstance(det_cfg, YOLOV3Config):
+        zero_objectness(model, det_cfg)
+    return model, det_cfg
+
+
+def zero_objectness(model, det_cfg) -> None:
+    """YOLOv3's objectness biases (channel 4 of each anchor's 5 + C) at 0."""
+    with torch.no_grad():
+        for lvl in range(det_cfg.anchor_generator.num_levels):
+            getattr(model.head, f"pred{lvl}").bias[4::5 + det_cfg.num_classes] = 0.0
+
+
+def check_single_detections(res, det_cfg, shapes: torch.Tensor) -> None:
+    """``check_detections`` with each image's boxes inside its own (h, w)."""
+    h, w = int(shapes[:, 0].max()), int(shapes[:, 1].max())
+    check_detections(res, det_cfg, shapes.shape[0], h, w)
+    inside = ((res.boxes[..., 0::2] <= shapes[:, None, 1:2] - 1).all(-1)
+              & (res.boxes[..., 1::2] <= shapes[:, None, 0:1] - 1).all(-1))
+    if not bool(inside[res.valid].all()):
+        raise AssertionError("a box outside its image")
+
+
+def single_candidates(det_cfg, outs, img_shape):
+    """The family's serving candidates: (B, M, C) scores and (B, M, 4) boxes."""
+    if isinstance(det_cfg, YOLOV3Config):
+        return yolo_candidates(det_cfg, outs, img_shape)
+    return ssd_candidates(det_cfg, *outs, img_shape)
+
+
+def single_stage_breakdown(name: str, model, det_cfg, run_pre, shapes, card: str,
+                           repeats: int = 5) -> None:
+    """A serving batch stage by stage, a device sync between stages; the
+    median host ms of each over ``repeats`` batches."""
+    times = {}
+    stage = stage_timer(times)
+    trunk = "Darknet-53" if model.neck is not None else "SSDVGG"
+    with torch.inference_mode():
+        for _ in range(repeats):
+            x = stage("preprocess (u8 NHWC, normalise, pad)", run_pre)
+            feats = stage(f"backbone ({trunk})", lambda: model.backbone(x))
+            if model.neck is not None:
+                feats = stage("neck", lambda: model.neck(feats))
+            outs = stage("head", lambda: model.head(feats))
+            scores, boxes = stage("candidates (softmax or preselect, decode, clip)",
+                                  lambda: single_candidates(det_cfg, outs, shapes))
+            stage("multiclass NMS", lambda: dense_nms(det_cfg, scores, boxes))
+    log_breakdown(f"{name} stage breakdown, median of {repeats} batches", times, card)
+
+
+def phase_single_serving(card: str, name: str, config: Path, seed: int) -> dict:
+    """Full-width SSD300 (b32 on 300 x 300), SSD512 (b16 on 512 x 512) or
+    YOLOv3 (b8 on 608 x 608), bf16: a seeded uint8 batch of mixed aspect
+    ratios, put on the card once, through ``fused_normalize_pad`` (the
+    config's means and stds) and ``make_inference_fn``; K1, K2 and the
+    matcher counted (none expected)."""
+    _, b, canvas, mean, std = single_setup(config)
+    model, det_cfg = load_single(config, "bfloat16", "cuda")
+    if isinstance(det_cfg, YOLOV3Config):
+        log(f"{name}: the objectness biases set to 0 for serving (random weights score under "
+            "score_thr at the 0.01 prior)")
+    infer = make_inference_fn(model, det_cfg)
+    shapes = single_shapes(b, canvas)
+    u8 = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 256, (b, *canvas, 3), dtype=np.uint8)).cuda()
+    scale = torch.ones(b, device="cuda")
+
+    def pre():
+        return fused_normalize_pad(u8, shapes, mean, std, out_dtype=torch.bfloat16)
+
+    def run():
+        return infer(pre(), shapes, scale)
+
+    timed_batches(run, WARMUP_BATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms, results = timed_batches(run, TIMED_BATCHES)
+    launches = read_launches()
+    expect_launches(f"{name} serving", launches, 0, 0)
+    for res in results:
+        check_single_detections(res, det_cfg, shapes)
+    mean_ms = sum(ms) / len(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sizes = sorted({tuple(map(int, s)) for s in shapes.tolist()})
+    log(f"{name} serving path b{b} on {canvas} (images {sizes}): "
+        f"ms a batch {[round(m, 3) for m in ms]}, mean {mean_ms:.3f} ms, "
+        f"{b / (mean_ms / 1e3):.2f} images/s, median {statistics.median(ms):.3f} ms [{card}]; "
+        f"launches {launches}; valid detections an image {results[-1].valid.sum(1).tolist()}; "
+        f"peak memory {peak:.2f} GiB")
+    single_stage_breakdown(name, model, det_cfg, pre, shapes, card)
+    profile = device_profile(run, mean_ms, card)
+    return dict(launches=launches, ms_per_batch=mean_ms, profile=profile, peak_gib=peak)
+
+
+def single_gts(gen: torch.Generator, shapes: torch.Tensor):
+    """1-20 gt boxes an image (16 px to 0.9 of the image's shorter side on
+    a side, log-uniform; labels 1-80) inside each (h, w), padded to 100."""
+    device, batch = shapes.device, shapes.shape[0]
+    u = torch.rand((batch, MAX_GTS, 4), generator=gen, device=device)
+    top = 0.9 * shapes.min(dim=1).values[:, None, None] / 16.0
+    size = 16.0 * top ** u[..., 2:]
+    xy = u[..., :2] * (shapes[:, None, [1, 0]] - 1 - size)
+    num = torch.randint(1, 21, (batch, 1), generator=gen, device=device)
+    valid = torch.arange(MAX_GTS, device=device)[None, :] < num
+    boxes = torch.where(valid[..., None], torch.cat([xy, xy + size], dim=-1), 0.0)
+    labels = torch.randint(1, 81, (batch, MAX_GTS), generator=gen, device=device)
+    return boxes, torch.where(valid, labels, 0), valid
+
+
+def single_train_batch(gen: torch.Generator, batch: int, canvas) -> dict:
+    """Seeded normalised images of ``ASPECTS`` on the square canvas (zero
+    outside each image) and ``single_gts``."""
+    shapes = single_shapes(batch, canvas)
+    h, w = canvas
+    image = torch.randn((batch, h, w, 3), generator=gen, device="cuda")
+    inside = ((torch.arange(h, device="cuda")[None, :, None] < shapes[:, 0, None, None])
+              & (torch.arange(w, device="cuda")[None, None, :] < shapes[:, 1, None, None]))
+    boxes, labels, valid = single_gts(gen, shapes)
+    return dict(image=image * inside[..., None], gt_boxes=boxes, gt_labels=labels, gt_valid=valid,
+                img_shape=shapes)
+
+
+def single_loss_stages(det_cfg, outs, batch):
+    """The (label, fn) parts of the loss that the training breakdown times
+    on their own, without autograd: SSD's assignment and mining, YOLOv3's
+    assignment (responsible flags, grid assigner, box coding)."""
+    gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    if isinstance(det_cfg, YOLOV3Config):
+        sizes = [tuple(p.shape[1:3]) for p in outs]
+        return [("assignment (responsible flags, grid assigner, encode)",
+                 lambda: yolo_targets(det_cfg, sizes, *gts, batch["img_shape"]))]
+    sizes = [tuple(s.shape[1:3]) for s in outs[0]]
+    anchors = det_cfg.anchor_generator.flat_anchors(sizes, batch["image"].device)
+    held = {}
+
+    def assign():
+        held["t"] = ssd_targets(det_cfg, anchors, *gts)
+
+    def mine():
+        t = held["t"]
+        flat_c, _ = flatten_ssd_outputs(det_cfg, *outs)
+        hard_negatives(det_cfg, cross_entropy(flat_c, t.labels), t.pos, t.neg)
+
+    return [("assignment (MaxIoU, encode)", assign),
+            ("mining (cross-entropy, stable sort, rank)", mine)]
+
+
+def single_losses(det_cfg, outs, batch) -> dict:
+    """The family's loss dict on the head's outputs, as ``build_loss_fn``'s:
+    YOLOv3's takes the batch's ``img_shape``, SSD's none (R11)."""
+    gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    if isinstance(det_cfg, YOLOV3Config):
+        return yolo_loss(det_cfg, outs, *gts, img_shapes=batch["img_shape"])
+    return ssd_loss(det_cfg, *outs, *gts)
+
+
+def single_train_stage_breakdown(name: str, model, det_cfg, optimizer, batch, card: str,
+                                 repeats: int = 5) -> None:
+    """A training step stage by stage: the forward, the loss's parts on
+    their own (``single_loss_stages``), the whole loss (its parts included),
+    the backward and the optimizer; the median host ms of each over
+    ``repeats`` steps."""
+    times = {}
+    stage = stage_timer(times)
+    for _ in range(repeats):
+        optimizer.zero_grad()
+        outs = stage("forward (trunk, neck, head)", lambda: model(batch["image"]))
+        with torch.no_grad():
+            for label, fn in single_loss_stages(det_cfg, outs, batch):
+                stage(label, fn)
+        loss = stage("targets + losses", lambda: single_losses(det_cfg, outs, batch)["loss"])
+        stage("backward", loss.backward)
+        stage("grad norm, clip, SGD", lambda: optimizer.apply(optimizer.global_norm()))
+    optimizer.zero_grad()
+    log_breakdown(f"{name} training stage breakdown, median of {repeats} steps", times, card)
+
+
+def phase_single_train(card: str, name: str, config: Path, seed: int) -> dict:
+    """Full-width SSD300 (b32), SSD512 (b16) or YOLOv3 (b8) training on the
+    config's canvas, float32 parameters and bf16 compute, with the config's
+    SGD (momentum 0.9, weight decay 5e-4, clip 35), through
+    ``build_train_objects``, ``build_loss_fn`` and ``Trainer.run``: 2
+    warm-up and 10 timed steps; K1, K2 and the matcher counted (none
+    expected)."""
+    cfg, b, canvas, _, _ = single_setup(config)
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [single_train_batch(gen, b, canvas) for _ in range(steps)]
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
+    group = optimizer.torch_optimizer.param_groups[0]
+    if (optimizer.grad_clip_norm, group["momentum"], group["weight_decay"]) != (35.0, 0.9, 5e-4):
+        raise AssertionError(f"{name}: clip {optimizer.grad_clip_norm}, {group}")
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches(f"{name} training", launches, 0, 0)
+    keys = SINGLE_LOSS_KEYS[name]
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"{name}: {len(history)} steps logged, "
+                             f"{trainer.skipped_steps} skipped")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in keys) or not h["num_pos"] > 0:
+            raise AssertionError(f"{name}: non-finite loss or no positive at step {h['step']}: {h}")
+    # every kernel decays with the weight decay; a bias moves where a gradient reached it
+    still = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
+    if [n for n in still if before[n].dim() > 1] or not model.training:
+        raise AssertionError(f"{name}: kernels that did not move: {still}")
+    step_ms = [b / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{name} training path b{b} on {canvas}: ms a step {[round(m, 3) for m in step_ms]}, mean "
+        f"{mean_ms:.3f} ms, {b / (mean_ms / 1e3):.2f} images/s, median "
+        f"{statistics.median(step_ms):.3f} ms [{card}]; launches {launches}; skipped steps "
+        f"{trainer.skipped_steps}; peak memory {peak:.2f} GiB; parameters that did not move "
+        f"(biases no gradient reached) {still}; over the {TIMED_BATCHES} steps "
+        + "; ".join(f"{k} {[round(h[k], 4) for h in history]}" for k in keys + ("num_pos",)))
+    profile = device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    single_train_stage_breakdown(name, model, det_cfg, optimizer, batches[-1], card)
+    return dict(launches=launches, ms_per_step=mean_ms, profile=profile, peak_gib=peak)
+
+
+def rel_to_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, on the CPU in float32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def ulps_apart(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The most float32 ulps (of the larger magnitude) between two tensors."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))) * torch.finfo(torch.float32).eps
+    return int(((got - want).abs() / ulp).ceil().max())
+
+
+def single_reference_batch(name: str) -> dict:
+    """Two seeded images on the CPU: for SSD on the 300 canvas, image 1 a
+    640 x 480 picture resized (75 rows of zero padding, R11); for YOLOv3 on
+    320 x 320, image 1 a 3:2 landscape (107 rows of padding); gts from
+    ``single_gts``, and in image 0's last slot a 291 x 291 box, which the
+    coarsest levels' anchors match."""
+    gen = torch.Generator().manual_seed(SEED + 150)
+    side = 300 if name == "ssd" else 320
+    shapes = torch.tensor([[side, side], [225.0 if name == "ssd" else 213.0, side]])
+    image = torch.randn((2, side, side, 3), generator=gen)
+    image[1, int(shapes[1, 0]):] = 0.0
+    boxes, labels, valid = single_gts(gen, shapes)
+    boxes[0, -1] = torch.tensor([4.0, 4.0, 294.0, 294.0])
+    labels[0, -1], valid[0, -1] = 1, True
+    return dict(image=image, gt_boxes=boxes, gt_labels=labels, gt_valid=valid, img_shape=shapes)
+
+
+def single_reference_models(name: str):
+    """The float32 builds on the card and on the CPU: SSD300 (its trunk has
+    no width knob), YOLOv3 narrow (``YOLO_NARROW``, the objectness biases at
+    0 as ``load_single``'s)."""
+    if name == "ssd":
+        return load_model("float32", "cuda", SSD300_CONFIG)[0], load_model(
+            "float32", "cpu", SSD300_CONFIG)
+    det_cfg = build_detection_cfg(Config.fromfile(YOLO_CONFIG).detection)
+    gpu, cpu = (build_detector(YOLO_NARROW, "float32", device=d, seed=SEED)
+                for d in ("cuda", "cpu"))
+    for model in (gpu, cpu):
+        zero_objectness(model, det_cfg)
+    return gpu, (cpu, det_cfg)
+
+
+# float32 ulps between two devices' box coding (its log, then one division)
+DECODE_ULPS = 2
+
+
+def head_maps(outs) -> list:
+    """The head's output maps in one list: YOLOv3's prediction maps, SSD's
+    class maps then box maps."""
+    return list(outs) if isinstance(outs[0], torch.Tensor) else [t for o in outs for t in o]
+
+
+def tie_padding(outs, det_cfg, padded_from: float):
+    """SSD head outputs (CPU) with image 1's level-0 anchors whose centre
+    lies at or below row ``padded_from`` given one output vector an anchor
+    kind (that of the last of them), its background logit lowered by 8 so
+    that they lead the negatives' ranking: the exact ties of a conv over a
+    blank region."""
+    cls, reg = [list(branch) for branch in outs]
+    stride = det_cfg.anchor_generator.strides[0]
+    rows = (torch.arange(cls[0].shape[1]) + 0.5) * stride >= float(padded_from)
+    c0 = cls[0].clone()
+    vector = c0[1, -1, -1].clone()
+    vector[0::det_cfg.num_classes + 1] -= 8.0
+    c0[1, rows] = vector
+    cls[0] = c0
+    return tuple(cls), tuple(reg)
+
+
+def phase_single_reference() -> None:
+    """SSD300 and a narrow YOLOv3 in float32 on the GPU and on the CPU, on
+    ``single_reference_batch``: the trunk features and the head outputs
+    (1e-4 of each map's largest value); then on equal inputs (the CPU's
+    head outputs fed to both): the assignment exactly (SSD's positives,
+    negatives and labels, YOLOv3's responsible flags, assigned gts and
+    labels) and the encoded targets within ``DECODE_ULPS`` ulps; SSD's
+    mined set exactly, from each device's own cross-entropy and on inputs
+    whose padding anchors tie exactly across the cut (R11); YOLOv3's
+    preselection exactly; the candidates' scores to 1e-6 and boxes to
+    1e-3 px (the softmax sums in another order on each device), the NMS
+    exactly, the losses to 1e-5; then every parameter's gradient through
+    the whole model to 1e-2 in relative norm."""
+    for name in ("ssd", "yolov3"):
+        batch = single_reference_batch(name)
+        on_gpu = {k: v.cuda() for k, v in batch.items()}
+        gpu, (cpu, det_cfg) = single_reference_models(name)
+        checks = []
+
+        def check(what, err, limit):
+            checks.append(f"{what} {err:.2e} (limit {limit:g})")
+            if not err <= limit:
+                raise AssertionError(f"{name} reference check {what}: {err} > {limit}")
+
+        gts = ("gt_boxes", "gt_labels", "gt_valid")
+        with torch.inference_mode():
+            fg, fc = gpu.backbone(on_gpu["image"]), cpu.backbone(batch["image"])
+            check("trunk features", max(rel_to_max(g, c) for g, c in zip(fg, fc)), 1e-4)
+            if gpu.neck is not None:
+                fg, fc = gpu.neck(fg), cpu.neck(fc)
+                check("neck outputs", max(rel_to_max(g, c) for g, c in zip(fg, fc)), 1e-4)
+            og, oc = gpu.head(fg), cpu.head(fc)
+            check("head outputs", max(rel_to_max(g, c) for g, c in zip(head_maps(og),
+                                                                         head_maps(oc))), 1e-4)
+            # equal inputs from here: the CPU's head outputs on both devices
+            oh = (tuple(t.cuda() for t in oc) if name == "yolov3"
+                  else tuple(tuple(t.cuda() for t in branch) for branch in oc))
+            if name == "ssd":
+                sizes = [tuple(s.shape[1:3]) for s in oc[0]]
+                anchors = det_cfg.anchor_generator.flat_anchors(sizes)
+                tg = ssd_targets(det_cfg, anchors.cuda(), *(on_gpu[k] for k in gts))
+                tc = ssd_targets(det_cfg, anchors, *(batch[k] for k in gts))
+                for field in ("pos", "neg", "labels"):
+                    check(f"assignment {field} mismatches",
+                          float((getattr(tg, field).cpu() != getattr(tc, field)).sum()), 0)
+                check("encoded targets (ulps)", ulps_apart(tg.reg_targets, tc.reg_targets),
+                      DECODE_ULPS)
+                padded = (anchors[:, 1] + anchors[:, 3]) * 0.5 >= batch["img_shape"][1, 0]
+                ce = cross_entropy(flatten_ssd_outputs(det_cfg, *oc)[0], tc.labels)
+                mined = hard_negatives(det_cfg, ce, tc.pos, tc.neg)
+                natural = ce[1][padded & tc.neg[1]]
+                ties = int((natural[:, None] == natural[None]).sum(1).gt(1).sum())
+                extra = (f"image 1: {int(mined[1].sum())} mined, {int((mined[1] & padded).sum())} "
+                         f"of them over the padding (R11); {ties} of its {len(natural)} padding "
+                         "negatives tie another's loss")
+                mined_own = hard_negatives(det_cfg, cross_entropy(flatten_ssd_outputs(
+                    det_cfg, *oh)[0], tg.labels), tg.pos, tg.neg)
+                check("mined set from each device's own cross-entropy, mismatches",
+                      float((mined_own.cpu() != mined).sum()), 0)
+                # the exact ties a conv over a large blank region gives: image 1's padding
+                # anchors of level 0 take one output vector an anchor kind, on both devices
+                tied = tie_padding(oc, det_cfg, batch["img_shape"][1, 0])
+                ce_t = cross_entropy(flatten_ssd_outputs(det_cfg, *tied)[0], tc.labels)
+                kc = hard_negatives(det_cfg, ce_t, tc.pos, tc.neg)
+                kg = hard_negatives(det_cfg, cross_entropy(flatten_ssd_outputs(det_cfg, *(
+                    tuple(t.cuda() for t in branch) for branch in tied))[0], tg.labels),
+                    tg.pos, tg.neg)
+                check("mined set on tied inputs, mismatches", float((kg.cpu() != kc).sum()), 0)
+                top = ce_t[1][tc.neg[1]].max()
+                group = tc.neg[1] & (ce_t[1] == top)
+                straddle = int((kc[1] & group).sum())
+                first = torch.nonzero(group)[:straddle, 0]
+                if not 0 < straddle < int(group.sum()) or not bool(kc[1][first].all()):
+                    raise AssertionError(f"ssd: the tied group of {int(group.sum())} has "
+                                         f"{straddle} mined: the cut is not inside it, or "
+                                         "not at its lowest indices")
+                extra += (f"; on tied inputs the cut falls inside a group of {int(group.sum())} "
+                          f"equal losses ({straddle} mined, the lowest indices)")
+            else:
+                sizes = [tuple(p.shape[1:3]) for p in oc]
+                gen = det_cfg.anchor_generator
+                rg = gen.responsible_flags(sizes, on_gpu["gt_boxes"], on_gpu["gt_valid"])
+                rc = gen.responsible_flags(sizes, batch["gt_boxes"], batch["gt_valid"])
+                check("responsible flag mismatches", float((rg.cpu() != rc).sum()), 0)
+                tg = yolo_targets(det_cfg, sizes, *(on_gpu[k] for k in gts), on_gpu["img_shape"])
+                tc = yolo_targets(det_cfg, sizes, *(batch[k] for k in gts), batch["img_shape"])
+                for field in ("pos", "neg", "label0"):
+                    check(f"assignment {field} mismatches",
+                          float((getattr(tg, field).cpu() != getattr(tc, field)).sum()), 0)
+                check("encoded targets (ulps)", ulps_apart(tg.box_targets, tc.box_targets),
+                      DECODE_ULPS)
+                pg, pc = preselect_yolo(det_cfg, oh), preselect_yolo(det_cfg, oc)
+                check("preselection mismatches", float((pg.pred.cpu() != pc.pred).sum()
+                                                       + (pg.anchors.cpu() != pc.anchors).sum()), 0)
+                extra = (f"{int(rc.sum())} responsible anchors, {int(tc.pos.sum())} positives, "
+                         f"{int((tc.neg == 0).sum() - tc.pos.sum())} ignored")
+            sg, bg = single_candidates(det_cfg, oh, on_gpu["img_shape"])
+            sc, bc = single_candidates(det_cfg, oc, batch["img_shape"])
+            # the softmax's sum over C + 1 logits runs in another order on each device
+            check("candidate scores", float((sg.cpu() - sc).abs().max()), 1e-6)
+            check("candidate boxes (px)", float((bg.cpu() - bc).abs().max()), 1e-3)
+            exact = (f"{int((sg.cpu() != sc).sum() + (bg.cpu() != bc).sum())} candidate values not "
+                     f"bit-equal, at most {ulps_apart(sg, sc)} and {ulps_apart(bg, bc)} ulps apart")
+            ng, nc = dense_nms(det_cfg, sc.cuda(), bc.cuda()), dense_nms(det_cfg, sc, bc)
+            for field in ("valid", "labels", "indices", "scores", "boxes"):
+                check(f"NMS on equal inputs, {field} mismatches",
+                      float((getattr(ng, field).cpu() != getattr(nc, field)).sum()), 0)
+            if not bool(nc.valid.any(dim=1).all()):
+                raise AssertionError(f"{name}: no detection in the reference batch")
+            lossg, lossc = single_losses(det_cfg, oh, on_gpu), single_losses(det_cfg, oc, batch)
+        keys = SINGLE_LOSS_KEYS["yolov3" if name == "yolov3" else "ssd300"]
+        check("losses on equal inputs", max(abs(float(lossg[k]) - float(lossc[k]))
+                                            / abs(float(lossc[k])) for k in keys), 1e-5)
+        check("num_pos mismatches", abs(float(lossg["num_pos"]) - float(lossc["num_pos"])), 0)
+        gpu.train(), cpu.train()
+        for model, data in ((gpu, on_gpu), (cpu, batch)):
+            loss, _ = build_loss_fn(model, det_cfg)(data)
+            loss.backward()
+
+        def rel_norm(a, b):
+            a, b = a.cpu().double(), b.cpu().double()
+            return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+        errs = {n: rel_norm(g.grad, c.grad) for (n, g), (_, c) in
+                zip(gpu.named_parameters(), cpu.named_parameters())
+                if g.requires_grad and c.grad is not None and c.grad.abs().max() > 0}
+        worst = max(errs, key=errs.get)
+        check(f"gradients' relative norm of the difference (worst at {worst})", errs[worst], 1e-2)
+        log(f"{name} reference check, GPU vs CPU float32 ({extra}; {nc.valid.sum(1).tolist()} "
+            f"detections; {exact}; {len(errs)} gradients): "
+            + "; ".join(checks))
+        del gpu, cpu
+
+
+# ---------------------------------------------------------------- the entry points on SSD300
+SMOKE_COCO_SSD = ROOT / "build" / "smoke_coco_ssd"
+SSD_CLI_LANDSCAPE, SSD_CLI_PORTRAIT, SSD_CLI_VAL = 40, 8, 12
+PORTRAIT_FIXTURES = ("portrait_375x500.jpg", "odd_333x501.jpg")
+VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)  # torchvision's features indices
+
+
+def write_smoke_coco_ssd(split: str, n_landscape: int, n_portrait: int, seed: int) -> Path:
+    """Committed JPEG fixtures under ``SMOKE_COCO_SSD/split``: ``n_landscape``
+    of COCO's landscape and square sizes and ``n_portrait`` portraits
+    (375 x 500 and 333 x 501), in a seeded order, with 1-20 seeded boxes an
+    image over COCO's category ids and a crowd box in every fourth."""
+    rng = np.random.default_rng(seed)
+    picks = pick_fixtures(rng, CLI_SIZES, n_landscape, 2)
+    picks += [JPEG_FIXTURES / PORTRAIT_FIXTURES[i % 2] for i in range(n_portrait)]
+    picks = [picks[int(i)] for i in rng.permutation(len(picks))]
+    img_dir = SMOKE_COCO_SSD / split
+    img_dir.mkdir(parents=True, exist_ok=True)
+    images, annotations = [], []
+    for i, src in enumerate(picks):
+        w, h = fixture_size(src)
+        name = f"{i + 1:012d}.jpg"
+        shutil.copyfile(src, img_dir / name)
+        boxes = int(rng.integers(1, 21))
+        for j, (x, y, bw, bh) in enumerate(seeded_boxes(rng, w, h, boxes + (i % 4 == 3))):
+            annotations.append(dict(id=len(annotations) + 1, image_id=i + 1,
+                                    category_id=int(rng.choice(COCO_CATEGORY_IDS)),
+                                    bbox=[x, y, bw, bh], area=bw * bh, iscrowd=int(j == boxes)))
+        images.append(dict(id=i + 1, file_name=name, width=w, height=h))
+    ann_file = SMOKE_COCO_SSD / f"instances_{split}.json"
+    ann_file.write_text(json.dumps(dict(
+        images=images, annotations=annotations,
+        categories=[dict(id=c, name=f"category_{c}") for c in COCO_CATEGORY_IDS])))
+    return ann_file
+
+
+def write_torchvision_vgg16(path: Path, seed: int) -> dict:
+    """A seeded state dict in torchvision's VGG16 layout: the 13 convs as
+    ``features.{k}.weight`` and ``.bias`` at their shapes (normal kernels of
+    variance 2 / fan_in, biases normal(0, 0.01)), and ``classifier.{0,3,6}``
+    under their names at small shapes (the importer drops them by name)."""
+    gen = torch.Generator().manual_seed(seed)
+    state, cin = {}, 3
+    for k, width in zip(VGG16_CONVS, (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512,
+                                      512)):
+        state[f"features.{k}.weight"] = torch.randn((width, cin, 3, 3), generator=gen) * math.sqrt(
+            2.0 / (9 * cin))
+        state[f"features.{k}.bias"] = torch.randn((width,), generator=gen) * 0.01
+        cin = width
+    for k in (0, 3, 6):
+        state[f"classifier.{k}.weight"] = torch.zeros((8, 8))
+        state[f"classifier.{k}.bias"] = torch.zeros((8,))
+    torch.save(state, str(path))
+    return state
+
+
+def phase_cli_ssd(card: str) -> dict:
+    """SSD300 through the entry points at full width: a seeded JPEG COCO
+    folder under build/smoke_coco_ssd (landscape, square and portrait
+    images; the square canvas holds a portrait, unlike R8's), a seeded
+    torchvision-layout VGG16 ``.pth`` given as ``--pretrained file://``
+    (copied into a cache under the folder), ``tools.train`` for one epoch of
+    the config's b32 (the log reports the 26 trunk tensors set; epoch_1's
+    trunk near the file's), ``tools.test`` on ``epoch_1`` (12 finite
+    metrics, a results JSON inside each frame), and the val gts' oracle.
+    K1, K2 and the matcher never launch."""
+    shutil.rmtree(SMOKE_COCO_SSD, ignore_errors=True)
+    train_ann = write_smoke_coco_ssd("train", SSD_CLI_LANDSCAPE, SSD_CLI_PORTRAIT, SEED + 160)
+    val_ann = write_smoke_coco_ssd("val", SSD_CLI_VAL - 4, 4, SEED + 161)
+    pth = SMOKE_COCO_SSD / "vgg16.pth"
+    vgg = write_torchvision_vgg16(pth, SEED + 162)
+    config = SMOKE_COCO_SSD / "ssd300_vgg16_smoke.py"
+    work = SMOKE_COCO_SSD / "work"
+    data = {split: dict(ann_file=str(ann), img_prefix=str(SMOKE_COCO_SSD / split))
+            for split, ann in (("train", train_ann), ("val", val_ann))}
+    config.write_text(
+        f"_base_ = {str(SSD300_CONFIG)!r}\n"
+        f"data = dict(**{data!r})\n"
+        "detection = dict(score_thr=0.0)\n"
+        "schedule = dict(warmup_steps=100)\n"
+        f"runtime = dict(work_dir={str(work)!r}, log_interval=1)\n")
+    cfg = Config.fromfile(config)
+    det_cfg = build_detection_cfg(cfg["detection"])
+    cache = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = str(SMOKE_COCO_SSD / "cache")
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        with logged_lines() as lines:
+            trainer = train_cli.main([str(config), "--epochs", "1", "--work-dir", str(work),
+                                      "--pretrained", f"file://{pth}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if cache is None:
+            os.environ.pop("XDG_CACHE_HOME")
+        else:
+            os.environ["XDG_CACHE_HOME"] = cache
+    launches = read_launches()
+    expect_launches("cli ssd training", launches, 0, 0)
+    loaded = [line for line in lines if line.startswith("loaded ") and "vgg16.pth" in line]
+    if len(loaded) != 1 or not loaded[0].startswith("loaded 26 tensors") or \
+            "26 of the backbone's 47" not in loaded[0]:
+        raise AssertionError(f"cli ssd: the import logged {loaded}")
+    if not (SMOKE_COCO_SSD / "cache" / "torch_detection_tpu" / "checkpoints"
+            / "vgg16.pth").exists():
+        raise AssertionError("cli ssd: file:// did not go through the cache")
+    steps = len(trainer.dataloader)
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    keys = SINGLE_LOSS_KEYS["ssd300"]
+    if len(records) != steps or not all(math.isfinite(r[k]) for r in records for k in keys):
+        raise AssertionError(f"cli ssd training: {len(records)} records for {steps} steps, or a "
+                             "non-finite loss")
+    saved = load_checkpoint_file(str(work / "epoch_1"))["model"]
+    drift = max(float((saved[f"backbone.layer{s}.conv.weight"].float()
+                       - vgg[f"features.{k}.weight"]).norm() / vgg[f"features.{k}.weight"].norm())
+                for s, k in zip(("1_0", "3_2", "5_2"), (0, 14, 28)))
+    if not drift < 0.05:
+        raise AssertionError(f"cli ssd: epoch_1's trunk is {drift} (relative norm) from the file's")
+    log(f"cli ssd training [{card}]: {SSD_CLI_LANDSCAPE} landscape and square and "
+        f"{SSD_CLI_PORTRAIT} portrait JPEGs, {steps} steps of b{cfg['data']['sample_per_replica']} "
+        f"on {tuple(cfg['data']['canvas'])} in {wall:.1f} s (the build and the import included); "
+        f"{loaded[0]!r}; epoch_1's trunk convs within {drift:.4f} of the file's (relative norm); "
+        f"launches {launches}; losses " + "; ".join(
+            f"{k} {[round(r[k], 4) for r in records]}" for k in keys))
+    del trainer
+
+    out = SMOKE_COCO_SSD / "results.json"
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = test_cli.main([str(config), str(work / "epoch_1"), "--out", str(out)])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = read_launches()
+    expect_launches("cli ssd test", test_launches, 0, 0)
+    if len(metrics) != 12 or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"cli ssd test metrics {metrics}")
+    frames = {img["id"]: (img["width"], img["height"])
+              for img in json.loads(val_ann.read_text())["images"]}
+    results = json.loads(out.read_text())
+    if not results or {r["image_id"] for r in results} != set(frames):
+        raise AssertionError(f"cli ssd test: {len(results)} results over "
+                             f"{len({r['image_id'] for r in results})} of {len(frames)} images")
+    for r in results:
+        x, y, w, h = r["bbox"]
+        fw, fh = frames[r["image_id"]]
+        if not (w >= 0 and h >= 0 and x >= 0 and y >= 0 and x + w <= (fw + 1) * 1.01
+                and y + h <= (fh + 1) * 1.01):
+            raise AssertionError(f"cli ssd test result outside its image: {r}")
+    val = get_datasets(dict(cfg["data"]["val"]))
+    anns = [val.get_ann_info(i) for i in range(len(val))]
+    oracle = eval_coco_map([dict(boxes=a["bboxes"], scores=np.ones(len(a["bboxes"])),
+                                 labels=a["labels"]) for a in anns], anns, det_cfg.num_classes)
+    if abs(oracle["mAP"] - 1.0) > 1e-12:
+        raise AssertionError(f"cli ssd: the gt oracle scores {oracle['mAP']}")
+    log(f"cli ssd test [{card}]: {len(frames)} images ({sum(h > w for w, h in frames.values())} "
+        f"portrait) in {test_s:.1f} s (the build included), launches {test_launches}; "
+        f"{len(results)} detections in the COCO results JSON, each inside its original frame; "
+        f"mAP {metrics['mAP']:.6f} (random weights after one epoch), the val gts as detections "
+        f"give mAP {oracle['mAP']:.6f}; " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    return dict(training=launches, test=test_launches, mAP=metrics["mAP"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -5091,11 +5778,17 @@ def main() -> int:
     phase_dense_reference()
     dense_train = {name: phase_dense_train(card, name, config, SEED + 140 + i)
                    for i, (name, config) in enumerate(DENSE)}
+    single_serve = {name: phase_single_serving(card, name, config, SEED + 170 + i)
+                    for i, (name, config) in enumerate(SINGLE)}
+    phase_single_reference()
+    single_train = {name: phase_single_train(card, name, config, SEED + 180 + i)
+                    for i, (name, config) in enumerate(SINGLE)}
     cli = phase_cli(card, train)
     cli_mask = phase_cli_mask(card)
     cli_tta = phase_cli_tta(card)
     cli_voc = phase_cli_voc(card)
     cli_fast = phase_cli_fast(card, SMOKE_COCO / "work" / f"epoch_{CLI_EPOCHS}")
+    cli_ssd = phase_cli_ssd(card)
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -5127,11 +5820,14 @@ def main() -> int:
                  "cli_mask_training": cli_mask["training"], "cli_mask_test": cli_mask["test"],
                  "cli_voc_training": cli_voc["training"], "cli_voc_test": cli_voc["test"],
                  "cli_fast_dump": cli_fast["dump"], "cli_fast_training": cli_fast["training"],
-                 "cli_fast_test": cli_fast["test"], "cli_tta_test": cli_tta["test"]}
+                 "cli_fast_test": cli_fast["test"], "cli_tta_test": cli_tta["test"],
+                 "cli_ssd_training": cli_ssd["training"], "cli_ssd_test": cli_ssd["test"]}
     dense_paths = {f"{name}_{mode}": runs[name]["launches"] for name, _ in DENSE
                    for mode, runs in (("serving", dense_serve), ("training", dense_train))}
+    single_paths = {f"{name}_{mode}": runs[name]["launches"] for name, _ in SINGLE
+                    for mode, runs in (("serving", single_serve), ("training", single_train))}
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
-                   **dense_paths, **cli_paths}
+                   **dense_paths, **single_paths, **cli_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],

@@ -43,7 +43,7 @@ def test_detection_cfg_matches_reference():
 @pytest.mark.parametrize(
     "det_cfg,match",
     [
-        (dict(style="ssd"), "style"),  # SSD: a later slice
+        (dict(style="yolox"), "style"),  # YOLOX: a later slice
         (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
         (dict(style="fast_rcnn", anchor=dict(strides=(4,))), "anchor"),  # Fast R-CNN has none
     ],

@@ -4,8 +4,8 @@ training loader, and the optimizer with its learning-rate schedule.
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
 (the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
 ``cascade_mask_rcnn``, ``fast_rcnn``, ``sparse_rcnn``, ``detr``, ``fcos``,
-``atss``, ``gfl``, ``fovea``, ``free_anchor`` and ``paa`` styles; the other
-families arrive with their slices.
+``atss``, ``gfl``, ``fovea``, ``free_anchor``, ``paa``, ``ssd`` and ``yolo``
+styles; the other families arrive with their slices.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ from .models.detectors import (
     PAAConfig,
     RetinaNetConfig,
     SparseRCNNConfig,
+    SSDConfig,
+    YOLOV3Config,
     atss_loss,
     cascade_mask_rcnn_loss,
     cascade_rcnn_loss,
@@ -48,10 +50,12 @@ from .models.detectors import (
     retina_loss,
     sampling_noise,
     sparse_rcnn_train_loss,
+    ssd_loss,
+    yolo_loss,
 )
 from .models.inits import init_weights
-from .ops.anchors import AnchorGenerator
-from .ops.assign import ATSSAssigner, MaxIoUAssigner
+from .ops.anchors import AnchorGenerator, SSDAnchorGenerator, YOLOAnchorGenerator
+from .ops.assign import ATSSAssigner, GridAssigner, MaxIoUAssigner
 from .parallel.train_step import Optimizer, make_optimizer
 from .utils.registry import DETECTORS
 
@@ -87,6 +91,11 @@ _PAA_KEYS = ("num_classes", "target_means", "target_stds", "topk", "gmm_iters", 
              "focal_alpha", "reg_loss_weight", "iou_loss_weight", "score_thr", "nms_iou_thr",
              "pre_select_per_level", "pre_nms_top_k", "max_detections", "score_voting",
              "voting_sigma")
+_SSD_KEYS = ("num_classes", "target_means", "target_stds", "neg_pos_ratio", "smooth_l1_beta",
+             "score_thr", "nms_iou_thr", "pre_nms_top_k", "max_detections")
+_YOLO_KEYS = ("num_classes", "loss_xy_weight", "loss_wh_weight", "loss_conf_weight",
+              "loss_cls_weight", "conf_thr", "score_thr", "nms_iou_thr", "pre_select_per_level",
+              "pre_nms_top_k", "max_detections")
 # style -> (config class, its keys, the field the ``assigner`` key sets or None)
 _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS, None),
@@ -102,17 +111,19 @@ _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "gfl": (GFLConfig, _GFL_KEYS, "assigner"),
            "fovea": (FoveaConfig, _FOVEA_KEYS, None),
            "free_anchor": (FreeAnchorConfig, _FREE_ANCHOR_KEYS, "assigner"),
-           "paa": (PAAConfig, _PAA_KEYS, "assigner")}
-# the assigner class of each config's assigner field (the R-CNNs', RetinaNet's, FreeAnchor's
-# and PAA's MaxIoUAssigner)
-_ASSIGNERS = {ATSSConfig: ATSSAssigner, GFLConfig: ATSSAssigner}
+           "paa": (PAAConfig, _PAA_KEYS, "assigner"),
+           "ssd": (SSDConfig, _SSD_KEYS, "assigner"),
+           "yolo": (YOLOV3Config, _YOLO_KEYS, "assigner")}
+# the assigner class of each config's assigner field (the R-CNNs', RetinaNet's, FreeAnchor's,
+# PAA's and SSD's MaxIoUAssigner)
+_ASSIGNERS = {ATSSConfig: ATSSAssigner, GFLConfig: ATSSAssigner, YOLOV3Config: GridAssigner}
 # the reference MaxIoUAssigner's fields; a PAA config keeps only these of its merged
 # ``assigner`` (``_base_`` the ATSS config leaves ATSS's ``topk`` in it)
 _MAX_IOU_FIELDS = ("pos_iou_thr", "neg_iou_thr", "min_pos_iou", "gt_max_assign_all",
                    "ignore_iof_thr")
 DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig, SparseRCNNConfig,
                         DETRConfig, FCOSConfig, ATSSConfig, GFLConfig, FoveaConfig,
-                        FreeAnchorConfig, PAAConfig]
+                        FreeAnchorConfig, PAAConfig, SSDConfig, YOLOV3Config]
 
 
 def _tuples(value):
@@ -142,7 +153,18 @@ def build_detector(
     return model.to(memory_format=torch.channels_last).eval()
 
 
-def _build_anchor_generator(anchor: Dict[str, Any]) -> AnchorGenerator:
+def _build_anchor_generator(config_cls, anchor: Dict[str, Any]):
+    """The anchor generator of ``config_cls`` from its ``anchor`` dict: SSD's
+    min/max sizes and per-level ratios, YOLOv3's per-level (w, h) base
+    sizes, else the ``AnchorGenerator`` of strides, ratios and scales."""
+    if config_cls is SSDConfig:
+        return SSDAnchorGenerator(strides=tuple(anchor["strides"]),
+                                  min_sizes=tuple(anchor["min_sizes"]),
+                                  max_sizes=tuple(anchor["max_sizes"]),
+                                  ratios=_tuples(anchor["ratios"]))
+    if config_cls is YOLOV3Config:
+        return YOLOAnchorGenerator(strides=tuple(anchor["strides"]),
+                                   base_sizes=_tuples(anchor["base_sizes"]))
     return AnchorGenerator(
         strides=tuple(anchor.get("strides", (8, 16, 32, 64, 128))),
         ratios=tuple(anchor.get("ratios", (0.5, 1.0, 2.0))),
@@ -175,11 +197,12 @@ def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     """The static detection config of a ``style='retina'`` (the default),
     ``'faster_rcnn'``, ``'mask_rcnn'``, ``'cascade_rcnn'``,
     ``'cascade_mask_rcnn'``, ``'fast_rcnn'``, ``'sparse_rcnn'``, ``'detr'``,
-    ``'fcos'``, ``'atss'``, ``'gfl'``, ``'fovea'``, ``'free_anchor'`` or
-    ``'paa'`` config. RetinaNet's, FreeAnchor's and PAA's ``assigner`` is
-    their ``MaxIoUAssigner``, Fast R-CNN's its ``rcnn_assigner``, ATSS's and
-    GFL's their ``ATSSAssigner``. Keys the port does not read yet raise
-    instead of being dropped."""
+    ``'fcos'``, ``'atss'``, ``'gfl'``, ``'fovea'``, ``'free_anchor'``,
+    ``'paa'``, ``'ssd'`` or ``'yolo'`` config. RetinaNet's, FreeAnchor's,
+    PAA's and SSD's ``assigner`` is their ``MaxIoUAssigner``, Fast R-CNN's
+    its ``rcnn_assigner``, ATSS's and GFL's their ``ATSSAssigner``, YOLOv3's
+    its ``GridAssigner``. Keys the port does not read yet raise instead of
+    being dropped."""
     cfg = dict(det_cfg)
     style = cfg.pop("style", "retina")
     if style not in _STYLES:
@@ -188,7 +211,7 @@ def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     kwargs: Dict[str, Any] = {}
     anchor = cfg.pop("anchor", None) if hasattr(config_cls, "anchor_generator") else None
     if anchor:
-        kwargs["anchor_generator"] = _build_anchor_generator(dict(anchor))
+        kwargs["anchor_generator"] = _build_anchor_generator(config_cls, dict(anchor))
     if assigner_field and "assigner" in cfg:
         kwargs[assigner_field] = _build_assigner(config_cls, dict(cfg.pop("assigner")))
     for key in keys:
@@ -209,8 +232,9 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     a ``FastRCNNConfig``'s batch carries ``proposals`` and
     ``proposal_valid``. RetinaNet, Sparse R-CNN and DETR draw nothing;
     Sparse R-CNN's and DETR's forward and loss take the batch's
-    ``img_shape``, as ATSS's, GFL's and PAA's losses do (FCOS's, FoveaBox's
-    and FreeAnchor's do not). The set-prediction and dense configs are
+    ``img_shape``, as ATSS's, GFL's, PAA's and YOLOv3's losses do (FCOS's,
+    FoveaBox's, FreeAnchor's and SSD's do not; SSD's is R11). The
+    set-prediction and dense configs are
     tested first: no R-CNN config class is their base, and
     ``FreeAnchorConfig``, a ``RetinaNetConfig``, is a dense config tested
     before RetinaNet's."""
@@ -254,11 +278,18 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
 
 def _dense_loss(det_cfg) -> Optional[Callable]:
     """``loss(head_outputs, batch)`` of the FCOS, ATSS, GFL, FoveaBox,
-    FreeAnchor and PAA configs, as the reference's: ATSS's, GFL's and PAA's
-    take the batch's ``img_shape`` (the valid anchors), the others do not;
-    None for another config. ``FreeAnchorConfig`` subclasses
-    ``RetinaNetConfig``, whose loss ``build_loss_fn`` tests after this."""
+    FreeAnchor, PAA, SSD and YOLOv3 configs, as the reference's: ATSS's,
+    GFL's, PAA's and YOLOv3's take the batch's ``img_shape`` (the valid
+    anchors), the others do not (SSD's: R11); YOLOv3's head outputs are one
+    tuple of prediction maps; None for another config.
+    ``FreeAnchorConfig`` subclasses ``RetinaNetConfig``, whose loss
+    ``build_loss_fn`` tests after this."""
     gts = ("gt_boxes", "gt_labels", "gt_valid")
+    if isinstance(det_cfg, SSDConfig):
+        return lambda out, batch: ssd_loss(det_cfg, *out, *(batch[k] for k in gts))
+    if isinstance(det_cfg, YOLOV3Config):
+        return lambda out, batch: yolo_loss(det_cfg, out, *(batch[k] for k in gts),
+                                            img_shapes=batch.get("img_shape"))
     if isinstance(det_cfg, FreeAnchorConfig):
         return lambda out, batch: free_anchor_loss(det_cfg, *out, *(batch[k] for k in gts))
     if isinstance(det_cfg, PAAConfig):

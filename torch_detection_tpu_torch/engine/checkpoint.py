@@ -169,6 +169,7 @@ MODELZOO_URLS = {
     "resnet152": "https://download.pytorch.org/models/resnet152-b121ed2d.pth",
     "resnext50_32x4d": "https://download.pytorch.org/models/resnext50_32x4d-7cdf4587.pth",
     "resnext101_32x8d": "https://download.pytorch.org/models/resnext101_32x8d-8ba56ff5.pth",
+    "vgg16": "https://download.pytorch.org/models/vgg16-397923af.pth",
 }
 
 

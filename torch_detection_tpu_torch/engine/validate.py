@@ -3,7 +3,8 @@
 Counterpart of ``torch_detection_tpu/engine/validate.py``:
 ``make_inference_fn`` for the Faster R-CNN, Mask R-CNN, Cascade R-CNN,
 Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN, DETR, FCOS, ATSS,
-GFL, FoveaBox, FreeAnchor (RetinaNet's inference) and PAA families
+GFL, FoveaBox, FreeAnchor (RetinaNet's inference), PAA, SSD and YOLOv3
+families
 (the port's modules hold their weights, so ``infer`` takes the batch
 alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
 results dumps (boxes and RLE masks) and the Trainer's validation hook, the
@@ -34,6 +35,8 @@ from ..models.detectors import (
     PAAConfig,
     RetinaNetConfig,
     SparseRCNNConfig,
+    SSDConfig,
+    YOLOV3Config,
     atss_inference,
     cascade_mask_rcnn_inference,
     cascade_rcnn_inference,
@@ -47,6 +50,8 @@ from ..models.detectors import (
     paa_inference,
     retina_inference,
     sparse_rcnn_inference,
+    ssd_inference,
+    yolo_inference,
 )
 from ..data.ops.mask import _rle_compress, rle_encode
 from .eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
@@ -75,7 +80,9 @@ def _inference(det_cfg, segm: bool) -> Callable:
                                      (ATSSConfig, atss_inference, None),
                                      (FCOSConfig, fcos_inference, None),
                                      (FoveaConfig, fovea_inference, None),
-                                     (PAAConfig, paa_inference, None)):
+                                     (PAAConfig, paa_inference, None),
+                                     (SSDConfig, ssd_inference, None),
+                                     (YOLOV3Config, yolo_inference, None)):
         if isinstance(det_cfg, config_cls):
             if segm and masks is None:
                 raise ValueError("segm=True needs a mask-capable detector (MaskRCNNConfig or "

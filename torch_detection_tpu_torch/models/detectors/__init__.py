@@ -40,6 +40,7 @@ from .sparse_rcnn import (
     sparse_rcnn_loss,
     sparse_rcnn_train_loss,
 )
+from .ssd import SSDConfig, decode_ssd, ssd_candidates, ssd_inference, ssd_loss
 from .two_stage import (
     FasterRCNNConfig,
     TwoStageDetector,
@@ -47,6 +48,7 @@ from .two_stage import (
     faster_rcnn_loss,
     sampling_noise,
 )
+from .yolov3 import YOLOV3Config, decode_yolo, yolo_candidates, yolo_inference, yolo_loss
 
 __all__ = ["ATSSConfig", "FCOSConfig", "GFLConfig", "atss_inference", "atss_loss",
            "atss_targets", "decode_atss", "decode_fcos", "decode_gfl", "fcos_inference",
@@ -63,4 +65,6 @@ __all__ = ["ATSSConfig", "FCOSConfig", "GFLConfig", "atss_inference", "atss_loss
            "faster_rcnn_inference", "faster_rcnn_loss", "mask_rcnn_inference", "mask_rcnn_loss",
            "retina_inference", "retina_loss", "sampling_noise", "SparseRCNN", "SparseRCNNConfig",
            "decode_sparse_rcnn", "sparse_rcnn_inference", "sparse_rcnn_loss",
-           "sparse_rcnn_train_loss"]
+           "sparse_rcnn_train_loss", "SSDConfig", "decode_ssd", "ssd_candidates", "ssd_inference",
+           "ssd_loss", "YOLOV3Config", "decode_yolo", "yolo_candidates", "yolo_inference",
+           "yolo_loss"]

@@ -195,8 +195,9 @@ def preselect_levels(num_classes: int, k_max: int, cls_scores, level_tensors
 
 def dense_nms(cfg, scores: Tensor, boxes: Tensor,
               scale_factors: Optional[Tensor] = None) -> NMSResult:
-    """Class-wise NMS of the (B, M, C) scores and (B, M, 4) boxes of
-    FCOS's, ATSS's or GFL's candidates, the scale factors undone."""
+    """Class-wise NMS of the (B, M, C) scores and (B, M, 4) boxes of a
+    dense family's candidates (FCOS's, ATSS's, GFL's, SSD's, YOLOv3's...),
+    the scale factors undone."""
     res = multiclass_nms(boxes, scores, iou_thr=cfg.nms_iou_thr, score_thr=cfg.score_thr,
                          pre_nms_top_k=cfg.pre_nms_top_k, max_out=cfg.max_detections)
     if scale_factors is None:

@@ -13,7 +13,9 @@ A conv that the reference initialises otherwise carries its rule as
 attributes: ``init_std`` for a plain normal kernel of that std (flax's
 ``normal``, not truncated) and ``init_bias`` for a constant bias, as the
 RetinaNet head's output convs (``bias_init_with_prob`` for the focal-loss
-prior). LayerNorm and GroupNorm start at the identity. The FCOS, ATSS and
+prior), or a vector of one bias a channel, as YOLOv3's ``pred{l}`` (the
+prior on each objectness channel). SSD's ``L2Norm`` starts at its
+``init_scale`` (``init_own``). LayerNorm and GroupNorm start at the identity. The FCOS, ATSS and
 GFL heads take flax's defaults but for ``cls_out``'s prior bias, and their
 ``scales`` start at 1 (``init_own``). A module with parameters of its
 own that none of these rules covers (Sparse R-CNN's proposal slate) draws
@@ -72,7 +74,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     fan_in = weight[:, 0] if isinstance(module, nn.ConvTranspose2d) else weight[0]
                     lecun_normal_(weight, fan_in.numel(), generator)
                 if module.bias is not None:
-                    module.bias.fill_(getattr(module, "init_bias", 0.0))
+                    # a float for every channel, or a vector of each channel's
+                    module.bias.copy_(torch.as_tensor(getattr(module, "init_bias", 0.0),
+                                                      dtype=torch.float32))
             elif isinstance(module, FrozenBatchNorm):
                 module.scale.fill_(1.0)
                 module.bias.zero_()

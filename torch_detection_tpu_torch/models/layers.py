@@ -18,6 +18,7 @@ float32 too, as flax keeps them.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
@@ -117,7 +118,16 @@ def build_norm(norm_cfg: Optional[dict], num_features: int, device=None) -> Opti
     raise ValueError(f"norm type {kind!r} is not ported")
 
 
-_ACTS = {"relu": F.relu, None: None}
+_ACTS = {
+    "relu": F.relu,
+    "relu6": F.relu6,
+    # Darknet's convention (the YOLO family): slope 0.1, not torch's 0.01
+    "leaky_relu": functools.partial(F.leaky_relu, negative_slope=0.1),
+    "gelu": functools.partial(F.gelu, approximate="tanh"),  # flax's gelu is the tanh form
+    "silu": F.silu,
+    "sigmoid": torch.sigmoid,
+    None: None,
+}
 
 
 def build_act(act: Optional[str]) -> Optional[Callable[[Tensor], Tensor]]:
@@ -128,7 +138,7 @@ def build_act(act: Optional[str]) -> Optional[Callable[[Tensor], Tensor]]:
 
 class ConvModule(nn.Module):
     """conv -> norm -> act, each of the last two optional. The conv has a
-    bias unless a norm follows it."""
+    bias if ``use_bias``, by default unless a norm follows it."""
 
     def __init__(
         self,
@@ -141,11 +151,14 @@ class ConvModule(nn.Module):
         act: Optional[str] = "relu",
         dtype: Optional[torch.dtype] = None,
         device=None,
+        dilation: int = 1,
+        use_bias: Optional[bool] = None,
     ):
         super().__init__()
         self.conv = nn.Conv2d(
             in_channels, out_channels, kernel_size, stride=stride, padding=padding,
-            bias=norm_cfg is None, dtype=dtype, device=device,
+            dilation=dilation, bias=norm_cfg is None if use_bias is None else use_bias,
+            dtype=dtype, device=device,
         )
         self.norm = build_norm(norm_cfg, out_channels, device)
         self.act_fn = build_act(act)
@@ -254,14 +267,33 @@ def max_pool_same_torch(x: Tensor, window: int, stride: int, padding: int) -> Te
     return F.max_pool2d(x, window, stride, padding)
 
 
+def max_pool_same(x: Tensor, window: int, stride: int) -> Tensor:
+    """flax's ``max_pool(..., padding="SAME")`` on NCHW: ceil(size / stride)
+    outputs an axis, the padding that takes split with its smaller half
+    before, filled with -inf (SSD's pool3 takes 75 rows to 38 with one row
+    after; its pool5, 3 x 3 stride 1, pads one on each side)."""
+    pads = []
+    for size in x.shape[2:]:
+        total = max((-(-size // stride) - 1) * stride + window - size, 0)
+        pads.append((total // 2, total - total // 2))
+    (top, bottom), (left, right) = pads
+    if top == bottom and left == right:
+        return F.max_pool2d(x, window, stride, (top, left))
+    return F.max_pool2d(F.pad(x, (left, right, top, bottom), value=-math.inf), window, stride)
+
+
+def resize_nearest_2x(x: Tensor) -> Tensor:
+    """Nearest 2x upsample of NCHW (source index floor(dst / 2), exact)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
 def resize_nearest(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     """Nearest resize of NCHW to (H, W) with the reference's index arithmetic
     ``floor(i * in / out)`` on integers; keeps channels_last memory."""
     h, w = x.shape[2:]
     oh, ow = out_hw
     if (oh, ow) == (2 * h, 2 * w):
-        # src = floor(dst * 0.5): exact in floating point
-        return F.interpolate(x, scale_factor=2, mode="nearest")
+        return resize_nearest_2x(x)
     rows = torch.arange(oh, device=x.device) * h // oh
     cols = torch.arange(ow, device=x.device) * w // ow
     out = x.index_select(2, rows).index_select(3, cols)

@@ -13,14 +13,14 @@ tensor:
   importer leaves a transposed conv mirrored in flax, R6);
 * BatchNorm ``weight``/``bias``/``running_mean``/``running_var`` go to
   FrozenBN's ``scale``/``bias``/``mean``/``var``; ``num_batches_tracked`` and
-  the classifier ``fc.*`` are dropped;
+  the classifiers (ResNet's ``fc.*``, VGG's ``classifier.*``) are dropped;
+  SSD's ``l2_norm.scale`` stays L2Norm's ``scale``;
 * fc1 after RoIAlign takes (C, S, S)-flattened features in torch and
   (S, S, C) in the port (``heads/bbox_head.py``), so its input axis is
   permuted, S taken from the port head's ``roi_size``.
 
 Missing, unexpected and mis-shaped keys are reported by name, logged, or
-raised under ``strict``. The VGG, MobileNetV2 and SSD tables wait for their
-backbones.
+raised under ``strict``. The MobileNetV2 table waits for its backbone.
 """
 
 from __future__ import annotations
@@ -32,6 +32,9 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from .backbones.ssd_vgg import SSDVGG
+from .backbones.vgg import ARCH_SETTINGS as VGG_ARCH_SETTINGS
+from .backbones.vgg import VGG
 from .detectors.two_stage import TwoStageDetector
 from .layers import FrozenBatchNorm
 from .necks.fpn import FPN
@@ -52,6 +55,38 @@ RESNET_KEY_RULES: Sequence[Rule] = (
     (r"^layer(\d+)\.(\d+)\.se(?:_module)?\.fc2\.(.*)$", r"layer\1_\2.se.fc2.\3"),
     (r"^fc\.", None),  # the classifier: not part of a detection backbone
 )
+
+
+def vgg_key_rules(depth: int, with_norm: bool = False) -> List[Rule]:
+    """torchvision VGG naming (one ``features`` Sequential of conv, norm,
+    ReLU and pool layers) -> the port's ``layer{s}_{j}.conv`` (and
+    ``.norm``): the flat indices rebuilt from the depth's stage layout; the
+    ``classifier.*`` is dropped. SSDVGG's 13 trunk convs take VGG16's."""
+    rules: List[Rule] = []
+    idx = 0
+    for s, blocks in enumerate(VGG_ARCH_SETTINGS[depth]):
+        for j in range(blocks):
+            rules.append((rf"^features\.{idx}\.(.*)$", rf"layer{s + 1}_{j}.conv.\1"))
+            idx += 1
+            if with_norm:
+                rules.append((rf"^features\.{idx}\.(.*)$", rf"layer{s + 1}_{j}.norm.\1"))
+                idx += 1
+            idx += 1  # the ReLU
+        idx += 1  # the pool
+    rules.append((r"^classifier\.", None))
+    return rules
+
+
+def ssd_vgg_key_rules() -> List[Rule]:
+    """SSDVGG trunks named as the port's (``layer{s}_{j}``, ``conv6`` to
+    ``conv12_2``, each a ConvModule, and ``l2_norm``): the naming of
+    ``tests/torch_refs.TorchSSDVGG`` and of an SSD checkpoint converted to
+    it. ``l2_norm.scale`` stays L2Norm's ``scale``."""
+    return [
+        (r"^(layer\d+_\d+)\.conv\.(.*)$", r"\1.conv.\2"),
+        (r"^(conv\d+(?:_\d+)?)\.conv\.(.*)$", r"\1.conv.\2"),
+        (r"^l2_norm\.scale$", r"l2_norm.scale"),
+    ]
 
 
 def _fc_after_roi(value: torch.Tensor, head: nn.Module) -> torch.Tensor:
@@ -166,7 +201,7 @@ def _port_leaf(module: Optional[nn.Module], leaf: str, path: str) -> Optional[st
     elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
         table = _PARAM_LEAVES
     else:
-        return leaf  # no such module: reported as unexpected
+        return leaf  # a module's own tensor (L2Norm's scale), or none: reported as unexpected
     if leaf not in table:
         raise ValueError(f"no port tensor for the torch leaf {leaf!r} at {path!r} "
                          f"({type(module).__name__})")
@@ -245,24 +280,43 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v) for k, v in obj.items()}
 
 
+def backbone_key_rules(backbone: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> List[Rule]:
+    """The table of ``backbone``'s own keys (unprefixed): torchvision VGG
+    naming for a ``VGG``, and for an ``SSDVGG`` too where the state dict
+    has ``features.`` keys (its 13 trunk convs), else the port's SSDVGG
+    naming; torchvision ResNet naming for any other."""
+    if isinstance(backbone, VGG):
+        return vgg_key_rules(backbone.depth)
+    if isinstance(backbone, SSDVGG):
+        keys = [k.split(".", 1)[-1] if k.startswith("backbone.") else k
+                for k in strip_prefix(state_dict)]
+        if any(k.startswith("features.") for k in keys):
+            return vgg_key_rules(16)
+        return ssd_vgg_key_rules()
+    return list(RESNET_KEY_RULES)
+
+
 def detector_key_rules(model: nn.Module, state_dict: Mapping[str, torch.Tensor]) -> List[Rule]:
     """The rules for ``state_dict`` loaded into ``model``:
 
-    * a model with no ``backbone`` (a ResNet itself): torchvision ResNet
-      naming at the top level;
-    * a state dict with no ``backbone.`` key: a backbone's, anchored under
-      the detector's ``backbone.``;
+    * a model with no ``backbone`` (a ResNet or VGG itself): its own naming
+      at the top level (``backbone_key_rules``);
+    * a state dict with no ``backbone.`` key: a backbone's
+      (``backbone_key_rules`` of the detector's backbone: a torchvision
+      VGG16 into SSD's trunk), anchored under the detector's ``backbone.``;
     * else a whole detector's: the backbone's table under ``backbone.``, and
       where the model has an FPN its table, with the lateral count and start
       level read from the FPN module, and the two-stage heads' table for a
       ``TwoStageDetector``, else RetinaNet's. Keys no table maps are
       reported as unexpected."""
-    if not isinstance(getattr(model, "backbone", None), nn.Module):
-        return list(RESNET_KEY_RULES)
+    backbone = getattr(model, "backbone", None)
+    if not isinstance(backbone, nn.Module):
+        return backbone_key_rules(model, state_dict)
+    rules = backbone_key_rules(backbone, state_dict)
     if not any(k.startswith("backbone.") for k in strip_prefix(state_dict)):
-        return prefixed_rules(RESNET_KEY_RULES, "", "backbone.")
+        return prefixed_rules(rules, "", "backbone.")
     neck = getattr(model, "neck", None)
     if not isinstance(neck, FPN):
-        return prefixed_rules(RESNET_KEY_RULES, "backbone.", "backbone.")
+        return prefixed_rules(rules, "backbone.", "backbone.")
     table = faster_rcnn_key_rules if isinstance(model, TwoStageDetector) else retinanet_key_rules
     return table(num_laterals=len(neck.used), start_level=neck.used[0])

@@ -3,8 +3,9 @@
 Counterpart of ``torch_detection_tpu/ops/assign.py``, cut to what the
 ported slices call: ``MaxIoUAssigner`` with its rules 1-4, every anchor
 that ties a gt's best IoU taking it (the reference's
-``gt_max_assign_all=True``), and ``anchor_valid``; and ``ATSSAssigner``
-(ATSS and GFL). The ignore-region rule waits for a caller. Labels come from
+``gt_max_assign_all=True``), and ``anchor_valid``; YOLOv3's
+``GridAssigner``; and ``ATSSAssigner`` (ATSS and GFL). The ignore-region
+rule waits for a caller. Labels come from
 plain indexing; the reference's one-hot matmul (``ops/tpu_gather.py``) is a
 TPU workaround with the same values.
 
@@ -73,13 +74,65 @@ class MaxIoUAssigner:
         if anchor_valid is not None:
             assigned = torch.where(anchor_valid, assigned, torch.full_like(assigned, -1))
 
-        if gt_labels is None:
-            labels = torch.zeros_like(assigned)
-        else:
-            safe = (assigned.long() - 1).clamp(0, gt_boxes.shape[-2] - 1)
-            gathered = torch.gather(gt_labels.to(torch.int32), -1, safe)
-            labels = torch.where(assigned > 0, gathered, torch.zeros_like(gathered))
-        return AssignResult(assigned, max_overlaps, labels)
+        return AssignResult(assigned, max_overlaps, _labels(assigned, gt_boxes, gt_labels))
+
+
+def _labels(assigned: Tensor, gt_boxes: Tensor, gt_labels: Optional[Tensor]) -> Tensor:
+    """The label of each anchor's assigned gt, 0 where it has none."""
+    if gt_labels is None:
+        return torch.zeros_like(assigned)
+    safe = (assigned.long() - 1).clamp(0, gt_boxes.shape[-2] - 1)
+    gathered = torch.gather(gt_labels.to(torch.int32), -1, safe)
+    return torch.where(assigned > 0, gathered, torch.zeros_like(gathered))
+
+
+@dataclasses.dataclass(frozen=True)
+class GridAssigner:
+    """YOLO's grid assignment: ``MaxIoUAssigner``'s rules, with the
+    positive rules (3 and 4) reading only the ``responsible`` anchors
+    (``YOLOAnchorGenerator.responsible_flags``). The negative rule (2) reads
+    every anchor's best IoU, so an anchor that is not responsible but
+    overlaps a gt at ``neg_iou_thr`` or more stays ignored. In rule 4 an
+    anchor that ties several gts' best IoUs takes the first of highest IoU
+    (argmax of the first maximum). Anchors outside ``anchor_valid`` are
+    ignored."""
+
+    pos_iou_thr: float = 0.5
+    neg_iou_thr: float = 0.5
+    min_pos_iou: float = 0.0
+
+    def __call__(
+        self,
+        anchors: Tensor,  # (..., N, 4)
+        responsible: Tensor,  # (..., N) bool
+        gt_boxes: Tensor,  # (..., G, 4) zero-padded
+        gt_valid: Tensor,  # (..., G) bool
+        gt_labels: Optional[Tensor] = None,  # (..., G) int
+        anchor_valid: Optional[Tensor] = None,  # (..., N) bool
+    ) -> AssignResult:
+        overlaps = bbox_overlaps(anchors, gt_boxes)  # (..., N, G)
+        overlaps = torch.where(gt_valid[..., None, :], overlaps, torch.full_like(overlaps, -1.0))
+        max_overlaps = overlaps.max(dim=-1).values
+
+        any_gt = gt_valid.any(dim=-1, keepdim=True)
+        assigned = torch.full(max_overlaps.shape, -1, dtype=torch.int32, device=anchors.device)
+        is_neg = (max_overlaps < self.neg_iou_thr) | ~any_gt
+        assigned = torch.where(is_neg, torch.zeros_like(assigned), assigned)
+
+        ovr_resp = torch.where(responsible[..., None], overlaps, torch.full_like(overlaps, -1.0))
+        max_r, arg_r = ovr_resp.max(dim=-1)
+        is_pos = any_gt & responsible & (max_r >= self.pos_iou_thr)
+        assigned = torch.where(is_pos, arg_r.to(torch.int32) + 1, assigned)
+
+        gt_max = ovr_resp.max(dim=-2).values  # (..., G)
+        qualify = gt_valid & (gt_max >= self.min_pos_iou) & (gt_max > 0)
+        tie = (ovr_resp == gt_max[..., None, :]) & qualify[..., None, :]
+        tie_best = torch.where(tie, ovr_resp, torch.full_like(ovr_resp, -torch.inf)).argmax(dim=-1)
+        assigned = torch.where(tie.any(dim=-1), tie_best.to(torch.int32) + 1, assigned)
+
+        if anchor_valid is not None:
+            assigned = torch.where(anchor_valid, assigned, torch.full_like(assigned, -1))
+        return AssignResult(assigned, max_overlaps, _labels(assigned, gt_boxes, gt_labels))
 
 
 @dataclasses.dataclass(frozen=True)
