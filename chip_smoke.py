@@ -268,7 +268,26 @@ Phases, each fatal on failure:
    (copied into a cache under the folder; the log reports its 26 trunk
    tensors set), ``tools.train`` for one epoch of b32, ``tools.test`` on
    ``epoch_1`` (12 finite metrics, every result inside its frame) and the
-   val gts' oracle (mAP 1.0).
+   val gts' oracle (mAP 1.0);
+37. YOLOX-S and CenterNet R18 (configs/yolox_s_coco.py and
+   centernet_r18_coco.py, unchanged; YOLOX's ``cls_out`` and ``obj_out``
+   biases at 0 for serving, so that random weights score above
+   ``score_thr``) through phases 34 and 35 after YOLOv3: served b16 bf16
+   (640 x 640 and 512 x 512; CenterNet's breakdown times its peaks and the
+   stable sort of every image's 1 310 720 scores), a narrow YOLOX and a
+   CenterNet R18 with narrow deconvolutions against the CPU in float32
+   (maps to 1e-4; SimOTA's positive set and matched gts equal but where two
+   costs lie within a few ulps, counted; the heat targets bit for bit; the
+   top-k scores within 2 ulps, and on logits with plateaus the peaks, the
+   top-k and the decode exactly; losses to 1e-5; gradients to 1e-2), and
+   trained b8 with the configs' SGD (the breakdown times SimOTA and the
+   heat targets on their own); K1, K2 and the matcher never launched;
+38. YOLOX-S through the entry points: a seeded COCO folder of the committed
+   JPEG fixtures under build/smoke_coco_yolox (landscape, square and
+   portrait, every val image held keep-ratio by the 640 x 640 canvas),
+   ``tools.train`` for 2 epochs of b8 and ``tools.test --out`` (12 finite
+   metrics, a detection in every image inside its frame at ``score_thr``
+   0), the val gts' oracle (mAP 1.0).
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -326,18 +345,34 @@ from torch_detection_tpu_torch.engine.validate import (
 from torch_detection_tpu_torch.models.backbones.resnet import space_to_depth_2x2
 from torch_detection_tpu_torch.models.inits import init_weights
 from torch_detection_tpu_torch.models.detectors import (
+    CenterNetConfig,
     FastRCNNConfig,
     MaskRCNNConfig,
     YOLOV3Config,
+    YOLOXConfig,
+    centernet_loss,
+    centernet_targets,
+    decode_centernet,
     decode_detr,
     decode_sparse_rcnn,
     sampling_noise,
     ssd_candidates,
     ssd_loss,
+    simota_assign,
     yolo_candidates,
     yolo_loss,
+    yolox_loss,
 )
 from torch_detection_tpu_torch.models.detectors import detr as detr_mod
+from torch_detection_tpu_torch.models.detectors import yolox as yolox_mod
+from torch_detection_tpu_torch.models.detectors.centernet import centernet_peaks
+from torch_detection_tpu_torch.models.detectors.yolox import (
+    INF as SIMOTA_INF,
+    decode_boxes,
+    flat_grid,
+    flatten_yolox_outputs,
+    yolox_candidates,
+)
 from torch_detection_tpu_torch.models.detectors.atss import (
     assign_and_match,
     atss_candidates,
@@ -5052,14 +5087,22 @@ def phase_cli_tta(card: str) -> dict:
     return dict(test=launches, k1_test=k1, batches=n, metrics=metrics)
 
 
-# ---------------------------------------------------------------- SSD300, SSD512 and YOLOv3
+# ---------------------------------------------------------------- SSD300, SSD512, YOLOv3, YOLOX-S
+# and CenterNet R18
 SSD300_CONFIG = ROOT / "configs" / "ssd300_vgg16_coco.py"
 SSD512_CONFIG = ROOT / "configs" / "ssd512_vgg16_coco.py"
 YOLO_CONFIG = ROOT / "configs" / "yolov3_d53_coco.py"
-SINGLE = (("ssd300", SSD300_CONFIG), ("ssd512", SSD512_CONFIG), ("yolov3", YOLO_CONFIG))
+YOLOX_CONFIG = ROOT / "configs" / "yolox_s_coco.py"
+CENTERNET_CONFIG = ROOT / "configs" / "centernet_r18_coco.py"
+SINGLE = (("ssd300", SSD300_CONFIG), ("ssd512", SSD512_CONFIG), ("yolov3", YOLO_CONFIG),
+          ("yolox", YOLOX_CONFIG), ("centernet", CENTERNET_CONFIG))
 SINGLE_LOSS_KEYS = {"ssd300": ("loss", "loss_cls", "loss_reg"),
                     "ssd512": ("loss", "loss_cls", "loss_reg"),
-                    "yolov3": ("loss", "loss_xy", "loss_wh", "loss_conf", "loss_cls")}
+                    "yolov3": ("loss", "loss_xy", "loss_wh", "loss_conf", "loss_cls"),
+                    "yolox": ("loss", "loss_cls", "loss_reg", "loss_obj"),
+                    "centernet": ("loss", "loss_heatmap", "loss_wh", "loss_offset")}
+# the serving batch where it is not the config's training batch
+SINGLE_SERVE_BATCH = {"yolox": 16, "centernet": 16}
 # of every four images on a square canvas, keep-ratio resized onto it: a square, a 4:3
 # landscape, a 2:3 portrait and a 3:2 landscape (their (h, w) as fractions of the side)
 ASPECTS = ((1.0, 1.0), (0.75, 1.0), (1.0, 2 / 3), (2 / 3, 1.0))
@@ -5074,8 +5117,25 @@ YOLO_NARROW = dict(
 )
 
 
+# the reference checks' narrow YOLOX (CSPDarknet at widen 0.25: 16 to 256 channels) and
+# CenterNet (ResNet-18, the deconvolutions (128, 64, 32)), both at 80 classes
+YOLOX_NARROW = dict(
+    type="SingleStageDetector",
+    backbone=dict(type="CSPDarknet", deepen_factor=0.33, widen_factor=0.25, out_indices=(2, 3, 4)),
+    neck=dict(type="YOLOXPAFPN", in_channels=(64, 128, 256), out_channels=64),
+    head=dict(type="YOLOXHead", num_classes=80, in_channels=64, feat_channels=64),
+)
+CENTERNET_NARROW = dict(
+    type="SingleStageDetector",
+    backbone=dict(type="ResNet", depth=18, num_stages=4, out_indices=(3,)),
+    neck=dict(type="CTResNetNeck", in_channels=512, num_deconv_filters=(128, 64, 32)),
+    head=dict(type="CenterNetHead", num_classes=80, in_channels=32, feat_channels=32),
+)
+
+
 def single_setup(config: Path) -> tuple:
-    """(config, batch, canvas, means, stds) of an SSD or YOLOv3 config."""
+    """(config, batch, canvas, means, stds) of an SSD, YOLOv3, YOLOX or
+    CenterNet config."""
     cfg = Config.fromfile(config)
     data = cfg["data"]
     return (cfg, data["sample_per_replica"], tuple(data["canvas"]), tuple(data["val"]["img_means"]),
@@ -5091,14 +5151,20 @@ def single_shapes(batch: int, canvas, device="cuda") -> torch.Tensor:
 
 
 def load_single(config: Path, dtype: str, device):
-    """An SSD or YOLOv3 build. YOLOv3's objectness biases are set to 0: with
-    the 0.01 prior every score of random weights is sigmoid(cls) * 0.01,
-    under ``score_thr`` 0.05, and the NMS pool would be empty; at 0 the
-    objectness sits near 0.5. SSD's softmax needs nothing: its seeded
-    weights leave about a tenth of the pairs above its ``score_thr``."""
+    """An SSD, YOLOv3, YOLOX or CenterNet build. YOLOv3's objectness biases
+    are set to 0: with the 0.01 prior every score of random weights is
+    sigmoid(cls) * 0.01, under ``score_thr`` 0.05, and the NMS pool would be
+    empty; at 0 the objectness sits near 0.5. YOLOX's ``cls_out`` and
+    ``obj_out`` biases are set to 0 for the same reason (at the 0.01 priors
+    every score is about 1e-4, under ``score_thr`` 0.01). SSD's softmax
+    needs nothing: its seeded weights leave about a tenth of the pairs above
+    its ``score_thr``; nor does CenterNet's 0.1 prior, whose peaks score
+    near 0.1, above its 0.05."""
     model, det_cfg = load_model(dtype, device, config)
     if isinstance(det_cfg, YOLOV3Config):
         zero_objectness(model, det_cfg)
+    if isinstance(det_cfg, YOLOXConfig):
+        zero_yolox_priors(model, det_cfg)
     return model, det_cfg
 
 
@@ -5107,6 +5173,14 @@ def zero_objectness(model, det_cfg) -> None:
     with torch.no_grad():
         for lvl in range(det_cfg.anchor_generator.num_levels):
             getattr(model.head, f"pred{lvl}").bias[4::5 + det_cfg.num_classes] = 0.0
+
+
+def zero_yolox_priors(model, det_cfg) -> None:
+    """YOLOX's ``cls_out{l}`` and ``obj_out{l}`` biases at 0."""
+    with torch.no_grad():
+        for lvl in range(len(det_cfg.strides)):
+            getattr(model.head, f"cls_out{lvl}").bias.zero_()
+            getattr(model.head, f"obj_out{lvl}").bias.zero_()
 
 
 def check_single_detections(res, det_cfg, shapes: torch.Tensor) -> None:
@@ -5123,23 +5197,36 @@ def single_candidates(det_cfg, outs, img_shape):
     """The family's serving candidates: (B, M, C) scores and (B, M, 4) boxes."""
     if isinstance(det_cfg, YOLOV3Config):
         return yolo_candidates(det_cfg, outs, img_shape)
+    if isinstance(det_cfg, YOLOXConfig):
+        return yolox_candidates(det_cfg, *outs, img_shape)
     return ssd_candidates(det_cfg, *outs, img_shape)
 
 
 def single_stage_breakdown(name: str, model, det_cfg, run_pre, shapes, card: str,
                            repeats: int = 5) -> None:
     """A serving batch stage by stage, a device sync between stages; the
-    median host ms of each over ``repeats`` batches."""
+    median host ms of each over ``repeats`` batches. CenterNet's decode is
+    its peaks, the stable sort of every image's H * W * C scores, and the
+    whole decode (both again, and the boxes)."""
     times = {}
     stage = stage_timer(times)
-    trunk = "Darknet-53" if model.neck is not None else "SSDVGG"
+    trunk = type(model.backbone).__name__
     with torch.inference_mode():
         for _ in range(repeats):
             x = stage("preprocess (u8 NHWC, normalise, pad)", run_pre)
             feats = stage(f"backbone ({trunk})", lambda: model.backbone(x))
             if model.neck is not None:
-                feats = stage("neck", lambda: model.neck(feats))
+                feats = stage(f"neck ({type(model.neck).__name__})", lambda: model.neck(feats))
             outs = stage("head", lambda: model.head(feats))
+            if isinstance(det_cfg, CenterNetConfig):
+                peaks = stage("peaks (sigmoid, 3 x 3 max-pool, compare)",
+                              lambda: centernet_peaks(outs[0]))
+                stage(f"stable sort of {peaks.shape[0]} x {peaks.shape[1]} scores, top "
+                      f"{det_cfg.max_detections}",
+                      lambda: nms_ops.top_k_stable(peaks, det_cfg.max_detections))
+                stage("whole decode (peaks, sort, boxes, clip)",
+                      lambda: decode_centernet(det_cfg, *outs, shapes))
+                continue
             scores, boxes = stage("candidates (softmax or preselect, decode, clip)",
                                   lambda: single_candidates(det_cfg, outs, shapes))
             stage("multiclass NMS", lambda: dense_nms(det_cfg, scores, boxes))
@@ -5147,16 +5234,21 @@ def single_stage_breakdown(name: str, model, det_cfg, run_pre, shapes, card: str
 
 
 def phase_single_serving(card: str, name: str, config: Path, seed: int) -> dict:
-    """Full-width SSD300 (b32 on 300 x 300), SSD512 (b16 on 512 x 512) or
-    YOLOv3 (b8 on 608 x 608), bf16: a seeded uint8 batch of mixed aspect
-    ratios, put on the card once, through ``fused_normalize_pad`` (the
-    config's means and stds) and ``make_inference_fn``; K1, K2 and the
-    matcher counted (none expected)."""
+    """Full-width SSD300 (b32 on 300 x 300), SSD512 (b16 on 512 x 512),
+    YOLOv3 (b8 on 608 x 608), YOLOX-S (b16 on 640 x 640) or CenterNet R18
+    (b16 on 512 x 512), bf16: a seeded uint8 batch of mixed aspect ratios,
+    put on the card once, through ``fused_normalize_pad`` (the config's
+    means and stds) and ``make_inference_fn``; K1, K2 and the matcher
+    counted (none expected)."""
     _, b, canvas, mean, std = single_setup(config)
+    b = SINGLE_SERVE_BATCH.get(name, b)
     model, det_cfg = load_single(config, "bfloat16", "cuda")
     if isinstance(det_cfg, YOLOV3Config):
         log(f"{name}: the objectness biases set to 0 for serving (random weights score under "
             "score_thr at the 0.01 prior)")
+    if isinstance(det_cfg, YOLOXConfig):
+        log(f"{name}: the cls_out and obj_out biases set to 0 for serving (random weights score "
+            "about 1e-4, under score_thr 0.01, at the 0.01 priors)")
     infer = make_inference_fn(model, det_cfg)
     shapes = single_shapes(b, canvas)
     u8 = torch.from_numpy(np.random.default_rng(seed).integers(
@@ -5218,11 +5310,25 @@ def single_train_batch(gen: torch.Generator, batch: int, canvas) -> dict:
                 img_shape=shapes)
 
 
+def yolox_assign(det_cfg, outs, gt_boxes, gt_labels, gt_valid):
+    """SimOTA on YOLOX head outputs, as ``yolox_loss`` runs it."""
+    grid, strides = flat_grid(det_cfg, [tuple(s.shape[1:3]) for s in outs[0]], gt_boxes.device)
+    fc, fr, fo = flatten_yolox_outputs(det_cfg, *outs)
+    return simota_assign(det_cfg, fc, fo, decode_boxes(fr, grid, strides), grid, strides,
+                         gt_boxes, gt_labels, gt_valid)
+
+
 def single_loss_stages(det_cfg, outs, batch):
     """The (label, fn) parts of the loss that the training breakdown times
     on their own, without autograd: SSD's assignment and mining, YOLOv3's
-    assignment (responsible flags, grid assigner, box coding)."""
+    assignment (responsible flags, grid assigner, box coding), YOLOX's
+    SimOTA, CenterNet's targets."""
     gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    if isinstance(det_cfg, YOLOXConfig):
+        return [("SimOTA (costs, dynamic k, conflicts)", lambda: yolox_assign(det_cfg, outs, *gts))]
+    if isinstance(det_cfg, CenterNetConfig):
+        return [("targets (Gaussian windows, scatter amax)",
+                 lambda: centernet_targets(det_cfg, tuple(outs[0].shape[1:3]), *gts))]
     if isinstance(det_cfg, YOLOV3Config):
         sizes = [tuple(p.shape[1:3]) for p in outs]
         return [("assignment (responsible flags, grid assigner, encode)",
@@ -5245,8 +5351,13 @@ def single_loss_stages(det_cfg, outs, batch):
 
 def single_losses(det_cfg, outs, batch) -> dict:
     """The family's loss dict on the head's outputs, as ``build_loss_fn``'s:
-    YOLOv3's takes the batch's ``img_shape``, SSD's none (R11)."""
+    YOLOv3's takes the batch's ``img_shape``, SSD's (R11), YOLOX's and
+    CenterNet's none."""
     gts = (batch["gt_boxes"], batch["gt_labels"], batch["gt_valid"])
+    if isinstance(det_cfg, YOLOXConfig):
+        return yolox_loss(det_cfg, *outs, *gts)
+    if isinstance(det_cfg, CenterNetConfig):
+        return centernet_loss(det_cfg, *outs, *gts)
     if isinstance(det_cfg, YOLOV3Config):
         return yolo_loss(det_cfg, outs, *gts, img_shapes=batch["img_shape"])
     return ssd_loss(det_cfg, *outs, *gts)
@@ -5274,9 +5385,10 @@ def single_train_stage_breakdown(name: str, model, det_cfg, optimizer, batch, ca
 
 
 def phase_single_train(card: str, name: str, config: Path, seed: int) -> dict:
-    """Full-width SSD300 (b32), SSD512 (b16) or YOLOv3 (b8) training on the
-    config's canvas, float32 parameters and bf16 compute, with the config's
-    SGD (momentum 0.9, weight decay 5e-4, clip 35), through
+    """Full-width SSD300 (b32), SSD512 (b16), YOLOv3, YOLOX-S or CenterNet
+    R18 (b8) training on the config's canvas, float32 parameters and bf16
+    compute, with the config's SGD (its momentum, weight decay and clip:
+    0.9, 5e-4 and 35, CenterNet's weight decay the base's 1e-4), through
     ``build_train_objects``, ``build_loss_fn`` and ``Trainer.run``: 2
     warm-up and 10 timed steps; K1, K2 and the matcher counted (none
     expected)."""
@@ -5287,8 +5399,11 @@ def phase_single_train(card: str, name: str, config: Path, seed: int) -> dict:
     model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
                                                        loader=Batches(batches))
     group = optimizer.torch_optimizer.param_groups[0]
-    if (optimizer.grad_clip_norm, group["momentum"], group["weight_decay"]) != (35.0, 0.9, 5e-4):
-        raise AssertionError(f"{name}: clip {optimizer.grad_clip_norm}, {group}")
+    opt = cfg["optimizer"]
+    if (optimizer.grad_clip_norm, group["momentum"], group["weight_decay"]) != (
+            opt["grad_clip_norm"], opt["momentum"], opt["weight_decay"]) or opt.get(
+            "type", "sgd") != "sgd" or opt["grad_clip_norm"] != 35.0:
+        raise AssertionError(f"{name}: clip {optimizer.grad_clip_norm}, {group}, config {opt}")
     loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
     Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
     torch.cuda.synchronize()
@@ -5333,18 +5448,24 @@ def rel_to_max(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
+def ulp_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise |a - b| in float32 ulps of the larger magnitude (CPU)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag))) * torch.finfo(torch.float32).eps
+    return (a - b).abs() / ulp
+
+
 def ulps_apart(got: torch.Tensor, want: torch.Tensor) -> int:
     """The most float32 ulps (of the larger magnitude) between two tensors."""
-    got, want = got.detach().float().cpu(), want.detach().float().cpu()
-    mag = torch.maximum(got.abs(), want.abs()).clamp_min(torch.finfo(torch.float32).tiny)
-    ulp = torch.exp2(torch.floor(torch.log2(mag))) * torch.finfo(torch.float32).eps
-    return int(((got - want).abs() / ulp).ceil().max())
+    return int(ulp_gap(got, want).ceil().max())
 
 
 def single_reference_batch(name: str) -> dict:
     """Two seeded images on the CPU: for SSD on the 300 canvas, image 1 a
-    640 x 480 picture resized (75 rows of zero padding, R11); for YOLOv3 on
-    320 x 320, image 1 a 3:2 landscape (107 rows of padding); gts from
+    640 x 480 picture resized (75 rows of zero padding, R11); for YOLOv3,
+    YOLOX and CenterNet on 320 x 320, image 1 a 3:2 landscape (107 rows of
+    padding); gts from
     ``single_gts``, and in image 0's last slot a 291 x 291 box, which the
     coarsest levels' anchors match."""
     gen = torch.Generator().manual_seed(SEED + 150)
@@ -5361,10 +5482,21 @@ def single_reference_batch(name: str) -> dict:
 def single_reference_models(name: str):
     """The float32 builds on the card and on the CPU: SSD300 (its trunk has
     no width knob), YOLOv3 narrow (``YOLO_NARROW``, the objectness biases at
-    0 as ``load_single``'s)."""
+    0 as ``load_single``'s), YOLOX narrow (``YOLOX_NARROW``, the class and
+    objectness biases at 0 as ``load_single``'s), CenterNet R18 with narrow
+    deconvolutions (``CENTERNET_NARROW``)."""
     if name == "ssd":
         return load_model("float32", "cuda", SSD300_CONFIG)[0], load_model(
             "float32", "cpu", SSD300_CONFIG)
+    if name in ("yolox", "centernet"):
+        config, narrow = {"yolox": (YOLOX_CONFIG, YOLOX_NARROW),
+                          "centernet": (CENTERNET_CONFIG, CENTERNET_NARROW)}[name]
+        det_cfg = build_detection_cfg(Config.fromfile(config).detection)
+        gpu, cpu = (build_detector(narrow, "float32", device=d, seed=SEED) for d in ("cuda", "cpu"))
+        if name == "yolox":
+            for model in (gpu, cpu):
+                zero_yolox_priors(model, det_cfg)
+        return gpu, (cpu, det_cfg)
     det_cfg = build_detection_cfg(Config.fromfile(YOLO_CONFIG).detection)
     gpu, cpu = (build_detector(YOLO_NARROW, "float32", device=d, seed=SEED)
                 for d in ("cuda", "cpu"))
@@ -5532,6 +5664,178 @@ def phase_single_reference() -> None:
             f"detections; {exact}; {len(errs)} gradients): "
             + "; ".join(checks))
         del gpu, cpu
+    for name in ("yolox", "centernet"):
+        point_reference(name)
+
+
+def to_device(outs, device):
+    """A nest of tuples of tensors on ``device``."""
+    if isinstance(outs, torch.Tensor):
+        return outs.to(device)
+    return tuple(to_device(o, device) for o in outs)
+
+
+# float32 ulps within which two SimOTA costs (a sum over 80 classes in another order on each
+# device, then + 3 -log IoU + 1e5) count as one
+SIMOTA_ULPS = 4
+
+
+def simota_differences(ag, ac) -> tuple:
+    """The GPU's and the CPU's SimOTA on equal inputs: (selections that
+    differ, of them unexplained, conflicts resolved to another gt, of them
+    unexplained). A selection is explained where the CPU's cost lies within
+    ``SIMOTA_ULPS`` of its gt's k_g-th smallest cost, a conflict where the
+    CPU's costs of the two gts lie within ``SIMOTA_ULPS`` of each other."""
+    cost, kth = ac.cost, ac.kth
+    sel_c = (cost <= kth[:, None, :]) & (cost < SIMOTA_INF)
+    sel_g = ((ag.cost <= ag.kth[:, None, :]) & (ag.cost < SIMOTA_INF)).cpu()
+    diff = torch.nonzero(sel_g != sel_c)
+    near = [float(ulp_gap(cost[b, n, g], kth[b, g])) <= SIMOTA_ULPS for b, n, g in diff.tolist()]
+    both = ac.fg & ag.fg.cpu() & (ac.matched != ag.matched.cpu())
+    swaps = torch.nonzero(both)
+    tied = [float(ulp_gap(cost[b, n, ac.matched[b, n]], cost[b, n, ag.matched.cpu()[b, n]]))
+            <= SIMOTA_ULPS for b, n in swaps.tolist()]
+    return len(near), near.count(False), len(tied), tied.count(False)
+
+
+@contextlib.contextmanager
+def fixed_simota(assignment):
+    """``yolox_loss`` with SimOTA's result replaced by ``assignment``, moved
+    to the device of each call: the losses and gradients of two devices
+    under one assignment."""
+    def assigned(cfg, cls_logits, *args):
+        return yolox_mod.SimOTA(*(t.to(cls_logits.device) for t in assignment))
+
+    plain = yolox_mod.simota_assign
+    yolox_mod.simota_assign = assigned
+    try:
+        yield
+    finally:
+        yolox_mod.simota_assign = plain
+
+
+def plateau_heat(gen: torch.Generator, shape) -> torch.Tensor:
+    """(B, H, W, C) CPU logits on a grid of quarters (many equal scores)
+    with 3 x 3 and 2 x 4 blocks of one high logit (plateaus) in each image."""
+    heat = torch.round(torch.randn(shape, generator=gen) * 6 - 4) / 4
+    for i in range(shape[0]):
+        heat[i, 5 + i:8 + i, 9:12, 2 + i] = 6.0
+        heat[i, 20:22, 3 + i:7 + i, 50] = 6.0
+    return heat
+
+
+def point_reference(name: str) -> None:
+    """A narrow YOLOX or CenterNet R18 (narrow deconvolutions) in float32 on
+    the GPU and on the CPU, on ``single_reference_batch``: trunk, neck and
+    head to 1e-4 of each map's largest value; then on equal inputs (the
+    CPU's head outputs on both): YOLOX's SimOTA positive set and matched
+    gts equal but where two costs lie within ``SIMOTA_ULPS`` (the count is
+    logged), its candidates to 1e-6 and 1e-3 px and the NMS exactly;
+    CenterNet's targets bit for bit, the top-k scores within 2 ulps, and on
+    logits with plateaus the peak set, the top-k and the decode's indices,
+    labels and validity exactly and its boxes to 1e-3 px; the losses to
+    1e-5 and every gradient through the whole model to 1e-2 in relative
+    norm, YOLOX's under the CPU's SimOTA on both devices (costs of 1e5 plus
+    a few tens tie at float32's 0.008 steps, and the devices' sums over 80
+    classes round such a tie apart, which moves a positive)."""
+    batch = single_reference_batch(name)
+    on_gpu = {k: v.cuda() for k, v in batch.items()}
+    gpu, (cpu, det_cfg) = single_reference_models(name)
+    checks, extra = [], []
+
+    def check(what, err, limit):
+        checks.append(f"{what} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"{name} reference check {what}: {err} > {limit}")
+
+    gts = ("gt_boxes", "gt_labels", "gt_valid")
+    one_assignment = contextlib.nullcontext
+    with torch.inference_mode():
+        fg, fc = gpu.backbone(on_gpu["image"]), cpu.backbone(batch["image"])
+        check("trunk features", max(rel_to_max(g, c) for g, c in zip(fg, fc)), 1e-4)
+        fg, fc = gpu.neck(fg), cpu.neck(fc)
+        check("neck outputs", max(rel_to_max(g, c) for g, c in zip(fg, fc)), 1e-4)
+        og, oc = gpu.head(fg), cpu.head(fc)
+        check("head outputs", max(rel_to_max(g, c) for g, c in zip(head_maps(og), head_maps(oc))),
+              1e-4)
+        oh = to_device(oc, "cuda")  # equal inputs from here
+        if name == "yolox":
+            ag = yolox_assign(det_cfg, oh, *(on_gpu[k] for k in gts))
+            ac = yolox_assign(det_cfg, oc, *(batch[k] for k in gts))
+            sel, sel_bad, swaps, swap_bad = simota_differences(ag, ac)
+            check("SimOTA selections that differ beyond the cost ulps", sel_bad, 0)
+            check("SimOTA conflicts resolved otherwise beyond the cost ulps", swap_bad, 0)
+            extra.append(f"{int(ac.fg.sum())} positives, {sel} selections and {swaps} conflicts "
+                         f"differing between the devices where two costs lie within {SIMOTA_ULPS} "
+                         "ulps")
+            one_assignment = functools.partial(fixed_simota, ac)
+            sg, bg = single_candidates(det_cfg, oh, on_gpu["img_shape"])
+            sc, bc = single_candidates(det_cfg, oc, batch["img_shape"])
+            check("candidate scores", float((sg.cpu() - sc).abs().max()), 1e-6)
+            check("candidate boxes (px)", float((bg.cpu() - bc).abs().max()), 1e-3)
+            ng, nc = dense_nms(det_cfg, sc.cuda(), bc.cuda()), dense_nms(det_cfg, sc, bc)
+            for field in ("valid", "labels", "indices", "scores", "boxes"):
+                check(f"NMS on equal inputs, {field} mismatches",
+                      float((getattr(ng, field).cpu() != getattr(nc, field)).sum()), 0)
+            if not bool(nc.valid.any(dim=1).all()):
+                raise AssertionError(f"{name}: no detection in the reference batch")
+            extra.append(f"{nc.valid.sum(1).tolist()} detections")
+        else:
+            size = tuple(oc[0].shape[1:3])
+            tg = centernet_targets(det_cfg, size, *(on_gpu[k] for k in gts))
+            tc = centernet_targets(det_cfg, size, *(batch[k] for k in gts))
+            for field in ("heat", "wh", "offset", "ind", "mask"):
+                check(f"targets' {field}, values not bit-equal",
+                      float((getattr(tg, field).cpu() != getattr(tc, field)).sum()), 0)
+            extra.append(f"{int(tc.mask.sum())} valid gts, {int((tc.heat > 0).sum())} heat "
+                         "cells above 0")
+            k = det_cfg.max_detections
+            top_g = nms_ops.top_k_stable(centernet_peaks(oh[0]), k)
+            top_c = nms_ops.top_k_stable(centernet_peaks(oc[0]), k)
+            check("top-k scores (ulps)", float(ulp_gap(top_g[0], top_c[0]).max()), 2)
+            extra.append(f"{int((top_g[1].cpu() != top_c[1]).sum())} of the top-k indices "
+                         "differ on the head's own outputs")
+            heat = plateau_heat(torch.Generator().manual_seed(SEED + 151), oc[0].shape)
+            pg, pc = centernet_peaks(heat.cuda()), centernet_peaks(heat)
+            check("plateau peak set mismatches", float(((pg.cpu() > 0) != (pc > 0)).sum()), 0)
+            dg = decode_centernet(det_cfg, heat.cuda(), oh[1], oh[2], on_gpu["img_shape"])
+            dc = decode_centernet(det_cfg, heat, oc[1], oc[2], batch["img_shape"])
+            for field in ("valid", "labels", "indices"):
+                check(f"plateau decode {field} mismatches",
+                      float((getattr(dg, field).cpu() != getattr(dc, field)).sum()), 0)
+            check("plateau decode boxes (px)", float((dg.boxes.cpu() - dc.boxes).abs().max()), 1e-3)
+            ties = int((pc.sort(dim=1, descending=True).values[:, k - 1:k + 1].diff() == 0).sum())
+            kept = pc.reshape(heat.shape) > 0
+            whole = all(bool(kept[i, 5 + i:8 + i, 9:12, 2 + i].all())
+                        and bool(kept[i, 20:22, 3 + i:7 + i, 50].all()) for i in range(2))
+            if not ties or not whole:
+                raise AssertionError(f"{name}: the plateau input has no tie at the top-k cut "
+                                     f"({ties}) or a plateau cell was not kept ({whole})")
+            extra.append(f"plateau input: {int((pc > 0).sum())} peaks, the cut inside a tie in "
+                         f"{ties} of 2 images")
+        with one_assignment():
+            lossg, lossc = single_losses(det_cfg, oh, on_gpu), single_losses(det_cfg, oc, batch)
+    keys = SINGLE_LOSS_KEYS[name]
+    check("losses on equal inputs", max(abs(float(lossg[k]) - float(lossc[k]))
+                                        / abs(float(lossc[k])) for k in keys), 1e-5)
+    check("num_pos mismatches", abs(float(lossg["num_pos"]) - float(lossc["num_pos"])), 0)
+    gpu.train(), cpu.train()
+    with one_assignment():
+        for model, data in ((gpu, on_gpu), (cpu, batch)):
+            loss, _ = build_loss_fn(model, det_cfg)(data)
+            loss.backward()
+
+    def rel_norm(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+    errs = {n: rel_norm(g.grad, c.grad) for (n, g), (_, c) in
+            zip(gpu.named_parameters(), cpu.named_parameters())
+            if g.requires_grad and c.grad is not None and c.grad.abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    check(f"gradients' relative norm of the difference (worst at {worst})", errs[worst], 1e-2)
+    log(f"{name} reference check, GPU vs CPU float32 ({'; '.join(extra)}; {len(errs)} "
+        "gradients): " + "; ".join(checks))
 
 
 # ---------------------------------------------------------------- the entry points on SSD300
@@ -5541,8 +5845,9 @@ PORTRAIT_FIXTURES = ("portrait_375x500.jpg", "odd_333x501.jpg")
 VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)  # torchvision's features indices
 
 
-def write_smoke_coco_ssd(split: str, n_landscape: int, n_portrait: int, seed: int) -> Path:
-    """Committed JPEG fixtures under ``SMOKE_COCO_SSD/split``: ``n_landscape``
+def write_smoke_coco_ssd(split: str, n_landscape: int, n_portrait: int, seed: int,
+                         root: Path = SMOKE_COCO_SSD) -> Path:
+    """Committed JPEG fixtures under ``root/split``: ``n_landscape``
     of COCO's landscape and square sizes and ``n_portrait`` portraits
     (375 x 500 and 333 x 501), in a seeded order, with 1-20 seeded boxes an
     image over COCO's category ids and a crowd box in every fourth."""
@@ -5550,7 +5855,7 @@ def write_smoke_coco_ssd(split: str, n_landscape: int, n_portrait: int, seed: in
     picks = pick_fixtures(rng, CLI_SIZES, n_landscape, 2)
     picks += [JPEG_FIXTURES / PORTRAIT_FIXTURES[i % 2] for i in range(n_portrait)]
     picks = [picks[int(i)] for i in rng.permutation(len(picks))]
-    img_dir = SMOKE_COCO_SSD / split
+    img_dir = root / split
     img_dir.mkdir(parents=True, exist_ok=True)
     images, annotations = [], []
     for i, src in enumerate(picks):
@@ -5563,7 +5868,7 @@ def write_smoke_coco_ssd(split: str, n_landscape: int, n_portrait: int, seed: in
                                     category_id=int(rng.choice(COCO_CATEGORY_IDS)),
                                     bbox=[x, y, bw, bh], area=bw * bh, iscrowd=int(j == boxes)))
         images.append(dict(id=i + 1, file_name=name, width=w, height=h))
-    ann_file = SMOKE_COCO_SSD / f"instances_{split}.json"
+    ann_file = root / f"instances_{split}.json"
     ann_file.write_text(json.dumps(dict(
         images=images, annotations=annotations,
         categories=[dict(id=c, name=f"category_{c}") for c in COCO_CATEGORY_IDS])))
@@ -5669,31 +5974,126 @@ def phase_cli_ssd(card: str) -> dict:
     test_s = time.perf_counter() - t0
     test_launches = read_launches()
     expect_launches("cli ssd test", test_launches, 0, 0)
+    frames, results, oracle = check_cli_results("cli ssd", metrics, out, val_ann, cfg, det_cfg)
+    log(f"cli ssd test [{card}]: {len(frames)} images ({sum(h > w for w, h in frames.values())} "
+        f"portrait) in {test_s:.1f} s (the build included), launches {test_launches}; "
+        f"{len(results)} detections in the COCO results JSON, each inside its original frame; "
+        f"mAP {metrics['mAP']:.6f} (random weights after one epoch), the val gts as detections "
+        f"give mAP {oracle:.6f}; " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    return dict(training=launches, test=test_launches, mAP=metrics["mAP"])
+
+
+SMOKE_COCO_YOLOX = ROOT / "build" / "smoke_coco_yolox"
+YOLOX_CLI_LANDSCAPE, YOLOX_CLI_PORTRAIT, YOLOX_CLI_VAL, YOLOX_CLI_EPOCHS = 24, 8, 12, 2
+
+
+def check_cli_results(what: str, metrics: dict, out: Path, val_ann: Path, cfg, det_cfg) -> tuple:
+    """12 finite metrics, a results JSON with a detection in every image and
+    each inside its original frame, and the val gts as detections scoring
+    mAP 1.0; returns (frames, results, oracle mAP)."""
     if len(metrics) != 12 or not all(math.isfinite(v) for v in metrics.values()):
-        raise AssertionError(f"cli ssd test metrics {metrics}")
+        raise AssertionError(f"{what} test metrics {metrics}")
     frames = {img["id"]: (img["width"], img["height"])
               for img in json.loads(val_ann.read_text())["images"]}
     results = json.loads(out.read_text())
     if not results or {r["image_id"] for r in results} != set(frames):
-        raise AssertionError(f"cli ssd test: {len(results)} results over "
+        raise AssertionError(f"{what} test: {len(results)} results over "
                              f"{len({r['image_id'] for r in results})} of {len(frames)} images")
     for r in results:
         x, y, w, h = r["bbox"]
         fw, fh = frames[r["image_id"]]
         if not (w >= 0 and h >= 0 and x >= 0 and y >= 0 and x + w <= (fw + 1) * 1.01
                 and y + h <= (fh + 1) * 1.01):
-            raise AssertionError(f"cli ssd test result outside its image: {r}")
+            raise AssertionError(f"{what} test result outside its image: {r}")
     val = get_datasets(dict(cfg["data"]["val"]))
     anns = [val.get_ann_info(i) for i in range(len(val))]
     oracle = eval_coco_map([dict(boxes=a["bboxes"], scores=np.ones(len(a["bboxes"])),
                                  labels=a["labels"]) for a in anns], anns, det_cfg.num_classes)
     if abs(oracle["mAP"] - 1.0) > 1e-12:
-        raise AssertionError(f"cli ssd: the gt oracle scores {oracle['mAP']}")
-    log(f"cli ssd test [{card}]: {len(frames)} images ({sum(h > w for w, h in frames.values())} "
+        raise AssertionError(f"{what}: the gt oracle scores {oracle['mAP']}")
+    return frames, results, oracle["mAP"]
+
+
+def phase_cli_yolox(card: str) -> dict:
+    """YOLOX-S through the entry points at full width: a seeded COCO folder
+    of the committed JPEG fixtures under build/smoke_coco_yolox (landscape,
+    square and portrait; every val image, portraits among them, resized
+    keep-ratio inside the 640 x 640 canvas), ``tools.train`` for 2 epochs of
+    the config's b8 from the seeded init, ``tools.test --out`` on the last
+    epoch (12 finite metrics, every image with a detection inside its
+    frame) and the val gts' oracle; K1, K2 and the matcher never launch.
+    The config sets ``score_thr`` 0, so the random weights leave
+    detections for the evaluator; the 0.01 priors stay (``tools.train``
+    builds and trains the model itself, and at ``score_thr`` 0 their
+    scores of about 1e-4 pass)."""
+    shutil.rmtree(SMOKE_COCO_YOLOX, ignore_errors=True)
+    train_ann = write_smoke_coco_ssd("train", YOLOX_CLI_LANDSCAPE, YOLOX_CLI_PORTRAIT, SEED + 190,
+                                     SMOKE_COCO_YOLOX)
+    val_ann = write_smoke_coco_ssd("val", YOLOX_CLI_VAL - 4, 4, SEED + 191, SMOKE_COCO_YOLOX)
+    config = SMOKE_COCO_YOLOX / "yolox_s_smoke.py"
+    work = SMOKE_COCO_YOLOX / "work"
+    data = {split: dict(ann_file=str(ann), img_prefix=str(SMOKE_COCO_YOLOX / split))
+            for split, ann in (("train", train_ann), ("val", val_ann))}
+    config.write_text(
+        f"_base_ = {str(YOLOX_CONFIG)!r}\n"
+        f"data = dict(**{data!r})\n"
+        "detection = dict(score_thr=0.0)\n"
+        "schedule = dict(warmup_steps=4)\n"
+        f"runtime = dict(work_dir={str(work)!r}, log_interval=1)\n")
+    cfg = Config.fromfile(config)
+    det_cfg = build_detection_cfg(cfg["detection"])
+    canvas = tuple(cfg["data"]["canvas"])
+    val = get_datasets(dict(cfg["data"]["val"]))
+    held = []
+    for i in range(len(val)):
+        h, w = val[i]["img_meta"][0].data["img_shape"][:2]
+        if h > canvas[0] or w > canvas[1] or max(h, w) < canvas[0] - 1:
+            raise AssertionError(f"cli yolox: val image {i} resized to {(h, w)}, not held by "
+                                 f"the {canvas} canvas at its longer side")
+        held.append(h > w)
+    if sum(held) < 2:
+        raise AssertionError(f"cli yolox: {sum(held)} portrait val images")
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([str(config), "--epochs", str(YOLOX_CLI_EPOCHS), "--work-dir",
+                              str(work)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches("cli yolox training", launches, 0, 0)
+    steps = len(trainer.dataloader)
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    keys = SINGLE_LOSS_KEYS["yolox"]
+    if len(records) != steps * YOLOX_CLI_EPOCHS or not all(
+            math.isfinite(r[k]) for r in records for k in keys) or not all(
+            r["num_pos"] > 0 for r in records):
+        raise AssertionError(f"cli yolox training: {len(records)} records for "
+                             f"{YOLOX_CLI_EPOCHS} x {steps} steps, or a non-finite loss or no "
+                             "positive")
+    log(f"cli yolox training [{card}]: {YOLOX_CLI_LANDSCAPE} landscape and square and "
+        f"{YOLOX_CLI_PORTRAIT} portrait JPEGs, {YOLOX_CLI_EPOCHS} epochs of {steps} steps of "
+        f"b{cfg['data']['sample_per_replica']} on {canvas} in {wall:.1f} s (the build included); "
+        f"the {len(held)} val images held keep-ratio by the canvas ({sum(held)} portrait); "
+        f"launches {launches}; " + "; ".join(
+            f"{k} {[round(r[k], 4) for r in records]}" for k in keys + ("num_pos",)))
+    del trainer
+
+    out = SMOKE_COCO_YOLOX / "results.json"
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = test_cli.main([str(config), str(work / f"epoch_{YOLOX_CLI_EPOCHS}"), "--out",
+                             str(out)])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = read_launches()
+    expect_launches("cli yolox test", test_launches, 0, 0)
+    frames, results, oracle = check_cli_results("cli yolox", metrics, out, val_ann, cfg, det_cfg)
+    log(f"cli yolox test [{card}]: {len(frames)} images ({sum(h > w for w, h in frames.values())} "
         f"portrait) in {test_s:.1f} s (the build included), launches {test_launches}; "
         f"{len(results)} detections in the COCO results JSON, each inside its original frame; "
-        f"mAP {metrics['mAP']:.6f} (random weights after one epoch), the val gts as detections "
-        f"give mAP {oracle['mAP']:.6f}; " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+        f"mAP {metrics['mAP']:.6f} (random weights after {YOLOX_CLI_EPOCHS} epochs), the val gts "
+        f"as detections give mAP {oracle:.6f}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
     return dict(training=launches, test=test_launches, mAP=metrics["mAP"])
 
 
@@ -5789,6 +6189,7 @@ def main() -> int:
     cli_voc = phase_cli_voc(card)
     cli_fast = phase_cli_fast(card, SMOKE_COCO / "work" / f"epoch_{CLI_EPOCHS}")
     cli_ssd = phase_cli_ssd(card)
+    cli_yolox = phase_cli_yolox(card)
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -5821,7 +6222,8 @@ def main() -> int:
                  "cli_voc_training": cli_voc["training"], "cli_voc_test": cli_voc["test"],
                  "cli_fast_dump": cli_fast["dump"], "cli_fast_training": cli_fast["training"],
                  "cli_fast_test": cli_fast["test"], "cli_tta_test": cli_tta["test"],
-                 "cli_ssd_training": cli_ssd["training"], "cli_ssd_test": cli_ssd["test"]}
+                 "cli_ssd_training": cli_ssd["training"], "cli_ssd_test": cli_ssd["test"],
+                 "cli_yolox_training": cli_yolox["training"], "cli_yolox_test": cli_yolox["test"]}
     dense_paths = {f"{name}_{mode}": runs[name]["launches"] for name, _ in DENSE
                    for mode, runs in (("serving", dense_serve), ("training", dense_train))}
     single_paths = {f"{name}_{mode}": runs[name]["launches"] for name, _ in SINGLE

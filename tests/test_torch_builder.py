@@ -43,7 +43,7 @@ def test_detection_cfg_matches_reference():
 @pytest.mark.parametrize(
     "det_cfg,match",
     [
-        (dict(style="yolox"), "style"),  # YOLOX: a later slice
+        (dict(style="solov2"), "style"),  # SOLOv2: a later slice
         (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
         (dict(style="fast_rcnn", anchor=dict(strides=(4,))), "anchor"),  # Fast R-CNN has none
     ],
@@ -100,7 +100,8 @@ _FAMILIES = {
     "detr": ("detr_train_loss", "detr_inference", None),
 }
 # the single-stage styles; FreeAnchorConfig subclasses RetinaNetConfig, so a
-# dispatch that tested RetinaNet first would train it on retina_loss
+# dispatch that tested RetinaNet first would train it on retina_loss; SSD,
+# YOLOv3, YOLOX and CenterNet subclass no other config
 _DENSE_FAMILIES = {
     "retina": ("retina_loss", "retina_inference", None),
     "fcos": ("fcos_loss", "fcos_inference", None),
@@ -109,6 +110,10 @@ _DENSE_FAMILIES = {
     "fovea": ("fovea_loss", "fovea_inference", None),
     "free_anchor": ("free_anchor_loss", "retina_inference", None),
     "paa": ("paa_loss", "paa_inference", None),
+    "ssd": ("ssd_loss", "ssd_inference", None),
+    "yolo": ("yolo_loss", "yolo_inference", None),
+    "yolox": ("yolox_loss", "yolox_inference", None),
+    "centernet": ("centernet_loss", "centernet_inference", None),
 }
 
 

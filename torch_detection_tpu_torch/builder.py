@@ -4,8 +4,9 @@ training loader, and the optimizer with its learning-rate schedule.
 Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
 (the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
 ``cascade_mask_rcnn``, ``fast_rcnn``, ``sparse_rcnn``, ``detr``, ``fcos``,
-``atss``, ``gfl``, ``fovea``, ``free_anchor``, ``paa``, ``ssd`` and ``yolo``
-styles; the other families arrive with their slices.
+``atss``, ``gfl``, ``fovea``, ``free_anchor``, ``paa``, ``ssd``, ``yolo``,
+``yolox`` and ``centernet`` styles; the other families arrive with their
+slices.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .models.detectors import (
     ATSSConfig,
     CascadeMaskRCNNConfig,
     CascadeRCNNConfig,
+    CenterNetConfig,
     DETRConfig,
     FasterRCNNConfig,
     FastRCNNConfig,
@@ -35,9 +37,11 @@ from .models.detectors import (
     SparseRCNNConfig,
     SSDConfig,
     YOLOV3Config,
+    YOLOXConfig,
     atss_loss,
     cascade_mask_rcnn_loss,
     cascade_rcnn_loss,
+    centernet_loss,
     detr_train_loss,
     fast_rcnn_loss,
     faster_rcnn_loss,
@@ -52,6 +56,7 @@ from .models.detectors import (
     sparse_rcnn_train_loss,
     ssd_loss,
     yolo_loss,
+    yolox_loss,
 )
 from .models.inits import init_weights
 from .ops.anchors import AnchorGenerator, SSDAnchorGenerator, YOLOAnchorGenerator
@@ -96,6 +101,11 @@ _SSD_KEYS = ("num_classes", "target_means", "target_stds", "neg_pos_ratio", "smo
 _YOLO_KEYS = ("num_classes", "loss_xy_weight", "loss_wh_weight", "loss_conf_weight",
               "loss_cls_weight", "conf_thr", "score_thr", "nms_iou_thr", "pre_select_per_level",
               "pre_nms_top_k", "max_detections")
+_YOLOX_KEYS = ("num_classes", "strides", "center_radius", "candidate_topk", "iou_cost_weight",
+               "reg_loss_weight", "use_l1", "score_thr", "nms_iou_thr", "pre_nms_top_k",
+               "max_detections")
+_CENTERNET_KEYS = ("num_classes", "down_ratio", "min_overlap", "heat_weight", "wh_weight",
+                   "off_weight", "score_thr", "max_detections", "nms_iou_thr")
 # style -> (config class, its keys, the field the ``assigner`` key sets or None)
 _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS, None),
@@ -113,7 +123,9 @@ _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "free_anchor": (FreeAnchorConfig, _FREE_ANCHOR_KEYS, "assigner"),
            "paa": (PAAConfig, _PAA_KEYS, "assigner"),
            "ssd": (SSDConfig, _SSD_KEYS, "assigner"),
-           "yolo": (YOLOV3Config, _YOLO_KEYS, "assigner")}
+           "yolo": (YOLOV3Config, _YOLO_KEYS, "assigner"),
+           "yolox": (YOLOXConfig, _YOLOX_KEYS, None),
+           "centernet": (CenterNetConfig, _CENTERNET_KEYS, None)}
 # the assigner class of each config's assigner field (the R-CNNs', RetinaNet's, FreeAnchor's,
 # PAA's and SSD's MaxIoUAssigner)
 _ASSIGNERS = {ATSSConfig: ATSSAssigner, GFLConfig: ATSSAssigner, YOLOV3Config: GridAssigner}
@@ -123,7 +135,8 @@ _MAX_IOU_FIELDS = ("pos_iou_thr", "neg_iou_thr", "min_pos_iou", "gt_max_assign_a
                    "ignore_iof_thr")
 DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig, SparseRCNNConfig,
                         DETRConfig, FCOSConfig, ATSSConfig, GFLConfig, FoveaConfig,
-                        FreeAnchorConfig, PAAConfig, SSDConfig, YOLOV3Config]
+                        FreeAnchorConfig, PAAConfig, SSDConfig, YOLOV3Config, YOLOXConfig,
+                        CenterNetConfig]
 
 
 def _tuples(value):
@@ -198,7 +211,8 @@ def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     ``'faster_rcnn'``, ``'mask_rcnn'``, ``'cascade_rcnn'``,
     ``'cascade_mask_rcnn'``, ``'fast_rcnn'``, ``'sparse_rcnn'``, ``'detr'``,
     ``'fcos'``, ``'atss'``, ``'gfl'``, ``'fovea'``, ``'free_anchor'``,
-    ``'paa'``, ``'ssd'`` or ``'yolo'`` config. RetinaNet's, FreeAnchor's,
+    ``'paa'``, ``'ssd'``, ``'yolo'``, ``'yolox'`` or ``'centernet'``
+    config. RetinaNet's, FreeAnchor's,
     PAA's and SSD's ``assigner`` is their ``MaxIoUAssigner``, Fast R-CNN's
     its ``rcnn_assigner``, ATSS's and GFL's their ``ATSSAssigner``, YOLOv3's
     its ``GridAssigner``. Keys the port does not read yet raise instead of
@@ -233,7 +247,8 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     ``proposal_valid``. RetinaNet, Sparse R-CNN and DETR draw nothing;
     Sparse R-CNN's and DETR's forward and loss take the batch's
     ``img_shape``, as ATSS's, GFL's, PAA's and YOLOv3's losses do (FCOS's,
-    FoveaBox's, FreeAnchor's and SSD's do not; SSD's is R11). The
+    FoveaBox's, FreeAnchor's, SSD's, YOLOX's and CenterNet's do not; SSD's
+    is R11). The
     set-prediction and dense configs are
     tested first: no R-CNN config class is their base, and
     ``FreeAnchorConfig``, a ``RetinaNetConfig``, is a dense config tested
@@ -278,13 +293,18 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
 
 def _dense_loss(det_cfg) -> Optional[Callable]:
     """``loss(head_outputs, batch)`` of the FCOS, ATSS, GFL, FoveaBox,
-    FreeAnchor, PAA, SSD and YOLOv3 configs, as the reference's: ATSS's,
-    GFL's, PAA's and YOLOv3's take the batch's ``img_shape`` (the valid
-    anchors), the others do not (SSD's: R11); YOLOv3's head outputs are one
-    tuple of prediction maps; None for another config.
+    FreeAnchor, PAA, SSD, YOLOv3, YOLOX and CenterNet configs, as the
+    reference's: ATSS's, GFL's, PAA's and YOLOv3's take the batch's
+    ``img_shape`` (the valid anchors), the others do not (SSD's: R11);
+    YOLOv3's head outputs are one tuple of prediction maps, YOLOX's three
+    tuples of maps, CenterNet's three maps; None for another config.
     ``FreeAnchorConfig`` subclasses ``RetinaNetConfig``, whose loss
     ``build_loss_fn`` tests after this."""
     gts = ("gt_boxes", "gt_labels", "gt_valid")
+    if isinstance(det_cfg, YOLOXConfig):
+        return lambda out, batch: yolox_loss(det_cfg, *out, *(batch[k] for k in gts))
+    if isinstance(det_cfg, CenterNetConfig):
+        return lambda out, batch: centernet_loss(det_cfg, *out, *(batch[k] for k in gts))
     if isinstance(det_cfg, SSDConfig):
         return lambda out, batch: ssd_loss(det_cfg, *out, *(batch[k] for k in gts))
     if isinstance(det_cfg, YOLOV3Config):

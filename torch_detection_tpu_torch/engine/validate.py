@@ -3,8 +3,8 @@
 Counterpart of ``torch_detection_tpu/engine/validate.py``:
 ``make_inference_fn`` for the Faster R-CNN, Mask R-CNN, Cascade R-CNN,
 Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN, DETR, FCOS, ATSS,
-GFL, FoveaBox, FreeAnchor (RetinaNet's inference), PAA, SSD and YOLOv3
-families
+GFL, FoveaBox, FreeAnchor (RetinaNet's inference), PAA, SSD, YOLOv3, YOLOX
+and CenterNet families
 (the port's modules hold their weights, so ``infer`` takes the batch
 alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
 results dumps (boxes and RLE masks) and the Trainer's validation hook, the
@@ -25,6 +25,7 @@ from ..models.detectors import (
     ATSSConfig,
     CascadeMaskRCNNConfig,
     CascadeRCNNConfig,
+    CenterNetConfig,
     DETRConfig,
     FasterRCNNConfig,
     FastRCNNConfig,
@@ -37,9 +38,11 @@ from ..models.detectors import (
     SparseRCNNConfig,
     SSDConfig,
     YOLOV3Config,
+    YOLOXConfig,
     atss_inference,
     cascade_mask_rcnn_inference,
     cascade_rcnn_inference,
+    centernet_inference,
     detr_inference,
     fast_rcnn_inference,
     faster_rcnn_inference,
@@ -52,6 +55,7 @@ from ..models.detectors import (
     sparse_rcnn_inference,
     ssd_inference,
     yolo_inference,
+    yolox_inference,
 )
 from ..data.ops.mask import _rle_compress, rle_encode
 from .eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
@@ -82,7 +86,9 @@ def _inference(det_cfg, segm: bool) -> Callable:
                                      (FoveaConfig, fovea_inference, None),
                                      (PAAConfig, paa_inference, None),
                                      (SSDConfig, ssd_inference, None),
-                                     (YOLOV3Config, yolo_inference, None)):
+                                     (YOLOV3Config, yolo_inference, None),
+                                     (YOLOXConfig, yolox_inference, None),
+                                     (CenterNetConfig, centernet_inference, None)):
         if isinstance(det_cfg, config_cls):
             if segm and masks is None:
                 raise ValueError("segm=True needs a mask-capable detector (MaskRCNNConfig or "

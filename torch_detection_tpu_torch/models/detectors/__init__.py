@@ -11,6 +11,13 @@ from .cascade_rcnn import (
     cascade_rcnn_inference,
     cascade_rcnn_loss,
 )
+from .centernet import (
+    CenterNetConfig,
+    centernet_inference,
+    centernet_loss,
+    centernet_targets,
+    decode_centernet,
+)
 from .detr import DETR, DETRConfig, decode_detr, detr_inference, detr_loss, detr_train_loss
 from .fast_rcnn import FastRCNN, FastRCNNConfig, fast_rcnn_inference, fast_rcnn_loss
 from .fcos import FCOSConfig, decode_fcos, fcos_inference, fcos_loss, fcos_targets
@@ -49,6 +56,7 @@ from .two_stage import (
     sampling_noise,
 )
 from .yolov3 import YOLOV3Config, decode_yolo, yolo_candidates, yolo_inference, yolo_loss
+from .yolox import YOLOXConfig, decode_yolox, simota_assign, yolox_inference, yolox_loss
 
 __all__ = ["ATSSConfig", "FCOSConfig", "GFLConfig", "atss_inference", "atss_loss",
            "atss_targets", "decode_atss", "decode_fcos", "decode_gfl", "fcos_inference",
@@ -67,4 +75,6 @@ __all__ = ["ATSSConfig", "FCOSConfig", "GFLConfig", "atss_inference", "atss_loss
            "decode_sparse_rcnn", "sparse_rcnn_inference", "sparse_rcnn_loss",
            "sparse_rcnn_train_loss", "SSDConfig", "decode_ssd", "ssd_candidates", "ssd_inference",
            "ssd_loss", "YOLOV3Config", "decode_yolo", "yolo_candidates", "yolo_inference",
-           "yolo_loss"]
+           "yolo_loss", "CenterNetConfig", "centernet_inference", "centernet_loss",
+           "centernet_targets", "decode_centernet", "YOLOXConfig", "decode_yolox", "simota_assign",
+           "yolox_inference", "yolox_loss"]
