@@ -287,7 +287,39 @@ Phases, each fatal on failure:
    portrait, every val image held keep-ratio by the 640 x 640 canvas),
    ``tools.train`` for 2 epochs of b8 and ``tools.test --out`` (12 finite
    metrics, a detection in every image inside its frame at ``score_thr``
-   0), the val gts' oracle (mAP 1.0).
+   0), the val gts' oracle (mAP 1.0);
+39. SOLOv2 R50-FPN (configs/solov2_r50_fpn_coco.py, unchanged; ``cls_out``'s
+   bias at 0 for serving, so that random weights score above
+   ``score_thr``): first the head's resize of a bf16 map (float32, rounded
+   once) beside CUDA's bf16 antialiased kernel; served b4 bf16 on the
+   config's 800 x 1344 canvas through ``make_inference_fn(..., segm=True)``
+   and its box route (K1, K2 and the matcher never launched, a stage
+   breakdown: trunk and FPN, head towers, mask features, candidates with
+   the dynamic conv and rescoring, Matrix NMS, the top 100 with boxes and
+   crops; one profiled batch); the full-width model against the CPU in
+   float32 on a 256 x 384 canvas (maps to 1e-4, the pooled masks, targets
+   and slate bit for bit, then on equal inputs the scores and the top 256
+   within ulps, the logits to 1e-5, the masks, IoUs and decode exactly but
+   where a near-tie is counted, the Matrix-NMS scores within 8 ulps, the
+   losses to 1e-5, every gradient to 1e-2 in relative norm); trained b8
+   with the config's SGD on seeded ellipse masks (a breakdown that times
+   the targets and the loss on their own);
+40. Soft-NMS: RetinaNet R50-FPN served b4 with ``nms_method="soft"``, the
+   NMS stage timed beside the greedy NMS on the same candidates, and the
+   picks held to the CPU's (equal until a tie within 8 ulps in the CPU's
+   pool);
+41. SOLOv2 through the entry points on the CLI mask path's PNG folders:
+   ``tools.train`` for 2 epochs of b8 on 800 x 1344 with validation (box
+   and segm mAP) after each, ``tools.test --segm --out`` on the trained
+   model and on the seeded build with ``cls_out``'s bias at 0 saved as a
+   checkpoint (24 finite metrics, every RLE at its image's original size;
+   the seeded model's detections must reach the segm dump), the val gts
+   as detections (box and segm mAP 1.0);
+42. the golden SOLOv2: the narrow model of tests/test_golden_map.py trained
+   400 steps of b4 on the card (AdamW, weight decay 0) on the seeded
+   squares set of ``data_fixtures.make_golden_coco`` (written here by
+   ``png_bytes``), scored by ``evaluate_detector(segm=True)`` against the
+   reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3).
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -298,6 +330,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import functools
 import hashlib
 import json
@@ -324,7 +357,13 @@ from torch_detection_tpu_torch.builder import (
     build_loss_fn,
     build_train_objects,
 )
-from torch_detection_tpu_torch.data import VOC_CLASSES, collate, get_datasets, prefetch_to_device
+from torch_detection_tpu_torch.data import (
+    VOC_CLASSES,
+    build_dataloader,
+    collate,
+    get_datasets,
+    prefetch_to_device,
+)
 from torch_detection_tpu_torch.data.collate import pick_canvas
 from torch_detection_tpu_torch.data.ops.image import img_read
 from torch_detection_tpu_torch.data.ops.jpeg import jpeg_read
@@ -334,6 +373,7 @@ from torch_detection_tpu_torch.engine.checkpoint import (
     load_checkpoint,
     load_checkpoint_file,
     optimizer_state,
+    save_checkpoint,
 )
 from torch_detection_tpu_torch.engine.eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
 from torch_detection_tpu_torch.engine.tta import masks_to_original
@@ -354,11 +394,14 @@ from torch_detection_tpu_torch.models.detectors import (
     centernet_targets,
     decode_centernet,
     decode_detr,
+    decode_solov2,
     decode_sparse_rcnn,
     sampling_noise,
     ssd_candidates,
     ssd_loss,
     simota_assign,
+    solov2_loss,
+    solov2_targets,
     yolo_candidates,
     yolo_loss,
     yolox_loss,
@@ -468,6 +511,7 @@ from torch_detection_tpu_torch.ops.preprocess import (
     fused_normalize_pad_s2d,
     space_to_depth_2x2_np,
 )
+from torch_detection_tpu_torch.parallel.train_step import make_optimizer, make_train_step
 from torch_detection_tpu_torch.tools import dump_proposals as dump_cli
 from torch_detection_tpu_torch.tools import test as test_cli
 from torch_detection_tpu_torch.tools import train as train_cli
@@ -1516,16 +1560,20 @@ def ellipse_masks(gen: torch.Generator, boxes: torch.Tensor, valid: torch.Tensor
     return masks
 
 
-def mask_train_batch(gen: torch.Generator) -> dict:
-    """``train_batch`` with ``gt_masks``: the gt rows cut to the collate's
-    bucket, the smallest of 8, 16, 32, 64 or ``MAX_GTS`` rows that holds
-    every image's gts (the valid gts come first), one seeded ellipse each."""
-    batch = train_batch(gen)
-    n_max = int(batch["gt_valid"].sum(1).max())
-    g = next((bk for bk in (8, 16, 32, 64) if n_max <= bk < MAX_GTS), MAX_GTS)
-    batch["gt_masks"] = ellipse_masks(gen, batch["gt_boxes"][:, :g], batch["gt_valid"][:, :g],
-                                      CANVAS)
-    return batch
+def mask_rows(valid: torch.Tensor) -> int:
+    """The collate's bucket of gt mask rows: the smallest of 8, 16, 32, 64
+    or ``MAX_GTS`` that holds every image's gts (the valid gts come first)."""
+    n_max = int(valid.sum(1).max())
+    return next((bk for bk in (8, 16, 32, 64) if n_max <= bk < MAX_GTS), MAX_GTS)
+
+
+def mask_train_batch(gen: torch.Generator, batch: int = BATCH, canvas=CANVAS) -> dict:
+    """``train_batch`` with ``gt_masks``: one seeded ellipse a gt, the rows
+    cut to the collate's bucket (``mask_rows``)."""
+    out = train_batch(gen, batch, canvas)
+    g = mask_rows(out["gt_valid"])
+    out["gt_masks"] = ellipse_masks(gen, out["gt_boxes"][:, :g], out["gt_valid"][:, :g], canvas)
+    return out
 
 
 def check_mask_targets(name: str, gt_masks, rois, matched, mask_size: int) -> None:
@@ -4095,26 +4143,11 @@ def phase_cli_mask(card: str) -> dict:
     del seen
 
     # the oracle: each val image's own gt masks as detections of score 1
-    val = get_datasets(dict(cfg["data"]["val"], with_mask=True))
-    anns, dets = [], []
-    for i in range(len(val)):
-        a = val.get_ann_info(i)
-        a = dict(a, masks=[rle_encode(m) for m in a["masks"]],
-                 masks_ignore=[rle_encode(m) for m in a["masks_ignore"]])
-        anns.append(a)
-        dets.append(dict(boxes=a["bboxes"], scores=np.ones(len(a["bboxes"])), labels=a["labels"],
-                         masks=a["masks"]))
-    oracle = eval_coco_segm_map(dets, anns, det_cfg.num_classes)
-    dumped = coco_segm_dump(val, dets)
-    source = [a for a in json.loads(val_ann.read_text())["annotations"] if not a["iscrowd"]]
-    inverted = len(dumped) == len(source) and all(
-        r["image_id"] == a["image_id"] and r["category_id"] == a["category_id"]
-        and np.array_equal(rle_decode(r["segmentation"]),
-                           segm_to_mask(a["segmentation"], *frames[a["image_id"]]))
-        for r, a in zip(dumped, source))
+    _, oracle, inverted = segm_oracle(get_datasets(dict(cfg["data"]["val"], with_mask=True)),
+                                      val_ann, det_cfg.num_classes)
     log(f"cli mask oracle: the val gt masks as detections give segm mAP {oracle['mAP']:.6f}, "
-        f"AR_100 {oracle['AR_100']:.6f}; the segm dump gives back the {len(source)} non-crowd "
-        f"masks: {inverted}")
+        f"AR_100 {oracle['AR_100']:.6f}; the segm dump gives back the non-crowd masks: "
+        f"{inverted}")
     if abs(oracle["mAP"] - 1.0) > 1e-12 or not inverted:
         raise AssertionError("the segm oracle does not score 1.0 or the dump does not invert the "
                              "dataset's masks")
@@ -6097,6 +6130,747 @@ def phase_cli_yolox(card: str) -> dict:
     return dict(training=launches, test=test_launches, mAP=metrics["mAP"])
 
 
+# ---------------------------------------------------------------- SOLOv2, Soft-NMS and the golden set
+SOLOV2_CONFIG = ROOT / "configs" / "solov2_r50_fpn_coco.py"
+SOLOV2_SERVE_BATCH = 4
+SOLOV2_LOSS_KEYS = ("loss", "loss_cls", "loss_mask")
+SOLOV2_REF_CANVAS = (256, 384)  # the CPU side's full-width model at a small canvas
+SMOKE_COCO_SOLOV2 = ROOT / "build" / "smoke_coco_solov2"
+SOLOV2_CLI_EPOCHS = 2
+SOFT_ULPS = 8  # float32 ulps between the devices' sigmoids and decayed scores (an exp each)
+GOLDEN_COCO = ROOT / "build" / "golden_coco"
+GOLDEN_CANVAS, GOLDEN_STEPS, GOLDEN_BATCH = (64, 64), 400, 4
+GOLDEN_BAND = {"segm_mAP_50": 0.3, "mAP_50": 0.3}  # tests/test_golden_map.py's SOLOv2 band
+GOLDEN_SOLOV2_MODEL = dict(
+    type="SOLOV2",
+    backbone=dict(type="ResNet", depth=18, num_stages=4, out_indices=(0, 1, 2, 3)),
+    neck=dict(type="FPN", in_channels=(64, 128, 256, 512), out_channels=32, num_outs=5),
+    head=dict(type="SOLOV2Head", num_classes=2, in_channels=32, feat_channels=32,
+              kernel_channels=16, stacked_convs=2, grid_numbers=(12, 10, 8, 6, 4),
+              norm_groups=8),
+    mask_feat_head=dict(type="MaskFeatHead", in_channels=32, feat_channels=32, out_channels=16,
+                        num_inputs=4, norm_groups=8),
+)
+GOLDEN_SOLOV2_DETECTION = dict(
+    style="solov2", num_classes=2, grid_numbers=(12, 10, 8, 6, 4),
+    scale_ranges=((1, 32), (16, 48), (32, 64), (48, 96), (64, 256)), max_pos_cells=64,
+    pre_nms_top_k=32, max_detections=10, mask_out_size=14, score_thr=0.05, update_thr=0.02)
+
+
+def load_solov2(dtype: str, device):
+    """The SOLOv2 build with ``cls_out``'s bias at 0: at the 0.01 prior
+    every class score of random weights is about 0.01, under ``score_thr``
+    0.1, and the decode would keep nothing; at 0 the scores sit near 0.5,
+    and each candidate's rescored score is that times its maskness."""
+    model, det_cfg = load_model(dtype, device, SOLOV2_CONFIG)
+    with torch.no_grad():
+        model.head.cls_out.bias.zero_()
+    return model, det_cfg
+
+
+def check_solov2_detections(res, det_cfg, shapes: torch.Tensor) -> None:
+    """Shapes, a detection in every image above ``update_thr``, finite
+    boxes inside each image, labels in range, patches in [0, 1] and 0 on
+    invalid slots."""
+    b, d, m = shapes.shape[0], det_cfg.max_detections, det_cfg.mask_out_size
+    if res.boxes.shape != (b, d, 4) or res.mask_probs.shape != (b, d, m, m):
+        raise AssertionError(f"shapes {tuple(res.boxes.shape)}, {tuple(res.mask_probs.shape)}")
+    v = res.valid
+    if not bool(v.any(dim=1).all()):
+        raise AssertionError("an image without a detection")
+    if not (torch.isfinite(res.boxes).all() and torch.isfinite(res.mask_probs).all()):
+        raise AssertionError("non-finite detections or patches")
+    lab, bx = res.labels[v], res.boxes[v]
+    if not (bool((lab >= 0).all()) and bool((lab < det_cfg.num_classes).all())):
+        raise AssertionError("labels out of range")
+    inside = ((res.boxes[..., 0::2] <= shapes[:, None, 1:2] - 1).all(-1)
+              & (res.boxes[..., 1::2] <= shapes[:, None, 0:1] - 1).all(-1) & (res.boxes >= 0).all(-1))
+    if not bool(inside[v].all()) or not bool((bx[:, 2:] >= bx[:, :2]).all()):
+        raise AssertionError("a box outside its image")
+    if not bool((res.scores[v] > det_cfg.update_thr).all()):
+        raise AssertionError("a valid detection under update_thr")
+    probs = res.mask_probs
+    if not (bool((probs >= 0).all()) and bool((probs <= 1).all())) or bool(probs[~v].any()):
+        raise AssertionError("patches outside [0, 1] or on an invalid slot")
+
+
+def resize_bf16_probe(card: str) -> None:
+    """The head's resize of a bf16 map (P2 at b4 to its 40 x 40 grid):
+    ``resize_bilinear`` runs in float32 and rounds once, forward and
+    backward in bf16 out; beside it CUDA's own bf16 antialiased kernel, its
+    values beyond one bf16 ulp of the float32 resize and both times."""
+    from torch_detection_tpu_torch.models.heads.solov2_head import resize_bilinear
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    x = torch.randn((4, 258, 200, 336), generator=gen, device="cuda").to(
+        memory_format=torch.channels_last).bfloat16().requires_grad_()
+    out = resize_bilinear(x, (40, 40))
+    out.float().square().sum().backward()
+    resize = functools.partial(F.interpolate, size=(40, 40), mode="bilinear", align_corners=False,
+                               antialias=True)
+    want = resize(x.detach().float())
+    if out.dtype != torch.bfloat16 or x.grad.dtype != torch.bfloat16 or not torch.equal(
+            out, want.bfloat16()):
+        raise AssertionError("the resize is not the float32 resize rounded once to bf16")
+    native = resize(x.detach())
+    bad = int((~bf16_within_one_ulp(native, want)).sum())
+    ms = cuda_ms(lambda: resize_bilinear(x.detach(), (40, 40)), iters=20)
+    native_ms = cuda_ms(lambda: resize(x.detach()), iters=20)
+    log(f"solov2 resize, P2 b4 to 40 x 40 [{card}]: in float32, rounded once to bf16, "
+        f"{ms:.4f} ms; CUDA's bf16 antialiased kernel {native_ms:.4f} ms, {bad} of {want.numel()} "
+        "values beyond one bf16 ulp of the float32 resize")
+
+
+def solov2_stage_breakdown(model, det_cfg, image, shapes, card: str, repeats: int = 5) -> None:
+    """A serving batch stage by stage, a device sync between stages; the
+    median host ms of each over ``repeats`` batches."""
+    from torch_detection_tpu_torch.models.detectors.solov2 import (
+        solov2_candidates,
+        solov2_detections,
+    )
+
+    times = {}
+    stage = stage_timer(times)
+    with torch.inference_mode():
+        for _ in range(repeats):
+            feats = stage("trunk + FPN", lambda: model.features(image))
+            cls, kern = stage("head towers (resize to the grids, GN towers, outputs)",
+                              lambda: model.head(feats))
+            mfeat = stage("mask features (laterals, upsample, out_conv)",
+                          lambda: model.mask_feat_head(feats))
+            cand = stage("candidates: top 256 of the cell-class scores, dynamic conv, rescoring",
+                         lambda: solov2_candidates(det_cfg, cls, kern, mfeat))
+            decayed = stage("Matrix NMS", lambda: nms_ops.matrix_nms(
+                cand.binary, cand.labels, cand.scores, cand.scores > det_cfg.score_thr,
+                det_cfg.nms_method, det_cfg.nms_sigma))
+            stage("top 100, extent boxes, crop", lambda: solov2_detections(
+                det_cfg, cand, decayed, tuple(mfeat.shape[1:3]), shapes))
+    log_breakdown(f"solov2 stage breakdown, median of {repeats} batches", times, card)
+
+
+def phase_solov2_serving(card: str) -> dict:
+    """Full-width SOLOv2 R50-FPN (configs/solov2_r50_fpn_coco.py, bf16,
+    ``cls_out``'s bias at 0) answers seeded b4 batches on the config's 800 x
+    1344 canvas (two images in every four smaller) through
+    ``make_inference_fn(..., segm=True)``, then its box route; K1, K2 and the
+    matcher counted (none expected)."""
+    resize_bf16_probe(card)
+    cfg = Config.fromfile(SOLOV2_CONFIG)
+    canvas, b = tuple(cfg["data"]["canvas"]), SOLOV2_SERVE_BATCH
+    model, det_cfg = load_solov2("bfloat16", "cuda")
+    count = sum(p.numel() for p in model.parameters())
+    log(f"solov2: cls_out's bias set to 0 for serving (random weights at the 0.01 prior score "
+        f"under score_thr {det_cfg.score_thr}); {count} parameters, {det_cfg.num_cells} cells "
+        f"and {det_cfg.num_cells * det_cfg.num_classes} cell-class pairs an image")
+    infer = make_inference_fn(model, det_cfg, segm=True)
+    image, shapes = padded_images(torch.Generator(device="cuda").manual_seed(SEED + 201), b,
+                                  canvas)
+    scale = torch.ones(b, device="cuda")
+
+    def run():
+        return infer(image, shapes, scale)
+
+    timed_batches(run, WARMUP_BATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms, results = timed_batches(run, TIMED_BATCHES)
+    launches = read_launches()
+    expect_launches("solov2 serving", launches, 0, 0)
+    for res in results:
+        check_solov2_detections(res, det_cfg, shapes)
+    mean_ms = sum(ms) / len(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"solov2 serving path b{b} on {canvas} (segm): ms a batch {[round(m, 3) for m in ms]}, "
+        f"mean {mean_ms:.3f} ms, {b / (mean_ms / 1e3):.2f} images/s, median "
+        f"{statistics.median(ms):.3f} ms [{card}]; launches {launches}; valid detections an image "
+        f"{results[-1].valid.sum(1).tolist()}; peak memory {peak:.2f} GiB")
+    box_infer = make_inference_fn(model, det_cfg)
+    reset_launches()
+    box_ms, box_results = timed_batches(lambda: box_infer(image, shapes, scale), 3)
+    expect_launches("solov2 serving, box route", read_launches(), 0, 0)
+    for field in ("boxes", "scores", "labels", "valid"):
+        if not torch.equal(getattr(box_results[-1], field), getattr(results[-1], field)):
+            raise AssertionError(f"solov2: the box route's {field} part from the segm route's")
+    log(f"solov2 serving, box route: ms a batch {[round(m, 3) for m in box_ms]}, its detections "
+        "those of the segm route")
+    solov2_stage_breakdown(model, det_cfg, image, shapes, card)
+    profile = device_profile(run, mean_ms, card)
+    return dict(launches=launches, ms_per_batch=mean_ms, profile=profile, peak_gib=peak)
+
+
+def solov2_train_stage_breakdown(model, det_cfg, optimizer, batch, card: str,
+                                 repeats: int = 5) -> None:
+    """A training step stage by stage: trunk and FPN, the heads, the targets
+    on their own (the pooled masks and the cell assignment), the whole loss
+    (the targets included), the backward and the optimizer."""
+    from torch_detection_tpu_torch.models.detectors.solov2 import downsample_masks
+
+    times = {}
+    stage = stage_timer(times)
+    g = batch["gt_masks"].shape[1]
+    gts = tuple(batch[k][:, :g] for k in ("gt_boxes", "gt_labels", "gt_valid"))
+    for _ in range(repeats):
+        optimizer.zero_grad()
+        feats = stage("trunk + FPN", lambda: model.features(batch["image"]))
+        outs = stage("heads (towers, mask features)", lambda: model.heads(feats))
+        with torch.no_grad():
+            stage("targets (pooled masks, cell assignment)", lambda: solov2_targets(
+                det_cfg, *gts, downsample_masks(batch["gt_masks"], det_cfg.mask_stride),
+                tuple(batch["image"].shape[1:3])))
+        loss = stage("targets + focal + slate, dynamic conv, dice", lambda: solov2_loss(
+            det_cfg, *outs, *(batch[k] for k in ("gt_boxes", "gt_labels", "gt_valid",
+                                                 "gt_masks")))["loss"])
+        stage("backward", loss.backward)
+        stage("grad norm, clip, SGD", lambda: optimizer.apply(optimizer.global_norm()))
+    optimizer.zero_grad()
+    log_breakdown(f"solov2 training stage breakdown, median of {repeats} steps", times, card)
+
+
+def phase_solov2_train(card: str) -> dict:
+    """Full-width SOLOv2 training at the config's b8 on its 800 x 1344
+    canvas (``train_batch``'s images and gts, a seeded ellipse mask each),
+    float32 parameters and bf16 compute, the config's SGD (momentum 0.9,
+    weight decay 1e-4, clip 35), through ``build_train_objects``,
+    ``build_loss_fn`` and ``Trainer.run``: 2 warm-up and 10 timed steps;
+    K1, K2 and the matcher counted (none expected)."""
+    cfg = Config.fromfile(SOLOV2_CONFIG)
+    canvas, b = tuple(cfg["data"]["canvas"]), cfg["data"]["sample_per_replica"]
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 202)
+    batches = [mask_train_batch(gen, b, canvas) for _ in range(steps)]
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
+    group = optimizer.torch_optimizer.param_groups[0]
+    opt = cfg["optimizer"]
+    if (optimizer.grad_clip_norm, group["momentum"], group["weight_decay"]) != (
+            opt["grad_clip_norm"], opt["momentum"], opt["weight_decay"]):
+        raise AssertionError(f"solov2: clip {optimizer.grad_clip_norm}, {group}, config {opt}")
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches("solov2 training", launches, 0, 0)
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"solov2: {len(history)} steps logged, {trainer.skipped_steps} skipped")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in SOLOV2_LOSS_KEYS) or not h["num_pos"] > 0 or \
+                not h["loss_mask"] > 0:
+            raise AssertionError(f"solov2: a non-finite loss, no positive or no mask loss: {h}")
+    still = [n for n, p in model.named_parameters() if p.requires_grad and torch.equal(p, before[n])]
+    if still:
+        raise AssertionError(f"solov2: trainable parameters that did not move: {still}")
+    step_ms = [b / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    masks = [tuple(x["gt_masks"].shape[1:2]) for x in batches]
+    log(f"solov2 training path b{b} on {canvas}: ms a step {[round(m, 3) for m in step_ms]}, mean "
+        f"{mean_ms:.3f} ms, {b / (mean_ms / 1e3):.2f} images/s, median "
+        f"{statistics.median(step_ms):.3f} ms [{card}]; launches {launches}; skipped steps "
+        f"{trainer.skipped_steps}; peak memory {peak:.2f} GiB; gt mask rows a batch {masks}; over "
+        f"the {TIMED_BATCHES} steps " + "; ".join(
+            f"{k} {[round(h[k], 4) for h in history]}" for k in SOLOV2_LOSS_KEYS + ("num_pos",)))
+    profile = device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    solov2_train_stage_breakdown(model, det_cfg, optimizer, batches[-1], card)
+    return dict(launches=launches, ms_per_step=mean_ms, profile=profile, peak_gib=peak)
+
+
+def solov2_reference_batch() -> dict:
+    """Two seeded images filling ``SOLOV2_REF_CANVAS`` on the card, 1-20 gts
+    an image (``single_gts``: 16 px to 0.9 of the shorter side), a seeded
+    ellipse mask each, the mask rows cut to the collate's bucket."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 203)
+    h, w = SOLOV2_REF_CANVAS
+    shapes = torch.tensor([[h, w]] * 2, dtype=torch.float32, device="cuda")
+    boxes, labels, valid = single_gts(gen, shapes)
+    g = mask_rows(valid)
+    return dict(image=torch.randn((2, h, w, 3), generator=gen, device="cuda"), gt_boxes=boxes,
+                gt_labels=labels, gt_valid=valid, img_shape=shapes,
+                gt_masks=ellipse_masks(gen, boxes[:, :g], valid[:, :g], (h, w)))
+
+
+def phase_solov2_reference() -> None:
+    """Full-width SOLOv2 in float32 on the GPU and on the CPU (the same
+    seeded weights, ``cls_out``'s bias at 0) on ``solov2_reference_batch``:
+    the trunk, FPN, head and mask-feature maps (1e-4 of each map's largest
+    value); on the same gts the pooled masks, the targets and the loss's
+    slate bit for bit. Then on equal inputs (the GPU's maps on both
+    devices): the cell-class scores within ``SOFT_ULPS`` ulps (each device's
+    sigmoid rounds its own way) and the flat top 256 equal but at ranks
+    whose two scores lie within as many; on the CPU's top 256
+    the dynamic-conv logits (1e-5) and their masks equal but where a logit
+    lies within 1e-6 of the threshold's; on the CPU's candidates the mask
+    IoUs bit for bit, the Matrix-NMS scores within ``SOFT_ULPS`` ulps and the
+    top 100, extent boxes and crops (validity, labels and boxes exactly,
+    scores and patches to 1e-5); each device's whole decode equal to the
+    other's in the same way where neither of the two near-ties occurred (the
+    count is logged); the losses to 1e-5 and every gradient through the
+    whole model to 1e-2 in relative norm."""
+    from torch_detection_tpu_torch.models.detectors.solov2 import (
+        downsample_masks,
+        flatten_levels,
+        solov2_candidates,
+        solov2_detections,
+    )
+    from torch_detection_tpu_torch.ops.matmul import float32_matmul
+
+    on_gpu = solov2_reference_batch()
+    batch = {k: v.cpu() for k, v in on_gpu.items()}
+    (gpu, det_cfg), (cpu, _) = load_solov2("float32", "cuda"), load_solov2("float32", "cpu")
+    checks, extra, failed = [], [], []
+
+    def check(what, err, limit):
+        # every check runs and is logged; a failed one fails the phase at its end
+        checks.append(f"{what} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            failed.append(f"{what}: {err} > {limit}")
+
+    def same(what, got, want):
+        check(f"{what}, values not bit-equal", float((got.cpu() != want).sum()), 0)
+
+    def mask_matrix(m):
+        return m.float().reshape(m.shape[0], -1, m.shape[-1]).transpose(1, 2)
+
+    def take(x, idx):
+        return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+    with torch.inference_mode():
+        tg, tc = gpu.backbone(on_gpu["image"]), cpu.backbone(batch["image"])
+        check("trunk C2-C5", max(rel_to_max(g, c) for g, c in zip(tg, tc)), 1e-4)
+        fg, fc = gpu.neck(tg), cpu.neck(tc)
+        check("FPN P2-P6", max(rel_to_max(g, c) for g, c in zip(fg, fc)), 1e-4)
+        (cg, kg, mg), (cc, kc, mc) = gpu.heads(fg), cpu.heads(fc)
+        check("class logits", max(rel_to_max(g, c) for g, c in zip(cg, cc)), 1e-4)
+        check("kernels", max(rel_to_max(g, c) for g, c in zip(kg, kc)), 1e-4)
+        check("mask features", rel_to_max(mg, mc), 1e-4)
+
+        g = batch["gt_masks"].shape[1]
+        gts = [tuple(d[k][:, :g] for k in ("gt_boxes", "gt_labels", "gt_valid"))
+               for d in (on_gpu, batch)]
+        dsg = downsample_masks(on_gpu["gt_masks"], det_cfg.mask_stride)
+        dsc = downsample_masks(batch["gt_masks"], det_cfg.mask_stride)
+        same("pooled masks", dsg, dsc)
+        lg, ig = solov2_targets(det_cfg, *gts[0], dsg, SOLOV2_REF_CANVAS)
+        lc, ic = solov2_targets(det_cfg, *gts[1], dsc, SOLOV2_REF_CANVAS)
+        same("targets' labels", lg, lc)
+        same("targets' matched gts", ig, ic)
+        same("slate", nms_ops.top_k_stable((lg >= 0).float(), det_cfg.max_pos_cells)[1],
+             nms_ops.top_k_stable((lc >= 0).float(), det_cfg.max_pos_cells)[1])
+        extra.append(f"positives an image {(lc >= 0).sum(1).tolist()} over "
+                     f"{batch['gt_valid'].sum(1).tolist()} gts")
+
+        # equal inputs from here: the GPU's maps on both devices
+        oc = ([c.cpu() for c in cg], [k.cpu() for k in kg], mg.cpu())
+        (fcg, fkg), (fcc, fkc) = flatten_levels(cg, kg), flatten_levels(*oc[:2])
+        k, c = det_cfg.pre_nms_top_k, det_cfg.num_classes
+        sg = torch.sigmoid(fcg.float()).reshape(2, -1)
+        sc = torch.sigmoid(fcc.float()).reshape(2, -1)
+        check("cell-class scores (ulps)", float(ulp_gap(sg, sc).max()), SOFT_ULPS)
+        top_g, top_c = nms_ops.top_k_stable(sg, k)[1].cpu(), nms_ops.top_k_stable(sc, k)[1]
+        diff = top_g != top_c
+        tied = int(diff.sum())
+        check(f"top-256 ranks held by scores more than {SOFT_ULPS} ulps apart",
+              float((ulp_gap(sc.gather(1, top_g), sc.gather(1, top_c)) > SOFT_ULPS)[diff].sum()),
+              0)
+        logits_g = float32_matmul(take(fkg, top_c.cuda() // c), mask_matrix(mg))
+        logits_c = float32_matmul(take(fkc, top_c // c), mask_matrix(oc[2]))
+        check("dynamic-conv logits", rel_err(logits_g, logits_c), 1e-5)
+        flips = (torch.sigmoid(logits_g).cpu() > det_cfg.mask_thr) != (
+            torch.sigmoid(logits_c) > det_cfg.mask_thr)
+        check("mask pixels flipped with a logit beyond 1e-6",
+              float((flips & (logits_c.abs() > 1e-6)).sum()), 0)
+        cand = solov2_candidates(det_cfg, *oc)
+        cand_g = type(cand)(*(t.cuda() for t in cand))
+        same("mask IoUs", nms_ops.mask_iou_matrix(cand_g.binary), nms_ops.mask_iou_matrix(
+            cand.binary))
+        valid = cand.scores > det_cfg.score_thr
+        dec_g = nms_ops.matrix_nms(cand_g.binary, cand_g.labels, cand_g.scores, valid.cuda(),
+                                   det_cfg.nms_method, det_cfg.nms_sigma)
+        dec_c = nms_ops.matrix_nms(cand.binary, cand.labels, cand.scores, valid,
+                                   det_cfg.nms_method, det_cfg.nms_sigma)
+        check("Matrix-NMS scores (ulps)", float(ulp_gap(dec_g, dec_c).max()), SOFT_ULPS)
+        shapes = torch.tensor([[SOLOV2_REF_CANVAS[0], SOLOV2_REF_CANVAS[1]],
+                               [SOLOV2_REF_CANVAS[0] - 64, SOLOV2_REF_CANVAS[1] - 96]])
+        hw = tuple(oc[2].shape[1:3])
+        det_g = solov2_detections(det_cfg, cand_g, dec_c.cuda(), hw, shapes.cuda())
+        det_c = solov2_detections(det_cfg, cand, dec_c, hw, shapes)
+
+        def same_detections(what, a, b):
+            for field in ("valid", "labels", "boxes"):
+                same(f"{what} {field}", getattr(a, field), getattr(b, field))
+            check(f"{what} scores", rel_err(a.scores, b.scores), 1e-5)
+            check(f"{what} patches", rel_err(a.mask_probs, b.mask_probs), 1e-5)
+
+        same_detections("top 100, boxes and crops", det_g, det_c)
+        check("images without a detection", float((~det_c.valid.any(dim=1)).sum()), 0)
+        whole_g = decode_solov2(det_cfg, cg, kg, mg, shapes.cuda())
+        whole_c = decode_solov2(det_cfg, *oc, shapes)
+        if tied or bool(flips.any()):
+            extra.append(f"whole decode not compared: {tied} top-256 and {int(flips.sum())} mask "
+                         "near-ties")
+        else:
+            same_detections("whole decode", whole_g, whole_c)
+        extra.append(f"{whole_c.valid.sum(1).tolist()} detections, {int(valid.sum())} "
+                     "candidates over score_thr")
+        lossg = solov2_loss(det_cfg, cg, kg, mg, *(on_gpu[k] for k in (
+            "gt_boxes", "gt_labels", "gt_valid", "gt_masks")))
+        lossc = solov2_loss(det_cfg, *oc, *(batch[k] for k in (
+            "gt_boxes", "gt_labels", "gt_valid", "gt_masks")))
+    check("losses on equal inputs", max(abs(float(lossg[k]) - float(lossc[k]))
+                                        / abs(float(lossc[k])) for k in SOLOV2_LOSS_KEYS), 1e-5)
+    check("num_pos mismatches", abs(float(lossg["num_pos"]) - float(lossc["num_pos"])), 0)
+    gpu.train(), cpu.train()
+    for model, data in ((gpu, on_gpu), (cpu, batch)):
+        loss, _ = build_loss_fn(model, det_cfg)(data)
+        loss.backward()
+
+    def rel_norm(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+    errs = {n: rel_norm(g.grad, c.grad) for (n, g), (_, c) in
+            zip(gpu.named_parameters(), cpu.named_parameters())
+            if g.requires_grad and c.grad is not None and c.grad.abs().max() > 0}
+    worst = max(errs, key=errs.get)
+    check(f"gradients' relative norm of the difference (worst at {worst})", errs[worst], 1e-2)
+    log(f"solov2 reference check, GPU vs CPU float32 on {SOLOV2_REF_CANVAS} "
+        f"({'; '.join(extra)}; {len(errs)} gradients): " + "; ".join(checks))
+    if failed:
+        raise AssertionError("solov2 reference checks failed: " + "; ".join(failed))
+
+
+def soft_pool_after(decay: torch.Tensor, scores: torch.Tensor, picks) -> torch.Tensor:
+    """The Soft-NMS pool (one image, on the CPU) after ``picks``: each pick
+    multiplies the pool by its decay row and leaves it at -inf."""
+    w = scores.clone()
+    for p in picks:
+        w = w * decay[p]
+        w[p] = -math.inf
+    return w
+
+
+def soft_picks_against_cpu(det_cfg, scores: torch.Tensor, boxes: torch.Tensor) -> str:
+    """``multiclass_soft_nms`` on the card against the CPU on the same
+    candidates (float32 (B, M, C) scores and (B, M, 4) boxes on the CPU):
+    each image's picks equal until a step where the card's pick and the
+    CPU's lie within ``SOFT_ULPS`` of each other in the CPU's pool (the
+    decay's exp rounds apart by an ulp on each device), their scores to
+    1e-5 relative before it; a divergence any further apart fails."""
+    kw = dict(sigma=det_cfg.soft_sigma, iou_thr=det_cfg.nms_iou_thr,
+              score_thr=det_cfg.score_thr, pre_nms_top_k=det_cfg.pre_nms_top_k,
+              max_out=det_cfg.max_detections)
+    got = nms_ops.multiclass_soft_nms(boxes.cuda(), scores.cuda(), **kw)
+    want = nms_ops.multiclass_soft_nms(boxes, scores, **kw)
+    c = scores.shape[-1]
+    notes = []
+    for b in range(scores.shape[0]):
+        flat = scores[b].reshape(-1)
+        flat = torch.where(flat > det_cfg.score_thr, flat, -1.0)
+        top_s, top_flat = nms_ops.top_k_stable(flat, min(flat.numel(), det_cfg.pre_nms_top_k))
+        pos = {int(f): p for p, f in enumerate(top_flat.tolist())}
+        cand = boxes[b][top_flat // c]
+        shift = ((top_flat % c).float() * (cand.abs().max() + 1.0 + 1.0))[:, None]
+        decay = nms_ops._soft_decay(bbox_overlaps(cand + shift, cand + shift), "gaussian",
+                                    det_cfg.soft_sigma, det_cfg.nms_iou_thr)
+        keys = [[pos[int(i) * c + int(lab)] for i, lab, v in zip(r.indices[b], r.labels[b],
+                                                                  r.valid[b]) if v]
+                for r in (got, want)]
+        n = next((t for t, (a, z) in enumerate(zip(*keys)) if a != z), min(map(len, keys)))
+        if n:
+            err = rel_err(got.scores[b, :n], want.scores[b, :n])
+            if err > 1e-5:
+                raise AssertionError(f"soft-NMS image {b}: picked scores {err} apart")
+        if n == len(keys[0]) == len(keys[1]):
+            notes.append(f"image {b}: {n} picks equal")
+            continue
+        pool = soft_pool_after(decay, top_s, keys[1][:n])
+        at = [pool[k[n]] if n < len(k) else torch.tensor(det_cfg.score_thr) for k in keys]
+        gap = float(ulp_gap(*at).max())
+        if gap > SOFT_ULPS:
+            raise AssertionError(f"soft-NMS image {b}: the picks part at step {n}, the card's "
+                                 f"and the CPU's {gap:.1f} ulps apart in the CPU's pool")
+        notes.append(f"image {b}: {n} picks equal, then a tie within {gap:.1f} ulps")
+    return "; ".join(notes)
+
+
+def phase_soft_nms(card: str) -> dict:
+    """RetinaNet R50-FPN served with ``nms_method="soft"`` (gaussian,
+    ``soft_sigma`` 0.5), bf16, b4 on the 800 x 1216 s2d wire, ``cls_out``'s
+    bias at 0 (``load_retina``): K1, K2 and the matcher counted (none
+    expected), the detections checked; the NMS stage timed (synced host ms
+    and device ms) beside the greedy NMS on the same candidates; the picks
+    against the CPU's (``soft_picks_against_cpu``)."""
+    model, hard_cfg = load_retina("bfloat16", "cuda")
+    det_cfg = dataclasses.replace(hard_cfg, nms_method="soft")
+    infer = make_inference_fn(model, det_cfg)
+    h, w = CANVAS
+    wire, shapes = retina_wire(SEED + 204, BATCH)
+    run = serve_s2d(infer, wire, shapes)
+    timed_batches(run, WARMUP_BATCHES)
+    reset_launches()
+    ms, results = timed_batches(run, TIMED_BATCHES)
+    launches = read_launches()
+    expect_launches("retina soft-NMS serving", launches, 0, 0)
+    for res in results:
+        check_detections(res, det_cfg, BATCH, h, w)
+    mean_ms = sum(ms) / len(ms)
+    with torch.inference_mode():
+        outs = model(fused_normalize_pad_s2d(wire, shapes, out_dtype=torch.bfloat16))
+        scores, boxes = decode_candidates(det_cfg, preselect(det_cfg, *outs), shapes)
+    nms_args = dict(iou_thr=det_cfg.nms_iou_thr, score_thr=det_cfg.score_thr,
+                    pre_nms_top_k=det_cfg.pre_nms_top_k, max_out=det_cfg.max_detections)
+    soft = functools.partial(nms_ops.multiclass_soft_nms, boxes, scores,
+                             sigma=det_cfg.soft_sigma, **nms_args)
+    hard = functools.partial(nms_ops.multiclass_nms, boxes, scores, **nms_args)
+    times = {}
+    stage = stage_timer(times)
+    for _ in range(5):
+        stage("soft-NMS", soft)
+        stage("greedy NMS", hard)
+    soft_dev, hard_dev = cuda_ms(soft, iters=10), cuda_ms(hard, iters=10)
+    picks = soft_picks_against_cpu(det_cfg, scores.cpu(), boxes.cpu())
+    log(f"retina soft-NMS serving path b{BATCH}: ms a batch {[round(m, 3) for m in ms]}, mean "
+        f"{mean_ms:.3f} ms, {BATCH / (mean_ms / 1e3):.2f} images/s [{card}]; launches {launches}; "
+        f"valid detections an image {results[-1].valid.sum(1).tolist()}; the NMS stage on "
+        f"{tuple(scores.shape)} candidates, {det_cfg.max_detections} steps over a pool of "
+        f"{det_cfg.pre_nms_top_k}: soft {statistics.median(times['soft-NMS']):.3f} ms synced, "
+        f"{soft_dev:.3f} ms device; greedy {statistics.median(times['greedy NMS']):.3f} ms "
+        f"synced, {hard_dev:.3f} ms device; the picks against the CPU: {picks}")
+    return dict(launches=launches, ms_per_batch=mean_ms, soft_ms=soft_dev, hard_ms=hard_dev)
+
+
+def write_solov2_cli_config() -> Path:
+    """configs/solov2_r50_fpn_coco.py on the CLI mask path's folders (their
+    landscape and square PNGs with polygon and RLE masks, R8), validation
+    with the mask metrics (the config's ``runtime.val_segm``) after each
+    epoch, and ``score_thr`` and ``update_thr`` at 0 so that the random
+    weights leave detections for the evaluators."""
+    SMOKE_COCO_SOLOV2.mkdir(parents=True, exist_ok=True)
+    data = {split: dict(ann_file=str(SMOKE_COCO_MASKS / f"instances_{split}.json"),
+                        img_prefix=str(SMOKE_COCO_MASKS / split)) for split in ("train", "val")}
+    path = SMOKE_COCO_SOLOV2 / "solov2_r50_fpn_smoke.py"
+    path.write_text(
+        f"_base_ = {str(SOLOV2_CONFIG)!r}\n"
+        f"data = dict(**{data!r})\n"
+        "detection = dict(score_thr=0.0, update_thr=0.0)\n"
+        "schedule = dict(warmup_steps=100)\n"
+        f"runtime = dict(work_dir={str(SMOKE_COCO_SOLOV2 / 'work')!r}, log_interval=1, "
+        "val_interval_epochs=1)\n")
+    return path
+
+
+def segm_oracle(val, val_ann: Path, num_classes: int) -> tuple:
+    """The val gt masks as detections of score 1: (box mAP, the segm
+    metrics, whether the segm dump gives back the non-crowd masks)."""
+    frames = {img["id"]: (img["height"], img["width"])
+              for img in json.loads(val_ann.read_text())["images"]}
+    anns, dets = [], []
+    for i in range(len(val)):
+        a = val.get_ann_info(i)
+        a = dict(a, masks=[rle_encode(m) for m in a["masks"]],
+                 masks_ignore=[rle_encode(m) for m in a["masks_ignore"]])
+        anns.append(a)
+        dets.append(dict(boxes=a["bboxes"], scores=np.ones(len(a["bboxes"])), labels=a["labels"],
+                         masks=a["masks"]))
+    dumped = coco_segm_dump(val, dets)
+    source = [a for a in json.loads(val_ann.read_text())["annotations"] if not a["iscrowd"]]
+    inverted = len(dumped) == len(source) and all(
+        r["image_id"] == a["image_id"] and r["category_id"] == a["category_id"]
+        and np.array_equal(rle_decode(r["segmentation"]),
+                           segm_to_mask(a["segmentation"], *frames[a["image_id"]]))
+        for r, a in zip(dumped, source))
+    return (eval_coco_map(dets, anns, num_classes)["mAP"],
+            eval_coco_segm_map(dets, anns, num_classes), inverted)
+
+
+def phase_cli_solov2(card: str) -> dict:
+    """SOLOv2 R50-FPN through the entry points at full width on the CLI mask
+    path's seeded PNG folders (written by ``phase_cli_mask``; here again if
+    missing): ``tools.train`` for 2 epochs of the config's b8 on 800 x 1344
+    (validation with box and segm mAP after each), ``tools.test --segm
+    --out`` on the last epoch (24 finite metrics, every RLE at its image's
+    original size) and on the seeded build with ``cls_out``'s bias at 0
+    (saved as a checkpoint: its detections must reach the segm dump, which
+    the trained model's need not: from random weights at the config's lr
+    its masks may collapse), the val gts as detections (box and segm mAP
+    1.0); K1, K2 and the matcher never launch."""
+    if not (SMOKE_COCO_MASKS / "instances_val.json").exists():
+        write_smoke_coco_masks("train", CLI_MASK_TRAIN_IMAGES, SEED + 90)
+        write_smoke_coco_masks("val", CLI_MASK_VAL_IMAGES, SEED + 91)
+    shutil.rmtree(SMOKE_COCO_SOLOV2, ignore_errors=True)
+    config = write_solov2_cli_config()
+    cfg = Config.fromfile(config)
+    det_cfg = build_detection_cfg(cfg["detection"])
+    work = SMOKE_COCO_SOLOV2 / "work"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([str(config), "--epochs", str(SOLOV2_CLI_EPOCHS), "--work-dir",
+                              str(work)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches("cli solov2 training", launches, 0, 0)
+    steps = len(trainer.dataloader)
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    losses = [r for r in records if "loss" in r]
+    vals = [r for r in records if "val_mAP" in r]
+    if len(losses) != steps * SOLOV2_CLI_EPOCHS or not all(
+            math.isfinite(r[k]) for r in losses for k in SOLOV2_LOSS_KEYS) or not all(
+            r["num_pos"] > 0 for r in losses) or len(vals) != SOLOV2_CLI_EPOCHS or not all(
+            math.isfinite(v) for r in vals for v in r.values()) or "val_segm_mAP" not in vals[-1]:
+        raise AssertionError(f"cli solov2 training: {len(losses)} records for "
+                             f"{SOLOV2_CLI_EPOCHS} x {steps} steps, {len(vals)} validations, or "
+                             "a non-finite value or no positive")
+    batch_size = cfg["data"]["sample_per_replica"]
+    epoch_ips, step_ms = epoch_rate(losses, SOLOV2_CLI_EPOCHS - 1, batch_size)
+    log(f"cli solov2 training [{card}]: {CLI_MASK_TRAIN_IMAGES} PNGs, {SOLOV2_CLI_EPOCHS} epochs "
+        f"of {steps} steps of b{batch_size} on {tuple(cfg['data']['canvas'])} in {wall:.1f} s "
+        f"(the build, validation and checkpoints included); launches {launches}; images/s over "
+        f"epoch {SOLOV2_CLI_EPOCHS}: {epoch_ips:.2f}, a step's median "
+        f"{batch_size / statistics.median(step_ms) * 1e3:.2f}; the trainer's wait on the loader "
+        f"{trainer.loader_wait_s / len(losses) * 1e3:.1f} ms a step; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        + "; ".join(f"{k} {[round(r[k], 4) for r in losses]}" for k in SOLOV2_LOSS_KEYS
+                    + ("num_pos",))
+        + f"; validation box mAP {[r['val_mAP'] for r in vals]}, segm mAP "
+        f"{[r['val_segm_mAP'] for r in vals]}")
+    del trainer
+
+    val_ann = SMOKE_COCO_MASKS / "instances_val.json"
+    frames = {img["id"]: (img["height"], img["width"])
+              for img in json.loads(val_ann.read_text())["images"]}
+    collapsed = losses[-1]["loss_mask"] >= det_cfg.dice_weight * (1 - 1e-3)
+    # the trained model, then the seeded build with cls_out's bias at 0 (whose
+    # masks cannot have collapsed), each through tools.test --segm
+    seeded = SMOKE_COCO_SOLOV2 / "seeded"
+    save_checkpoint(str(seeded), load_solov2("float32", "cpu")[0])
+    results = {}
+    for what, checkpoint in (("trained", work / f"epoch_{SOLOV2_CLI_EPOCHS}"), ("seeded", seeded)):
+        out = SMOKE_COCO_SOLOV2 / f"results_{what}.json"
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = test_cli.main([str(config), str(checkpoint), "--segm", "--out", str(out)])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = read_launches()
+        expect_launches(f"cli solov2 test ({what})", test_launches, 0, 0)
+        if len(metrics) != 24 or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"cli solov2 test ({what}) metrics {metrics}")
+        segm = json.loads(out.with_name(f"results_{what}.segm.json").read_text())
+        if len(segm) != len(json.loads(out.read_text())) or any(
+                rle_decode(r["segmentation"]).shape != frames[r["image_id"]] for r in segm):
+            raise AssertionError(f"cli solov2 test ({what}): {len(segm)} segm records, or one "
+                                 "off its frame")
+        if what == "seeded" and not segm:
+            raise AssertionError("cli solov2 test (seeded): no segm record")
+        results[what] = dict(test=test_launches, mAP=metrics["mAP"], segm_mAP=metrics["segm_mAP"])
+        log(f"cli solov2 test --segm, the {what} model [{card}]: {len(frames)} images in "
+            f"{test_s:.1f} s (the build included), launches {test_launches}; {len(segm)} segm "
+            f"records, each RLE at its image's original size"
+            + ("; the trained masks collapsed (loss_mask at its ceiling, dice_weight): no "
+               "detection" if what == "trained" and collapsed else "")
+            + "; " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    box_oracle, segm_metrics, inverted = segm_oracle(
+        get_datasets(dict(cfg["data"]["val"], with_mask=True)), val_ann, det_cfg.num_classes)
+    log(f"cli solov2 oracle: the val gts as detections give box mAP {box_oracle:.6f} and segm "
+        f"mAP {segm_metrics['mAP']:.6f}, the dump inverting the masks: {inverted}")
+    if abs(box_oracle - 1.0) > 1e-12 or abs(segm_metrics["mAP"] - 1.0) > 1e-12 or not inverted:
+        raise AssertionError("cli solov2: the oracle does not score 1.0")
+    return dict(training=launches, **results["trained"], seeded=results["seeded"])
+
+
+def write_golden_coco(root: Path, n_images: int = 8, size: int = 64, seed: int = 7) -> tuple:
+    """``tests/data_fixtures.py::make_golden_coco`` without OpenCV: the same
+    seeded draws (1-2 bright squares of two classes on dark noise an image),
+    the PNGs written by ``png_bytes`` (lossless: the same pixels)."""
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    images, annotations = [], []
+    for i in range(n_images):
+        img = rng.integers(0, 40, (size, size, 3), np.uint8)
+        for _ in range(1 + i % 2):
+            s = int(rng.integers(16, 28))
+            x = int(rng.integers(2, size - s - 2))
+            y = int(rng.integers(2, size - s - 2))
+            cls = int(rng.integers(1, 3))
+            img[y:y + s, x:x + s, cls - 1] = 220
+            annotations.append({"id": len(annotations) + 1, "image_id": i + 1,
+                                "category_id": cls, "iscrowd": 0, "bbox": [x, y, s, s],
+                                "area": s * s,
+                                "segmentation": [[x, y, x + s, y, x + s, y + s, x, y + s]]})
+        # cv2.imwrite writes BGR: the file holds the channels reversed
+        (img_dir / f"g{i}.png").write_bytes(png_bytes(np.ascontiguousarray(img[..., ::-1])))
+        images.append({"id": i + 1, "file_name": f"g{i}.png", "height": size, "width": size})
+    ann_file = root / "golden.json"
+    ann_file.write_text(json.dumps({"images": images, "annotations": annotations,
+                                    "categories": [{"id": 1, "name": "red"},
+                                                   {"id": 2, "name": "green"}]}))
+    return ann_file, img_dir
+
+
+def phase_golden_solov2(card: str) -> dict:
+    """The golden SOLOv2 (``tests/test_golden_map.py::test_golden_map_solov2``
+    and ``tests/test_torch_golden_map.py``): the narrow model trained on the
+    card for 400 steps of b4 through the port's data tier (the loader at
+    seed 3, ``max_gts`` 4, the 64 x 64 canvas) with AdamW at lr 1e-3 and
+    weight decay 0 (the reference's ``optax.adam``), float32, then scored by
+    ``evaluate_detector(segm=True)`` on the val split; the scores must meet
+    the reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3)."""
+    shutil.rmtree(GOLDEN_COCO, ignore_errors=True)
+    ann_file, img_dir = write_golden_coco(GOLDEN_COCO)
+
+    def data(train: bool) -> dict:
+        return dict(type="CocoDataset", ann_file=str(ann_file), img_prefix=str(img_dir),
+                    img_means=(0, 0, 0), img_stds=(1, 1, 1), img_expected_sizes=GOLDEN_CANVAS,
+                    size_divisor=32, flip_ratio=0.0, test_mode=not train, with_mask=True)
+
+    det_cfg = build_detection_cfg(GOLDEN_SOLOV2_DETECTION)
+    loader = build_dataloader(get_datasets(data(True)), sample_per_replica=GOLDEN_BATCH, seed=3,
+                              max_gts=4, canvas=GOLDEN_CANVAS, prefetch=0)
+    model = build_detector(GOLDEN_SOLOV2_MODEL, "float32", device="cuda", seed=SEED).train()
+    optimizer = make_optimizer(model.parameters(), 1e-3, weight_decay=0.0, kind="adamw")
+    step = make_train_step(build_loss_fn(model, det_cfg, rng_seed=SEED), optimizer)
+    losses, epoch = [], 0
+    reset_launches()
+    t0 = time.perf_counter()
+    while len(losses) < GOLDEN_STEPS:
+        loader.set_epoch(epoch)
+        epoch += 1
+        for b in prefetch_to_device(iter(loader), device="cuda"):
+            losses.append(step(b)["loss"])
+            if len(losses) >= GOLDEN_STEPS:
+                break
+    losses = [float(x) for x in losses]
+    train_s = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches("golden solov2", launches, 0, 0)
+    if not (math.isfinite(losses[-1]) and losses[-1] < losses[0]):
+        raise AssertionError(f"golden solov2: loss {losses[0]} -> {losses[-1]}")
+    model.eval()
+    t0 = time.perf_counter()
+    res = evaluate_detector(model, det_cfg, get_datasets(data(False)), batch=GOLDEN_BATCH,
+                            canvas=GOLDEN_CANVAS, segm=True)
+    log(f"golden solov2 [{card}]: {GOLDEN_STEPS} steps of b{GOLDEN_BATCH} in {train_s:.1f} s, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}; evaluated in "
+        f"{time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {res[k]:.4f} (band >= {v})" for k, v in GOLDEN_BAND.items())
+        + f"; box mAP {res['mAP']:.4f}, segm mAP {res['segm_mAP']:.4f}")
+    for k, v in GOLDEN_BAND.items():
+        if not res[k] >= v:
+            raise AssertionError(f"golden solov2: {k} {res[k]} under the reference's band {v}")
+    return dict(launches=launches, **{k: res[k] for k in GOLDEN_BAND})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -6183,6 +6957,10 @@ def main() -> int:
     phase_single_reference()
     single_train = {name: phase_single_train(card, name, config, SEED + 180 + i)
                     for i, (name, config) in enumerate(SINGLE)}
+    solov2_serve = phase_solov2_serving(card)
+    phase_solov2_reference()
+    solov2_train = phase_solov2_train(card)
+    soft_nms = phase_soft_nms(card)
     cli = phase_cli(card, train)
     cli_mask = phase_cli_mask(card)
     cli_tta = phase_cli_tta(card)
@@ -6190,6 +6968,8 @@ def main() -> int:
     cli_fast = phase_cli_fast(card, SMOKE_COCO / "work" / f"epoch_{CLI_EPOCHS}")
     cli_ssd = phase_cli_ssd(card)
     cli_yolox = phase_cli_yolox(card)
+    cli_solov2 = phase_cli_solov2(card)
+    golden = phase_golden_solov2(card)
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -6228,8 +7008,15 @@ def main() -> int:
                    for mode, runs in (("serving", dense_serve), ("training", dense_train))}
     single_paths = {f"{name}_{mode}": runs[name]["launches"] for name, _ in SINGLE
                     for mode, runs in (("serving", single_serve), ("training", single_train))}
+    slice15_paths = {"solov2_serving": solov2_serve["launches"],
+                     "solov2_training": solov2_train["launches"],
+                     "retina_soft_nms_serving": soft_nms["launches"],
+                     "cli_solov2_training": cli_solov2["training"],
+                     "cli_solov2_test": cli_solov2["test"],
+                     "cli_solov2_test_seeded": cli_solov2["seeded"]["test"],
+                     "golden_solov2_training": golden["launches"]}
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
-                   **dense_paths, **single_paths, **cli_paths}
+                   **dense_paths, **single_paths, **cli_paths, **slice15_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],

@@ -43,7 +43,7 @@ def test_detection_cfg_matches_reference():
 @pytest.mark.parametrize(
     "det_cfg,match",
     [
-        (dict(style="solov2"), "style"),  # SOLOv2: a later slice
+        (dict(style="mask_scoring_rcnn"), "style"),  # a style of neither builder
         (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
         (dict(style="fast_rcnn", anchor=dict(strides=(4,))), "anchor"),  # Fast R-CNN has none
     ],

@@ -282,11 +282,16 @@ def test_detection_cfg_matches_a_hand_built_reference():
     assert not want.approx_top_k and want.nms_method == "hard"
 
 
-@pytest.mark.parametrize("key", [dict(approx_top_k=True), dict(nms_method="soft")],
+@pytest.mark.parametrize("key,error", [(dict(approx_top_k=True), NotImplementedError),
+                                       (dict(nms_method="matrix"), ValueError)],
                          ids=["approx_top_k", "nms_method"])
-def test_detection_cfg_refuses_what_is_not_ported(key):
+def test_detection_cfg_refuses_what_is_not_ported(key, error):
+    """``approx_top_k`` (a TPU approximation) is not ported; Soft-NMS is
+    (``tests/test_torch_soft_nms.py``), and an ``nms_method`` other than
+    ``hard`` or ``soft``, which the reference runs as greedy NMS, is
+    refused."""
     det = dict(Config.fromfile(CONFIG).detection, **key)
-    with pytest.raises(NotImplementedError, match=next(iter(key))):
+    with pytest.raises(error, match=next(iter(key))):
         build_detection_cfg(det)
 
 

@@ -5,8 +5,8 @@ Counterpart of ``torch_detection_tpu/builder.py`` for the ``retina``
 (the default), ``faster_rcnn``, ``mask_rcnn``, ``cascade_rcnn``,
 ``cascade_mask_rcnn``, ``fast_rcnn``, ``sparse_rcnn``, ``detr``, ``fcos``,
 ``atss``, ``gfl``, ``fovea``, ``free_anchor``, ``paa``, ``ssd``, ``yolo``,
-``yolox`` and ``centernet`` styles; the other families arrive with their
-slices.
+``yolox``, ``centernet`` and ``solov2`` styles: every style of the
+reference's builder.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from .models.detectors import (
     MaskRCNNConfig,
     PAAConfig,
     RetinaNetConfig,
+    SOLOV2Config,
     SparseRCNNConfig,
     SSDConfig,
     YOLOV3Config,
@@ -53,6 +54,7 @@ from .models.detectors import (
     paa_loss,
     retina_loss,
     sampling_noise,
+    solov2_loss,
     sparse_rcnn_train_loss,
     ssd_loss,
     yolo_loss,
@@ -69,7 +71,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the dtypes t
 # detection-config keys each style's paths read (besides ``anchor``)
 _RETINA_KEYS = ("num_classes", "target_means", "target_stds", "focal_gamma", "focal_alpha",
                 "smooth_l1_beta", "reg_loss_weight", "score_thr", "nms_iou_thr",
-                "pre_select_per_level", "pre_nms_top_k", "max_detections")
+                "pre_select_per_level", "pre_nms_top_k", "max_detections", "nms_method",
+                "soft_sigma")
 _FASTER_RCNN_KEYS = ("num_classes", "score_thr", "nms_iou_thr", "max_detections", "roi_size",
                      "finest_scale")
 _MASK_KEYS = ("mask_size", "mask_roi_size", "mask_loss_weight")
@@ -106,6 +109,10 @@ _YOLOX_KEYS = ("num_classes", "strides", "center_radius", "candidate_topk", "iou
                "max_detections")
 _CENTERNET_KEYS = ("num_classes", "down_ratio", "min_overlap", "heat_weight", "wh_weight",
                    "off_weight", "score_thr", "max_detections", "nms_iou_thr")
+_SOLOV2_KEYS = ("num_classes", "grid_numbers", "scale_ranges", "sigma", "mask_stride",
+                "focal_gamma", "focal_alpha", "dice_weight", "max_pos_cells", "score_thr",
+                "update_thr", "mask_thr", "pre_nms_top_k", "max_detections", "nms_method",
+                "nms_sigma", "mask_out_size")
 # style -> (config class, its keys, the field the ``assigner`` key sets or None)
 _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "faster_rcnn": (FasterRCNNConfig, _FASTER_RCNN_KEYS, None),
@@ -125,7 +132,8 @@ _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "ssd": (SSDConfig, _SSD_KEYS, "assigner"),
            "yolo": (YOLOV3Config, _YOLO_KEYS, "assigner"),
            "yolox": (YOLOXConfig, _YOLOX_KEYS, None),
-           "centernet": (CenterNetConfig, _CENTERNET_KEYS, None)}
+           "centernet": (CenterNetConfig, _CENTERNET_KEYS, None),
+           "solov2": (SOLOV2Config, _SOLOV2_KEYS, None)}
 # the assigner class of each config's assigner field (the R-CNNs', RetinaNet's, FreeAnchor's,
 # PAA's and SSD's MaxIoUAssigner)
 _ASSIGNERS = {ATSSConfig: ATSSAssigner, GFLConfig: ATSSAssigner, YOLOV3Config: GridAssigner}
@@ -136,7 +144,7 @@ _MAX_IOU_FIELDS = ("pos_iou_thr", "neg_iou_thr", "min_pos_iou", "gt_max_assign_a
 DetectionConfig = Union[RetinaNetConfig, FasterRCNNConfig, FastRCNNConfig, SparseRCNNConfig,
                         DETRConfig, FCOSConfig, ATSSConfig, GFLConfig, FoveaConfig,
                         FreeAnchorConfig, PAAConfig, SSDConfig, YOLOV3Config, YOLOXConfig,
-                        CenterNetConfig]
+                        CenterNetConfig, SOLOV2Config]
 
 
 def _tuples(value):
@@ -211,8 +219,8 @@ def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     ``'faster_rcnn'``, ``'mask_rcnn'``, ``'cascade_rcnn'``,
     ``'cascade_mask_rcnn'``, ``'fast_rcnn'``, ``'sparse_rcnn'``, ``'detr'``,
     ``'fcos'``, ``'atss'``, ``'gfl'``, ``'fovea'``, ``'free_anchor'``,
-    ``'paa'``, ``'ssd'``, ``'yolo'``, ``'yolox'`` or ``'centernet'``
-    config. RetinaNet's, FreeAnchor's,
+    ``'paa'``, ``'ssd'``, ``'yolo'``, ``'yolox'``, ``'centernet'`` or
+    ``'solov2'`` config. RetinaNet's, FreeAnchor's,
     PAA's and SSD's ``assigner`` is their ``MaxIoUAssigner``, Fast R-CNN's
     its ``rcnn_assigner``, ATSS's and GFL's their ``ATSSAssigner``, YOLOv3's
     its ``GridAssigner``. Keys the port does not read yet raise instead of
@@ -220,7 +228,7 @@ def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
     cfg = dict(det_cfg)
     style = cfg.pop("style", "retina")
     if style not in _STYLES:
-        raise NotImplementedError(f"detection style {style!r} is not ported yet")
+        raise NotImplementedError(f"detection style {style!r} is not one of the builder's styles")
     config_cls, keys, assigner_field = _STYLES[style]
     kwargs: Dict[str, Any] = {}
     anchor = cfg.pop("anchor", None) if hasattr(config_cls, "anchor_generator") else None
@@ -247,8 +255,8 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     ``proposal_valid``. RetinaNet, Sparse R-CNN and DETR draw nothing;
     Sparse R-CNN's and DETR's forward and loss take the batch's
     ``img_shape``, as ATSS's, GFL's, PAA's and YOLOv3's losses do (FCOS's,
-    FoveaBox's, FreeAnchor's, SSD's, YOLOX's and CenterNet's do not; SSD's
-    is R11). The
+    FoveaBox's, FreeAnchor's, SSD's, YOLOX's, CenterNet's and SOLOv2's do
+    not; SSD's is R11; SOLOv2's batch carries ``gt_masks``). The
     set-prediction and dense configs are
     tested first: no R-CNN config class is their base, and
     ``FreeAnchorConfig``, a ``RetinaNetConfig``, is a dense config tested
@@ -293,14 +301,18 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
 
 def _dense_loss(det_cfg) -> Optional[Callable]:
     """``loss(head_outputs, batch)`` of the FCOS, ATSS, GFL, FoveaBox,
-    FreeAnchor, PAA, SSD, YOLOv3, YOLOX and CenterNet configs, as the
-    reference's: ATSS's, GFL's, PAA's and YOLOv3's take the batch's
+    FreeAnchor, PAA, SSD, YOLOv3, YOLOX, CenterNet and SOLOv2 configs, as
+    the reference's: ATSS's, GFL's, PAA's and YOLOv3's take the batch's
     ``img_shape`` (the valid anchors), the others do not (SSD's: R11);
     YOLOv3's head outputs are one tuple of prediction maps, YOLOX's three
-    tuples of maps, CenterNet's three maps; None for another config.
+    tuples of maps, CenterNet's three maps, SOLOv2's two tuples and the mask
+    features (its loss also takes ``gt_masks``); None for another config.
     ``FreeAnchorConfig`` subclasses ``RetinaNetConfig``, whose loss
     ``build_loss_fn`` tests after this."""
     gts = ("gt_boxes", "gt_labels", "gt_valid")
+    if isinstance(det_cfg, SOLOV2Config):
+        return lambda out, batch: solov2_loss(det_cfg, *out, *(batch[k] for k in gts),
+                                              batch["gt_masks"])
     if isinstance(det_cfg, YOLOXConfig):
         return lambda out, batch: yolox_loss(det_cfg, *out, *(batch[k] for k in gts))
     if isinstance(det_cfg, CenterNetConfig):

@@ -3,8 +3,8 @@
 Counterpart of ``torch_detection_tpu/engine/validate.py``:
 ``make_inference_fn`` for the Faster R-CNN, Mask R-CNN, Cascade R-CNN,
 Cascade Mask R-CNN, Fast R-CNN, RetinaNet, Sparse R-CNN, DETR, FCOS, ATSS,
-GFL, FoveaBox, FreeAnchor (RetinaNet's inference), PAA, SSD, YOLOv3, YOLOX
-and CenterNet families
+GFL, FoveaBox, FreeAnchor (RetinaNet's inference), PAA, SSD, YOLOv3, YOLOX,
+CenterNet and SOLOv2 families
 (the port's modules hold their weights, so ``infer`` takes the batch
 alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
 results dumps (boxes and RLE masks) and the Trainer's validation hook, the
@@ -35,6 +35,7 @@ from ..models.detectors import (
     MaskRCNNConfig,
     PAAConfig,
     RetinaNetConfig,
+    SOLOV2Config,
     SparseRCNNConfig,
     SSDConfig,
     YOLOV3Config,
@@ -52,6 +53,8 @@ from ..models.detectors import (
     mask_rcnn_inference,
     paa_inference,
     retina_inference,
+    solov2_box_inference,
+    solov2_inference,
     sparse_rcnn_inference,
     ssd_inference,
     yolo_inference,
@@ -66,8 +69,8 @@ logger = logging.getLogger(__name__)
 
 
 def _inference(det_cfg, segm: bool) -> Callable:
-    """The inference of ``det_cfg``'s family, its mask branch with ``segm``.
-    The cascade configs subclass ``FasterRCNNConfig``, so each subclass is
+    """The inference of ``det_cfg``'s family, its mask branch with ``segm``
+    (SOLOv2's box route: the decode's mask-extent boxes). The cascade configs subclass ``FasterRCNNConfig``, so each subclass is
     tested before its base. ``FreeAnchorConfig`` subclasses
     ``RetinaNetConfig`` and takes its inference; no other dense config
     subclasses another."""
@@ -88,11 +91,13 @@ def _inference(det_cfg, segm: bool) -> Callable:
                                      (SSDConfig, ssd_inference, None),
                                      (YOLOV3Config, yolo_inference, None),
                                      (YOLOXConfig, yolox_inference, None),
-                                     (CenterNetConfig, centernet_inference, None)):
+                                     (CenterNetConfig, centernet_inference, None),
+                                     (SOLOV2Config, solov2_box_inference, solov2_inference)):
         if isinstance(det_cfg, config_cls):
             if segm and masks is None:
-                raise ValueError("segm=True needs a mask-capable detector (MaskRCNNConfig or "
-                                 f"CascadeMaskRCNNConfig); got {type(det_cfg).__name__}")
+                raise ValueError("segm=True needs a mask-capable detector (MaskRCNNConfig, "
+                                 "CascadeMaskRCNNConfig or SOLOV2Config); got "
+                                 f"{type(det_cfg).__name__}")
             return masks if segm else boxes
     raise NotImplementedError(f"{type(det_cfg).__name__} inference is not ported yet")
 
@@ -102,8 +107,9 @@ def make_inference_fn(model, det_cfg, segm: bool = False) -> Callable:
     detector family implied by ``det_cfg``: images (B, H, W, 3), or an
     ``stem_s2d`` backbone's (B, H/2, W/2, 12) wire, on the model's device,
     img_shape (B, 2) as (h, w), scale_factor (B,) or (B, 4). ``segm=True``
-    runs the mask branch of a Mask R-CNN or Cascade Mask R-CNN and returns
-    ``MaskDetections``, whose ``mask_probs`` are the detections' masks. Fast
+    runs the mask branch of a Mask R-CNN or Cascade Mask R-CNN, or SOLOv2's
+    decode, and returns ``MaskDetections``, whose ``mask_probs`` are the
+    detections' masks (SOLOv2's: each (M, M) patch in its box's frame). Fast
     R-CNN's ``infer(image, img_shape, scale_factor, proposals,
     proposal_valid)`` also takes its proposals, (B, P, 4|5) in the canvas
     frame, and their (B, P) validity. Sparse R-CNN's ``img_shape`` also

@@ -39,6 +39,15 @@ from .single_stage import (
     retina_inference,
     retina_loss,
 )
+from .solov2 import (
+    SOLOV2,
+    SOLOV2Config,
+    decode_solov2,
+    solov2_box_inference,
+    solov2_inference,
+    solov2_loss,
+    solov2_targets,
+)
 from .sparse_rcnn import (
     SparseRCNN,
     SparseRCNNConfig,
@@ -77,4 +86,5 @@ __all__ = ["ATSSConfig", "FCOSConfig", "GFLConfig", "atss_inference", "atss_loss
            "ssd_loss", "YOLOV3Config", "decode_yolo", "yolo_candidates", "yolo_inference",
            "yolo_loss", "CenterNetConfig", "centernet_inference", "centernet_loss",
            "centernet_targets", "decode_centernet", "YOLOXConfig", "decode_yolox", "simota_assign",
-           "yolox_inference", "yolox_loss"]
+           "yolox_inference", "yolox_loss", "SOLOV2", "SOLOV2Config", "decode_solov2",
+           "solov2_box_inference", "solov2_inference", "solov2_loss", "solov2_targets"]

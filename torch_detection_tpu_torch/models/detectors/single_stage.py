@@ -11,6 +11,7 @@ class-wise NMS on (B, ...) tensors, with no loop over images.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -20,7 +21,7 @@ from ...ops.anchors import AnchorGenerator
 from ...ops.assign import MaxIoUAssigner
 from ...ops.boxes import bbox2delta, clip_boxes, delta2bbox
 from ...ops.losses import sigmoid_focal_loss_sparse, smooth_l1_loss
-from ...ops.nms import NMSResult, multiclass_nms, top_k_stable
+from ...ops.nms import NMSResult, multiclass_nms, multiclass_soft_nms, top_k_stable
 from ...utils.device import resolve_device
 from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
 from ..heads.anchor_head import flatten_head_outputs
@@ -61,9 +62,10 @@ class SingleStageDetector(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class RetinaNetConfig:
-    """The reference's ``RetinaNetConfig``, with its defaults, less the
-    switches the port does not implement: ``approx_top_k`` (a TPU
-    approximation) and soft-NMS (``nms_method``, ``soft_sigma``)."""
+    """The reference's ``RetinaNetConfig``, with its defaults, less
+    ``approx_top_k`` (a TPU approximation). ``nms_method`` ``"hard"`` is
+    greedy NMS, ``"soft"`` gaussian Soft-NMS of ``soft_sigma``
+    (``ops/nms.py::multiclass_soft_nms``)."""
 
     num_classes: int = 80
     anchor_generator: AnchorGenerator = AnchorGenerator(
@@ -83,6 +85,12 @@ class RetinaNetConfig:
     pre_select_per_level: int = 1000  # top anchors a level by their best class score
     pre_nms_top_k: int = 1000  # (box, class) pairs entering NMS
     max_detections: int = 100
+    nms_method: str = "hard"
+    soft_sigma: float = 0.5
+
+    def __post_init__(self):
+        if self.nms_method not in ("hard", "soft"):
+            raise ValueError(f"nms_method {self.nms_method!r} is not 'hard' or 'soft'")
 
 
 class RetinaTargets(NamedTuple):
@@ -226,11 +234,14 @@ def decode_detections(
     img_shapes: Optional[Tensor] = None,  # (B, 2) (h, w), for clipping
     scale_factors: Optional[Tensor] = None,  # (B,) or (B, 4), undone on the boxes
 ) -> NMSResult:
-    """Preselection -> sigmoid -> delta decode -> class-wise NMS, padded to
-    (B, max_detections)."""
+    """Preselection -> sigmoid -> delta decode -> class-wise NMS (greedy,
+    or gaussian Soft-NMS with ``nms_method="soft"``), padded to (B,
+    max_detections)."""
     scores, boxes = decode_candidates(cfg, preselect(cfg, cls_scores, bbox_preds), img_shapes)
-    res = multiclass_nms(boxes, scores, iou_thr=cfg.nms_iou_thr, score_thr=cfg.score_thr,
-                         pre_nms_top_k=cfg.pre_nms_top_k, max_out=cfg.max_detections)
+    nms = (functools.partial(multiclass_soft_nms, sigma=cfg.soft_sigma)
+           if cfg.nms_method == "soft" else multiclass_nms)
+    res = nms(boxes, scores, iou_thr=cfg.nms_iou_thr, score_thr=cfg.score_thr,
+              pre_nms_top_k=cfg.pre_nms_top_k, max_out=cfg.max_detections)
     if scale_factors is None:
         return res
     b = res.boxes.shape[0]

@@ -1,9 +1,10 @@
 """Detection losses (mask-weighted, fixed shapes).
 
 Counterpart of ``torch_detection_tpu/ops/losses.py``, cut to what the
-two-stage, RetinaNet and Sparse R-CNN slices use. Every loss takes an elementwise ``weight`` and an
-``avg_factor``; the reduction is an explicit sum over the weighted elements
-divided by ``max(avg_factor, 1)``, so padded rows with weight 0 drop out.
+two-stage, RetinaNet, Sparse R-CNN and SOLOv2 slices use. Every loss takes
+an elementwise ``weight`` and an ``avg_factor``; the reduction is an
+explicit sum over the weighted elements divided by ``max(avg_factor, 1)``,
+so padded rows with weight 0 drop out.
 """
 
 from __future__ import annotations
@@ -165,3 +166,19 @@ def iou_loss(pred: Tensor, target: Tensor, weight: Optional[Tensor] = None, mode
     """``iou_loss_elementwise`` reduced as every loss here: the weighted sum
     over ``max(avg_factor, 1)``, or the plain sum without either."""
     return _reduce(iou_loss_elementwise(pred, target, mode, offset, eps), weight, avg_factor)
+
+
+def dice_loss(
+    probs: Tensor,  # (..., M) probabilities (already sigmoid)
+    targets: Tensor,  # (..., M) binary targets
+    weight: Optional[Tensor] = None,  # (...,) a weight an instance
+    eps: float = 1e-3,
+    avg_factor: Optional[Tensor] = None,
+) -> Tensor:
+    """SOLO's dice loss over the last axis, ``1 - (2 sum(p t) + eps) /
+    (sum(p^2) + sum(t^2) + eps)`` an instance, in float32, reduced as every
+    loss here."""
+    probs, targets = probs.float(), targets.float()
+    num = 2.0 * (probs * targets).sum(dim=-1) + eps
+    den = (probs * probs).sum(dim=-1) + (targets * targets).sum(dim=-1) + eps
+    return _reduce(1.0 - num / den, weight, avg_factor)

@@ -1,4 +1,4 @@
-"""Fixed-shape greedy NMS, batched over images.
+"""Fixed-shape greedy NMS, Soft-NMS and Matrix NMS, batched over images.
 
 Counterpart of ``torch_detection_tpu/ops/nms.py``. Outputs are padded to
 ``max_out`` rows (score 0, label -1, index -1, ``valid`` False), so the
@@ -14,16 +14,27 @@ caller's shapes do not depend on the data.
   convergence test is one host sync; ``suppress_syncs`` counts them.
 * ``multiclass_nms`` shifts each candidate by ``class * (max_coord + 1)``
   so that boxes of different classes never overlap, and runs one NMS.
+* Soft-NMS (``soft_nms``, ``multiclass_soft_nms``) is the reference's
+  ``max_out``-step scan over the top-K pool, run for every image at once
+  with no host sync: each step is an argmax (the first index among ties),
+  a gather of one row of the (B, K, K) decay matrix, a product and a
+  scatter of -inf at the pick. The decay of every pair is computed once before the scan: it is
+  elementwise in the IoU, so each step multiplies by the values the
+  reference computes from its IoU row.
+* ``matrix_nms`` (SOLOv2) decays sorted scores by pairwise mask IoU: one
+  float32 matmul (``ops/matmul.py``) and elementwise work, no loop.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
 from .boxes import bbox_overlaps
+from .matmul import float32_matmul
 
 
 class NMSResult(NamedTuple):
@@ -181,3 +192,169 @@ def multiclass_nms(
     keep = _greedy_suppress(iou, iou_thr) & (top_s > 0)
     res = _compact(keep, max_out, cand, top_s, cls_idx, box_idx)
     return NMSResult(*(a[0] for a in res)) if single else res
+
+
+def _soft_decay(iou: Tensor, method: str, sigma: float, iou_thr: float) -> Tensor:
+    """Soft-NMS's factor of each pair: ``exp(-iou^2 / sigma)`` (gaussian;
+    the division a product by float32's 1 / sigma, as XLA compiles the
+    reference's and as CUDA divides by a scalar) or ``1 - iou`` above
+    ``iou_thr`` (linear)."""
+    if method == "gaussian":
+        return torch.exp((iou * iou) * -float(np.float32(1.0) / np.float32(sigma)))
+    return torch.where(iou > iou_thr, 1.0 - iou, torch.ones_like(iou))
+
+
+def _soft_scan(decay: Tensor, scores: Tensor, max_out: int) -> Tuple[Tensor, Tensor]:
+    """The reference's scan for every image at once: ``max_out`` picks of
+    the pool's argmax, each multiplying the pool by its decay row and
+    leaving the pool at -inf; (B, max_out) picked positions and their
+    scores at their pick. Five gathers, products and scatters a step, no
+    host sync."""
+    w = scores.clone()
+    k = w.shape[1]
+    picked, picked_s = [], []
+    for _ in range(max_out):
+        i = torch.argmax(w, dim=1, keepdim=True)  # (B, 1)
+        picked.append(i)
+        picked_s.append(w.gather(1, i))
+        w.mul_(decay.gather(1, i[..., None].expand(-1, 1, k))[:, 0])
+        w.scatter_(1, i, -torch.inf)
+    return torch.cat(picked, dim=1), torch.cat(picked_s, dim=1)
+
+
+def take_rows(x: Tensor, idx: Tensor) -> Tensor:
+    """``x[b, idx[b]]`` for (B, K, ...) ``x`` and (B, P) ``idx``."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def soft_nms(
+    boxes: Tensor,  # (B, N, 4) or (N, 4)
+    scores: Tensor,  # (B, N) or (N,)
+    method: str = "gaussian",
+    sigma: float = 0.5,
+    iou_thr: float = 0.3,
+    score_thr: float = 1e-3,
+    max_out: int = 100,
+    valid: Optional[Tensor] = None,
+    offset: float = 1.0,
+    pre_top_k: Optional[int] = None,
+) -> NMSResult:
+    """Single-class Soft-NMS (Bodla et al. 2017): each pick decays its
+    neighbours' scores instead of removing them. The pool is the top
+    ``pre_top_k`` by score (all by default; invalid rows enter at -1); a
+    pick whose decayed score is not above ``score_thr`` is padding.
+    Unbatched inputs give unbatched outputs."""
+    if method not in ("gaussian", "linear"):
+        raise ValueError(f"soft-NMS method {method!r} is not gaussian or linear")
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores = boxes[None], scores[None]
+        valid = None if valid is None else valid[None]
+    n = boxes.shape[1]
+    s = scores.float()
+    if valid is not None:
+        s = torch.where(valid, s, torch.full_like(s, -1.0))
+    k = max(min(n, pre_top_k) if pre_top_k is not None else n, 1)
+    top_s, top_i = top_k_stable(s, k)
+    top_b = take_rows(boxes, top_i)
+    iou = bbox_overlaps(top_b, top_b, offset=offset).float()
+    picked, picked_s = _soft_scan(_soft_decay(iou, method, sigma, iou_thr), top_s, max_out)
+    out_v = picked_s > score_thr
+    res = NMSResult(
+        torch.where(out_v[..., None], take_rows(top_b, picked), 0.0),
+        torch.where(out_v, picked_s, 0.0),
+        torch.where(out_v, 0, -1),
+        out_v,
+        torch.where(out_v, torch.gather(top_i, 1, picked), -1),
+    )
+    return NMSResult(*(a[0] for a in res)) if single else res
+
+
+def multiclass_soft_nms(
+    boxes: Tensor,  # (B, N, 4) or class-specific (B, N, C, 4); unbatched without B
+    scores: Tensor,  # (B, N, C)
+    method: str = "gaussian",
+    sigma: float = 0.5,
+    iou_thr: float = 0.3,
+    score_thr: float = 0.05,
+    pre_nms_top_k: int = 1000,
+    max_out: int = 100,
+    valid: Optional[Tensor] = None,  # (B, N) bool
+    offset: float = 1.0,
+) -> NMSResult:
+    """Class-wise Soft-NMS in one scan: the pool is the top
+    ``pre_nms_top_k`` (box, class) pairs, those not above ``score_thr`` at
+    -1, and ``multiclass_nms``'s class offset puts each class on a
+    coordinate island of its own, so a cross-class pair has IoU 0 and
+    decays nothing. Unbatched inputs (2-d scores) give unbatched outputs."""
+    if method not in ("gaussian", "linear"):
+        raise ValueError(f"soft-NMS method {method!r} is not gaussian or linear")
+    single = scores.dim() == 2
+    if single:
+        boxes, scores = boxes[None], scores[None]
+        valid = None if valid is None else valid[None]
+    b, n, c = scores.shape
+    flat = scores.reshape(b, n * c).float()
+    neg = torch.full_like(flat, -1.0)
+    if valid is not None:
+        flat = torch.where(valid.repeat_interleave(c, dim=1), flat, neg)
+    flat = torch.where(flat > score_thr, flat, neg)
+
+    top_s, top_flat = top_k_stable(flat, min(n * c, pre_nms_top_k))
+    box_idx = top_flat // c
+    cls_idx = top_flat % c
+    rows = torch.arange(b, device=scores.device)[:, None]
+    cand = boxes[rows, box_idx, cls_idx] if boxes.dim() == 4 else boxes[rows, box_idx]
+    max_coord = torch.amax(torch.abs(cand), dim=(1, 2)) + offset  # (B,)
+    shifted = cand + (cls_idx.to(cand.dtype) * (max_coord[:, None] + 1.0))[..., None]
+    iou = bbox_overlaps(shifted, shifted, offset=offset).float()
+    picked, picked_s = _soft_scan(_soft_decay(iou, method, sigma, iou_thr), top_s, max_out)
+    out_v = picked_s > score_thr
+    res = NMSResult(
+        torch.where(out_v[..., None], take_rows(cand, picked), 0.0),
+        torch.where(out_v, picked_s, 0.0),
+        torch.where(out_v, torch.gather(cls_idx, 1, picked), -1),
+        out_v,
+        torch.where(out_v, torch.gather(box_idx, 1, picked), -1),
+    )
+    return NMSResult(*(a[0] for a in res)) if single else res
+
+
+def mask_iou_matrix(masks: Tensor, eps: float = 1e-6) -> Tensor:
+    """Pairwise IoU of (..., K, M) binary masks -> (..., K, K) float32: the
+    intersections one float32 matmul, exact for 0/1 masks of fewer than
+    2^24 pixels, the union from the areas."""
+    m = masks.float()
+    inter = float32_matmul(m, m.transpose(-1, -2))
+    areas = m.sum(dim=-1)
+    union = areas[..., :, None] + areas[..., None, :] - inter
+    return inter / union.clamp(min=eps)
+
+
+def matrix_nms(
+    masks: Tensor,  # (..., K, M) binary masks, sorted by descending score
+    labels: Tensor,  # (..., K) class ids
+    scores: Tensor,  # (..., K) descending
+    valid: Tensor,  # (..., K) bool
+    method: str = "gauss",
+    sigma: float = 2.0,
+) -> Tensor:
+    """SOLOv2's Matrix NMS: candidate b's score times ``min_a f(iou_ab) /
+    f(comp_a)`` over the higher-ranked valid candidates a of its class,
+    ``comp_a`` a's own largest IoU with a higher-ranked one of its class,
+    ``f`` gauss ``exp(-sigma iou^2)`` or linear ``1 - iou``. Returns the
+    (..., K) decayed scores."""
+    iou = mask_iou_matrix(masks)
+    k = masks.shape[-2]
+    same = ((labels[..., :, None] == labels[..., None, :]) & valid[..., :, None]
+            & valid[..., None, :])
+    # dom[a, b]: a of b's class ranked strictly above it
+    dom = same & torch.ones((k, k), dtype=torch.bool, device=masks.device).triu(1)
+    iou_d = torch.where(dom, iou, 0.0)
+    comp = iou_d.amax(dim=-2)  # each candidate's compensation, as the dominated one
+    if method == "gauss":
+        decay = torch.exp(-sigma * (iou_d ** 2 - comp[..., :, None] ** 2))
+    else:
+        decay = (1.0 - iou_d) / (1.0 - comp[..., :, None]).clamp(min=1e-6)
+    decay = torch.where(dom, decay, 1.0)
+    return scores * decay.amin(dim=-2)
