@@ -319,7 +319,26 @@ Phases, each fatal on failure:
    400 steps of b4 on the card (AdamW, weight decay 0) on the seeded
    squares set of ``data_fixtures.make_golden_coco`` (written here by
    ``png_bytes``), scored by ``evaluate_detector(segm=True)`` against the
-   reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3).
+   reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3);
+43. RetinaNet MobileNetV2-FPN, ShuffleNetV2-FPN and PAFPN-R50
+   (configs/retinanet_{mobilenetv2_fpn,shufflenetv2_fpn,pafpn_r50}_coco.py,
+   unchanged; ``cls_out``'s bias at 0 for serving) after Soft-NMS: served
+   b4 bf16 on 800 x 1216 (the two light ones from the plain uint8 canvas
+   through ``fused_normalize_pad``, PAFPN-R50 from the s2d wire; a stage
+   breakdown: preprocess, backbone, neck, head, candidates, NMS; one
+   profiled batch); the seven zoo backbones at their published widths and
+   each config's backbone, neck and head against the CPU in float32 (1e-4
+   of each output's largest value), and its losses (1e-4) and every
+   gradient (1e-2 in relative norm, float64 on the GPU the yardstick);
+   trained b8 on 800 x 1344 with the configs' SGD; K1, K2 and the matcher
+   never launched;
+44. RetinaNet MobileNetV2-FPN through the entry points: a seeded JPEG COCO
+   folder under build/smoke_coco_zoo, a seeded torchvision-layout
+   MobileNetV2 ``.pth`` as ``--pretrained file://`` (the log's count of
+   tensors set equal to the table's, all under ``backbone.``; the trained
+   checkpoint keeps the file's FrozenBN statistics bit for bit),
+   ``tools.train`` for 2 epochs of b8, ``tools.test --out`` and the val
+   gts' oracle.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -382,6 +401,7 @@ from torch_detection_tpu_torch.engine.validate import (
     coco_segm_dump,
     evaluate_detector,
 )
+from torch_detection_tpu_torch.models.backbones.mobilenet import MOBILENETV2_SETTINGS
 from torch_detection_tpu_torch.models.backbones.resnet import space_to_depth_2x2
 from torch_detection_tpu_torch.models.inits import init_weights
 from torch_detection_tpu_torch.models.detectors import (
@@ -498,6 +518,7 @@ from torch_detection_tpu_torch.models.heads.mask_head import (
 from torch_detection_tpu_torch.models.torch_import import (
     RESNET_KEY_RULES,
     convert_state_dict,
+    detector_key_rules,
     prefixed_rules,
 )
 from torch_detection_tpu_torch.ops import hungarian
@@ -517,7 +538,7 @@ from torch_detection_tpu_torch.tools import test as test_cli
 from torch_detection_tpu_torch.tools import train as train_cli
 from torch_detection_tpu_torch.utils.config import Config
 from torch_detection_tpu_torch.utils.file_handler import load
-from torch_detection_tpu_torch.utils.registry import DETECTORS
+from torch_detection_tpu_torch.utils.registry import BACKBONES, DETECTORS
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "faster_rcnn_r50_fpn_coco.py"
@@ -2022,7 +2043,7 @@ def phase_retina_train(card: str) -> dict:
 
 
 def retina_train_stage_breakdown(model, det_cfg, optimizer, batch, card: str,
-                                 repeats: int = 5) -> None:
+                                 repeats: int = 5, what: str = "retina") -> None:
     """A training step stage by stage (the stages of ``retina_loss``, the
     backward and the optimizer), a device sync between stages; the median
     host ms of each over ``repeats`` steps, and the assignment's peak
@@ -2052,26 +2073,33 @@ def retina_train_stage_breakdown(model, det_cfg, optimizer, batch, card: str,
         stage("backward", (loss_cls + loss_reg).backward)
         stage("grad norm, clip, SGD", lambda: optimizer.apply(optimizer.global_norm()))
     optimizer.zero_grad()
-    log_breakdown(f"retina training stage breakdown, median of {repeats} steps", times, card)
-    log(f"retina assignment: a ({RETINA_TRAIN_BATCH}, {targets.pos.shape[1]}, {MAX_GTS}) IoU, peak "
+    log_breakdown(f"{what} training stage breakdown, median of {repeats} steps", times, card)
+    log(f"{what} assignment: a ({RETINA_TRAIN_BATCH}, {targets.pos.shape[1]}, {MAX_GTS}) IoU, peak "
         f"memory above its inputs {assign_peak / 2**30:.2f} GiB; positives an image "
         f"{targets.pos.sum(1).tolist()}")
 
 
-def retina_reference_setup():
-    """The RetinaNet training build in float32 on the GPU and on the CPU and
-    in float64 on the GPU, on the same seeded weights, and a seeded batch of
-    2 x 256 x 320 images on the s2d wire with 3 and 2 gts: ``(det_cfg, gpu,
-    cpu, f64, batch)``, the batch on the CPU."""
-    cfg = Config.fromfile(RETINA_CONFIG)
+def stem_s2d(cfg) -> bool:
+    """Whether a config's backbone takes the space-to-depth wire."""
+    return bool(cfg["model"]["backbone"].get("stem_s2d", False))
+
+
+def retina_reference_setup(config: Path = RETINA_CONFIG):
+    """A RetinaNet config's training build in float32 on the GPU and on the
+    CPU and in float64 on the GPU, on the same seeded weights, and a seeded
+    batch of 2 x 256 x 320 images (on the s2d wire for an ``stem_s2d``
+    backbone) with 3 and 2 gts: ``(det_cfg, gpu, cpu, f64, batch)``, the
+    batch on the CPU."""
+    cfg = Config.fromfile(config)
     det_cfg = build_detection_cfg(cfg.detection)
     gpu = build_detector(cfg.model, "float32", "cuda", seed=SEED).train()
     cpu = build_detector(cfg.model, "float32", "cpu", seed=SEED).train()
     f64 = DETECTORS.build(dict(cfg.model), dtype=torch.float64, device="cuda")
     f64 = init_weights(f64, torch.Generator().manual_seed(SEED)).train()  # build_detector's weights
     gen = torch.Generator().manual_seed(SEED + 25)
+    image = torch.randn((2, 256, 320, 3), generator=gen)
     batch = dict(
-        image=space_to_depth_2x2(torch.randn((2, 256, 320, 3), generator=gen)),
+        image=space_to_depth_2x2(image) if stem_s2d(cfg) else image,
         gt_boxes=torch.tensor([[[16, 20, 120, 140], [150, 40, 300, 230], [60, 150, 110, 250], [0] * 4],
                                [[30, 30, 200, 180], [210, 100, 290, 200], [0] * 4, [0] * 4]],
                               dtype=torch.float32),
@@ -2082,11 +2110,11 @@ def retina_reference_setup():
     return det_cfg, gpu, cpu, f64, batch
 
 
-def phase_retina_train_reference() -> None:
-    """The training path in float32 on the GPU and on the CPU on a small
-    canvas: the losses and every parameter's gradient, with float64 on the
-    GPU as the yardstick of float32's own rounding."""
-    det_cfg, gpu, cpu, f64, batch = retina_reference_setup()
+def phase_retina_train_reference(config: Path = RETINA_CONFIG, what: str = "retina") -> None:
+    """A RetinaNet config's training path in float32 on the GPU and on the
+    CPU on a small canvas: the losses and every parameter's gradient, with
+    float64 on the GPU as the yardstick of float32's own rounding."""
+    det_cfg, gpu, cpu, f64, batch = retina_reference_setup(config)
     on_gpu = {k: v.cuda() for k, v in batch.items()}
     parts = []
     for model, data in ((gpu, on_gpu), (cpu, batch), (f64, on_gpu)):
@@ -2095,7 +2123,7 @@ def phase_retina_train_reference() -> None:
         parts.append(losses)
     err = max(rel_err(parts[0][k], parts[1][k]) for k in ("loss_cls", "loss_reg"))
     if not err <= 1e-4 or float(parts[0]["num_pos"]) != float(parts[1]["num_pos"]):
-        raise AssertionError(f"retina training losses: {parts[0]} against {parts[1]}")
+        raise AssertionError(f"{what} training losses: {parts[0]} against {parts[1]}")
 
     def rel_norm(a, b):
         return float((a.cpu().double() - b.cpu().double()).norm() / b.cpu().double().norm().clamp_min(1e-300))
@@ -2115,13 +2143,14 @@ def phase_retina_train_reference() -> None:
         name = max(errs, key=lambda n: errs[n][i])
         return f"{errs[name][i]:.2e} at {name}"
 
-    log(f"retina training reference check, GPU vs CPU float32 (positives an image "
+    log(f"{what} training reference check, GPU vs CPU float32 (positives an image "
         f"{float(parts[1]['num_pos']):.1f}): losses {err:.2e} (limit 1e-4); the {len(errs)} "
         f"gradients' relative norm of the difference: GPU vs CPU {worst(0)} (limit 1e-2); against "
         f"float64 on the GPU, GPU float32 {worst(1)} (limit 1e-2), CPU float32 {worst(2)}")
     bad = [n for n, e in errs.items() if not (e[0] <= 1e-2 and e[1] <= 1e-2)]
     if bad:
-        raise AssertionError(f"retina training gradients beyond 1e-2: {[(n, errs[n]) for n in bad]}")
+        raise AssertionError(f"{what} training gradients beyond 1e-2: "
+                             f"{[(n, errs[n]) for n in bad]}")
 
 
 def proposal_slate(gen: torch.Generator, gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
@@ -6871,6 +6900,401 @@ def phase_golden_solov2(card: str) -> dict:
     return dict(launches=launches, **{k: res[k] for k in GOLDEN_BAND})
 
 
+# ---------------------------------------------------------------- the backbone zoo and PAFPN
+MOBILENETV2_RETINA_CONFIG = ROOT / "configs" / "retinanet_mobilenetv2_fpn_coco.py"
+SHUFFLENETV2_RETINA_CONFIG = ROOT / "configs" / "retinanet_shufflenetv2_fpn_coco.py"
+PAFPN_RETINA_CONFIG = ROOT / "configs" / "retinanet_pafpn_r50_coco.py"
+ZOO = (("mobilenetv2", MOBILENETV2_RETINA_CONFIG), ("shufflenetv2", SHUFFLENETV2_RETINA_CONFIG),
+       ("pafpn_r50", PAFPN_RETINA_CONFIG))
+ZOO_PARAMS = {"mobilenetv2": 11_488_244, "shufflenetv2": 12_788_696,
+              "pafpn_r50": 40_329_012}  # the JAX builder's counts (jax.eval_shape)
+ZOO_TRAIN_CANVAS = (800, 1344)  # the RetinaNet configs' data canvas
+ZOO_BACKBONES = (("ResNeXt", dict(depth=50)), ("SEResNet", dict(depth=50)),
+                 ("SEResNeXt", dict(depth=50)), ("MobileNet", dict(width_multi=1.0)),
+                 ("MobileNetV2", dict(with_last_conv=True)), ("ShuffleNet", dict(groups=3)),
+                 ("ShuffleNetV2", dict(width_mult=1.0)))  # each at its published width
+SMOKE_COCO_ZOO = ROOT / "build" / "smoke_coco_zoo"
+ZOO_CLI_TRAIN, ZOO_CLI_VAL, ZOO_CLI_EPOCHS = 16, 8, 2
+
+
+def zoo_serving_input(cfg, seed: int):
+    """``(pre, shapes, wire)``: seeded uint8 images on the 800 x 1216 canvas
+    put on the card once, and ``pre()``, which normalizes them in bf16:
+    relaid 2x2 space-to-depth on the host and through
+    ``fused_normalize_pad_s2d`` for an ``stem_s2d`` backbone, else plain
+    NHWC through ``fused_normalize_pad`` with the config's means and
+    stds."""
+    h, w = CANVAS
+    u8 = np.random.default_rng(seed).integers(0, 256, (BATCH, h, w, 3), dtype=np.uint8)
+    shapes = torch.tensor([[h, w]] * BATCH, dtype=torch.float32, device="cuda")
+    if stem_s2d(cfg):
+        wire = torch.from_numpy(space_to_depth_2x2_np(u8)).cuda()
+        return (lambda: fused_normalize_pad_s2d(wire, shapes, out_dtype=torch.bfloat16), shapes,
+                "u8 s2d wire")
+    val = cfg["data"]["val"]
+    mean, std = tuple(val["img_means"]), tuple(val["img_stds"])
+    canvas = torch.from_numpy(u8).cuda()
+    return (lambda: fused_normalize_pad(canvas, shapes, mean, std, out_dtype=torch.bfloat16),
+            shapes, "u8 NHWC")
+
+
+def zoo_stage_breakdown(name: str, model, det_cfg, pre, wire: str, shapes, card: str,
+                        repeats: int = 5) -> None:
+    """A serving batch stage by stage, a device sync between stages; the
+    median host ms of each over ``repeats`` batches."""
+    times = {}
+    stage = stage_timer(times)
+    with torch.inference_mode():
+        for _ in range(repeats):
+            x = stage(f"preprocess ({wire})", pre)
+            feats = stage(f"backbone ({type(model.backbone).__name__})",
+                          lambda: model.backbone(x))
+            levels = stage(f"neck ({type(model.neck).__name__})", lambda: model.neck(feats))
+            cls, reg = stage("retina head", lambda: model.head(levels))
+            scores, boxes = stage("candidates (preselect, sigmoid, decode, clip)",
+                                  lambda: retina_candidates(det_cfg, cls, reg, shapes))
+            stage("multiclass NMS", lambda: dense_nms(det_cfg, scores, boxes))
+    log_breakdown(f"{name} stage breakdown, median of {repeats} batches", times, card)
+
+
+def conv_kind(conv: torch.nn.Conv2d) -> str:
+    """depthwise (as many groups as input channels), grouped, the folded
+    stem, or dense with its window."""
+    if conv.groups > 1:
+        return "depthwise" if conv.groups == conv.in_channels else "grouped"
+    if type(conv) is not torch.nn.Conv2d:
+        return type(conv).__name__
+    return "dense " + "x".join(map(str, conv.kernel_size))
+
+
+def backbone_conv_kinds(name: str, model, x, card: str) -> dict:
+    """Device ms of the backbone's convs by kind (depthwise: as many groups
+    as input channels; grouped; dense 1x1; dense k x k), each conv timed
+    alone by CUDA events on its input from the batch, beside the whole
+    backbone's forward; the convs' cuDNN kernels without their norms and
+    activations."""
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, args: inputs.setdefault(mod, args[0]))
+             for m in model.backbone.modules() if isinstance(m, torch.nn.Conv2d)]
+    with torch.inference_mode():
+        model.backbone(x)
+        for hook in hooks:
+            hook.remove()
+        kinds, count = collections.Counter(), collections.Counter()
+        for conv, inp in inputs.items():
+            kind = conv_kind(conv)
+            kinds[kind] += cuda_ms(lambda: conv(inp), iters=20)
+            count[kind] += 1
+        # one call, so that the device's head start covers the host's queueing
+        whole = cuda_ms(lambda: model.backbone(x), iters=1)
+    log(f"{name} backbone convs by kind, device ms each alone on the batch's inputs [{card}]: "
+        + ", ".join(f"{k} {v:.3f} ({count[k]} convs)" for k, v in sorted(kinds.items()))
+        + f"; the whole backbone {whole:.3f} ms (convs {sum(kinds.values()):.3f}, the rest its "
+        "norms, activations, adds, shuffles and pools)")
+    return dict(kinds, backbone=whole)
+
+
+def phase_zoo_serving(card: str, name: str, config: Path, seed: int) -> dict:
+    """Full-width RetinaNet MobileNetV2-FPN, ShuffleNetV2-FPN or PAFPN-R50,
+    bf16, b4 on the 800 x 1216 canvas (``cls_out``'s bias at 0, as
+    ``load_retina``): ``zoo_serving_input``'s wire through
+    ``make_inference_fn``; K1, K2 and the matcher counted (none expected)."""
+    cfg = Config.fromfile(config)
+    model, det_cfg = load_dense(config, "bfloat16", "cuda")
+    params = sum(p.numel() for p in model.parameters())
+    if params != ZOO_PARAMS[name]:
+        raise AssertionError(f"{name}: {params} parameters, the reference has {ZOO_PARAMS[name]}")
+    infer = make_inference_fn(model, det_cfg)
+    pre, shapes, wire = zoo_serving_input(cfg, seed)
+    scale = torch.ones(BATCH, device="cuda")
+
+    def run():
+        return infer(pre(), shapes, scale)
+
+    timed_batches(run, WARMUP_BATCHES)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ms, results = timed_batches(run, TIMED_BATCHES)
+    launches = read_launches()
+    expect_launches(f"{name} serving", launches, 0, 0)
+    h, w = CANVAS
+    for res in results:
+        check_detections(res, det_cfg, BATCH, h, w)
+    mean_ms = sum(ms) / len(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{name} serving path b{BATCH} {h}x{w} from the {wire} ({params} parameters, "
+        f"{type(model.backbone).__name__} and {type(model.neck).__name__} to C5 "
+        f"{model.backbone.out_channels[-1]} channels): ms a batch {[round(m, 3) for m in ms]}, "
+        f"mean {mean_ms:.3f} ms, {BATCH / (mean_ms / 1e3):.2f} images/s, median "
+        f"{statistics.median(ms):.3f} ms [{card}]; launches {launches}; valid detections an "
+        f"image {results[-1].valid.sum(1).tolist()}; peak memory {peak:.2f} GiB")
+    zoo_stage_breakdown(name, model, det_cfg, pre, wire, shapes, card)
+    profile = device_profile(run, mean_ms, card)
+    convs = backbone_conv_kinds(name, model, pre(), card)
+    return dict(launches=launches, ms_per_batch=mean_ms, profile=profile, peak_gib=peak,
+                convs=convs)
+
+
+def zoo_train_batch(gen: torch.Generator, s2d: bool) -> dict:
+    """``train_batch`` at b8 on the configs' 800 x 1344 canvas, its images
+    relaid 2x2 space-to-depth for an ``stem_s2d`` backbone, as the collate
+    does."""
+    batch = train_batch(gen, RETINA_TRAIN_BATCH, ZOO_TRAIN_CANVAS)
+    if s2d:
+        batch["image"] = space_to_depth_2x2(batch["image"])
+    return batch
+
+
+def phase_zoo_train(card: str, name: str, config: Path, seed: int) -> dict:
+    """Full-width RetinaNet MobileNetV2-FPN, ShuffleNetV2-FPN or PAFPN-R50
+    training, float32 parameters and bf16 compute, b8 (the configs'
+    ``sample_per_replica``) on 800 x 1344 with the two-stage cells' image
+    layout and gts, the configs' SGD (momentum 0.9, weight decay 1e-4,
+    clip 35), through ``build_train_objects``, ``build_loss_fn`` and
+    ``Trainer.run``; K1, K2 and the matcher counted (none expected)."""
+    cfg = Config.fromfile(config)
+    steps = WARMUP_BATCHES + TIMED_BATCHES
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [zoo_train_batch(gen, stem_s2d(cfg)) for _ in range(steps)]
+    model, det_cfg, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED,
+                                                       loader=Batches(batches))
+    if optimizer.grad_clip_norm != 35.0 or cfg["data"]["sample_per_replica"] != RETINA_TRAIN_BATCH:
+        raise AssertionError(f"{name}: clip {optimizer.grad_clip_norm}, batch "
+                             f"{cfg['data']['sample_per_replica']}")
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    Trainer(loss_fn, model, optimizer, Batches(batches[:WARMUP_BATCHES]), log_interval=1).run(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    trainer = Trainer(loss_fn, model, optimizer, Batches(batches[WARMUP_BATCHES:]), log_interval=1)
+    reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.run(1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches(f"{name} training", launches, 0, 0)
+    if len(history) != TIMED_BATCHES or trainer.skipped_steps:
+        raise AssertionError(f"{name}: {len(history)} steps logged, {trainer.skipped_steps} skipped")
+    for h in history:
+        if not all(math.isfinite(h[k]) for k in RETINA_LOSS_KEYS) or not h["num_pos"] > 0:
+            raise AssertionError(f"{name}: non-finite loss or no positive at step {h['step']}: {h}")
+    still = [n for n, p in model.named_parameters() if p.requires_grad and torch.equal(p, before[n])]
+    moved = [n for n, p in model.named_parameters()
+             if not p.requires_grad and not torch.equal(p, before[n])]
+    frozen = sum(not p.requires_grad for p in model.parameters())
+    if still or moved:
+        raise AssertionError(f"{name}: trainable parameters that did not move {still}; frozen "
+                             f"ones that moved {moved}")
+    b = RETINA_TRAIN_BATCH
+    step_ms = [b / h["images_per_sec"] * 1e3 for h in history]
+    mean_ms = seconds / TIMED_BATCHES * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{name} training path b{b} on {ZOO_TRAIN_CANVAS}: ms a step "
+        f"{[round(m, 3) for m in step_ms]}, mean {mean_ms:.3f} ms, {b / (mean_ms / 1e3):.2f} "
+        f"images/s, median {statistics.median(step_ms):.3f} ms [{card}]; launches {launches}; "
+        f"{frozen} frozen parameter tensors; skipped steps {trainer.skipped_steps}; peak memory "
+        f"{peak:.2f} GiB; over the {TIMED_BATCHES} steps "
+        + "; ".join(f"{k} {[round(h[k], 4) for h in history]}"
+                    for k in RETINA_LOSS_KEYS + ("num_pos",)))
+    profile = device_profile(lambda: trainer.train_step(dict(batches[-1])), mean_ms, card, "step")
+    retina_train_stage_breakdown(model, det_cfg, optimizer, batches[-1], card, what=name)
+    return dict(launches=launches, ms_per_step=mean_ms, profile=profile, peak_gib=peak)
+
+
+def phase_zoo_reference() -> None:
+    """The backbone zoo and the three configs in float32 on the GPU against
+    the CPU (TF32 off): each of the seven backbones at its published width
+    on the same seeded weights, on two 256 x 320 images; then for each
+    config the backbone's outputs, the neck's levels, and on equal inputs
+    (the GPU's levels) the head's outputs; then its losses and every
+    parameter's gradient through the whole model
+    (``phase_retina_train_reference``, float64 on the GPU the yardstick)."""
+    checks = []
+
+    def check(what, err, limit):
+        checks.append(f"{what} {err:.2e} (limit {limit:g})")
+        if not err <= limit:
+            raise AssertionError(f"zoo reference check {what}: {err} > {limit}")
+
+    image = torch.randn((2, 256, 320, 3), generator=torch.Generator().manual_seed(SEED + 220))
+    for name, kwargs in ZOO_BACKBONES:
+        nets = [init_weights(BACKBONES.build(dict(kwargs, type=name), device=device),
+                             torch.Generator().manual_seed(SEED)).to(
+                                 memory_format=torch.channels_last).eval()
+                for device in ("cuda", "cpu")]
+        with torch.inference_mode():
+            outs = [net(image.to(device)) for net, device in zip(nets, ("cuda", "cpu"))]
+        # cuDNN and the CPU sum in other orders (grouped and depthwise too)
+        check(f"{name} outputs", max(rel_to_max(g, c) for g, c in zip(*outs)), 1e-4)
+    log("zoo reference check, the seven backbones at their published widths, GPU vs CPU "
+        "float32, relative to each output's largest value: " + "; ".join(checks))
+    for name, config in ZOO:
+        checks.clear()
+        cfg = Config.fromfile(config)
+        gpu, cpu = (build_detector(cfg.model, "float32", device, seed=SEED)
+                    for device in ("cuda", "cpu"))
+        x = space_to_depth_2x2(image) if stem_s2d(cfg) else image
+        with torch.inference_mode():
+            fg, fc = gpu.backbone(x.cuda()), cpu.backbone(x)
+            check("backbone outputs", max(rel_to_max(g, c) for g, c in zip(fg, fc)), 1e-4)
+            lg, lc = gpu.neck(fg), cpu.neck([f.cpu() for f in fg])
+            check(f"{type(gpu.neck).__name__} levels on equal inputs",
+                  max(rel_to_max(g, c) for g, c in zip(lg, lc)), 1e-4)
+            cls_g, reg_g = gpu.head(lg)
+            cls_c, reg_c = cpu.head([f.cpu() for f in lg])
+            check("head logits and deltas on equal inputs",
+                  max(rel_to_max(g, c) for g, c in zip(cls_g + reg_g, cls_c + reg_c)), 1e-4)
+        log(f"{name} reference check, GPU vs CPU float32 on 2 x 256 x 320, relative to each "
+            "output's largest value: " + "; ".join(checks))
+    for name, config in ZOO:
+        phase_retina_train_reference(config, name)
+
+
+def write_torchvision_mobilenet_v2(path: Path, seed: int) -> dict:
+    """A seeded state dict in torchvision's MobileNetV2 layout: the stem
+    (``features.0``), the 17 inverted residuals (``features.1``-``17``, each
+    ``conv`` a Sequential of conv-BN-ReLU6 triples and a bare conv and BN),
+    the last 1x1 to 1280 (``features.18``) and ``classifier.1`` at a small
+    shape; kernels normal of variance 2 / fan_in, BN weights 1 and biases 0,
+    running means normal(0, 0.1) and variances in [0.5, 1.5]."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+
+    def conv(key: str, cout: int, cin: int, k: int) -> None:
+        state[f"{key}.weight"] = torch.randn((cout, cin, k, k), generator=gen) * math.sqrt(
+            2.0 / (cin * k * k))
+
+    def bn(key: str, c: int) -> None:
+        state.update({f"{key}.weight": torch.ones(c), f"{key}.bias": torch.zeros(c),
+                      f"{key}.running_mean": torch.randn((c,), generator=gen) * 0.1,
+                      f"{key}.running_var": 0.5 + torch.rand((c,), generator=gen),
+                      f"{key}.num_batches_tracked": torch.tensor(0)})
+
+    conv("features.0.0", 32, 3, 3)
+    bn("features.0.1", 32)
+    cin, feat = 32, 1
+    for expansion, planes, blocks, _, _ in MOBILENETV2_SETTINGS:
+        for _ in range(blocks):
+            hidden, base, k = cin * expansion, f"features.{feat}.conv", 0
+            if expansion != 1:
+                conv(f"{base}.0.0", hidden, cin, 1)
+                bn(f"{base}.0.1", hidden)
+                k = 1
+            conv(f"{base}.{k}.0", hidden, 1, 3)  # depthwise: one input channel a group
+            bn(f"{base}.{k}.1", hidden)
+            conv(f"{base}.{k + 1}", planes, hidden, 1)
+            bn(f"{base}.{k + 2}", planes)
+            cin, feat = planes, feat + 1
+    conv("features.18.0", 1280, cin, 1)
+    bn("features.18.1", 1280)
+    state["classifier.1.weight"], state["classifier.1.bias"] = torch.zeros((8, 1280)), torch.zeros(8)
+    torch.save(state, str(path))
+    return state
+
+
+def phase_cli_zoo(card: str) -> dict:
+    """RetinaNet MobileNetV2-FPN through the entry points at full width: a
+    seeded COCO folder of the committed JPEG fixtures under
+    build/smoke_coco_zoo (landscape and square: the config's fixed canvas
+    holds no portrait, R8), a seeded torchvision-layout MobileNetV2 ``.pth``
+    given as ``--pretrained file://`` (copied into a cache under the
+    folder), ``tools.train`` for 2 epochs of the config's b8, then
+    ``tools.test`` on the last epoch and the val gts' oracle. The importer
+    must set as many tensors as its table predicts (five a conv of the
+    backbone: the conv and its FrozenBN's four), all under ``backbone.``
+    (the reference loads none, R9), and the trained checkpoint keeps the
+    file's FrozenBN statistics bit for bit. K1, K2 and the matcher never
+    launch."""
+    shutil.rmtree(SMOKE_COCO_ZOO, ignore_errors=True)
+    train_ann = write_smoke_coco_ssd("train", ZOO_CLI_TRAIN, 0, SEED + 230, SMOKE_COCO_ZOO)
+    val_ann = write_smoke_coco_ssd("val", ZOO_CLI_VAL, 0, SEED + 231, SMOKE_COCO_ZOO)
+    pth = SMOKE_COCO_ZOO / "mobilenet_v2.pth"
+    state = write_torchvision_mobilenet_v2(pth, SEED + 232)
+    convs = 1 + sum(blocks * (2 if expansion == 1 else 3)
+                    for expansion, _, blocks, _, _ in MOBILENETV2_SETTINGS)
+    predicted = 5 * convs
+    config = SMOKE_COCO_ZOO / "retinanet_mobilenetv2_smoke.py"
+    work = SMOKE_COCO_ZOO / "work"
+    data = {split: dict(ann_file=str(ann), img_prefix=str(SMOKE_COCO_ZOO / split))
+            for split, ann in (("train", train_ann), ("val", val_ann))}
+    config.write_text(
+        f"_base_ = {str(MOBILENETV2_RETINA_CONFIG)!r}\n"
+        f"data = dict(**{data!r})\n"
+        "detection = dict(score_thr=0.0)\n"
+        "schedule = dict(warmup_steps=100)\n"
+        f"runtime = dict(work_dir={str(work)!r}, log_interval=1)\n")
+    cfg = Config.fromfile(config)
+    det_cfg = build_detection_cfg(cfg["detection"])
+    cache = os.environ.get("XDG_CACHE_HOME")
+    os.environ["XDG_CACHE_HOME"] = str(SMOKE_COCO_ZOO / "cache")
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        with logged_lines() as lines:
+            trainer = train_cli.main([str(config), "--epochs", str(ZOO_CLI_EPOCHS), "--work-dir",
+                                      str(work), "--pretrained", f"file://{pth}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if cache is None:
+            os.environ.pop("XDG_CACHE_HOME")
+        else:
+            os.environ["XDG_CACHE_HOME"] = cache
+    launches = read_launches()
+    expect_launches("cli zoo training", launches, 0, 0)
+    backbone = sum(k.startswith("backbone.") for k in trainer.model.state_dict())
+    loaded = [line for line in lines if line.startswith("loaded ") and "mobilenet_v2.pth" in line]
+    if len(loaded) != 1 or not loaded[0].startswith(f"loaded {predicted} tensors") or \
+            f"{predicted} of the backbone's {backbone}" not in loaded[0] or predicted != backbone:
+        raise AssertionError(f"cli zoo: the import logged {loaded}; the table predicts "
+                             f"{predicted} of the backbone's {backbone}")
+    steps = len(trainer.dataloader)
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    if len(records) != steps * ZOO_CLI_EPOCHS or not all(
+            math.isfinite(r[k]) for r in records for k in RETINA_LOSS_KEYS):
+        raise AssertionError(f"cli zoo training: {len(records)} records for {ZOO_CLI_EPOCHS} x "
+                             f"{steps} steps, or a non-finite loss")
+    saved = load_checkpoint_file(str(work / f"epoch_{ZOO_CLI_EPOCHS}"))["model"]
+    mapped, _ = convert_state_dict(trainer.model, state, detector_key_rules(trainer.model, state))
+    stats = [k for k in mapped if k.endswith((".mean", ".var"))]
+    kept = [k for k in stats if torch.equal(saved[k].cpu(), mapped[k])]
+    weights = [k for k in mapped if k.endswith(".conv.weight")]
+    drift = max(float((saved[k].float().cpu() - mapped[k]).norm() / mapped[k].norm())
+                for k in weights)
+    # a conv drawn afresh would sit about sqrt(2) from the file's
+    if len(kept) != len(stats) or len(stats) != 2 * convs or not drift < 0.5:
+        raise AssertionError(f"cli zoo: epoch_{ZOO_CLI_EPOCHS} keeps {len(kept)} of the file's "
+                             f"{len(stats)} FrozenBN statistics; its convs within {drift} of the "
+                             "file's")
+    log(f"cli zoo training [{card}]: {ZOO_CLI_TRAIN} landscape and square JPEGs, "
+        f"{ZOO_CLI_EPOCHS} epochs of {steps} steps of b{cfg['data']['sample_per_replica']} on "
+        f"{tuple(cfg['data']['canvas'])} in {wall:.1f} s (the build and the import included); "
+        f"{loaded[0]!r}, the table predicts {predicted} ({convs} convs and their FrozenBN); "
+        f"epoch_{ZOO_CLI_EPOCHS} keeps the file's {len(stats)} FrozenBN statistics bit for bit, "
+        f"its {len(weights)} backbone convs within {drift:.4f} of the file's (relative norm); "
+        f"launches {launches}; losses " + "; ".join(
+            f"{k} {[round(r[k], 4) for r in records]}" for k in RETINA_LOSS_KEYS + ("num_pos",)))
+    del trainer
+
+    out = SMOKE_COCO_ZOO / "results.json"
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = test_cli.main([str(config), str(work / f"epoch_{ZOO_CLI_EPOCHS}"), "--out",
+                             str(out)])
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    test_launches = read_launches()
+    expect_launches("cli zoo test", test_launches, 0, 0)
+    frames, results, oracle = check_cli_results("cli zoo", metrics, out, val_ann, cfg, det_cfg)
+    log(f"cli zoo test [{card}]: {len(frames)} images in {test_s:.1f} s (the build included), "
+        f"launches {test_launches}; {len(results)} detections in the COCO results JSON, each "
+        f"inside its original frame; mAP {metrics['mAP']:.6f} (random heads after "
+        f"{ZOO_CLI_EPOCHS} epochs), the val gts as detections give mAP {oracle:.6f}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    return dict(training=launches, test=test_launches, loaded=predicted, mAP=metrics["mAP"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -6961,6 +7385,11 @@ def main() -> int:
     phase_solov2_reference()
     solov2_train = phase_solov2_train(card)
     soft_nms = phase_soft_nms(card)
+    zoo_serve = {name: phase_zoo_serving(card, name, config, SEED + 200 + i)
+                 for i, (name, config) in enumerate(ZOO)}
+    phase_zoo_reference()
+    zoo_train = {name: phase_zoo_train(card, name, config, SEED + 210 + i)
+                 for i, (name, config) in enumerate(ZOO)}
     cli = phase_cli(card, train)
     cli_mask = phase_cli_mask(card)
     cli_tta = phase_cli_tta(card)
@@ -6969,6 +7398,7 @@ def main() -> int:
     cli_ssd = phase_cli_ssd(card)
     cli_yolox = phase_cli_yolox(card)
     cli_solov2 = phase_cli_solov2(card)
+    cli_zoo = phase_cli_zoo(card)
     golden = phase_golden_solov2(card)
 
     def entry(name, replaces, launches, m, **extra):
@@ -7015,8 +7445,12 @@ def main() -> int:
                      "cli_solov2_test": cli_solov2["test"],
                      "cli_solov2_test_seeded": cli_solov2["seeded"]["test"],
                      "golden_solov2_training": golden["launches"]}
+    slice16_paths = {**{f"{name}_{mode}": runs[name]["launches"] for name, _ in ZOO
+                        for mode, runs in (("serving", zoo_serve), ("training", zoo_train))},
+                     "cli_zoo_training": cli_zoo["training"], "cli_zoo_test": cli_zoo["test"]}
+    log(f"the backbone zoo and PAFPN paths' launches of K1, K2 and the matcher: {slice16_paths}")
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
-                   **dense_paths, **single_paths, **cli_paths, **slice15_paths}
+                   **dense_paths, **single_paths, **cli_paths, **slice15_paths, **slice16_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],

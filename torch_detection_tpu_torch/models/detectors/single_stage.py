@@ -23,9 +23,10 @@ from ...ops.boxes import bbox2delta, clip_boxes, delta2bbox
 from ...ops.losses import sigmoid_focal_loss_sparse, smooth_l1_loss
 from ...ops.nms import NMSResult, multiclass_nms, multiclass_soft_nms, top_k_stable
 from ...utils.device import resolve_device
-from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ...utils.registry import BACKBONES, DETECTORS, HEADS
 from ..heads.anchor_head import flatten_head_outputs
 from ..layers import compute_autocast
+from ..necks import build_neck
 
 
 @DETECTORS.register_module
@@ -43,7 +44,7 @@ class SingleStageDetector(nn.Module):
         self.param_dtype = param_dtype or self.dtype
         kw = dict(dtype=self.param_dtype, device=resolve_device(device))
         self.backbone = BACKBONES.build(dict(backbone), **kw)
-        self.neck = NECKS.build(dict(neck), **kw) if neck else None
+        self.neck = build_neck(neck, self.backbone, **kw) if neck else None
         self.head = HEADS.build(dict(head), **kw)
 
     def _autocast(self, x: Tensor):

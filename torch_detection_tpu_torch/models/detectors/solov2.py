@@ -43,8 +43,9 @@ from ...ops.losses import dice_loss, sigmoid_focal_loss_sparse
 from ...ops.matmul import float32_matmul
 from ...ops.nms import NMSResult, matrix_nms, take_rows, top_k_stable
 from ...utils.device import resolve_device
-from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ...utils.registry import BACKBONES, DETECTORS, HEADS
 from ..layers import compute_autocast
+from ..necks import build_neck
 from .mask_rcnn import MaskDetections
 
 INF = 1e8
@@ -66,7 +67,7 @@ class SOLOV2(nn.Module):
         self.param_dtype = param_dtype or self.dtype
         kw = dict(dtype=self.param_dtype, device=resolve_device(device))
         self.backbone = BACKBONES.build(dict(backbone), **kw)
-        self.neck = NECKS.build(dict(neck), **kw)
+        self.neck = build_neck(neck, self.backbone, **kw)
         self.head = HEADS.build(dict(head), **kw)
         self.mask_feat_head = HEADS.build(dict(mask_feat_head), **kw)
 

@@ -27,9 +27,10 @@ from ...ops.losses import binary_cross_entropy, smooth_l1_loss, softmax_cross_en
 from ...ops.nms import NMSResult, multiclass_nms, top_k_stable
 from ...ops.roi_align import batched_multilevel_roi_align
 from ...utils.device import resolve_device
-from ...utils.registry import BACKBONES, DETECTORS, HEADS, NECKS
+from ...utils.registry import BACKBONES, DETECTORS, HEADS
 from ..heads.rpn_head import ProposalConfig, Proposals, generate_proposals
 from ..layers import compute_autocast
+from ..necks import build_neck
 
 # noise(shape) -> (u_pos in [0, 1), u_all in [0, 0.5)), each of ``shape``
 Noise = Callable[[Tuple[int, ...]], Tuple[Tensor, Tensor]]
@@ -54,7 +55,7 @@ class RoIDetector(nn.Module):
         self.param_dtype = param_dtype or self.dtype
         self._device = resolve_device(device)
         self.backbone = self._build(BACKBONES, backbone)
-        self.neck = self._build(NECKS, neck)
+        self.neck = build_neck(neck, self.backbone, dtype=self.param_dtype, device=self._device)
         self._neck_channels = neck["out_channels"]
 
     def _build(self, registry, cfg: Dict[str, Any], **kwargs) -> nn.Module:

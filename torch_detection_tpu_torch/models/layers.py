@@ -138,7 +138,9 @@ def build_act(act: Optional[str]) -> Optional[Callable[[Tensor], Tensor]]:
 
 class ConvModule(nn.Module):
     """conv -> norm -> act, each of the last two optional. The conv has a
-    bias if ``use_bias``, by default unless a norm follows it."""
+    bias if ``use_bias``, by default unless a norm follows it. ``groups``
+    splits the conv into groups of channels (depthwise where it equals
+    ``in_channels``), as flax's ``feature_group_count``."""
 
     def __init__(
         self,
@@ -153,12 +155,13 @@ class ConvModule(nn.Module):
         device=None,
         dilation: int = 1,
         use_bias: Optional[bool] = None,
+        groups: int = 1,
     ):
         super().__init__()
         self.conv = nn.Conv2d(
             in_channels, out_channels, kernel_size, stride=stride, padding=padding,
-            dilation=dilation, bias=norm_cfg is None if use_bias is None else use_bias,
-            dtype=dtype, device=device,
+            dilation=dilation, groups=groups,
+            bias=norm_cfg is None if use_bias is None else use_bias, dtype=dtype, device=device,
         )
         self.norm = build_norm(norm_cfg, out_channels, device)
         self.act_fn = build_act(act)
@@ -260,6 +263,50 @@ class MultiHeadDotProductAttention(nn.Module):
         weights = torch.softmax(weights, dim=-1).to(dtype)
         out = torch.einsum("...hqk,...khd->...qhd", weights, v)
         return self.out(out.reshape(*lead, n, features))
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation: the spatial mean of each channel, ``fc1``
+    (to ``channels // reduction``, at least 1) -> ReLU -> ``fc2`` ->
+    sigmoid, the input scaled by the result channel by channel. The two
+    layers are ``nn.Linear``, flax's ``Dense`` names, so the converter
+    transposes their kernels."""
+
+    def __init__(self, channels: int, reduction: int = 16, dtype=None, device=None):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.fc1 = nn.Linear(channels, hidden, dtype=dtype, device=device)
+        self.fc2 = nn.Linear(hidden, channels, dtype=dtype, device=device)
+
+    def forward(self, x: Tensor) -> Tensor:  # (B, C, H, W)
+        y = torch.sigmoid(self.fc2(F.relu(self.fc1(x.mean(dim=(2, 3))))))
+        return x * y[:, :, None, None]
+
+
+def channel_shuffle(x: Tensor, groups: int) -> Tensor:
+    """ShuffleNet's channel shuffle of NCHW: channel ``g * (C / groups) + k``
+    moves to ``k * groups + g``, the reference's order on NHWC's last axis
+    (``view(n, groups, c // groups, h, w).transpose(1, 2)``). Done on the
+    NHWC view, so a channels_last input stays channels_last."""
+    n, c, h, w = x.shape
+    if c % groups:
+        raise ValueError(f"{c} channels do not split into {groups} groups")
+    y = x.permute(0, 2, 3, 1).reshape(n, h, w, groups, c // groups).transpose(3, 4)
+    return y.reshape(n, h, w, c).permute(0, 3, 1, 2)
+
+
+def channel_split(x: Tensor, sections: int = 2) -> Tuple[Tensor, ...]:
+    """NCHW channels in ``sections`` equal parts (ShuffleNet v2's two
+    branches)."""
+    if x.shape[1] % sections:
+        raise ValueError(f"{x.shape[1]} channels do not split into {sections} sections")
+    return torch.chunk(x, sections, dim=1)
+
+
+def avg_pool_torch(x: Tensor, window: int, stride: int, padding: int = 0) -> Tensor:
+    """AvgPool2d of NCHW with symmetric zero padding counted in each
+    window's divisor, as the reference's (``window * window`` always)."""
+    return F.avg_pool2d(x, window, stride, padding, count_include_pad=True)
 
 
 def max_pool_same_torch(x: Tensor, window: int, stride: int, padding: int) -> Tensor:

@@ -13,14 +13,22 @@ tensor:
   importer leaves a transposed conv mirrored in flax, R6);
 * BatchNorm ``weight``/``bias``/``running_mean``/``running_var`` go to
   FrozenBN's ``scale``/``bias``/``mean``/``var``; ``num_batches_tracked`` and
-  the classifiers (ResNet's ``fc.*``, VGG's ``classifier.*``) are dropped;
-  SSD's ``l2_norm.scale`` stays L2Norm's ``scale``;
+  the classifiers (ResNet's ``fc.*``, VGG's and MobileNetV2's
+  ``classifier.*``) are dropped; SSD's ``l2_norm.scale`` stays L2Norm's
+  ``scale``;
+* torchvision's ResNeXt keeps its ResNet names (the grouped 3x3 is
+  ``conv2``), so ``RESNET_KEY_RULES`` serve ResNeXt, SE-ResNet and
+  SE-ResNeXt alike. torchvision has no SE block: from a torchvision state
+  dict every block's ``se.fc1`` and ``se.fc2`` weight and bias stay as
+  they were (reported missing; raised under ``strict``); the table's
+  ``se``/``se_module`` ``fc1``/``fc2`` rules load linear SE weights where
+  a state dict has them;
 * fc1 after RoIAlign takes (C, S, S)-flattened features in torch and
   (S, S, C) in the port (``heads/bbox_head.py``), so its input axis is
   permuted, S taken from the port head's ``roi_size``.
 
 Missing, unexpected and mis-shaped keys are reported by name, logged, or
-raised under ``strict``. The MobileNetV2 table waits for its backbone.
+raised under ``strict``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from .backbones.mobilenet import MOBILENETV2_SETTINGS, MobileNetV2
 from .backbones.ssd_vgg import SSDVGG
 from .backbones.vgg import ARCH_SETTINGS as VGG_ARCH_SETTINGS
 from .backbones.vgg import VGG
@@ -73,6 +82,41 @@ def vgg_key_rules(depth: int, with_norm: bool = False) -> List[Rule]:
                 idx += 1
             idx += 1  # the ReLU
         idx += 1  # the pool
+    rules.append((r"^classifier\.", None))
+    return rules
+
+
+def mobilenetv2_key_rules(with_last_conv: bool = True) -> List[Rule]:
+    """torchvision MobileNetV2 naming -> the port's. torchvision flattens
+    the stem, the 17 inverted residuals and the final 1x1 into
+    ``features.{0..18}``; a block's ``conv`` Sequential holds
+    conv-BN-ReLU6 triples (``conv.{k}.0``/``.1``) for the expand and
+    depthwise convs and a bare conv and BN for the projection (block 1 has
+    no expand). They map to ``stem``, ``layer{s}_{j}.{expand,dw,project}``
+    and ``last_conv``; ``features.18`` is dropped where the port model has
+    no ``last_conv`` (``with_last_conv=False``, the detection configs'),
+    as is ``classifier.*``."""
+    rules: List[Rule] = [
+        (r"^features\.0\.0\.(.*)$", r"stem.conv.\1"),
+        (r"^features\.0\.1\.(.*)$", r"stem.norm.\1"),
+    ]
+    feat = 1
+    for s, (expansion, _, blocks, _, _) in enumerate(MOBILENETV2_SETTINGS):
+        for j in range(blocks):
+            base, name = rf"^features\.{feat}\.conv\.", f"layer{s + 1}_{j}"
+            parts = ["dw", "project"] if expansion == 1 else ["expand", "dw", "project"]
+            for k, part in enumerate(parts[:-1]):
+                rules += [(base + rf"{k}\.0\.(.*)$", rf"{name}.{part}.conv.\1"),
+                          (base + rf"{k}\.1\.(.*)$", rf"{name}.{part}.norm.\1")]
+            k = len(parts) - 1
+            rules += [(base + rf"{k}\.(.*)$", rf"{name}.project.conv.\1"),
+                      (base + rf"{k + 1}\.(.*)$", rf"{name}.project.norm.\1")]
+            feat += 1
+    if with_last_conv:
+        rules += [(r"^features\.18\.0\.(.*)$", r"last_conv.conv.\1"),
+                  (r"^features\.18\.1\.(.*)$", r"last_conv.norm.\1")]
+    else:
+        rules.append((r"^features\.18\.", None))
     rules.append((r"^classifier\.", None))
     return rules
 
@@ -141,11 +185,13 @@ def _norm(name: str) -> str:
     return "conv" if name == "conv" else "norm"
 
 
-def retinanet_key_rules(num_laterals: int = 3, start_level: int = 0) -> List[Rule]:
+def retinanet_key_rules(num_laterals: int = 3, start_level: int = 0,
+                        backbone_rules: Sequence[Rule] = RESNET_KEY_RULES) -> List[Rule]:
     """Whole-detector rules for mmdetection RetinaNet state dicts:
-    ``backbone.*`` (torchvision ResNet naming), ``neck.*`` (FPN), the
-    ``bbox_head`` towers and ``retina_cls``/``retina_reg``."""
-    rules = prefixed_rules(RESNET_KEY_RULES, "backbone.", "backbone.")
+    ``backbone.*`` (``backbone_rules``, torchvision ResNet naming by
+    default), ``neck.*`` (FPN), the ``bbox_head`` towers and
+    ``retina_cls``/``retina_reg``."""
+    rules = prefixed_rules(backbone_rules, "backbone.", "backbone.")
     rules += fpn_key_rules(num_laterals, start_level)
     rules += [
         (r"^bbox_head\.cls_convs\.(\d+)\.conv\.(.*)$", r"head.cls_conv\1.conv.\2"),
@@ -158,12 +204,14 @@ def retinanet_key_rules(num_laterals: int = 3, start_level: int = 0) -> List[Rul
     return rules
 
 
-def faster_rcnn_key_rules(num_laterals: int = 4, start_level: int = 0) -> List[Rule]:
+def faster_rcnn_key_rules(num_laterals: int = 4, start_level: int = 0,
+                          backbone_rules: Sequence[Rule] = RESNET_KEY_RULES) -> List[Rule]:
     """Whole-detector rules for mmdetection Faster and Mask R-CNN state
-    dicts: ``rpn_head.rpn_{conv,cls,reg}``, the shared-2fc ``bbox_head``
-    (fc1's input permuted) with ``fc_cls``/``fc_reg``, and the mask head's
+    dicts: ``backbone_rules`` under ``backbone.``, the FPN,
+    ``rpn_head.rpn_{conv,cls,reg}``, the shared-2fc ``bbox_head`` (fc1's
+    input permuted) with ``fc_cls``/``fc_reg``, and the mask head's
     ``convs.{i}.conv``, ``upsample`` and ``conv_logits``."""
-    rules = prefixed_rules(RESNET_KEY_RULES, "backbone.", "backbone.")
+    rules = prefixed_rules(backbone_rules, "backbone.", "backbone.")
     rules += fpn_key_rules(num_laterals, start_level)
     rules += [
         (r"^rpn_head\.rpn_conv\.(.*)$", r"rpn.rpn_conv.\1"),
@@ -284,7 +332,11 @@ def backbone_key_rules(backbone: nn.Module, state_dict: Mapping[str, torch.Tenso
     """The table of ``backbone``'s own keys (unprefixed): torchvision VGG
     naming for a ``VGG``, and for an ``SSDVGG`` too where the state dict
     has ``features.`` keys (its 13 trunk convs), else the port's SSDVGG
-    naming; torchvision ResNet naming for any other."""
+    naming; torchvision MobileNetV2 naming for a ``MobileNetV2`` (its
+    ``features.18`` kept only with ``with_last_conv``); torchvision ResNet
+    naming for any other."""
+    if isinstance(backbone, MobileNetV2):
+        return mobilenetv2_key_rules(backbone.with_last_conv)
     if isinstance(backbone, VGG):
         return vgg_key_rules(backbone.depth)
     if isinstance(backbone, SSDVGG):
@@ -319,4 +371,4 @@ def detector_key_rules(model: nn.Module, state_dict: Mapping[str, torch.Tensor])
     if not isinstance(neck, FPN):
         return prefixed_rules(rules, "backbone.", "backbone.")
     table = faster_rcnn_key_rules if isinstance(model, TwoStageDetector) else retinanet_key_rules
-    return table(num_laterals=len(neck.used), start_level=neck.used[0])
+    return table(num_laterals=len(neck.used), start_level=neck.used[0], backbone_rules=rules)
