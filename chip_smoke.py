@@ -338,7 +338,26 @@ Phases, each fatal on failure:
    tensors set equal to the table's, all under ``backbone.``; the trained
    checkpoint keeps the file's FrozenBN statistics bit for bit),
    ``tools.train`` for 2 epochs of b8, ``tools.test --out`` and the val
-   gts' oracle.
+   gts' oracle;
+45. the profiler through the entry points, right after phase 27:
+   ``tools.train --profile-dir`` on the Faster R-CNN smoke config for one
+   epoch of two b8 steps from 16 PNGs written for it; the Chrome trace
+   must hold one K1 and one K2 kernel event a step (by symbol name) and a
+   ``train_step`` span of ``annotate`` a step, with K1 and K2 counted
+   once a step; the trace's size and event count;
+46. serving export, after phase 44: Faster R-CNN, Mask R-CNN and RetinaNet
+   R50-FPN (RetinaNet from a checkpoint of its seeded build with
+   ``cls_out``'s bias at 0) through ``tools.export --check`` at b4 on
+   800 x 1216 in bf16 (RetinaNet on the s2d wire): export, save and load
+   seconds, the artifact's MB, then the loaded artifact and the live module
+   on the same 2 + 10 seeded uint8 batches, images/s of each, K1 counted by
+   output size in each run (out 7 once a batch for Faster R-CNN, out 7 and
+   out 14 for Mask R-CNN, never for RetinaNet), the artifact's outputs
+   equal to the live module's bit for bit; meanwhile four spawned processes
+   export, save, load and run every other family that ``make_serving_fn``
+   handles on the narrow models of tests/test_torch_export.py (float32,
+   each artifact equal to its live module, K1 once a stage in the cascade
+   and Sparse R-CNN artifacts).
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -352,9 +371,11 @@ import contextlib
 import dataclasses
 import functools
 import hashlib
+import io
 import json
 import logging
 import math
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -387,7 +408,14 @@ from torch_detection_tpu_torch.data.collate import pick_canvas
 from torch_detection_tpu_torch.data.ops.image import img_read
 from torch_detection_tpu_torch.data.ops.jpeg import jpeg_read
 from torch_detection_tpu_torch.data.ops.mask import poly_to_mask, rle_decode, rle_encode, segm_to_mask
-from torch_detection_tpu_torch.engine import Trainer, make_inference_fn
+from torch_detection_tpu_torch.engine import (
+    Trainer,
+    export_serving,
+    load_serving,
+    make_inference_fn,
+    make_serving_fn,
+    save_serving,
+)
 from torch_detection_tpu_torch.engine.checkpoint import (
     load_checkpoint,
     load_checkpoint_file,
@@ -395,6 +423,7 @@ from torch_detection_tpu_torch.engine.checkpoint import (
     save_checkpoint,
 )
 from torch_detection_tpu_torch.engine.eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
+from torch_detection_tpu_torch.engine.profiling import TRACE_NAME
 from torch_detection_tpu_torch.engine.tta import masks_to_original
 from torch_detection_tpu_torch.engine.validate import (
     coco_detection_dump,
@@ -534,6 +563,7 @@ from torch_detection_tpu_torch.ops.preprocess import (
 )
 from torch_detection_tpu_torch.parallel.train_step import make_optimizer, make_train_step
 from torch_detection_tpu_torch.tools import dump_proposals as dump_cli
+from torch_detection_tpu_torch.tools import export as export_cli
 from torch_detection_tpu_torch.tools import test as test_cli
 from torch_detection_tpu_torch.tools import train as train_cli
 from torch_detection_tpu_torch.utils.config import Config
@@ -1091,7 +1121,7 @@ def device_profile(run_batch, batch_ms: float, card: str, what: str = "batch") -
         f"kernels, idle share of an unprofiled {batch_ms:.3f} ms {what} {1 - busy_ms / batch_ms:.3f}; "
         "device ms by operator: "
         + "; ".join(f"{key} {us / 1e3:.3f} ({n} calls)" for key, us, n in top))
-    roi = [(key, us, n) for key, us, n in ops if "RoIAlign" in key]
+    roi = [(key, us, n) for key, us, n in ops if "RoIAlign" in key or "roi_align" in key]
     log(f"device profile, one {what} [{card}]: RoIAlign operators "
         + ("; ".join(f"{key} {us / 1e3:.3f} ms ({n} calls)" for key, us, n in roi) or "none"))
     return dict(busy_ms=busy_ms, idle=1 - busy_ms / batch_ms, kernels=len(kernels))
@@ -7295,6 +7325,390 @@ def phase_cli_zoo(card: str) -> dict:
     return dict(training=launches, test=test_launches, loaded=predicted, mAP=metrics["mAP"])
 
 
+# ---------------------------------------------------------------- serving export and profiling
+EXPORT_DIR = ROOT / "build" / "export"
+# (name, config, K1's output sizes in a batch): the full-width artifacts through
+# tools.export --check
+EXPORT_FULL = (("faster_rcnn", CONFIG, (7,)), ("mask_rcnn", MASK_CONFIG, (7, 14)),
+               ("retina", RETINA_CONFIG, ()))
+EXPORT_WORKERS = 4  # processes exporting the narrow families while the main one exports the full
+EXPORT_ROUNDING = 0.0  # artifact against live module: the same kernels on the same inputs
+
+
+def narrow_exports() -> dict:
+    """The narrow models of the CPU export tests (tests/test_torch_export.py)
+    for the families served only there: name -> (model dict, config,
+    canvas, batch, K1 launches a batch)."""
+    from torch_detection_tpu_torch.models import detectors as d
+    from torch_detection_tpu_torch.ops.anchors import (
+        AnchorGenerator,
+        SSDAnchorGenerator,
+        YOLOAnchorGenerator,
+    )
+
+    r18_p3 = dict(type="ResNet", depth=18, num_stages=4, out_indices=(1, 2, 3))
+    r18_p2 = dict(type="ResNet", depth=18, num_stages=4, out_indices=(0, 1, 2, 3))
+    fpn_p3 = dict(type="FPN", in_channels=(128, 256, 512), out_channels=32, num_outs=5,
+                  add_extra_convs=True, extra_convs_on_inputs=True, relu_before_extra_convs=True)
+    fpn_p2 = dict(type="FPN", in_channels=(64, 128, 256, 512), out_channels=32, num_outs=5)
+    rpn = dict(type="RPNHead", in_channels=32, feat_channels=32, num_base_anchors=3)
+    bbox = dict(type="BBoxHead", num_classes=4, fc_channels=64)
+    fcn = dict(type="FCNMaskHead", num_classes=4, in_channels=32, conv_channels=16, num_convs=1)
+    top = dict(max_detections=10, pre_nms_top_k=64, score_thr=0.0)
+    retina_anchors = AnchorGenerator(strides=(8, 16, 32, 64, 128), ratios=(0.5, 1.0, 2.0),
+                                     octave_base_scale=4.0, scales_per_octave=3)
+    square_anchors = AnchorGenerator(strides=(8, 16, 32, 64, 128), ratios=(1.0,),
+                                     octave_base_scale=8.0, scales_per_octave=1)
+
+    def dense(kind, **kw):
+        head = dict(type=kind, num_classes=4, in_channels=32, feat_channels=32, stacked_convs=1,
+                    **kw)
+        return dict(type="SingleStageDetector", backbone=r18_p3, neck=fpn_p3, head=head)
+
+    small = (64, 64)
+    return {
+        "cascade_rcnn": (dict(type="CascadeRCNN", backbone=r18_p2, neck=fpn_p2, rpn_head=rpn,
+                              bbox_head=bbox, num_stages=3),
+                         d.CascadeRCNNConfig(num_classes=4, max_detections=8, score_thr=0.0),
+                         small, 1, 3),
+        "cascade_mask_rcnn": (dict(type="CascadeMaskRCNN", backbone=r18_p2, neck=fpn_p2,
+                                   rpn_head=rpn, bbox_head=bbox, mask_head=fcn, num_stages=3),
+                              d.CascadeMaskRCNNConfig(num_classes=4, max_detections=8,
+                                                      score_thr=0.0, mask_roi_size=7,
+                                                      mask_size=14), small, 1, 4),
+        "sparse_rcnn": (dict(type="SparseRCNN", backbone=r18_p2,
+                             neck=dict(type="FPN", in_channels=(64, 128, 256, 512),
+                                       out_channels=32, num_outs=4),
+                             num_proposals=8, num_stages=2, num_classes=3, d_model=32, nhead=4,
+                             dim_feedforward=64, dynamic_dim=16, roi_size=7,
+                             roi_strides=(4, 8, 16, 32)),
+                        d.SparseRCNNConfig(num_classes=3, num_proposals=8, max_detections=8,
+                                           score_thr=0.0), small, 1, 2),
+        "detr": (dict(type="DETR", backbone=dict(type="ResNet", depth=18, num_stages=4,
+                                                 out_indices=(3,)),
+                      num_classes=3, d_model=32, nhead=4, num_encoder_layers=2,
+                      num_decoder_layers=2, dim_feedforward=64, num_queries=8),
+                 d.DETRConfig(num_classes=3, num_queries=8, max_detections=8, score_thr=0.0),
+                 small, 1, 0),
+        "fcos": (dense("FCOSHead"), d.FCOSConfig(num_classes=4, **top), small, 1, 0),
+        "atss": (dense("ATSSHead"), d.ATSSConfig(num_classes=4, anchor_generator=square_anchors,
+                                                 **top), small, 1, 0),
+        "gfl": (dense("GFLHead", reg_max=8),
+                d.GFLConfig(num_classes=4, reg_max=8, anchor_generator=square_anchors, **top),
+                small, 1, 0),
+        "fovea": (dense("FoveaHead"), d.FoveaConfig(num_classes=4, **top), small, 1, 0),
+        "free_anchor": (dense("RetinaHead", num_base_anchors=9),
+                        d.FreeAnchorConfig(num_classes=4, anchor_generator=retina_anchors,
+                                           max_detections=10, pre_nms_top_k=100, score_thr=0.0),
+                        small, 2, 0),
+        "paa": (dense("PAAHead"), d.PAAConfig(num_classes=4, anchor_generator=square_anchors,
+                                              max_detections=10, pre_nms_top_k=100,
+                                              score_thr=0.0), small, 1, 0),
+        "ssd": (dict(type="SingleStageDetector", backbone=dict(type="SSDVGG", depth=16),
+                     neck=None,
+                     head=dict(type="SSDHead", num_classes=4,
+                               in_channels=(512, 1024, 512, 256, 256, 256),
+                               anchors_per_level=(4, 6, 6, 6, 4, 4))),
+                d.SSDConfig(num_classes=4, anchor_generator=SSDAnchorGenerator(),
+                            max_detections=10, pre_nms_top_k=100, score_thr=0.0),
+                (300, 300), 1, 0),
+        "yolo": (dict(type="SingleStageDetector",
+                      backbone=dict(type="Darknet", depth=53, stages=(1, 1, 1, 1, 1),
+                                    base_channels=8, out_indices=(2, 3, 4)),
+                      neck=dict(type="YOLOV3Neck", in_channels=(64, 128, 256),
+                                out_channels=(64, 32, 16)),
+                      head=dict(type="YOLOV3Head", num_classes=4, anchors_per_level=1,
+                                in_channels=(64, 32, 16), out_channels=(128, 64, 32))),
+                 d.YOLOV3Config(num_classes=4, anchor_generator=YOLOAnchorGenerator(
+                     strides=(32, 16, 8),
+                     base_sizes=(((48.0, 48.0),), ((24.0, 24.0),), ((12.0, 12.0),))),
+                     max_detections=10, pre_nms_top_k=100, score_thr=0.0, conf_thr=0.0,
+                     pre_select_per_level=50), small, 2, 0),
+        "yolox": (dict(type="SingleStageDetector",
+                       backbone=dict(type="CSPDarknet", deepen_factor=0.33, widen_factor=0.125,
+                                     out_indices=(2, 3, 4)),
+                       neck=dict(type="YOLOXPAFPN", in_channels=(32, 64, 128), out_channels=32,
+                                 num_csp_blocks=1),
+                       head=dict(type="YOLOXHead", num_classes=4, in_channels=32,
+                                 feat_channels=32, stacked_convs=1)),
+                  d.YOLOXConfig(num_classes=4, max_detections=8, pre_nms_top_k=64,
+                                score_thr=0.0), small, 1, 0),
+        "centernet": (dict(type="SingleStageDetector",
+                           backbone=dict(type="ResNet", depth=18, num_stages=4, out_indices=(3,)),
+                           neck=dict(type="CTResNetNeck", in_channels=512,
+                                     num_deconv_filters=(32, 16, 16)),
+                           head=dict(type="CenterNetHead", num_classes=4, in_channels=16,
+                                     feat_channels=16)),
+                      d.CenterNetConfig(num_classes=4, max_detections=10, score_thr=0.0),
+                      small, 2, 0),
+        "solov2": (dict(type="SOLOV2", backbone=r18_p2,
+                        neck=dict(type="FPN", in_channels=(64, 128, 256, 512), out_channels=16,
+                                  num_outs=5),
+                        head=dict(type="SOLOV2Head", num_classes=4, in_channels=16,
+                                  feat_channels=16, kernel_channels=8, stacked_convs=1,
+                                  grid_numbers=(12, 10, 8, 6, 4), norm_groups=4),
+                        mask_feat_head=dict(type="MaskFeatHead", in_channels=16, feat_channels=16,
+                                            out_channels=8, num_inputs=4, norm_groups=4)),
+                   d.SOLOV2Config(num_classes=4, grid_numbers=(12, 10, 8, 6, 4),
+                                  scale_ranges=((1, 32), (16, 48), (32, 64), (48, 96), (64, 256)),
+                                  pre_nms_top_k=16, max_detections=8, mask_out_size=14,
+                                  score_thr=0.0, update_thr=0.0), small, 1, 0),
+        "retina_soft_nms": (dense("RetinaHead", num_base_anchors=9),
+                            d.RetinaNetConfig(num_classes=4, anchor_generator=retina_anchors,
+                                              max_detections=10, pre_nms_top_k=100,
+                                              score_thr=0.0, nms_method="soft"), small, 2, 0),
+    }
+
+
+def export_inputs(seed: int, batch: int, canvas, s2d: bool = False, device="cuda"):
+    """A seeded uint8 batch on ``device``: every four images two fill the
+    canvas and two are ``INNER_SHAPES`` (narrower canvases: the first full,
+    the rest 9 x 13 pixels smaller), zero beyond each image; on the s2d
+    wire relaid on the host; int32 (h, w) and scale factors 1, 2, ..."""
+    h, w = canvas
+    rng = np.random.default_rng(seed)
+    if canvas == CANVAS:
+        shapes = [(h, w), INNER_SHAPES[0], (h, w), INNER_SHAPES[1]] * (batch // 4 + 1)
+    else:
+        shapes = [(h, w)] + [(h - 9, w - 13)] * batch
+    shapes = np.array(shapes[:batch], np.int32)
+    images = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+    for img, (ih, iw) in zip(images, shapes):
+        img[ih:], img[:, iw:] = 0, 0
+    if s2d:
+        images = space_to_depth_2x2_np(images)
+    return (torch.from_numpy(images).to(device), torch.from_numpy(shapes).to(device),
+            torch.arange(1, batch + 1, dtype=torch.float32, device=device))
+
+
+def graph_ops(program) -> collections.Counter:
+    """The call_function targets of an exported program's graph, counted."""
+    return collections.Counter(str(n.target) for n in program.graph.nodes
+                               if n.op == "call_function")
+
+
+def export_narrow(name: str) -> dict:
+    """One narrow family on the card, in a worker process: export, save to
+    memory, load, then the artifact and the live module on one seeded
+    batch; K1 counted over each run."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model_dict, det_cfg, canvas, batch, k1 = narrow_exports()[name]
+    model = build_detector(model_dict, "float32", device="cuda", seed=SEED)
+    t0 = time.perf_counter()
+    program = export_serving(model, det_cfg, batch, canvas)
+    export_s = time.perf_counter() - t0
+    ops = graph_ops(program)
+    buffer = io.BytesIO()
+    t0 = time.perf_counter()
+    save_serving(program, buffer)
+    save_s = time.perf_counter() - t0
+    buffer.seek(0)
+    t0 = time.perf_counter()
+    loaded = load_serving(buffer)
+    load_s = time.perf_counter() - t0
+    inputs = export_inputs(SEED + 230, batch, canvas)
+    reset_launches()
+    got = loaded(*inputs)
+    torch.cuda.synchronize()
+    artifact = read_launches()
+    reset_launches()
+    want = make_serving_fn(model, det_cfg)(*inputs)
+    torch.cuda.synchronize()
+    live = read_launches()
+    return dict(name=name, export_s=export_s, save_s=save_s, load_s=load_s,
+                mb=buffer.getbuffer().nbytes / 1e6, keys=sorted(got), expected_k1=k1,
+                equal={k: bool(torch.equal(got[k], want[k])) for k in want},
+                valid=int(got["valid"].sum()), artifact=artifact, live=live,
+                roi_align_nodes=ops["torch_detection_tpu_torch.roi_align.default"],
+                while_loops=sum(n for t, n in ops.items() if "while_loop" in t))
+
+
+def check_served(what: str, out: dict, det_cfg, shapes: torch.Tensor) -> int:
+    """Shapes, finite values, a detection in every image, labels in range,
+    boxes inside each image, valid scores above ``score_thr``; returns the
+    valid detections."""
+    b, d = shapes.shape[0], det_cfg.max_detections
+    if out["boxes"].shape != (b, d, 4) or any(out[k].shape != (b, d)
+                                                for k in ("scores", "labels", "valid")):
+        raise AssertionError(f"{what}: output shapes {[tuple(v.shape) for v in out.values()]}")
+    if not (torch.isfinite(out["boxes"]).all() and torch.isfinite(out["scores"]).all()):
+        raise AssertionError(f"{what}: non-finite detections")
+    v = out["valid"]
+    if not bool(v.any(dim=1).all()):
+        raise AssertionError(f"{what}: an image without a detection above score_thr")
+    lab = out["labels"][v]
+    if not (bool((lab >= 0).all()) and bool((lab < det_cfg.num_classes).all())):
+        raise AssertionError(f"{what}: labels out of range")
+    limit = torch.stack([shapes[:, 1], shapes[:, 0]] * 2, dim=-1)[:, None].float() - 1
+    if not (bool((out["boxes"][v] >= 0).all())
+            and bool((out["boxes"] <= limit + 1e-3)[v].all())):
+        raise AssertionError(f"{what}: boxes outside their image")
+    if not bool((out["scores"][v] > det_cfg.score_thr).all()):
+        raise AssertionError(f"{what}: a valid detection under score_thr")
+    if "mask_probs" in out:
+        m = out["mask_probs"]
+        if not (bool(torch.isfinite(m).all()) and float(m.min()) >= 0 and float(m.max()) <= 1
+                and not bool(m[~v].any())):
+            raise AssertionError(f"{what}: mask probabilities outside [0, 1] or on invalid slots")
+    return int(v.sum())
+
+
+def export_full(name: str, config: Path) -> dict:
+    """``tools.export --check`` at full width: b4 on 800 x 1216 in the
+    config's dtype; RetinaNet from a checkpoint of its seeded build with
+    ``cls_out``'s bias at 0 (``load_retina``), so that NMS works on a full
+    pool."""
+    argv = [str(config), "--out", str(EXPORT_DIR / f"{name}.pt2"), "--batch", str(BATCH),
+            "--canvas", f"{CANVAS[0]}x{CANVAS[1]}", "--check"]
+    if name == "retina":
+        model, _ = load_retina("bfloat16", torch.device("cuda"))
+        save_checkpoint(str(EXPORT_DIR / "retina_seeded"), model)
+        del model
+        argv += ["--checkpoint", str(EXPORT_DIR / "retina_seeded")]
+    t0 = time.perf_counter()
+    result = export_cli.main(argv)
+    result["cli_s"] = time.perf_counter() - t0
+    return result
+
+
+def time_export(card: str, name: str, out_sizes: tuple, result: dict, seed: int) -> dict:
+    """The loaded artifact and the live module on the same seeded batches:
+    2 warm-up, then 10 timed each (artifact first), K1 counted by output
+    size over each run (once a batch at each of ``out_sizes``), every
+    output of the artifact equal to the live module's; then one batch of
+    each under the profiler."""
+    k1 = len(out_sizes)
+    det_cfg = result["serving"].det_cfg
+    batches = [export_inputs(seed + i, BATCH, CANVAS, result["s2d_wire"])
+               for i in range(WARMUP_BATCHES + TIMED_BATCHES)]
+    runs = {"artifact": result["loaded"], "live": result["serving"]}
+    outs, rates, launches = {}, {}, {}
+    for what, run in runs.items():
+        for args in batches[:WARMUP_BATCHES]:
+            run(*args)
+        torch.cuda.synchronize()
+        reset_launches()
+        timed = iter(batches[WARMUP_BATCHES:])
+        with launches_by_out_size() as sizes:
+            ms, outs[what] = timed_batches(lambda: run(*next(timed)), TIMED_BATCHES)
+        launches[what] = dict(read_launches(), k1_by_out_size=dict(sizes["k1"]))
+        expect_launches(f"export {name} {what}", {k: launches[what][k] for k in
+                                                  ("k1", "k2", "matcher")}, k1 * TIMED_BATCHES, 0)
+        if launches[what]["k1_by_out_size"] != {size: TIMED_BATCHES for size in out_sizes}:
+            raise AssertionError(f"export {name} {what}: K1 by output size "
+                                 f"{launches[what]['k1_by_out_size']}, expected {out_sizes} "
+                                 "once a batch")
+        rates[what] = dict(ms=sum(ms) / len(ms), images_per_s=BATCH / (sum(ms) / len(ms) / 1e3),
+                           median_ms=statistics.median(ms))
+    gaps = {k: max(float((a[k].double() - b[k].double()).abs().max())
+                   for a, b in zip(outs["artifact"], outs["live"]))
+            for k in outs["live"][0]}
+    if any(gap > EXPORT_ROUNDING for gap in gaps.values()):
+        raise AssertionError(f"export {name}: the artifact parts from the live module by {gaps} "
+                             f"(limit {EXPORT_ROUNDING})")
+    valid = [check_served(f"export {name}", o, det_cfg, b[1])
+             for o, b in zip(outs["artifact"], batches[WARMUP_BATCHES:])]
+    profiles = {what: device_profile(lambda: run(*batches[-1]), rates[what]["ms"], card,
+                                     f"{name} {what} batch")
+                for what, run in runs.items()}
+    log(f"export {name} [{card}]: tools.export --check in {result['cli_s']:.1f} s (export "
+        f"{result['export_s']:.1f} s, save {result['save_s']:.1f} s, load {result['load_s']:.1f} "
+        f"s), artifact {result['mb']:.1f} MB, the CLI's check gaps {result['max_diff']}; over "
+        f"{TIMED_BATCHES} batches of b{BATCH} on {CANVAS} ({'s2d' if result['s2d_wire'] else 'rgb'}"
+        f" uint8 wire): artifact {rates['artifact']['ms']:.3f} ms a batch, "
+        f"{rates['artifact']['images_per_s']:.2f} images/s (median "
+        f"{rates['artifact']['median_ms']:.3f} ms), live module {rates['live']['ms']:.3f} ms, "
+        f"{rates['live']['images_per_s']:.2f} images/s (median {rates['live']['median_ms']:.3f} "
+        f"ms); K1 launches in the artifact's runs {launches['artifact']} (expected out "
+        f"{out_sizes} once a batch), "
+        f"in the live runs {launches['live']}; largest gap artifact - live {gaps} (limit "
+        f"{EXPORT_ROUNDING}); valid detections a batch {valid}")
+    return dict(launches=launches["artifact"], live_launches=launches["live"], rates=rates,
+                gaps=gaps, profiles=profiles, seconds={k: result[k] for k in ("export_s", "save_s", "load_s",
+                                                           "cli_s")}, mb=result["mb"])
+
+
+def phase_export(card: str) -> dict:
+    """Serving export on the card: the three full-width artifacts through
+    ``tools.export --check`` in this process while ``EXPORT_WORKERS`` spawned
+    processes export, round-trip and check every other family that
+    ``make_serving_fn`` handles on its narrow CPU-test model; then, the
+    workers done, each full-width artifact timed beside its live module."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    names = list(narrow_exports())
+    with multiprocessing.get_context("spawn").Pool(EXPORT_WORKERS) as pool:
+        pending = pool.map_async(export_narrow, names)
+        full = {name: export_full(name, config) for name, config, _ in EXPORT_FULL}
+        narrow = pending.get(timeout=900)
+    torch.cuda.synchronize()
+    for r in narrow:
+        ok = (all(r["equal"].values()) and r["valid"] > 0
+              and r["artifact"] == dict(k1=r["expected_k1"], k2=0, matcher=0)
+              and r["live"] == r["artifact"]
+              and (r["roi_align_nodes"] > 0) == (r["expected_k1"] > 0))
+        log(f"export {r['name']} (narrow, float32) [{card}]: export {r['export_s']:.1f} s, save "
+            f"{r['save_s']:.1f} s, load {r['load_s']:.1f} s, {r['mb']:.1f} MB; outputs "
+            f"{r['keys']} equal to the live module's {r['equal']}; {r['valid']} valid; "
+            f"roi_align nodes {r['roi_align_nodes']}, while_loop nodes {r['while_loops']}; "
+            f"launches artifact {r['artifact']}, live {r['live']} (K1 expected "
+            f"{r['expected_k1']})")
+        if not ok:
+            raise AssertionError(f"export {r['name']}: {r}")
+    timed = {name: time_export(card, name, sizes, full.pop(name), SEED + 240 + 20 * i)
+             for i, (name, _, sizes) in enumerate(EXPORT_FULL)}
+    log(f"export phase wall time {time.perf_counter() - t_phase:.1f} s [{card}]")
+    paths = {f"export_{name}_artifact": {k: t["launches"][k] for k in ("k1", "k2", "matcher")}
+             for name, t in timed.items()}
+    paths.update({f"export_{r['name']}_artifact": r["artifact"] for r in narrow})
+    return dict(paths=paths, full=timed, narrow={r["name"]: r for r in narrow})
+
+
+PROFILE_TRAIN_IMAGES = 16  # two steps of the smoke config's b8
+
+
+def phase_cli_profile(card: str) -> dict:
+    """``tools.train --profile-dir`` on the Faster R-CNN smoke config (one
+    epoch of two b8 steps on 800 x 1344 from PNGs written for it): the
+    trace must hold K1's and K2's kernels, one by symbol name a step, and
+    the trainer's ``train_step`` spans from ``annotate``, and K1 and K2
+    must count one launch a step."""
+    t0 = time.perf_counter()
+    ann = write_smoke_coco("profile", PROFILE_TRAIN_IMAGES, SEED + 76)
+    config = SMOKE_COCO / "faster_rcnn_r50_fpn_profile.py"
+    config.write_text(
+        f"_base_ = {str(SMOKE_COCO / 'faster_rcnn_r50_fpn_smoke.py')!r}\n"
+        f"data = dict(train=dict(ann_file={str(ann)!r}, "
+        f"img_prefix={str(SMOKE_COCO / 'profile')!r}))\n")
+    trace_dir = SMOKE_COCO / "profile_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    reset_launches()
+    trainer = train_cli.main([str(config), "--epochs", "1", "--work-dir",
+                              str(SMOKE_COCO / "work_profile"), "--profile-dir", str(trace_dir)])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    steps = trainer.optimizer.steps
+    expect_launches("cli profile training", launches, steps, steps)
+    path = trace_dir / TRACE_NAME
+    events = json.loads(path.read_text())["traceEvents"]
+    kinds = collections.Counter((e.get("cat", ""), e.get("name", "")) for e in events
+                                if e.get("ph") == "X")
+    k1 = sum(n for (cat, k), n in kinds.items() if cat == "kernel" and "roi_align_fwd_kernel" in k)
+    k2 = sum(n for (cat, k), n in kinds.items() if cat == "kernel" and "roi_align_bwd_kernel" in k)
+    spans = kinds["user_annotation", "train_step"]
+    log(f"cli profile [{card}]: tools.train --profile-dir, {steps} steps of b8 in "
+        f"{time.perf_counter() - t0:.1f} s; {path.name} {path.stat().st_size / 1e6:.1f} MB, "
+        f"{len(events)} events; K1 kernel events {k1}, K2 kernel events {k2}, train_step spans "
+        f"{spans} (and {kinds['gpu_user_annotation', 'train_step']} on the device's timeline), data "
+        f"spans {kinds['user_annotation', 'data']}; launches {launches}")
+    if not (k1 == k2 == spans == steps):
+        raise AssertionError(f"cli profile: the trace holds {k1} K1 and {k2} K2 kernel events "
+                             f"and {spans} train_step spans for {steps} steps")
+    return dict(training=launches, trace_mb=path.stat().st_size / 1e6, events=len(events))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -7391,6 +7805,7 @@ def main() -> int:
     zoo_train = {name: phase_zoo_train(card, name, config, SEED + 210 + i)
                  for i, (name, config) in enumerate(ZOO)}
     cli = phase_cli(card, train)
+    cli_profile = phase_cli_profile(card)
     cli_mask = phase_cli_mask(card)
     cli_tta = phase_cli_tta(card)
     cli_voc = phase_cli_voc(card)
@@ -7399,6 +7814,7 @@ def main() -> int:
     cli_yolox = phase_cli_yolox(card)
     cli_solov2 = phase_cli_solov2(card)
     cli_zoo = phase_cli_zoo(card)
+    export = phase_export(card)
     golden = phase_golden_solov2(card)
 
     def entry(name, replaces, launches, m, **extra):
@@ -7449,8 +7865,11 @@ def main() -> int:
                         for mode, runs in (("serving", zoo_serve), ("training", zoo_train))},
                      "cli_zoo_training": cli_zoo["training"], "cli_zoo_test": cli_zoo["test"]}
     log(f"the backbone zoo and PAFPN paths' launches of K1, K2 and the matcher: {slice16_paths}")
+    slice18_paths = {**export["paths"], "cli_profile_training": cli_profile["training"]}
+    log(f"the export and profile paths' launches of K1, K2 and the matcher: {slice18_paths}")
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
-                   **dense_paths, **single_paths, **cli_paths, **slice15_paths, **slice16_paths}
+                   **dense_paths, **single_paths, **cli_paths, **slice15_paths, **slice16_paths,
+                   **slice18_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],

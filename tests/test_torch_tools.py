@@ -6,9 +6,10 @@ fixture (b2 on a 64 x 64 canvas, two steps an epoch, validation every
 epoch): ``tools.train`` writes ``epoch_N/``, ``best/`` and
 ``metrics.jsonl``; one epoch and ``--auto-resume`` equal two epochs bit for
 bit; ``tools.test``
-gives the 12 COCO metrics and a COCO results JSON; the knobs the port does
-not do raise ``NotImplementedError``, and without ``--device cpu`` both
-CLIs ask for a GPU.
+gives the 12 COCO metrics and a COCO results JSON; ``--profile-dir`` writes
+a trace; ``tools.export --check`` round-trips a serving artifact; the knobs
+the port does not do raise ``NotImplementedError``, and without ``--device
+cpu`` both CLIs ask for a GPU.
 """
 
 import json
@@ -26,6 +27,7 @@ from test_torch_engine import METRICS
 from test_torch_train import TRAIN_MODEL
 from torch_detection_tpu_torch.data import build_dataloader
 from torch_detection_tpu_torch.engine.checkpoint import latest_checkpoint, load_checkpoint_file
+from torch_detection_tpu_torch.tools import export as export_cli
 from torch_detection_tpu_torch.tools import test as test_cli
 from torch_detection_tpu_torch.tools import train as train_cli
 
@@ -46,8 +48,8 @@ def _one_torch_thread():
 
 def _write_config(path, coco, **runtime):
     ann, prefix = coco["ann_file"], coco["img_prefix"]
-    runtime = dict(compute_dtype="float32", log_interval=1, val_interval_epochs=1, val_batch=2,
-                   **runtime)
+    runtime = {**dict(compute_dtype="float32", log_interval=1, val_interval_epochs=1,
+                      val_batch=2), **runtime}
     text = f"""_base_ = {os.path.abspath(BASE)!r}
 model = dict(_delete_=True, **{MODEL!r})
 detection = dict(num_classes=2, max_detections=8)
@@ -174,12 +176,38 @@ def test_test_cli_refuses_unported_flags(tmp_path, flag):
         test_cli.main([config, "ckpt", flag, "--device", "cpu"])
 
 
-def test_unported_profile_dir_and_distributed_sampler_raise(tmp_path):
-    config = _write_config(tmp_path / "p.py", dict(ann_file="a.json", img_prefix="."))
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        train_cli.main([config, "--profile-dir", str(tmp_path), "--device", "cpu"])
+def test_train_cli_profile_dir_writes_a_trace(tmp_path):
+    """``--profile-dir`` traces the first epoch: the steps' ``train_step``
+    spans and the loader's ``data`` spans from ``annotate``, and the
+    operators of the step inside them."""
+    config = _write_config(tmp_path / "p.py", write_png_coco(tmp_path / "coco"),
+                           val_interval_epochs=0)
+    trainer = train_cli.main([config, "--epochs", "1", "--work-dir", str(tmp_path / "work"),
+                              "--profile-dir", str(tmp_path / "prof"), "--device", "cpu"])
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    names = [e.get("name") for e in events if e.get("ph") == "X"]
+    spans = [e.get("name") for e in events if e.get("cat") == "user_annotation"]
+    assert spans.count("train_step") == trainer.optimizer.steps == 2
+    assert spans.count("data") >= 2
+    assert "aten::convolution_backward" in names
+
+
+def test_distributed_sampler_raises():
     with pytest.raises(NotImplementedError, match="dist"):
         build_dataloader([], dist=True)
+
+
+def test_export_cli_check_on_the_cpu(tmp_path):
+    """``tools.export --check``: the artifact of the tiny config round-trips
+    and equals the live module bit for bit."""
+    config = _write_config(tmp_path / "e.py", dict(ann_file="a.json", img_prefix="."))
+    out = tmp_path / "serve.pt2"
+    result = export_cli.main([config, "--out", str(out), "--batch", "2", "--canvas", "64x64",
+                              "--check", "--device", "cpu"])
+    assert out.is_file() and result["mb"] > 1 and result["canvas"] == (64, 64)
+    assert result["max_diff"] == dict(boxes=0.0, scores=0.0, labels=0.0, valid=0.0)
+    got = result["loaded"](*export_cli.check_inputs(2, (64, 64), False, seed=1))
+    assert got["boxes"].shape == (2, 8, 4) and got["valid"].dtype == torch.bool
 
 
 def test_clis_default_to_cuda(tmp_path, monkeypatch):

@@ -7,13 +7,17 @@ each batch put on the model's device by ``data/device.py``, metrics logged
 and appended to ``work_dir/metrics.jsonl`` (the reference's record keys),
 ``epoch_N`` and ``step_N`` checkpoints with retention, the validation hook
 with ``best/``, and cooperative preemption (SIGTERM or SIGINT: finish the
-step, save ``step_N`` with the batch position, return). The EMA of the
-parameters, gradient accumulation, sharded state and the profiler wait for
-a later slice.
+step, save ``step_N`` with the batch position, return). With
+``profile_dir`` the first epoch run is traced by ``torch.profiler``
+(``engine/profiling.py::trace``: host spans ``data`` and ``train_step``
+from ``annotate``, and the GPU's kernels), up to that epoch's end or a
+preemption. The EMA of the parameters, gradient accumulation and sharded
+state wait for a later slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -27,6 +31,7 @@ import numpy as np
 from ..data.device import prefetch_to_device
 from ..parallel.train_step import Optimizer, make_train_step
 from .checkpoint import save_checkpoint
+from .profiling import annotate, trace
 
 logger = logging.getLogger(__name__)
 
@@ -62,7 +67,8 @@ class Trainer:
     tensors, and ``__len__``. Every ``log_interval`` steps the metrics are
     read on the host, logged and kept in ``history`` with images/s over the
     window and the learning rate. With ``work_dir`` None nothing is
-    written: no metrics file, no checkpoint."""
+    written: no metrics file, no checkpoint. ``profile_dir`` traces the
+    first epoch that ``run`` trains into ``profile_dir/trace.json``."""
 
     def __init__(
         self,
@@ -79,6 +85,7 @@ class Trainer:
         best_metric: str = "mAP",
         checkpoint_interval_steps: Optional[int] = None,
         handle_preemption: bool = False,
+        profile_dir: Optional[str] = None,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -98,6 +105,7 @@ class Trainer:
         self.best_score = float("-inf")
         self.checkpoint_interval_steps = checkpoint_interval_steps
         self.handle_preemption = handle_preemption
+        self.profile_dir = profile_dir
         self.train_step = make_train_step(loss_fn, optimizer)
         self.skipped_steps = 0
         self.preempted = False
@@ -136,7 +144,8 @@ class Trainer:
         it = prefetch_to_device(self.dataloader.iter_batches(skip), PREFETCH, self.device)
         while True:
             t0 = time.perf_counter()
-            batch = next(it, None)
+            with annotate("data"):
+                batch = next(it, None)
             self.loader_wait_s += time.perf_counter() - t0
             if batch is None:
                 return
@@ -144,52 +153,63 @@ class Trainer:
 
     def _run(self, num_epochs: int, start_epoch: int, skip_batches: int) -> None:
         for epoch in range(start_epoch, num_epochs):
-            self.dataloader.set_epoch(epoch)
-            epoch_t0 = window_t0 = time.perf_counter()
-            n_images = 0
-            batches_done = skip_batches if epoch == start_epoch else 0
-            batches = self._batches(batches_done)
-            for batch in batches:
-                batch.pop("img_meta", None)
-                metrics = self.train_step(batch)
-                self.skipped_steps += int(metrics["skipped_nonfinite"])
-                n_images += batch["image"].shape[0]
-                batches_done += 1
-                step = self.optimizer.steps
-                if (self.checkpoint_interval_steps and step % self.checkpoint_interval_steps == 0
-                        ) or self._preempt_requested:
-                    self._checkpoint(f"step_{step}", {"epoch": epoch,
-                                                      "batches_done": batches_done, "step": step})
-                if self._preempt_requested:
-                    self.preempted = True
-                    batches.close()
-                    logger.info("preempted at epoch %d batch %d (step %d); state saved",
-                                epoch, batches_done, step)
-                    return
-                if step % self.log_interval == 0:
-                    metrics = {k: float(v) for k, v in metrics.items()}
-                    dt = time.perf_counter() - window_t0
-                    window_t0 = time.perf_counter()
-                    metrics.update(
-                        skipped_steps=self.skipped_steps,
-                        images_per_sec=self.log_interval * batch["image"].shape[0] / max(dt, 1e-9),
-                        epoch=epoch,
-                        step=step,
-                        lr=float(self.optimizer.schedule(step)),
-                    )
-                    self.history.append(metrics)
-                    self._write_metrics(metrics)
-                    parts = " ".join(f"{k[5:]} {v:.4f}" for k, v in sorted(metrics.items())
-                                     if k.startswith("loss_"))
-                    logger.info("epoch %d step %d loss %.4f (%s) %.1f img/s", epoch, step,
-                                metrics["loss"], parts, metrics["images_per_sec"])
-            logger.info("epoch %d done: %d images in %.1fs", epoch, n_images,
-                        time.perf_counter() - epoch_t0)
+            first = epoch == start_epoch
+            profiling = (trace(self.profile_dir) if self.profile_dir and first
+                         else contextlib.nullcontext())
+            with profiling:
+                finished = self._epoch(epoch, skip_batches if first else 0)
+            if not finished:
+                return
             if (epoch + 1) % self.checkpoint_interval_epochs == 0:
                 self._checkpoint(f"epoch_{epoch + 1}",
                                  {"epoch": epoch + 1, "step": self.optimizer.steps})
             if self.val_hook is not None and (epoch + 1) % self.val_interval_epochs == 0:
                 self._validate(epoch)
+
+    def _epoch(self, epoch: int, batches_done: int) -> bool:
+        """Train one epoch from batch ``batches_done``; False when preempted."""
+        self.dataloader.set_epoch(epoch)
+        epoch_t0 = window_t0 = time.perf_counter()
+        n_images = 0
+        batches = self._batches(batches_done)
+        for batch in batches:
+            batch.pop("img_meta", None)
+            with annotate("train_step"):
+                metrics = self.train_step(batch)
+            self.skipped_steps += int(metrics["skipped_nonfinite"])
+            n_images += batch["image"].shape[0]
+            batches_done += 1
+            step = self.optimizer.steps
+            if (self.checkpoint_interval_steps and step % self.checkpoint_interval_steps == 0
+                    ) or self._preempt_requested:
+                self._checkpoint(f"step_{step}", {"epoch": epoch,
+                                                  "batches_done": batches_done, "step": step})
+            if self._preempt_requested:
+                self.preempted = True
+                batches.close()
+                logger.info("preempted at epoch %d batch %d (step %d); state saved",
+                            epoch, batches_done, step)
+                return False
+            if step % self.log_interval == 0:
+                metrics = {k: float(v) for k, v in metrics.items()}
+                dt = time.perf_counter() - window_t0
+                window_t0 = time.perf_counter()
+                metrics.update(
+                    skipped_steps=self.skipped_steps,
+                    images_per_sec=self.log_interval * batch["image"].shape[0] / max(dt, 1e-9),
+                    epoch=epoch,
+                    step=step,
+                    lr=float(self.optimizer.schedule(step)),
+                )
+                self.history.append(metrics)
+                self._write_metrics(metrics)
+                parts = " ".join(f"{k[5:]} {v:.4f}" for k, v in sorted(metrics.items())
+                                 if k.startswith("loss_"))
+                logger.info("epoch %d step %d loss %.4f (%s) %.1f img/s", epoch, step,
+                            metrics["loss"], parts, metrics["images_per_sec"])
+        logger.info("epoch %d done: %d images in %.1fs", epoch, n_images,
+                    time.perf_counter() - epoch_t0)
+        return True
 
     def _write_metrics(self, record: Dict[str, Any]) -> None:
         """Append one JSON object a logged window or validation to

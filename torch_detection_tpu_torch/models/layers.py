@@ -59,7 +59,9 @@ class FrozenBatchNorm(nn.Module):
         return k.to(dtype)[:, None, None], b.to(dtype)[:, None, None]
 
     def forward(self, x: Tensor) -> Tensor:  # (B, C, H, W)
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or torch.compiler.is_exporting():
+            # under torch.export the statistics have no storage to key a
+            # cache on, and the graph computes the fold itself
             k, b = self._fold(x.dtype)
         else:
             # without autograd the fold is reused until a statistic is
@@ -98,8 +100,11 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features, dtype=torch.float32, device=device))
 
     def forward(self, x: Tensor) -> Tensor:  # (B, C, H, W)
+        # the op itself: ``F.group_norm`` refuses a group of one value (batch
+        # 1, one channel a group, a 1 x 1 map), which flax normalizes to 0
         with torch.autocast(x.device.type, enabled=False):
-            y = F.group_norm(x.float(), self.num_groups, self.scale, self.bias, self.eps)
+            y = torch.group_norm(x.float(), self.num_groups, self.scale, self.bias, self.eps,
+                                 torch.backends.cudnn.enabled)
         return y.to(x.dtype)
 
 

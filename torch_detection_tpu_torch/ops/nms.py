@@ -11,7 +11,9 @@ caller's shapes do not depend on the data.
   IoU matrix, run for the whole batch at once: ``alive`` is updated for
   every image until no image changes. Iterations past an image's own
   fixpoint leave it unchanged, so the result is exact greedy NMS. Each
-  convergence test is one host sync; ``suppress_syncs`` counts them.
+  convergence test is one host sync; ``suppress_syncs`` counts them. Under
+  ``torch.export`` the loop is a ``while_loop`` of the same condition and
+  body, which an exported graph keeps.
 * ``multiclass_nms`` shifts each candidate by ``class * (max_coord + 1)``
   so that boxes of different classes never overlap, and runs one NMS.
 * Soft-NMS (``soft_nms``, ``multiclass_soft_nms``) is the reference's
@@ -61,12 +63,16 @@ def _greedy_suppress(iou: Tensor, iou_thr: float) -> Tensor:
 
     Iterates ``alive <- NOT any_i (alive_i AND iou[i, j] > thr AND i < j)``
     to its fixpoint, which is exactly the sequential greedy solution, for
-    every image at once, capped at K iterations as the reference."""
+    every image at once, capped at K iterations as the reference. While
+    ``torch.export`` traces, the same loop is a ``while_loop`` with the same
+    condition and body, so the graph holds the fixpoint, not a count."""
     b, k = iou.shape[0], iou.shape[-1]
     upper = torch.ones((k, k), dtype=torch.bool, device=iou.device).triu(1)
     suppress = (iou > iou_thr) & upper  # row i suppresses column j
     alive = torch.ones((b, k), dtype=torch.bool, device=iou.device)
     prev = torch.zeros_like(alive)
+    if torch.compiler.is_exporting():
+        return _traced_fixpoint(suppress, alive, prev)
     it = 0
     while it < k:
         _greedy_suppress.syncs += 1
@@ -76,6 +82,25 @@ def _greedy_suppress(iou: Tensor, iou_thr: float) -> Tensor:
         prev, alive = alive, ~killed
         it += 1
     return alive
+
+
+def _traced_fixpoint(suppress: Tensor, alive: Tensor, prev: Tensor) -> Tensor:
+    """``_greedy_suppress``'s loop as ``torch._higher_order_ops.while_loop``:
+    the condition ``it < K and any(alive != prev)``, the body one
+    suppression step."""
+    from torch._higher_order_ops import while_loop
+
+    k = suppress.shape[-1]
+
+    def cond(it, alive, prev):
+        return (it < k) & torch.any(alive != prev)
+
+    def body(it, alive, prev):
+        killed = torch.any(suppress & alive[:, :, None], dim=1)
+        return it + 1, ~killed, alive.clone()
+
+    it = torch.zeros((), dtype=torch.int64, device=alive.device)
+    return while_loop(cond, body, (it, alive, prev))[1]
 
 
 _greedy_suppress.syncs = 0

@@ -13,12 +13,16 @@ VJP of ``roi_align_pallas.py``. The pieces:
   explicit scatter-add of the forward's bilinear weights;
 * ``multilevel_roi_align_backward_cuda``: the wrapper of the hand-written
   backward kernel ``csrc/roi_align_bwd.cu`` (K2), for CUDA tensors;
-* ``RoIAlignFunction``: the ``torch.autograd.Function`` that pairs them.
+* ``roi_align_op`` and ``roi_align_backward_op``: the two registered as
+  torch ops (``torch_detection_tpu_torch::roi_align`` and
+  ``::roi_align_backward``), the second the first's autograd formula.
 
-``batched_multilevel_roi_align`` goes through ``RoIAlignFunction``, which
+``batched_multilevel_roi_align`` goes through ``roi_align_op``, which
 dispatches on the device of its tensors: CPU tensors go to the plain
 versions, CUDA tensors to the kernels, which launch or raise. The rois get
-no gradient, as the reference gives them zero.
+no gradient, as the reference gives them zero. Being registered ops, both
+stay opaque under ``torch.export``: an exported graph names them, and
+loading it needs this module imported.
 
 Sampling (as the reference): bins of ``roi_size / out`` with sub-bin centres
 at ``(i + 0.5) / ratio``, bilinear with a border clamp, no -0.5 shift, and
@@ -363,11 +367,12 @@ def multilevel_roi_align_backward_cuda(
     (B, H_l, W_l, C) in ``grad``'s dtype, one launch for the batch and every
     level (three kernels on the stream: each roi's axes and footprint and
     each tile's work, the tiles' launch order, the tiles; their scratch is
-    ``_bwd_scratch_bytes``). The levels are
-    views of one buffer in ``grad``'s dtype, allocated empty: the kernel
-    writes every cell once, zeros included, so there is no fill and no cast,
-    and it sums in a fixed order, so the result is the same bits from run to
-    run. ``multilevel_roi_align_backward_cuda.launches`` counts launches."""
+    ``_bwd_scratch_bytes``). Each level is a tensor of its own in
+    ``grad``'s dtype (a registered op's outputs may not alias one another),
+    allocated empty: the kernel writes every cell once, zeros included, so
+    there is no fill and no cast, and it sums in a fixed order, so the
+    result is the same bits from run to run.
+    ``multilevel_roi_align_backward_cuda.launches`` counts launches."""
     num = len(level_shapes)
     if len(strides) != num or not num:
         raise ValueError(f"{num} levels but {len(strides)} strides")
@@ -379,31 +384,28 @@ def multilevel_roi_align_backward_cuda(
     if grad.shape != (b, r, out_size, out_size, c) or levels.shape != (b, r):
         raise ValueError(f"grad {tuple(grad.shape)} and levels {tuple(levels.shape)} do not "
                          f"match rois {tuple(rois.shape)} at out_size {out_size}")
-    sizes = [b * int(h) * int(w) * c for h, w in level_shapes]
+    shapes = [(b, int(h), int(w), c) for h, w in level_shapes]
     if b * r == 0:
-        flat = torch.zeros(sum(sizes), dtype=grad.dtype, device=grad.device)
-    else:
-        flat = torch.empty(sum(sizes), dtype=grad.dtype, device=grad.device)
-        parts = list(torch.split(flat, sizes))
-        grad, rois = grad.contiguous(), rois.contiguous()
-        if rois.data_ptr() % 16:  # the kernel reads a box as one float4
-            rois = rois.clone()
-        levels = levels.to(torch.int32).contiguous()
-        geometry = _level_geometry(parts, level_shapes, strides)
-        with torch.cuda.device(grad.device):
-            stream = torch.cuda.current_stream(grad.device).cuda_stream
-            scratch = torch.empty(_bwd_scratch_bytes(num, geometry, b, r) // 4, dtype=torch.int32,
-                                  device=grad.device)
-            rc = _kernel("roi_align_bwd")(
-                _DTYPE_CODES[grad.dtype], num, *geometry,
-                rois.data_ptr(), levels.data_ptr(), b, r, c, out_size, sampling_ratio,
-                channel_vector(c, [grad, *parts]), grad.data_ptr(), scratch.data_ptr(), stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"roi_align_bwd failed to launch: CUDA error {rc}")
-        multilevel_roi_align_backward_cuda.launches += 1
-    return [part.view(b, int(h), int(w), c)
-            for part, (h, w) in zip(torch.split(flat, sizes), level_shapes)]
+        return [torch.zeros(shape, dtype=grad.dtype, device=grad.device) for shape in shapes]
+    parts = [torch.empty(shape, dtype=grad.dtype, device=grad.device) for shape in shapes]
+    grad, rois = grad.contiguous(), rois.contiguous()
+    if rois.data_ptr() % 16:  # the kernel reads a box as one float4
+        rois = rois.clone()
+    levels = levels.to(torch.int32).contiguous()
+    geometry = _level_geometry(parts, level_shapes, strides)
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        scratch = torch.empty(_bwd_scratch_bytes(num, geometry, b, r) // 4, dtype=torch.int32,
+                              device=grad.device)
+        rc = _kernel("roi_align_bwd")(
+            _DTYPE_CODES[grad.dtype], num, *geometry,
+            rois.data_ptr(), levels.data_ptr(), b, r, c, out_size, sampling_ratio,
+            channel_vector(c, [grad, *parts]), grad.data_ptr(), scratch.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"roi_align_bwd failed to launch: CUDA error {rc}")
+    multilevel_roi_align_backward_cuda.launches += 1
+    return parts
 
 
 multilevel_roi_align_backward_cuda.launches = 0
@@ -421,33 +423,68 @@ def _bwd_scratch_bytes(num_levels: int, geometry, batch: int, num_rois: int) -> 
     return size
 
 
-class RoIAlignFunction(torch.autograd.Function):
-    """RoIAlign whose backward is the scatter-add: the kernels K1 and K2
-    for CUDA tensors, the two plain versions for CPU tensors. The routed
-    levels are computed once in the forward and saved, so both passes route
-    a boundary roi alike. The rois get no gradient (the reference's VJP
-    returns zeros for them)."""
+@torch.library.custom_op("torch_detection_tpu_torch::roi_align", mutates_args=(),
+                         device_types="cpu")
+def roi_align_op(feats: List[Tensor], rois: Tensor, levels: Tensor, strides: List[int],
+                 out_size: int, sampling_ratio: int) -> Tensor:
+    """RoIAlign's forward as a registered op: on CPU tensors the plain
+    version, on CUDA tensors K1. ``torch.export`` keeps it as one node, so an
+    exported graph calls the kernel and counts its launches."""
+    return multilevel_roi_align(feats, rois, levels, strides, out_size, sampling_ratio)
 
-    @staticmethod
-    def forward(ctx, rois, strides, out_size, sampling_ratio, finest_scale, *feats):
-        device = feats[0].device
-        if device.type not in ("cuda", "cpu"):
-            raise ValueError(f"no RoIAlign for device {device}")
-        levels = map_rois_to_levels(rois, len(feats), finest_scale)
-        forward = multilevel_roi_align_cuda if device.type == "cuda" else multilevel_roi_align
-        out = forward(feats, rois, levels, strides, out_size, sampling_ratio)
-        ctx.save_for_backward(rois, levels)
-        ctx.geometry = ([tuple(f.shape[1:3]) for f in feats], tuple(strides), out_size,
-                        sampling_ratio)
-        return out
 
-    @staticmethod
-    def backward(ctx, grad):
-        rois, levels = ctx.saved_tensors
-        backward = (multilevel_roi_align_backward_cuda if grad.device.type == "cuda"
-                    else multilevel_roi_align_backward)
-        grads = backward(grad.contiguous(), rois, levels, *ctx.geometry)
-        return (None, None, None, None, None, *grads)
+@roi_align_op.register_kernel("cuda")
+def _roi_align_cuda(feats, rois, levels, strides, out_size, sampling_ratio):
+    return multilevel_roi_align_cuda(feats, rois, levels, strides, out_size, sampling_ratio)
+
+
+@roi_align_op.register_fake
+def _roi_align_fake(feats, rois, levels, strides, out_size, sampling_ratio):
+    b, r = rois.shape[:2]
+    return feats[0].new_empty((b, r, out_size, out_size, feats[0].shape[-1]))
+
+
+@torch.library.custom_op("torch_detection_tpu_torch::roi_align_backward", mutates_args=(),
+                         device_types="cpu")
+def roi_align_backward_op(grad: Tensor, rois: Tensor, levels: Tensor, heights: List[int],
+                          widths: List[int], strides: List[int], out_size: int,
+                          sampling_ratio: int) -> List[Tensor]:
+    """RoIAlign's backward as a registered op: per level (B, H_l, W_l, C),
+    on CPU tensors the plain scatter-add, on CUDA tensors K2."""
+    return multilevel_roi_align_backward(grad, rois, levels, list(zip(heights, widths)), strides,
+                                         out_size, sampling_ratio)
+
+
+@roi_align_backward_op.register_kernel("cuda")
+def _roi_align_backward_cuda(grad, rois, levels, heights, widths, strides, out_size,
+                             sampling_ratio):
+    return multilevel_roi_align_backward_cuda(grad, rois, levels, list(zip(heights, widths)),
+                                              strides, out_size, sampling_ratio)
+
+
+@roi_align_backward_op.register_fake
+def _roi_align_backward_fake(grad, rois, levels, heights, widths, strides, out_size,
+                             sampling_ratio):
+    b, c = grad.shape[0], grad.shape[-1]
+    return [grad.new_empty((b, h, w, c)) for h, w in zip(heights, widths)]
+
+
+def _setup_roi_align(ctx, inputs, output):
+    feats, rois, levels, strides, out_size, sampling_ratio = inputs
+    ctx.save_for_backward(rois, levels)
+    ctx.geometry = ([f.shape[1] for f in feats], [f.shape[2] for f in feats], strides, out_size,
+                    sampling_ratio)
+
+
+def _roi_align_grad(ctx, grad):
+    """The scatter-add onto every level; the rois get no gradient (the
+    reference's VJP returns zeros for them)."""
+    rois, levels = ctx.saved_tensors
+    grads = roi_align_backward_op(grad.contiguous(), rois, levels, *ctx.geometry)
+    return grads, None, None, None, None, None
+
+
+roi_align_op.register_autograd(_roi_align_grad, setup_context=_setup_roi_align)
 
 
 def batched_multilevel_roi_align(
@@ -458,7 +495,10 @@ def batched_multilevel_roi_align(
     sampling_ratio: int = 2,
     finest_scale: float = 56.0,
 ) -> Tensor:
-    """(B, R, out, out, C) aligned features through ``RoIAlignFunction``:
-    the plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
-    return RoIAlignFunction.apply(rois, tuple(strides), out_size, sampling_ratio, finest_scale,
-                                  *feats)
+    """(B, R, out, out, C) aligned features through ``roi_align_op``: the
+    plain versions for CPU tensors, the CUDA kernels for CUDA tensors. The
+    routed levels are computed once here and saved for the backward, so
+    both passes route a boundary roi alike."""
+    levels = map_rois_to_levels(rois.detach(), len(feats), finest_scale)
+    return roi_align_op(list(feats), rois, levels, [int(s) for s in strides], out_size,
+                        sampling_ratio)

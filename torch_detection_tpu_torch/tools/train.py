@@ -2,7 +2,8 @@
 
     python -m torch_detection_tpu_torch.tools.train CONFIG [--epochs N]
         [--work-dir DIR] [--resume CKPT | --auto-resume] [--seed S]
-        [--pretrained torch://W.pth | modelzoo://resnet50 | CKPT] [--device cuda|cpu]
+        [--pretrained torch://W.pth | modelzoo://resnet50 | CKPT]
+        [--profile-dir DIR] [--device cuda|cpu]
 
 Counterpart of ``tools/train.py``: COCO folder -> ``CocoDataset`` ->
 ``GroupSampler`` -> ``DataLoader`` -> the device -> ``Trainer.run``, with
@@ -15,8 +16,10 @@ initialises the model from a torchvision or mmdetection ``.pth``
 ``backbone.`` keys loads as a whole detector, one without them as the
 backbone. Validation in training reports the mask metrics too under
 ``runtime.val_segm``, and VOC2007's AP instead of COCO's under
-``runtime.val_voc_metric``. Runs on ``cuda`` unless ``--device cpu``. Knobs
-the port does not do yet raise ``NotImplementedError``.
+``runtime.val_voc_metric``. ``--profile-dir`` writes a ``torch.profiler``
+Chrome trace of the first epoch run to ``DIR/trace.json``. Runs on ``cuda``
+unless ``--device cpu``. Knobs the port does not do yet raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..utils.config import Config
 from ..utils.device import resolve_device
 
 
-def refuse_unported(cfg, profile_dir: Optional[str] = None) -> None:
+def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming a training knob the port does
     not do yet."""
     runtime = cfg.get("runtime", {})
@@ -44,7 +47,6 @@ def refuse_unported(cfg, profile_dir: Optional[str] = None) -> None:
         "ema_decay": runtime.get("ema_decay") is not None,
         "accum_steps > 1": int(runtime.get("accum_steps", 1) or 1) > 1,
         "fsdp": bool(runtime.get("fsdp", False)),
-        "profile_dir": profile_dir is not None,
     }
     for knob, asked in knobs.items():
         if asked:
@@ -61,14 +63,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                         help="resume from the newest epoch_N or step_N in the work dir if any")
     parser.add_argument("--pretrained", default=None,
                         help="torch://w.pth, modelzoo://resnet50, file://... or a checkpoint dir")
-    parser.add_argument("--profile-dir", default=None)
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of the first epoch run here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     cfg = Config.fromfile(args.config)
-    refuse_unported(cfg, args.profile_dir)
+    refuse_unported(cfg)
     runtime = cfg.get("runtime", {})
     work_dir = args.work_dir or runtime.get("work_dir", "work_dirs/default")
     total_epochs = args.epochs or cfg.get("schedule", {}).get("total_epochs", 12)
@@ -119,6 +122,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
         val_interval_epochs=val_interval or 1,
         checkpoint_interval_steps=runtime.get("checkpoint_interval_steps"),
         handle_preemption=bool(runtime.get("handle_preemption", True)),
+        profile_dir=args.profile_dir,
     )
     resume = args.resume
     if args.auto_resume and not resume:
