@@ -357,7 +357,29 @@ Phases, each fatal on failure:
    export, save, load and run every other family that ``make_serving_fn``
    handles on the narrow models of tests/test_torch_export.py (float32,
    each artifact equal to its live module, K1 once a stage in the cascade
-   and Sparse R-CNN artifacts).
+   and Sparse R-CNN artifacts);
+47. data-parallel training, after the golden SOLOv2: Faster R-CNN R50-FPN at
+   full width through ``build_train_objects``, ``build_loss_fn`` and
+   ``make_train_step`` in two spawned ranks under gloo sharing this card
+   (NCCL refuses two ranks on one device): one float32 step of 2 images a
+   rank on 800 x 1216 against this process's step on the same 4 images (the
+   loss to 1e-4, each parameter's update to 1e-2 in relative norm, the
+   replicas' parameters bit for bit, K1 and K2 once a step in each rank),
+   then 2 + 10 bf16 steps of 4 images a rank, images/s beside this
+   process's b8 (two ranks sharing one card, not scaling); with two cards
+   or more the same under NCCL on two cards and FSDP's step, with the peak
+   memory of each rank, else a line that they were not run;
+48. ``tools.train`` as two torchrun ranks (gloo, this card) for one epoch on
+   phase 26's folder and config with ``--dump-final`` (rank 0 alone writes
+   its work directory, the ranks' parameters equal bit for bit, K1 and K2
+   once a step in each rank), then ``tools.test --shard-eval`` on two ranks
+   against ``tools.test`` in this process on the same checkpoint, in bf16
+   and in float32 (the 12 metrics to 1e-12 in both; the COCO results dump
+   the same in float32, its gap reported in bf16, where cuDNN's C5 for an
+   image moves with its place in the batch: the backbone's levels for a
+   reversed b8 batch are compared in both dtypes). Each rank is
+   ``python3 chip_smoke.py --cli-rank {train,test} LAUNCHES_JSON ARGS``,
+   which runs the tool and writes its launch counts.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -561,6 +583,8 @@ from torch_detection_tpu_torch.ops.preprocess import (
     fused_normalize_pad_s2d,
     space_to_depth_2x2_np,
 )
+from torch_detection_tpu_torch.parallel.distributed import init_distributed, shutdown_distributed
+from torch_detection_tpu_torch.parallel.mesh import full_tensor
 from torch_detection_tpu_torch.parallel.train_step import make_optimizer, make_train_step
 from torch_detection_tpu_torch.tools import dump_proposals as dump_cli
 from torch_detection_tpu_torch.tools import export as export_cli
@@ -7709,6 +7733,418 @@ def phase_cli_profile(card: str) -> dict:
     return dict(training=launches, trace_mb=path.stat().st_size / 1e6, events=len(events))
 
 
+DP_WORLD = 2
+DP_PARITY_IMAGES = 2  # a rank's share of the float32 parity step: 4 images in all
+DP_TIMED_BATCH = 4  # a rank's images a timed bf16 step
+DP_ONE_BATCH = 8  # the one process's, the two ranks' together
+DP_WARMUP, DP_TIMED = 2, 10
+DP_LOSS_RTOL, DP_UPDATE_RTOL = 1e-4, 1e-2
+DP_DIR = ROOT / "build" / "dp"
+DP_TIMEOUT_S = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_config(compute_dtype: str, fsdp: bool = False) -> dict:
+    """The Faster R-CNN R50-FPN config at full width, its compute dtype and
+    FSDP switch set."""
+    cfg = Config.fromfile(CONFIG)
+    return dict(cfg, runtime=dict(cfg.get("runtime", {}), compute_dtype=compute_dtype, fsdp=fsdp))
+
+
+def dp_parity_batch(device) -> dict:
+    """The parity step's global batch: ``DP_WORLD * DP_PARITY_IMAGES``
+    seeded images on the 800 x 1216 canvas with their gts."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 300)
+    return train_batch(gen, DP_WORLD * DP_PARITY_IMAGES)
+
+
+def whole_params(model) -> dict:
+    """Every parameter whole (gathered from an FSDP model's shards)."""
+    return {n: full_tensor(p).detach().clone() for n, p in model.named_parameters()}
+
+
+def param_digest(params: dict) -> str:
+    h = hashlib.sha256()
+    for n in sorted(params):
+        h.update(n.encode() + params[n].contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(rank: int, world: int, port: int, backend: str, mode: str, device: str) -> None:
+    """One rank of ``phase_dp_step``, a spawned process. ``mode`` ``ddp``
+    or ``fsdp``; ``device`` ``cuda`` (each rank its ``cuda:LOCAL_RANK``) or
+    ``cuda:0`` (both ranks share it, under gloo). One
+    float32 step on its two images of the parity batch (rank 0 writes its
+    parameters' update), then ``DP_WARMUP`` + ``DP_TIMED`` bf16 steps of
+    ``DP_TIMED_BATCH`` images of its own; K1's and K2's launches counted
+    in this process. Writes its report to ``DP_DIR/<mode>_<backend>_rank<rank>.pt``."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = init_distributed(backend, device, timeout_s=DP_TIMEOUT_S)
+    device = info["device"]
+    fsdp = mode == "fsdp"
+    out = dict(rank=rank, device=str(device), backend=info["backend"])
+
+    batch = dp_parity_batch(device)
+    rows = slice(rank * DP_PARITY_IMAGES, (rank + 1) * DP_PARITY_IMAGES)
+    model, det_cfg, _, optimizer = build_train_objects(dp_config("float32", fsdp), device,
+                                                       seed=SEED, loader=Batches([None]))
+    step = make_train_step(build_loss_fn(model, det_cfg, rng_seed=SEED), optimizer)
+    before = whole_params(model)
+    reset_launches()
+    metrics = step({k: v[rows] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    out["parity_launches"] = read_launches()
+    after = whole_params(model)
+    out["parity_metrics"] = {k: float(v) for k, v in metrics.items()}
+    out["digest"] = param_digest(after)
+    if rank == 0:
+        torch.save({n: (after[n] - before[n]).cpu() for n, p in model.named_parameters()
+                    if p.requires_grad}, DP_DIR / f"{mode}_{backend}_update.pt")
+    del model, optimizer, step, before, after
+    torch.cuda.empty_cache()
+
+    model, det_cfg, _, optimizer = build_train_objects(dp_config("bfloat16", fsdp), device,
+                                                       seed=SEED, loader=Batches([None]))
+    step = make_train_step(build_loss_fn(model, det_cfg, rng_seed=SEED), optimizer)
+    gen = torch.Generator(device=device).manual_seed(SEED + 310 + rank)
+    batches = [train_batch(gen, DP_TIMED_BATCH) for _ in range(DP_WARMUP + DP_TIMED)]
+    reset_launches()
+    for b in batches[:DP_WARMUP]:
+        step(b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    losses = [float(step(b)["loss"]) for b in batches[DP_WARMUP:]]
+    torch.cuda.synchronize()
+    out["timed_s"] = time.perf_counter() - t0
+    out["timed_launches"] = read_launches()
+    out["timed_losses"] = losses
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    out["timed_digest"] = param_digest(whole_params(model))
+    if not fsdp:  # the gradients' all-reduce alone (zeros, the same bytes), synced
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            optimizer.reduce_gradients()
+        torch.cuda.synchronize()
+        out["allreduce_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+        optimizer.zero_grad()
+    torch.save(out, DP_DIR / f"{mode}_{backend}_rank{rank}.pt")
+    shutdown_distributed(info)
+
+
+def run_ranks(backend: str, mode: str, device: str = "cuda") -> list:
+    """``DP_WORLD`` spawned ``dp_rank`` processes; their reports."""
+    ctx = torch.multiprocessing.start_processes(dp_rank,
+                                                args=(DP_WORLD, free_port(), backend, mode, device),
+                                                nprocs=DP_WORLD, join=False, start_method="spawn")
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"dp {mode} {backend}: the ranks did not finish")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(DP_DIR / f"{mode}_{backend}_rank{r}.pt") for r in range(DP_WORLD)]
+
+
+def check_dp_run(what: str, ranks: list, one: dict, card: str,
+                 update_rtol: float = DP_UPDATE_RTOL) -> dict:
+    """A run's ranks against the one process on the parity batch: the loss
+    to ``DP_LOSS_RTOL``, each parameter's update to ``update_rtol`` in
+    relative norm, the replicas bit for bit after the parity step and after
+    the timed steps, K1 and K2 once a step in each rank."""
+    mode, backend = what.split()
+    losses = [r["parity_metrics"]["loss"] for r in ranks]
+    loss_err = abs(losses[0] - one["loss"]) / abs(one["loss"])
+    update = torch.load(DP_DIR / f"{mode}_{backend}_update.pt")
+
+    def rel_norm(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+    errs = {n: rel_norm(u, one["update"][n]) for n, u in update.items()}
+    worst = max(errs, key=errs.get)
+    steps = DP_WARMUP + DP_TIMED
+    launches = {f"rank{r['rank']}": dict(parity=r["parity_launches"], timed=r["timed_launches"])
+                for r in ranks}
+    log(f"dp {what} [{card}]: parity loss {losses} against one process {one['loss']!r} (rel {loss_err:.2e}, "
+        f"limit {DP_LOSS_RTOL}); the {len(errs)} updates' relative norm of the difference, worst "
+        f"{errs[worst]:.2e} at {worst} (limit {update_rtol}); skipped "
+        f"{[r['parity_metrics']['skipped_nonfinite'] for r in ranks]}; launches {launches}; "
+        f"peak memory a rank {[round(r['peak_gib'], 2) for r in ranks]} GiB")
+    if not (loss_err <= DP_LOSS_RTOL and len(set(losses)) == 1):
+        raise AssertionError(f"dp {what}: parity losses {losses} against {one['loss']}")
+    bad = {n: e for n, e in errs.items() if not e <= update_rtol}
+    if bad or set(errs) != set(one["update"]):
+        raise AssertionError(f"dp {what}: updates beyond {update_rtol}: {bad}")
+    for key in ("digest", "timed_digest"):
+        if len({r[key] for r in ranks}) != 1:
+            raise AssertionError(f"dp {what}: the replicas differ ({key})")
+    for r in ranks:
+        expect_launches(f"dp {what} rank {r['rank']} parity", r["parity_launches"], 1, 1)
+        expect_launches(f"dp {what} rank {r['rank']} timed", r["timed_launches"], steps, steps)
+        if not all(math.isfinite(x) for x in r["timed_losses"]):
+            raise AssertionError(f"dp {what} rank {r['rank']}: non-finite loss")
+    seconds = max(r["timed_s"] for r in ranks)
+    if "allreduce_ms" in ranks[0]:
+        log(f"dp {what} [{card}]: the gradients' all-reduce alone (one bucket of "
+            f"{sum(u.numel() for u in update.values()) * 4 / 1e6:.1f} MB float32) "
+            f"{[round(r['allreduce_ms'], 2) for r in ranks]} ms a rank, synced")
+    return dict(loss_err=loss_err, update_err=errs[worst], launches=launches,
+                images_per_sec=DP_WORLD * DP_TIMED_BATCH * DP_TIMED / seconds,
+                ms_per_step=seconds / DP_TIMED * 1e3, peak_gib=[r["peak_gib"] for r in ranks])
+
+
+def phase_dp_step(card: str) -> dict:
+    """Data-parallel training of Faster R-CNN R50-FPN at full width through
+    ``build_train_objects``, ``build_loss_fn`` and ``make_train_step`` in
+    spawned ranks: two gloo ranks sharing this card (NCCL refuses two
+    ranks on one device), against this process on the same 4 images in
+    float32, then timed in bf16 beside this process's b8; with two cards or
+    more, the same under NCCL on two cards and FSDP's step."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the one process on the whole parity batch, float32
+    model, det_cfg, _, optimizer = build_train_objects(dp_config("float32"), "cuda", seed=SEED,
+                                                       loader=Batches([None]))
+    before = whole_params(model)
+    metrics = make_train_step(build_loss_fn(model, det_cfg, rng_seed=SEED), optimizer)(
+        dp_parity_batch("cuda"))
+    one = dict(loss=float(metrics["loss"]),
+               update={n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters()
+                       if p.requires_grad})
+    del model, optimizer, before
+    torch.cuda.empty_cache()
+
+    runs = {"ddp gloo": check_dp_run("ddp gloo", run_ranks("gloo", "ddp", "cuda:0"), one, card)}
+    two_cards = torch.cuda.device_count() >= 2
+    if two_cards:
+        runs["ddp nccl"] = check_dp_run("ddp nccl", run_ranks("nccl", "ddp"), one, card)
+        runs["fsdp nccl"] = check_dp_run("fsdp nccl", run_ranks("nccl", "fsdp"), one, card)
+
+    # this process alone at b8: the images of the two ranks' step
+    model, det_cfg, _, optimizer = build_train_objects(dp_config("bfloat16"), "cuda", seed=SEED,
+                                                       loader=Batches([None]))
+    step = make_train_step(build_loss_fn(model, det_cfg, rng_seed=SEED), optimizer)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 320)
+    batches = [train_batch(gen, DP_ONE_BATCH) for _ in range(DP_WARMUP + DP_TIMED)]
+    for b in batches[:DP_WARMUP]:
+        step(b)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for b in batches[DP_WARMUP:]:
+        step(b)
+    torch.cuda.synchronize()
+    one_ips = DP_ONE_BATCH * DP_TIMED / (time.perf_counter() - t1)
+    del model, optimizer, step, batches
+    torch.cuda.empty_cache()
+
+    gloo = runs["ddp gloo"]
+    log(f"dp step [{card}]: two gloo ranks sharing one card, b{DP_TIMED_BATCH} a rank, bf16: "
+        f"{gloo['images_per_sec']:.2f} images/s ({gloo['ms_per_step']:.1f} ms a step of "
+        f"{DP_WORLD * DP_TIMED_BATCH} images), against one process at b{DP_ONE_BATCH}: "
+        f"{one_ips:.2f} images/s; two ranks sharing one card, not scaling")
+    if two_cards:
+        for what in ("ddp nccl", "fsdp nccl"):
+            r = runs[what]
+            log(f"dp step [{card}]: {what} on two cards, b{DP_TIMED_BATCH} a rank, bf16: "
+                f"{r['images_per_sec']:.2f} images/s ({r['ms_per_step']:.1f} ms a step), peak "
+                f"memory a rank {[round(g, 2) for g in r['peak_gib']]} GiB")
+    else:
+        log(f"dp step [{card}]: NCCL and FSDP were not run on this machine: it has "
+            f"{torch.cuda.device_count()} GPU (the CPU tests run FSDP under gloo)")
+    log(f"dp step [{card}]: {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    launches = {f"dp_{what.replace(' ', '_')}_{rank}_{part}": n
+                for what, r in runs.items() for rank, parts in r["launches"].items()
+                for part, n in parts.items()}
+    return dict(runs={k: {x: v[x] for x in ("loss_err", "update_err", "images_per_sec",
+                                             "peak_gib")} for k, v in runs.items()},
+                one_images_per_sec=one_ips, launches=launches)
+
+
+def batch_position_gaps(card: str) -> dict:
+    """How far Faster R-CNN's backbone levels for an image move when the
+    image takes another place in its b8 batch (the batch reversed), in
+    bf16 and in float32: the sharded evaluation's images sit elsewhere in
+    their batches than in one process's."""
+    gaps = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 330)
+    images, _ = padded_images(gen, 8, (800, 1344))
+    perm = torch.arange(7, -1, -1, device="cuda")
+    for dtype in ("bfloat16", "float32"):
+        model, _ = load_model(dtype, "cuda")
+        with torch.inference_mode():
+            x = images.to(model.dtype).contiguous()
+            a, b = model.backbone(x), model.backbone(x[perm].contiguous())
+            gaps[dtype] = [float((p.float() - q[perm].float()).abs().max()) for p, q in zip(a, b)]
+        del model
+    torch.cuda.empty_cache()
+    log(f"batch position [{card}]: the backbone's C2-C5 for the same images in a reversed b8 "
+        f"batch differ by at most {gaps['bfloat16']} in bf16 and {gaps['float32']} in float32")
+    return gaps
+
+
+def dump_gap(got: list, want: list) -> str:
+    """How two COCO results dumps differ: records, images whose records
+    differ, and over the images with as many records in each, the largest
+    score and box differences and the records whose category differs."""
+    def by_image(dump):
+        out = collections.defaultdict(list)
+        for r in dump:
+            out[r["image_id"]].append(r)
+        return out
+
+    g, w = by_image(got), by_image(want)
+    differ = [i for i in set(g) | set(w) if g.get(i) != w.get(i)]
+    score = box = 0.0
+    labels = uneven = 0
+    for i in differ:
+        a, b = g.get(i, []), w.get(i, [])
+        if len(a) != len(b):
+            uneven += 1
+            continue
+        for x, y in zip(a, b):
+            score = max(score, abs(x["score"] - y["score"]))
+            box = max(box, max(abs(p - q) for p, q in zip(x["bbox"], y["bbox"])))
+            labels += x["category_id"] != y["category_id"]
+    if not differ and len(got) == len(want):
+        return f"the same ({len(got)} records)"
+    return (f"{len(got)} against {len(want)} records; {len(differ)} images differ ({uneven} in "
+            f"their count); largest score gap {score:.3e}, box gap {box:.3e} px, {labels} "
+            f"categories differ")
+
+
+def cli_rank(argv) -> int:
+    """``python3 chip_smoke.py --cli-rank {train,test} LAUNCHES_JSON ARGS...``:
+    one rank of a torchrun launch of ``tools.train`` or ``tools.test``,
+    run in this process with K1's, K2's and the matcher's launches counted
+    and written to LAUNCHES_JSON, so that ``phase_cli_dp`` reads each
+    rank's."""
+    tool, launches_out, args = argv[0], argv[1], argv[2:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_launches()
+    result = (train_cli if tool == "train" else test_cli).main(args)
+    torch.cuda.synchronize()
+    extra = {"steps": result.optimizer.steps} if tool == "train" else {"metrics": result}
+    Path(launches_out).write_text(json.dumps(dict(read_launches(), **extra)))
+    return 0
+
+
+def torchrun(ranks: int, command: str) -> subprocess.CompletedProcess:
+    """``command`` (a shell line that may read ``$RANK``) as ``ranks``
+    processes of a standalone torchrun launch."""
+    env = dict(os.environ, OMP_NUM_THREADS="4", PYTHONPATH=str(ROOT))
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(ranks), "--no-python", "sh", "-c", command],
+        cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun {command!r} failed:\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    return run
+
+
+def phase_cli_dp(card: str) -> dict:
+    """``tools.train`` as two gloo ranks (torchrun; on one card they share it), one
+    epoch of ``phase_cli``'s folder and config (each rank b8, so half the
+    one process's steps), ``--dump-final``; only rank 0 writes its work
+    directory, the replicas' parameters are equal bit for bit, K1 and K2
+    launch once a step in each rank. Then ``tools.test --shard-eval`` on
+    two ranks against this process's ``tools.test`` of the same
+    checkpoint, in bf16 (the config's) and in float32: the 12 metrics to
+    1e-12 in both, the COCO results dump the same in float32 and its gap
+    reported in bf16, where an image's place in its batch moves its C5
+    (``batch_position_gaps``)."""
+    t0 = time.perf_counter()
+    config = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke.py"
+    root = SMOKE_COCO / "dp"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    me = f"{sys.executable} {ROOT / 'chip_smoke.py'} --cli-rank"
+    cards = min(torch.cuda.device_count(), DP_WORLD)  # the ranks' cards: cuda:LOCAL_RANK mod count
+    torchrun(DP_WORLD, f"{me} train {root}/train_r$RANK.json {config} --epochs 1 "
+                       f"--work-dir {root}/work_r$RANK --dump-final {root}/final "
+                       f"--dist-backend gloo")
+    train_s = time.perf_counter() - t0
+    ranks = [json.loads((root / f"train_r{r}.json").read_text()) for r in range(DP_WORLD)]
+    work0, work1 = root / "work_r0", root / "work_r1"
+    wrote = sorted(p.name for p in work0.iterdir())
+    if "epoch_1" not in wrote or "metrics.jsonl" not in wrote or (
+            work1.exists() and any(work1.iterdir())):
+        raise AssertionError(f"cli dp: rank 0 wrote {wrote}; rank 1 "
+                             f"{sorted(p.name for p in work1.iterdir()) if work1.exists() else []}")
+    records = [json.loads(line) for line in (work0 / "metrics.jsonl").read_text().splitlines()]
+    finals = [np.load(root / f"final.rank{r}.npz") for r in range(DP_WORLD)]
+    differ = [k for k in finals[0].files if not np.array_equal(finals[0][k], finals[1][k])]
+    if differ or set(finals[0].files) != set(finals[1].files):
+        raise AssertionError(f"cli dp: the replicas differ in {differ}")
+    for r, n in enumerate(ranks):
+        expect_launches(f"cli dp training rank {r}", {k: n[k] for k in ("k1", "k2", "matcher")},
+                        n["steps"], n["steps"])
+    log(f"cli dp [{card}]: tools.train as {DP_WORLD} gloo ranks on {cards} card(s), one epoch of "
+        f"{ranks[0]['steps']} steps of b8 a rank in {train_s:.1f} s (torchrun and start-up "
+        f"included); rank 0 wrote {wrote}, rank 1 nothing; images/s "
+        f"{[round(r['images_per_sec'], 2) for r in records if 'images_per_sec' in r]} (both ranks' "
+        f"images); {len(finals[0].files)} final parameters equal bit for bit; launches a rank "
+        f"{ranks}")
+
+    ckpt = work0 / "epoch_1"
+    f32 = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke_f32.py"
+    f32.write_text(f"_base_ = {str(config)!r}\nruntime = dict(compute_dtype='float32')\n")
+    tests = {}
+    for dtype, cfg_path in (("bf16", config), ("f32", f32)):
+        t1 = time.perf_counter()
+        torchrun(DP_WORLD, f"{me} test {root}/{dtype}_r$RANK.json {cfg_path} {ckpt} --shard-eval "
+                           f"--out {root}/{dtype}_shard.json --dist-backend gloo")
+        shard_s = time.perf_counter() - t1
+        shard = [json.loads((root / f"{dtype}_r{r}.json").read_text()) for r in range(DP_WORLD)]
+        reset_launches()
+        one = test_cli.main([str(cfg_path), str(ckpt), "--out", str(root / f"{dtype}_one.json")])
+        torch.cuda.synchronize()
+        one_launches = read_launches()
+        errs = {k: abs(shard[0]["metrics"][k] - v) for k, v in one.items()}
+        dump_shard, dump_one = (json.loads((root / f"{dtype}_{n}.json").read_text())
+                                for n in ("shard", "one"))
+        log(f"cli dp [{card}]: tools.test --shard-eval, {dtype}, on {DP_WORLD} ranks in "
+            f"{shard_s:.1f} s, K1 launches a rank {[s['k1'] for s in shard]} (one process: "
+            f"{one_launches}); metrics' largest difference from one process "
+            f"{max(errs.values()):.1e} (limit 1e-12), mAP {one['mAP']:.6f}; dump against one "
+            f"process's: {dump_gap(dump_shard, dump_one)}")
+        if set(errs) != set(shard[0]["metrics"]) or max(errs.values()) > 1e-12:
+            raise AssertionError(f"cli dp: --shard-eval metrics {shard[0]['metrics']} against {one}")
+        if shard[0]["metrics"] != shard[1]["metrics"] or not dump_one:
+            raise AssertionError("cli dp: the ranks' metrics differ, or the dump is empty")
+        if sum(s["k1"] for s in shard) < one_launches["k1"] or any(s["k2"] for s in shard):
+            raise AssertionError(f"cli dp: test launches {shard} against one process's "
+                                 f"{one_launches}")
+        tests[dtype] = dict(shard=shard, same=dump_shard == dump_one)
+    # float32 keeps each image's detections whatever its batch-mates: the dumps must be equal.
+    # bf16 does not (batch_position_gaps), and near-tied random scores turn its ulps into picks.
+    if not tests["f32"]["same"]:
+        raise AssertionError("cli dp: the float32 sharded dump differs from one process's")
+    batch_position_gaps(card)
+    return dict(training={f"rank{r}": {k: n[k] for k in ("k1", "k2", "matcher")}
+                          for r, n in enumerate(ranks)},
+                test={f"{dtype}_rank{r}": {k: s[k] for k in ("k1", "k2", "matcher")}
+                      for dtype, t in tests.items() for r, s in enumerate(t["shard"])})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU", file=sys.stderr)
@@ -7816,6 +8252,8 @@ def main() -> int:
     cli_zoo = phase_cli_zoo(card)
     export = phase_export(card)
     golden = phase_golden_solov2(card)
+    dp_step = phase_dp_step(card)
+    cli_dp = phase_cli_dp(card)
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -7867,9 +8305,13 @@ def main() -> int:
     log(f"the backbone zoo and PAFPN paths' launches of K1, K2 and the matcher: {slice16_paths}")
     slice18_paths = {**export["paths"], "cli_profile_training": cli_profile["training"]}
     log(f"the export and profile paths' launches of K1, K2 and the matcher: {slice18_paths}")
+    slice19_paths = {**dp_step["launches"],
+                     **{f"cli_dp_{what}_{rank}": n for what in ("training", "test")
+                        for rank, n in cli_dp[what].items()}}
+    log(f"the data-parallel paths' launches of K1, K2 and the matcher, each rank's: {slice19_paths}")
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
                    **dense_paths, **single_paths, **cli_paths, **slice15_paths, **slice16_paths,
-                   **slice18_paths}
+                   **slice18_paths, **slice19_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],
@@ -7906,4 +8348,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli_rank(sys.argv[2:]) if sys.argv[1:2] == ["--cli-rank"] else main())

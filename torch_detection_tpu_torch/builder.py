@@ -63,6 +63,8 @@ from .models.detectors import (
 from .models.inits import init_weights
 from .ops.anchors import AnchorGenerator, SSDAnchorGenerator, YOLOAnchorGenerator
 from .ops.assign import ATSSAssigner, GridAssigner, MaxIoUAssigner
+from .parallel.distributed import broadcast_module, global_rows, world_size
+from .parallel.mesh import make_mesh, shard_model
 from .parallel.train_step import Optimizer, make_optimizer
 from .utils.registry import DETECTORS
 
@@ -249,7 +251,9 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
     of ``det_cfg``. The sampling draws of a step come from a
     ``torch.Generator`` on the model's device seeded from
     ``(rng_seed, step)``, so every step draws a fresh stream and a step
-    repeats exactly (the counterpart of the reference's ``_step_rng``).
+    repeats exactly (the counterpart of the reference's ``_step_rng``); in
+    a data-parallel step each rank draws the global batch's and keeps its
+    own images' rows (``parallel.distributed.global_rows``).
     A mask config adds the mask losses, whose batch carries ``gt_masks``;
     a ``FastRCNNConfig``'s batch carries ``proposals`` and
     ``proposal_valid``. RetinaNet, Sparse R-CNN and DETR draw nothing;
@@ -293,7 +297,8 @@ def build_loss_fn(model, det_cfg, rng_seed: int = 0) -> Callable:
 
     def loss_fn(batch: Dict[str, torch.Tensor], step: int = 0):
         generator = torch.Generator(device=device).manual_seed((rng_seed << 32) + int(step))
-        losses = loss(det_cfg, model, batch, functools.partial(sampling_noise, generator))
+        losses = loss(det_cfg, model, batch,
+                      global_rows(functools.partial(sampling_noise, generator)))
         return losses["loss"], {k: v for k, v in losses.items() if k != "loss"}
 
     return loss_fn
@@ -381,11 +386,23 @@ def build_train_objects(
     ``iter_batches`` and ``__len__``, such as ready batches), and the
     config's optimizer (``type`` ``sgd``, the default, or
     ``adamw``) with its momentum, weight decay, clip and a schedule of
-    ``len(loader)`` steps an epoch."""
+    ``len(loader)`` steps an epoch.
+
+    In a group of more than one rank (``parallel.init_distributed``) every
+    rank starts from rank 0's weights, its loader yields
+    ``sample_per_replica`` images a step from its own shard
+    (``DistributedGroupSampler``), and with ``runtime.fsdp`` the model is
+    sharded by FSDP (``parallel.mesh.shard_model``) before the optimizer
+    takes its parameters, the optimizer's ``fsdp_root`` the root."""
     runtime = cfg.get("runtime", {})
     model = build_detector(cfg["model"], runtime.get("compute_dtype"), device, seed,
                            param_dtype="float32").train()
     det_cfg = build_detection_cfg(cfg["detection"])
+    ranks = world_size()
+    broadcast_module(model)
+    fsdp_root = None
+    if runtime.get("fsdp") and ranks > 1:
+        fsdp_root = shard_model(model, make_mesh(device_type=next(model.parameters()).device.type))
     if loader is None:
         # the ``train`` dataset, grouped sampling, ``collate`` at the canvas;
         # ``workers_per_host`` threads decode the samples
@@ -393,6 +410,7 @@ def build_train_objects(
         loader = build_dataloader(
             get_datasets(dict(data_cfg["train"])),
             sample_per_replica=data_cfg.get("sample_per_replica", 2),
+            dist=ranks > 1,
             max_gts=data_cfg.get("max_gts", 100),
             canvas=tuple(data_cfg["canvas"]) if data_cfg.get("canvas") else None,
             size_divisor=data_cfg["train"].get("size_divisor", 32) or 32,
@@ -408,5 +426,6 @@ def build_train_objects(
         weight_decay=opt_cfg.get("weight_decay", 1e-4),
         grad_clip_norm=opt_cfg.get("grad_clip_norm"),
         kind=opt_cfg.get("type", "sgd"),
+        fsdp_root=fsdp_root,
     )
     return model, det_cfg, loader, optimizer

@@ -7,7 +7,7 @@ from .concat import ConcatDataset, get_datasets
 from .container import DataContainer
 from .device import prefetch_to_device
 from .loader import DataLoader, build_dataloader
-from .sampler import GroupSampler
+from .sampler import DistributedGroupSampler, GroupSampler
 from .transforms import BackgroundErasing, BboxTransforms, ImageTransforms, MaskTransforms
 from .voc import VOC_CLASSES, VOCDataset
 
@@ -25,6 +25,7 @@ __all__ = [
     "prefetch_to_device",
     "DataLoader",
     "build_dataloader",
+    "DistributedGroupSampler",
     "GroupSampler",
     "BackgroundErasing",
     "BboxTransforms",

@@ -17,7 +17,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 from .collate import collate
-from .sampler import GroupSampler
+from .sampler import DistributedGroupSampler, GroupSampler
 
 
 class DataLoader:
@@ -140,6 +140,8 @@ def build_dataloader(
     dataset,
     sample_per_replica: int = 2,
     dist: bool = False,
+    num_replicas: Optional[int] = None,
+    rank: Optional[int] = None,
     seed: int = 0,
     max_gts: int = 100,
     canvas: Optional[Tuple[int, int]] = None,
@@ -152,10 +154,14 @@ def build_dataloader(
     collate_fn: Optional[Callable] = None,
 ) -> DataLoader:
     """A loader with grouped sampling and ``collate`` at the given canvas.
-    ``dist=True`` (the distributed sampler) waits for the multi-GPU slice."""
+    ``dist=True``: this rank's shard (``DistributedGroupSampler``;
+    ``num_replicas`` and ``rank`` default to ``torch.distributed``'s), so
+    each rank loads ``sample_per_replica`` images a step."""
     if dist:
-        raise NotImplementedError("dist: the distributed sampler waits for the multi-GPU slice")
-    sampler = GroupSampler(dataset, sample_per_replica, seed=seed)
+        sampler = DistributedGroupSampler(dataset, sample_per_replica, num_replicas=num_replicas,
+                                          rank=rank, seed=seed)
+    else:
+        sampler = GroupSampler(dataset, sample_per_replica, seed=seed)
 
     if collate_fn is None:
         def collate_fn(samples):

@@ -9,6 +9,11 @@ state is restored by parameter name, never by position. ``torch://`` loads
 a torchvision or mmdetection ``.pth`` through ``models/torch_import.py``;
 ``modelzoo://<arch>``, ``http(s)://`` and ``file://`` sources are fetched
 into a cache directory once and loaded from there.
+
+A model sharded by FSDP saves its whole, unsharded state, in the format of
+a one-process checkpoint (every rank gathers, rank 0 writes), and loads a
+whole state into each rank's shards. In a group of several ranks only rank
+0 writes.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..models.torch_import import detector_key_rules, load_torch_checkpoint, load_torch_weights
+from ..parallel.distributed import is_main
+from ..parallel.mesh import copy_full_, full_tensor, shard_like
 
 logger = logging.getLogger(__name__)
 
@@ -38,11 +45,14 @@ def _named_params(model, optimizer) -> Dict[int, str]:
 
 
 def optimizer_state(model, optimizer) -> Dict[str, Any]:
-    """The optimizer's state keyed by the model's parameter names."""
+    """The optimizer's state keyed by the model's parameter names, each
+    sharded buffer whole (every rank must call it under FSDP)."""
     names = _named_params(model, optimizer)
     per_param = optimizer.torch_optimizer.state
     return {
-        "state": {names[id(p)]: dict(per_param[p]) for p in optimizer.params if p in per_param},
+        "state": {names[id(p)]: {k: full_tensor(v) if isinstance(v, torch.Tensor) else v
+                                 for k, v in per_param[p].items()}
+                  for p in optimizer.params if p in per_param},
         "steps": optimizer.steps,
         "count": optimizer.count,
     }
@@ -52,14 +62,17 @@ def save_checkpoint(path: str, model, optimizer=None, meta: Optional[Dict] = Non
     """Write the model's ``state_dict``, the optimizer's state (if given)
     and ``meta`` (with the time) into the directory ``path``. The files are
     written under temporary names and renamed, so a checkpoint that exists
-    is whole."""
+    is whole. In a group of several ranks only rank 0 writes; under FSDP
+    every rank must call it, since the shards are gathered first."""
+    payloads = [(MODEL_FILE, {k: full_tensor(v) for k, v in model.state_dict().items()})]
+    if optimizer is not None:
+        payloads.append((OPTIMIZER_FILE, optimizer_state(model, optimizer)))
+    if not is_main():
+        return
     path = os.path.abspath(os.path.expanduser(path))
     os.makedirs(path, exist_ok=True)
     meta = dict(meta or {})
     meta.setdefault("time", time.asctime())
-    payloads = [(MODEL_FILE, model.state_dict())]
-    if optimizer is not None:
-        payloads.append((OPTIMIZER_FILE, optimizer_state(model, optimizer)))
     for name, payload in payloads:
         torch.save(payload, os.path.join(path, name + ".tmp"))
     with open(os.path.join(path, META_FILE + ".tmp"), "w") as f:
@@ -129,8 +142,8 @@ def load_model_state(model, state: Dict[str, torch.Tensor], strict: bool = False
     mismatched = {k for k in set(have) & set(state) if tuple(have[k].shape) != tuple(state[k].shape)}
     _report("load_checkpoint", missing, unexpected, mismatched, strict)
     with torch.no_grad():
-        for k in set(have) & set(state) - mismatched:
-            have[k].copy_(state[k])
+        for k in sorted(set(have) & set(state) - mismatched):
+            copy_full_(have[k], state[k])
 
 
 def _is_buffer(v) -> bool:
@@ -141,8 +154,8 @@ def _is_buffer(v) -> bool:
 
 def load_optimizer_state(model, optimizer, state: Dict[str, Any], strict: bool = False) -> None:
     """Restore ``optimizer_state``'s output by parameter name: each
-    parameter's buffers (on the parameter's device), the step count and the
-    update count the schedule reads."""
+    parameter's buffers (on the parameter's device, sharded as the
+    parameter), the step count and the update count the schedule reads."""
     names = _named_params(model, optimizer)
     by_name = {names[id(p)]: p for p in optimizer.params}
     saved = state["state"]
@@ -154,7 +167,7 @@ def load_optimizer_state(model, optimizer, state: Dict[str, Any], strict: bool =
     per_param = optimizer.torch_optimizer.state
     for n in set(by_name) & set(saved) - mismatched:
         p = by_name[n]
-        per_param[p] = {k: v.to(p.device) if _is_buffer(v) else v for k, v in saved[n].items()}
+        per_param[p] = {k: shard_like(v, p) if _is_buffer(v) else v for k, v in saved[n].items()}
     optimizer.steps = int(state["steps"])
     optimizer.count = int(state["count"])
 

@@ -11,8 +11,17 @@ step, save ``step_N`` with the batch position, return). With
 ``profile_dir`` the first epoch run is traced by ``torch.profiler``
 (``engine/profiling.py::trace``: host spans ``data`` and ``train_step``
 from ``annotate``, and the GPU's kernels), up to that epoch's end or a
-preemption. The EMA of the parameters, gradient accumulation and sharded
-state wait for a later slice.
+preemption.
+
+In a group of several ranks (``parallel/distributed.py``) every rank runs
+the same loop on its own shard of each batch. Only rank 0 writes
+``metrics.jsonl`` and the checkpoints (every rank joins a checkpoint, which
+gathers an FSDP model's shards); a SIGTERM to any rank stops every rank
+after the same step, through an all-reduce of the flag each step; images/s
+counts the images of all ranks; the validation hook runs on every rank
+(``make_validation_hook(shard=True)`` spreads the images over them) with an
+FSDP model whole for its duration. The EMA of the parameters and gradient
+accumulation wait for a later slice.
 """
 
 from __future__ import annotations
@@ -27,8 +36,11 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..data.device import prefetch_to_device
+from ..parallel.distributed import all_reduce_sum, is_main, world_size
+from ..parallel.mesh import unsharded
 from ..parallel.train_step import Optimizer, make_train_step
 from .checkpoint import save_checkpoint
 from .profiling import annotate, trace
@@ -67,8 +79,9 @@ class Trainer:
     tensors, and ``__len__``. Every ``log_interval`` steps the metrics are
     read on the host, logged and kept in ``history`` with images/s over the
     window and the learning rate. With ``work_dir`` None nothing is
-    written: no metrics file, no checkpoint. ``profile_dir`` traces the
-    first epoch that ``run`` trains into ``profile_dir/trace.json``."""
+    written: no metrics file, no checkpoint; on a rank other than 0 neither.
+    ``profile_dir`` traces the first epoch that ``run`` trains into
+    ``profile_dir/trace.json``."""
 
     def __init__(
         self,
@@ -93,7 +106,9 @@ class Trainer:
         self.device = next(model.parameters()).device
         self.work_dir = os.path.abspath(work_dir) if work_dir is not None else None
         self.metrics_path = None
-        if self.work_dir is not None:
+        self.ranks = world_size()
+        self.is_main = is_main()
+        if self.work_dir is not None and self.is_main:
             os.makedirs(self.work_dir, exist_ok=True)
             self.metrics_path = os.path.join(self.work_dir, "metrics.jsonl")
         self.log_interval = log_interval
@@ -117,6 +132,15 @@ class Trainer:
     def request_preemption(self) -> None:
         """Stop after the step in flight, saving its (epoch, batch) position."""
         self._preempt_requested = True
+
+    def _preempt_agreed(self) -> bool:
+        """Whether any rank was asked to stop: every rank stops after the
+        same step. One small all-reduce a step in a group, none alone."""
+        if self.ranks == 1:
+            return self._preempt_requested
+        flag = torch.tensor([float(self._preempt_requested)], device=self.device)
+        self._preempt_requested = bool(all_reduce_sum(flag).item() > 0)
+        return self._preempt_requested
 
     def _install_preemption_handler(self) -> Dict:
         previous = {}
@@ -177,14 +201,16 @@ class Trainer:
             with annotate("train_step"):
                 metrics = self.train_step(batch)
             self.skipped_steps += int(metrics["skipped_nonfinite"])
-            n_images += batch["image"].shape[0]
+            images = batch["image"].shape[0] * self.ranks  # every rank's, as many a rank
+            n_images += images
             batches_done += 1
             step = self.optimizer.steps
+            preempt = self._preempt_agreed()
             if (self.checkpoint_interval_steps and step % self.checkpoint_interval_steps == 0
-                    ) or self._preempt_requested:
+                    ) or preempt:
                 self._checkpoint(f"step_{step}", {"epoch": epoch,
                                                   "batches_done": batches_done, "step": step})
-            if self._preempt_requested:
+            if preempt:
                 self.preempted = True
                 batches.close()
                 logger.info("preempted at epoch %d batch %d (step %d); state saved",
@@ -196,7 +222,7 @@ class Trainer:
                 window_t0 = time.perf_counter()
                 metrics.update(
                     skipped_steps=self.skipped_steps,
-                    images_per_sec=self.log_interval * batch["image"].shape[0] / max(dt, 1e-9),
+                    images_per_sec=self.log_interval * images / max(dt, 1e-9),
                     epoch=epoch,
                     step=step,
                     lr=float(self.optimizer.schedule(step)),
@@ -213,7 +239,7 @@ class Trainer:
 
     def _write_metrics(self, record: Dict[str, Any]) -> None:
         """Append one JSON object a logged window or validation to
-        ``work_dir/metrics.jsonl``."""
+        ``work_dir/metrics.jsonl`` (rank 0)."""
         if self.metrics_path is None:
             return
         clean = {
@@ -226,7 +252,8 @@ class Trainer:
 
     def _validate(self, epoch: int) -> None:
         t0 = time.perf_counter()
-        metrics = self.val_hook()
+        with unsharded(self.optimizer.fsdp_root):
+            metrics = self.val_hook()
         parts = " ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items()))
         logger.info("epoch %d val (%.1fs): %s", epoch, time.perf_counter() - t0, parts)
         record = {"epoch": epoch, **{f"val_{k}": v for k, v in metrics.items()}}
@@ -235,7 +262,7 @@ class Trainer:
         score = metrics.get(self.best_metric)
         if score is not None and score > self.best_score:
             self.best_score = float(score)
-            if self.work_dir is not None:
+            if self.work_dir is not None:  # every rank joins the save; rank 0 writes
                 path = os.path.join(self.work_dir, "best")
                 save_checkpoint(path, self.model, self.optimizer,
                                 meta={"epoch": epoch + 1, "step": self.optimizer.steps,
@@ -245,11 +272,14 @@ class Trainer:
 
     def _checkpoint(self, name: str, meta: Dict[str, int]) -> None:
         """Save ``work_dir/name``; a mid-epoch ``step_N``'s meta carries its
-        ``batches_done``, the position a resume starts from."""
+        ``batches_done``, the position a resume starts from. Every rank
+        joins (an FSDP model's shards are gathered); rank 0 writes."""
         if self.work_dir is None:
             return
         path = os.path.join(self.work_dir, name)
         save_checkpoint(path, self.model, self.optimizer, meta=meta)
+        if not self.is_main:
+            return
         self._saved.append(path)
         # keep the newest ``max_keep_checkpoints``: the failure-recovery window
         while len(self._saved) > self.max_keep_checkpoints:

@@ -10,6 +10,8 @@ alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
 results dumps (boxes and RLE masks) and the Trainer's validation hook, the
 one protocol of the test CLI and of validation in training; with
 ``voc_metric`` VOC2007's 11-point AP at IoU 0.5 instead of COCO's metrics.
+With ``shard`` the images are spread over the ranks of a
+``torch.distributed`` group and the detections gathered.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data.collate import pick_canvas
+from ..data.sampler import DistributedGroupSampler
 from ..models.detectors import (
     ATSSConfig,
     CascadeMaskRCNNConfig,
@@ -61,8 +64,9 @@ from ..models.detectors import (
     yolox_inference,
 )
 from ..data.ops.mask import _rle_compress, rle_encode
-from .eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
 from ..models.heads.mask_head import paste_masks_np
+from ..parallel.distributed import all_gather_objects, broadcast_object, is_main, rank, world_size
+from .eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
 from .tta import masks_to_original, merge_tta_detections, unflip_masks
 
 logger = logging.getLogger(__name__)
@@ -145,6 +149,7 @@ def evaluate_detector(
     return_detections: bool = False,
     segm: bool = False,
     voc_metric: bool = False,
+    shard: bool = False,
 ):
     """Run inference over ``dataset`` (a test-mode dataset) on the model's
     device and return the COCO box mAP metrics (``eval_coco_map``'s 12), or
@@ -170,8 +175,18 @@ def evaluate_detector(
     ``tta=True`` each flipped augmentation's (D, M, M) probabilities are
     mirrored back, the boxes are fused with the probabilities as
     ``extras``, and each kept detection's source patch is pasted at its
-    fused box: the NMS selects, so each has one source. Sharded evaluation
-    waits for a later slice."""
+    fused box: the NMS selects, so each has one source.
+
+    ``shard=True`` in a group of several ranks (every rank calls it, the
+    reference's ``mesh=``): each rank infers the strided shard of the
+    test-mode ``DistributedGroupSampler`` over the ``n`` images, in
+    batches of ``batch``, and fuses its images' detections; the detections
+    are gathered on every rank, the images that the sampler's cyclic pad
+    repeated are dropped, rank 0 scores them and every rank returns rank
+    0's metrics (and the detections, in image order). In float32 an
+    image's detections do not depend on its place in its batch, so the
+    result is the one process's; in bf16 a cuDNN convolution's rounding can
+    (on an H100, C5's), so near-tied scores may rank otherwise."""
     if infer is None:
         infer = make_inference_fn(model, det_cfg, segm=segm)
     device = next(model.parameters()).device
@@ -179,9 +194,13 @@ def evaluate_detector(
     prop_cap = int(getattr(dataset, "num_max_proposals", 1000)) if needs_props else 0
 
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
-    results: Dict = {}  # (img_idx, aug_idx) -> the augmentation's detections
-    pending: Dict = {}  # bucket (H, W) -> [(img_idx, aug_idx, img, (h, w), proposals)]
-    metas_all = [None] * n
+    ranks = world_size() if shard else 1
+    # this rank's images, in order; a repeated one at the end pads the shards to one size
+    order = list(range(n)) if ranks == 1 else list(DistributedGroupSampler(
+        _TestIndices(n), num_replicas=ranks, rank=rank()))
+    results: Dict = {}  # (position, aug_idx) -> the augmentation's detections
+    pending: Dict = {}  # bucket (H, W) -> [(position, aug_idx, img, (h, w), proposals)]
+    metas_all = [None] * len(order)
 
     def flush(bucket, items):
         padded = np.zeros((batch, bucket[0], bucket[1], 3), np.float32)
@@ -209,31 +228,32 @@ def evaluate_detector(
             if segm:
                 results[(img_idx, aug_idx)]["mask_probs"] = mask_probs[j][v]
 
-    for i in range(n):
+    for pos, i in enumerate(order):
         sample = dataset[i]
-        metas_all[i] = [m.data for m in sample["img_meta"]]
-        for aug_idx, (img, meta) in enumerate(zip(sample["img"], metas_all[i])):
+        metas_all[pos] = [m.data for m in sample["img_meta"]]
+        for aug_idx, (img, meta) in enumerate(zip(sample["img"], metas_all[pos])):
             if canvas is not None and not tta:
                 bucket = pick_canvas([img.shape[:2]], canvas=canvas)
             else:
                 bucket = pick_canvas([img.shape[:2]], size_divisor=128)
             items = pending.setdefault(bucket, [])
             prop = sample["proposals"][aug_idx] if needs_props else None
-            items.append((i, aug_idx, img, (meta["img_shape"][0], meta["img_shape"][1]), prop))
+            items.append((pos, aug_idx, img, (meta["img_shape"][0], meta["img_shape"][1]), prop))
             if len(items) == batch:
                 flush(bucket, items)
                 pending[bucket] = []
-        if (i + 1) % 100 == 0:
-            logger.info("eval: loaded %d/%d images (%d buckets live)", i + 1, n, len(pending))
+        if (pos + 1) % 100 == 0:
+            logger.info("eval: loaded %d/%d images (%d buckets live)", pos + 1, len(order),
+                        len(pending))
     for bucket, items in pending.items():
         if items:
             flush(bucket, items)
 
     iou_thr = getattr(det_cfg, "nms_iou_thr", 0.5)  # DETR has none; the fusion needs one
-    detections, annotations = [], []
-    for i in range(n):
-        per_aug = [results[(i, a)] for a in range(len(metas_all[i]))]
-        ann = dataset.get_ann_info(i)
+    fused_all = []  # (image index, its detections) for each of this rank's positions
+    for pos, i in enumerate(order):
+        per_aug = [results[(pos, a)] for a in range(len(metas_all[pos]))]
+        metas = metas_all[pos]
         if segm:
             if len(per_aug) > 1 and not tta:
                 raise ValueError("the dataset yields several test augmentations but tta=False; "
@@ -242,35 +262,71 @@ def evaluate_detector(
                                  "val dataset")
             if tta:
                 fused = merge_tta_detections(
-                    per_aug, metas_all[i], iou_thr=iou_thr,
-                    extras=[unflip_masks(d["mask_probs"], m) for d, m in zip(per_aug, metas_all[i])])
+                    per_aug, metas, iou_thr=iou_thr,
+                    extras=[unflip_masks(d["mask_probs"], m) for d, m in zip(per_aug, metas)])
                 boxes, scores, labels = fused["boxes"], fused["scores"], fused["labels"]
-                masks = paste_masks_np(fused["extras"], boxes, tuple(metas_all[i][0]["ori_shape"][:2]))
+                masks = paste_masks_np(fused["extras"], boxes, tuple(metas[0]["ori_shape"][:2]))
             else:
                 masks, boxes = masks_to_original(per_aug[0]["mask_probs"], per_aug[0]["boxes"],
-                                                 metas_all[i][0])
+                                                 metas[0])
                 scores, labels = per_aug[0]["scores"], per_aug[0]["labels"]
-            detections.append(dict(boxes=boxes.astype(np.float32), scores=scores,
-                                   labels=labels + 1,
-                                   masks=[rle_encode(m) for m in masks.astype(np.uint8)]))
-            ann = dict(ann, **{k: [m if isinstance(m, dict) else rle_encode(np.asarray(m, np.uint8))
-                                   for m in ann.get(k, [])] for k in ("masks", "masks_ignore")})
+            fused_all.append((i, dict(boxes=boxes.astype(np.float32), scores=scores,
+                                      labels=labels + 1,
+                                      masks=[rle_encode(m) for m in masks.astype(np.uint8)])))
         else:
-            fused = merge_tta_detections(per_aug, metas_all[i], iou_thr=iou_thr)
-            detections.append(dict(boxes=fused["boxes"], scores=fused["scores"],
-                                   labels=fused["labels"] + 1))
-        annotations.append(ann)
+            fused = merge_tta_detections(per_aug, metas, iou_thr=iou_thr)
+            fused_all.append((i, dict(boxes=fused["boxes"], scores=fused["scores"],
+                                      labels=fused["labels"] + 1)))
+    if ranks > 1:
+        gathered = {}
+        for part in all_gather_objects(fused_all):
+            for i, det in part:
+                gathered.setdefault(i, det)  # the cyclic pad's repeats dropped
+        fused_all = sorted(gathered.items())
+    detections = [det for _, det in fused_all]
+    assert len(detections) == n
 
-    if voc_metric:
-        out = eval_voc_map(detections, annotations, det_cfg.num_classes, use_07_metric=True)
-    else:
-        out = eval_coco_map(detections, annotations, det_cfg.num_classes)
-    metrics = {k: v for k, v in out.items() if not isinstance(v, dict)}
-    if segm:
-        segm_out = eval_coco_segm_map(detections, annotations, det_cfg.num_classes)
-        metrics.update({f"segm_{k}": v for k, v in segm_out.items() if not isinstance(v, dict)})
+    metrics = None
+    if ranks == 1 or is_main():
+        metrics = _score(dataset, detections, det_cfg.num_classes, segm, voc_metric)
+    if ranks > 1:
+        metrics = broadcast_object(metrics)
     if return_detections:
         return metrics, detections
+    return metrics
+
+
+class _TestIndices:
+    """``n`` images as a test-mode dataset, for the sharded evaluation's
+    ``DistributedGroupSampler``."""
+
+    test_mode = True
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+
+def _score(dataset, detections, num_classes: int, segm: bool, voc_metric: bool) -> Dict[str, float]:
+    """The metrics of the detections of ``dataset``'s first ``len(detections)``
+    images against their annotations (masks as RLE for ``segm``)."""
+    annotations = []
+    for i in range(len(detections)):
+        ann = dataset.get_ann_info(i)
+        if segm:
+            ann = dict(ann, **{k: [m if isinstance(m, dict) else rle_encode(np.asarray(m, np.uint8))
+                                   for m in ann.get(k, [])] for k in ("masks", "masks_ignore")})
+        annotations.append(ann)
+    if voc_metric:
+        out = eval_voc_map(detections, annotations, num_classes, use_07_metric=True)
+    else:
+        out = eval_coco_map(detections, annotations, num_classes)
+    metrics = {k: v for k, v in out.items() if not isinstance(v, dict)}
+    if segm:
+        segm_out = eval_coco_segm_map(detections, annotations, num_classes)
+        metrics.update({f"segm_{k}": v for k, v in segm_out.items() if not isinstance(v, dict)})
     return metrics
 
 
@@ -334,11 +390,13 @@ def make_validation_hook(
     max_images: Optional[int] = None,
     segm: bool = False,
     voc_metric: bool = False,
+    shard: bool = False,
 ) -> Callable[[], Dict[str, float]]:
     """``hook() -> metrics`` for the Trainer's validation: the model as it
     stands, in eval mode for the call, through one inference function
     built once; ``segm`` adds the mask metrics, ``voc_metric`` scores VOC
-    AP instead of COCO's."""
+    AP instead of COCO's; ``shard`` spreads the images over the ranks (every
+    rank calls the hook)."""
     infer = make_inference_fn(model, det_cfg, segm=segm)
 
     def hook() -> Dict[str, float]:
@@ -347,7 +405,7 @@ def make_validation_hook(
         try:
             return evaluate_detector(model, det_cfg, dataset, batch=batch, canvas=canvas,
                                      max_images=max_images, infer=infer, segm=segm,
-                                     voc_metric=voc_metric)
+                                     voc_metric=voc_metric, shard=shard)
         finally:
             model.train(was_training)
 

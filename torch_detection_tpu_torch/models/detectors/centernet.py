@@ -40,6 +40,7 @@ from torch import Tensor
 
 from ...ops.boxes import clip_boxes
 from ...ops.nms import NMSResult, top_k_stable
+from ...parallel.distributed import batch_normaliser
 from ..layers import max_pool_same
 
 
@@ -156,7 +157,7 @@ def centernet_loss(
     t = centernet_targets(cfg, (hh, ww), gt_boxes, gt_labels, gt_valid)
     p = torch.sigmoid(heat_pred.float()).clamp(1e-6, 1.0 - 1e-6)
     pos = t.heat >= 1.0 - 1e-6  # exactly 1.0 at the valid centres
-    num_pos = t.mask.to(torch.float32).sum().clamp(min=1.0)
+    num_pos = batch_normaliser(t.mask.to(torch.float32).sum())
     zero = torch.zeros((), dtype=torch.float32, device=p.device)
     # the penalty-reduced focal loss (alpha 2, beta 4)
     pos_loss = torch.where(pos, -((1.0 - p) ** 2) * torch.log(p), zero)

@@ -36,6 +36,7 @@ from torch import Tensor, nn
 
 from ...ops.losses import iou_loss, iou_loss_elementwise
 from ...ops.nms import NMSResult
+from ...parallel.distributed import batch_normaliser
 from ...utils.device import resolve_device
 from ...utils.registry import BACKBONES, DETECTORS
 from ..inits import normal_
@@ -331,7 +332,7 @@ def set_losses(cfg: DETRConfig, cls_logits: Tensor, pred_boxes: Tensor, gt_cxcyw
     layers, b, q, c1 = cls_logits.shape
     no_obj = c1 - 1
     valid = gt_valid.bool()
-    num_boxes = torch.clamp(valid.float().sum(), min=1.0) / b
+    num_boxes = batch_normaliser(valid.float().sum()) / b
     label0 = (gt_labels.long() - 1).clamp(0, c1 - 2)
     cols = torch.where(valid[None], col4row.long(), q)  # unmatched rows write slot q
     target = torch.full((layers, b, q + 1), no_obj, dtype=torch.long, device=cls_logits.device)

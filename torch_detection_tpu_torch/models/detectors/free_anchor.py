@@ -34,6 +34,7 @@ from torch import Tensor
 
 from ...ops.boxes import bbox2delta, bbox_overlaps, delta2bbox
 from ...ops.nms import top_k_stable
+from ...parallel.distributed import batch_normaliser
 from ..heads.anchor_head import flatten_head_outputs
 from .single_stage import RetinaNetConfig
 
@@ -157,7 +158,7 @@ def free_anchor_loss(
         bag_idx = top_k_stable(bbox_overlaps(boxes, anchors), cfg.pre_anchor_topk)[1]
     pos_loss = positive_term(cfg, anchors, flat_cls, flat_reg, boxes, label0, gt_valid, bag_idx)
     num_pos = gt_valid.float().sum(dim=1)
-    total_pos = torch.clamp(num_pos.sum(), min=1.0)
+    total_pos = batch_normaliser(num_pos.sum())
     loss_pos = cfg.bag_alpha * pos_loss.sum() / total_pos
     loss_neg = (1.0 - cfg.bag_alpha) * neg_loss.sum() / (total_pos * cfg.pre_anchor_topk)
     return {"loss_pos": loss_pos, "loss_neg": loss_neg, "loss": loss_pos + loss_neg,

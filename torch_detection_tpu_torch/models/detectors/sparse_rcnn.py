@@ -37,6 +37,7 @@ from ...ops.hungarian import batched_linear_sum_assignment
 from ...ops.losses import iou_loss, iou_loss_elementwise, sigmoid_focal_loss_sparse
 from ...ops.nms import NMSResult, top_k_stable
 from ...ops.roi_align import batched_multilevel_roi_align
+from ...parallel.distributed import batch_normaliser
 from ...utils.registry import DETECTORS
 from ..inits import bias_init_with_prob, normal_
 from ..layers import Float32Linear, LayerNorm, MultiHeadDotProductAttention
@@ -308,7 +309,7 @@ def set_losses(cfg: SparseRCNNConfig, cls_logits: Tensor, pred_boxes: Tensor, gt
     ``avg_factor``), summed over stages, averaged over images, weighted."""
     s, b, q, c = cls_logits.shape
     valid = gt_valid.bool()
-    num_boxes = torch.clamp(valid.float().sum(), min=1.0) / b
+    num_boxes = batch_normaliser(valid.float().sum()) / b
     label0 = (gt_labels.long() - 1).clamp(0, c - 1)
     cols = torch.where(valid[None], col4row.long(), q)  # unmatched rows write slot q
     target = torch.full((s, b, q + 1), -1, dtype=torch.long, device=cls_logits.device)

@@ -26,6 +26,7 @@ from ...ops.boxes import bbox2delta, clip_boxes, delta2bbox
 from ...ops.losses import binary_cross_entropy, smooth_l1_loss, softmax_cross_entropy
 from ...ops.nms import NMSResult, multiclass_nms, top_k_stable
 from ...ops.roi_align import batched_multilevel_roi_align
+from ...parallel.distributed import batch_normaliser
 from ...utils.device import resolve_device
 from ...utils.registry import BACKBONES, DETECTORS, HEADS
 from ..heads.rpn_head import ProposalConfig, Proposals, generate_proposals
@@ -270,10 +271,10 @@ def rcnn_losses(
         raise NotImplementedError("class-specific box regression is not ported for training")
     cls_logits, reg_pred = cls_logits.float(), reg_pred.float()
     w_valid = sampled.is_valid.float()
-    n_valid = torch.clamp(w_valid.sum(), min=1.0)
+    n_valid = batch_normaliser(w_valid.sum())
     cls_l = softmax_cross_entropy(cls_logits, sampled.labels, weight=w_valid, avg_factor=n_valid)
     pos_w = sampled.is_pos.float()
-    n_pos = torch.clamp(pos_w.sum(), min=1.0)
+    n_pos = batch_normaliser(pos_w.sum())
     reg_l = smooth_l1_loss(reg_pred, sampled.reg_targets, weight=pos_w[..., None],
                            beta=cfg.smooth_l1_beta, avg_factor=n_pos)
     return cls_l, reg_l

@@ -26,6 +26,7 @@ from torch import Tensor, nn
 
 from ...ops.losses import binary_cross_entropy
 from ...ops.roi_align import window_geometry
+from ...parallel.distributed import batch_normaliser
 from ...utils.registry import HEADS
 
 
@@ -166,7 +167,7 @@ def mask_loss(
     rois' pixels of the whole batch."""
     logits = select_class(mask_logits, roi_labels.long() - 1).float()
     m = mask_targets.shape[-1] * mask_targets.shape[-2]
-    n = torch.clamp(roi_pos.float().sum(), min=1.0) * m
+    n = batch_normaliser(roi_pos.float().sum()) * m
     return binary_cross_entropy(logits, mask_targets, weight=roi_pos.float()[..., None, None],
                                 avg_factor=n)
 

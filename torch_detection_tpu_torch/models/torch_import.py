@@ -40,6 +40,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import copy_full_
 from .backbones.mobilenet import MOBILENETV2_SETTINGS, MobileNetV2
 from .backbones.ssd_vgg import SSDVGG
 from .backbones.vgg import ARCH_SETTINGS as VGG_ARCH_SETTINGS
@@ -315,7 +316,7 @@ def load_torch_weights(model: nn.Module, state_dict: Mapping[str, torch.Tensor],
         log.warning(msg)
     with torch.no_grad():
         for k in loaded:
-            have[k].copy_(converted[k])
+            copy_full_(have[k], converted[k])  # into this rank's shard under FSDP
     return loaded
 
 

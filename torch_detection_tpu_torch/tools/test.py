@@ -2,6 +2,8 @@
 
     python -m torch_detection_tpu_torch.tools.test CONFIG CKPT [--tta] [--batch B]
         [--max-images N] [--segm] [--voc-metric] [--out res.json] [--device cuda|cpu]
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m torch_detection_tpu_torch.tools.test CONFIG CKPT --shard-eval [...]
 
 Counterpart of ``tools/test.py``: the test-mode ``CocoDataset`` at the
 config's first scale without flips (``--tta``: the val config as it is, each
@@ -17,8 +19,14 @@ families) loads the val split's gt masks, adds the 12 mask metrics
 (``segm_*``) and with a ``.json`` ``--out`` writes ``<out>.segm.json``, the
 masks as COCO RLE. CKPT is a checkpoint directory of the port or a torch
 ``.pth`` (``torch://``; with ``backbone.`` keys a whole mmdetection
-detector). Runs on ``cuda`` unless ``--device cpu``. ``--shard-eval``
-waits for multi-GPU evaluation and raises ``NotImplementedError``.
+detector). Runs on ``cuda`` unless ``--device cpu``. ``--shard-eval``,
+launched by torchrun with N processes (``parallel.init_distributed``; nccl
+on ``cuda:LOCAL_RANK``, gloo with ``--device cpu``, or ``--dist-backend``),
+spreads the images over the ranks, ``--batch`` a rank, and gathers the
+detections: rank 0 writes ``--out``, and every rank returns its metrics
+(those of one process; in bf16 near-tied scores may rank otherwise, see
+``evaluate_detector``). ``--shard-eval`` in one process, and a launch of
+several processes without it, raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -33,8 +41,8 @@ from ..builder import build_detection_cfg, build_detector
 from ..data import get_datasets
 from ..engine.checkpoint import load_checkpoint
 from ..engine.validate import coco_detection_dump, coco_segm_dump, evaluate_detector
+from ..parallel.distributed import init_distributed, is_main, shutdown_distributed
 from ..utils.config import Config
-from ..utils.device import resolve_device
 from ..utils.file_handler import dump
 
 
@@ -49,18 +57,29 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     parser.add_argument("--voc-metric", action="store_true", help="VOC AP@0.5 instead of COCO mAP")
     parser.add_argument("--segm", action="store_true", help="mask-IoU COCO metrics too")
     parser.add_argument("--shard-eval", action="store_true",
-                        help="shard eval batches over the devices (not ported: one GPU)")
+                        help="spread the images over the ranks of a torchrun launch")
     parser.add_argument("--out", default=None,
                         help="dump detections: .json = COCO results format, .pkl = per-image dicts")
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("--dist-backend", default=None,
+                        help="under torchrun: nccl (the default on cuda) or gloo")
     args = parser.parse_args(argv)
-    if args.shard_eval:
-        raise NotImplementedError("--shard-eval waits for multi-GPU evaluation")
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    dist_info = init_distributed(args.dist_backend, args.device)
+    try:
+        if args.shard_eval != (dist_info["process_count"] > 1):
+            raise ValueError(f"--shard-eval {'needs' if args.shard_eval else 'is needed by'} a "
+                             f"torchrun launch of several processes (this one has "
+                             f"{dist_info['process_count']})")
+        return _test(args, dist_info["device"])
+    finally:
+        shutdown_distributed(dist_info)
+
+
+def _test(args, device) -> Dict[str, float]:
     cfg = Config.fromfile(args.config)
     runtime = cfg.get("runtime", {})
-    device = resolve_device(args.device)
     model = build_detector(cfg["model"], runtime.get("compute_dtype"), device)
     det_cfg = build_detection_cfg(cfg["detection"])
     load_checkpoint(model, args.checkpoint)
@@ -78,9 +97,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     results = evaluate_detector(
         model, det_cfg, dataset, batch=args.batch, canvas=canvas, max_images=args.max_images,
         tta=args.tta, return_detections=bool(args.out), segm=args.segm, voc_metric=args.voc_metric,
+        shard=args.shard_eval,
     )
     if args.out:
         results, detections = results
+    if args.out and is_main():
         if args.out.endswith(".json"):
             payload = coco_detection_dump(dataset, detections)
             if args.segm:
@@ -91,9 +112,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
             payload = [{k: np.asarray(v) for k, v in d.items()} for d in detections]
         dump(payload, args.out)
         logging.info("dumped %d images of detections to %s", len(detections), args.out)
-    for k, v in results.items():
-        logging.info("%s: %.4f", k, v)
-    print(results)
+    if is_main():
+        for k, v in results.items():
+            logging.info("%s: %.4f", k, v)
+        print(results)
     return results
 
 

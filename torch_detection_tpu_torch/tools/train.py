@@ -3,7 +3,10 @@
     python -m torch_detection_tpu_torch.tools.train CONFIG [--epochs N]
         [--work-dir DIR] [--resume CKPT | --auto-resume] [--seed S]
         [--pretrained torch://W.pth | modelzoo://resnet50 | CKPT]
-        [--profile-dir DIR] [--device cuda|cpu]
+        [--profile-dir DIR] [--device cuda|cpu] [--dist-backend nccl|gloo]
+        [--dump-final PATH]
+    python -m torch.distributed.run --nproc_per_node=N \
+        -m torch_detection_tpu_torch.tools.train CONFIG [...]
 
 Counterpart of ``tools/train.py``: COCO folder -> ``CocoDataset`` ->
 ``GroupSampler`` -> ``DataLoader`` -> the device -> ``Trainer.run``, with
@@ -20,6 +23,16 @@ backbone. Validation in training reports the mask metrics too under
 Chrome trace of the first epoch run to ``DIR/trace.json``. Runs on ``cuda``
 unless ``--device cpu``. Knobs the port does not do yet raise
 ``NotImplementedError``.
+
+Launched by torchrun with N processes, each rank joins the group
+(``parallel.init_distributed``: ``nccl`` on ``cuda:LOCAL_RANK``, ``gloo``
+with ``--device cpu``, or ``--dist-backend``), loads its own share of each
+step, ``sample_per_replica`` images, and the step is the global batch's
+(``parallel/train_step.py``); ``runtime.fsdp`` shards the model by FSDP.
+Only rank 0 writes the work directory, and validation spreads the val
+images over the ranks. ``--dump-final PATH`` writes every parameter after
+training, whole, to ``PATH.rank<k>.npz`` on every rank, so that a
+multi-process run can show its replicas agree.
 """
 
 from __future__ import annotations
@@ -35,8 +48,9 @@ import numpy as np
 from ..builder import build_loss_fn, build_train_objects
 from ..engine.checkpoint import latest_checkpoint, load_checkpoint
 from ..engine.trainer import Trainer
+from ..parallel.distributed import init_distributed, shutdown_distributed
+from ..parallel.mesh import full_tensor
 from ..utils.config import Config
-from ..utils.device import resolve_device
 
 
 def refuse_unported(cfg) -> None:
@@ -46,7 +60,7 @@ def refuse_unported(cfg) -> None:
     knobs = {
         "ema_decay": runtime.get("ema_decay") is not None,
         "accum_steps > 1": int(runtime.get("accum_steps", 1) or 1) > 1,
-        "fsdp": bool(runtime.get("fsdp", False)),
+        "mesh model > 1 (tensor parallelism)": int(runtime.get("mesh", {}).get("model", 1)) > 1,
     }
     for knob, asked in knobs.items():
         if asked:
@@ -67,6 +81,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
                         help="write a torch.profiler trace of the first epoch run here")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
+    parser.add_argument("--dist-backend", default=None,
+                        help="under torchrun: nccl (the default on cuda) or gloo (on cpu, or "
+                             "ranks sharing a GPU)")
+    parser.add_argument("--dump-final", default=None, metavar="PATH",
+                        help="after training write every parameter to PATH.rank<k>.npz on each rank")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
@@ -75,7 +94,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     runtime = cfg.get("runtime", {})
     work_dir = args.work_dir or runtime.get("work_dir", "work_dirs/default")
     total_epochs = args.epochs or cfg.get("schedule", {}).get("total_epochs", 12)
-    device = resolve_device(args.device)
+    dist_info = init_distributed(args.dist_backend, args.device)
+    try:
+        return _train(args, cfg, runtime, work_dir, total_epochs, dist_info)
+    finally:
+        shutdown_distributed(dist_info)
+
+
+def _train(args, cfg, runtime, work_dir: str, total_epochs: int, dist_info) -> Trainer:
+    device = dist_info["device"]
+    ranks = dist_info["process_count"]
 
     model, det_cfg, loader, optimizer = build_train_objects(cfg, device, seed=args.seed)
     pretrained = args.pretrained or runtime.get("pretrained")
@@ -110,7 +138,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
             batch=int(runtime.get("val_batch", 8)),
             canvas=tuple(cfg["data"].get("canvas") or (800, 1344)),
             max_images=runtime.get("val_max_images"), segm=segm,
-            voc_metric=bool(runtime.get("val_voc_metric", False)),
+            voc_metric=bool(runtime.get("val_voc_metric", False)), shard=ranks > 1,
         )
 
     trainer = Trainer(
@@ -141,8 +169,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
 
     trainer.run(total_epochs, start_epoch=start_epoch, skip_batches=skip_batches)
 
-    # the run's summary from its curve, work_dir/metrics.jsonl
-    if os.path.exists(trainer.metrics_path):
+    if args.dump_final:
+        # every rank writes: a multi-process run holds its replicas to each other bit for bit
+        params = {n: full_tensor(p).detach().cpu().numpy() for n, p in model.named_parameters()}
+        out = f"{args.dump_final}.rank{dist_info['process_index']}.npz"
+        np.savez(out, **params)
+        logging.info("dumped %d final parameters to %s", len(params), out)
+
+    # the run's summary from its curve, work_dir/metrics.jsonl (rank 0's)
+    if trainer.metrics_path is not None and os.path.exists(trainer.metrics_path):
         with open(trainer.metrics_path) as f:
             records = [json.loads(line) for line in f if line.strip()]
         steps = [r for r in records if "loss" in r]
