@@ -319,7 +319,9 @@ Phases, each fatal on failure:
    400 steps of b4 on the card (AdamW, weight decay 0) on the seeded
    squares set of ``data_fixtures.make_golden_coco`` (written here by
    ``png_bytes``), scored by ``evaluate_detector(segm=True)`` against the
-   reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3);
+   reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3); its
+   checkpoint and two ``tools.test`` configs (bf16, float32) are kept for
+   phase 48;
 43. RetinaNet MobileNetV2-FPN, ShuffleNetV2-FPN and PAFPN-R50
    (configs/retinanet_{mobilenetv2_fpn,shufflenetv2_fpn,pafpn_r50}_coco.py,
    unchanged; ``cls_out``'s bias at 0 for serving) after Soft-NMS: served
@@ -373,11 +375,13 @@ Phases, each fatal on failure:
    phase 26's folder and config with ``--dump-final`` (rank 0 alone writes
    its work directory, the ranks' parameters equal bit for bit, K1 and K2
    once a step in each rank), then ``tools.test --shard-eval`` on two ranks
-   against ``tools.test`` in this process on the same checkpoint, in bf16
-   and in float32 (the 12 metrics to 1e-12 in both; the COCO results dump
-   the same in float32, its gap reported in bf16, where cuDNN's C5 for an
-   image moves with its place in the batch: the backbone's levels for a
-   reversed b8 batch are compared in both dtypes). Each rank is
+   against ``tools.test`` in this process on the same checkpoint in float32
+   (the 12 metrics to 1e-12, the COCO results dump the same), and on the
+   golden SOLOv2's checkpoint with ``--segm``, whose metrics are not 0, in
+   bf16 and in float32 (the 24 metrics to 1e-12 in both; the box and mask
+   dumps the same in float32, their gap reported in bf16, where cuDNN's C5
+   for an image moves with its place in the batch: the backbone's levels
+   for a reversed b8 batch are compared in both dtypes). Each rank is
    ``python3 chip_smoke.py --cli-rank {train,test} LAUNCHES_JSON ARGS``,
    which runs the tool and writes its launch counts.
 
@@ -6951,6 +6955,13 @@ def phase_golden_solov2(card: str) -> dict:
     for k, v in GOLDEN_BAND.items():
         if not res[k] >= v:
             raise AssertionError(f"golden solov2: {k} {res[k]} under the reference's band {v}")
+    save_checkpoint(str(GOLDEN_COCO / "ckpt"), model, meta={"step": GOLDEN_STEPS})
+    val = data(False)
+    for dtype, name in (("bfloat16", "bf16"), ("float32", "f32")):  # configs for tools.test
+        (GOLDEN_COCO / f"golden_solov2_{name}.py").write_text(
+            f"model = {GOLDEN_SOLOV2_MODEL!r}\ndetection = {GOLDEN_SOLOV2_DETECTION!r}\n"
+            f"data = dict(val={val!r}, canvas={GOLDEN_CANVAS!r})\n"
+            f"runtime = dict(compute_dtype={dtype!r})\n")
     return dict(launches=launches, **{k: res[k] for k in GOLDEN_BAND})
 
 
@@ -8060,6 +8071,48 @@ def torchrun(ranks: int, command: str) -> subprocess.CompletedProcess:
     return run
 
 
+def shard_eval(card: str, what: str, cfg_path: Path, ckpt: Path, out: Path,
+               extra: str = "") -> dict:
+    """``tools.test --shard-eval`` of ``ckpt`` on two ranks against this
+    process's ``tools.test`` of it: every metric to 1e-12, K1 launched in
+    the ranks at least as often as in the one process and K2 never.
+    ``{shard: each rank's launches, same: whether the dumps are equal,
+    gap: how they differ, one: the one process's metrics}``."""
+    me = f"{sys.executable} {ROOT / 'chip_smoke.py'} --cli-rank"
+    t1 = time.perf_counter()
+    torchrun(DP_WORLD, f"{me} test {out}_r$RANK.json {cfg_path} {ckpt} --shard-eval "
+                       f"--out {out}_shard.json --dist-backend gloo {extra}")
+    shard_s = time.perf_counter() - t1
+    shard = [json.loads(Path(f"{out}_r{r}.json").read_text()) for r in range(DP_WORLD)]
+    reset_launches()
+    one = test_cli.main([str(cfg_path), str(ckpt), "--out", f"{out}_one.json", *extra.split()])
+    torch.cuda.synchronize()
+    one_launches = read_launches()
+    errs = {k: abs(shard[0]["metrics"][k] - v) for k, v in one.items()}
+    dump_shard, dump_one = (json.loads(Path(f"{out}_{n}.json").read_text())
+                            for n in ("shard", "one"))
+    gap = dump_gap(dump_shard, dump_one)
+    log(f"cli dp [{card}]: tools.test --shard-eval, {what}, on {DP_WORLD} ranks in "
+        f"{shard_s:.1f} s, K1 launches a rank {[s['k1'] for s in shard]} (one process: "
+        f"{one_launches}); metrics' largest difference from one process "
+        f"{max(errs.values()):.1e} (limit 1e-12), mAP {one['mAP']:.6f}"
+        + (f", segm mAP {one['segm_mAP']:.6f}" if "segm_mAP" in one else "")
+        + f"; dump against one process's: {gap}")
+    if set(errs) != set(shard[0]["metrics"]) or max(errs.values()) > 1e-12:
+        raise AssertionError(f"cli dp: {what} --shard-eval metrics {shard[0]['metrics']} "
+                             f"against {one}")
+    if shard[0]["metrics"] != shard[1]["metrics"] or not dump_one:
+        raise AssertionError(f"cli dp: {what}: the ranks' metrics differ, or the dump is empty")
+    if sum(s["k1"] for s in shard) < one_launches["k1"] or any(s["k2"] for s in shard):
+        raise AssertionError(f"cli dp: {what} test launches {shard} against one process's "
+                             f"{one_launches}")
+    same = dump_shard == dump_one
+    if "--segm" in extra:  # the masks' RLE dumps too
+        same = same and (Path(f"{out}_shard.segm.json").read_text()
+                         == Path(f"{out}_one.segm.json").read_text())
+    return dict(shard=shard, same=same, gap=gap, one=one)
+
+
 def phase_cli_dp(card: str) -> dict:
     """``tools.train`` as two gloo ranks (torchrun; on one card they share it), one
     epoch of ``phase_cli``'s folder and config (each rank b8, so half the
@@ -8067,10 +8120,12 @@ def phase_cli_dp(card: str) -> dict:
     directory, the replicas' parameters are equal bit for bit, K1 and K2
     launch once a step in each rank. Then ``tools.test --shard-eval`` on
     two ranks against this process's ``tools.test`` of the same
-    checkpoint, in bf16 (the config's) and in float32: the 12 metrics to
-    1e-12 in both, the COCO results dump the same in float32 and its gap
-    reported in bf16, where an image's place in its batch moves its C5
-    (``batch_position_gaps``)."""
+    checkpoint (``shard_eval``): of that checkpoint in float32, its dump
+    the same; and of the golden SOLOv2's (``phase_golden_solov2``), whose
+    scores lie well above 0, with ``--segm`` in bf16 and in float32, so
+    that its 24 metrics to 1e-12 compare numbers that can differ. In bf16
+    an image's place in its batch moves its C5 (``batch_position_gaps``),
+    so a bf16 dump's gap is reported."""
     t0 = time.perf_counter()
     config = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke.py"
     root = SMOKE_COCO / "dp"
@@ -8104,45 +8159,26 @@ def phase_cli_dp(card: str) -> dict:
         f"images); {len(finals[0].files)} final parameters equal bit for bit; launches a rank "
         f"{ranks}")
 
-    ckpt = work0 / "epoch_1"
     f32 = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke_f32.py"
     f32.write_text(f"_base_ = {str(config)!r}\nruntime = dict(compute_dtype='float32')\n")
-    tests = {}
-    for dtype, cfg_path in (("bf16", config), ("f32", f32)):
-        t1 = time.perf_counter()
-        torchrun(DP_WORLD, f"{me} test {root}/{dtype}_r$RANK.json {cfg_path} {ckpt} --shard-eval "
-                           f"--out {root}/{dtype}_shard.json --dist-backend gloo")
-        shard_s = time.perf_counter() - t1
-        shard = [json.loads((root / f"{dtype}_r{r}.json").read_text()) for r in range(DP_WORLD)]
-        reset_launches()
-        one = test_cli.main([str(cfg_path), str(ckpt), "--out", str(root / f"{dtype}_one.json")])
-        torch.cuda.synchronize()
-        one_launches = read_launches()
-        errs = {k: abs(shard[0]["metrics"][k] - v) for k, v in one.items()}
-        dump_shard, dump_one = (json.loads((root / f"{dtype}_{n}.json").read_text())
-                                for n in ("shard", "one"))
-        log(f"cli dp [{card}]: tools.test --shard-eval, {dtype}, on {DP_WORLD} ranks in "
-            f"{shard_s:.1f} s, K1 launches a rank {[s['k1'] for s in shard]} (one process: "
-            f"{one_launches}); metrics' largest difference from one process "
-            f"{max(errs.values()):.1e} (limit 1e-12), mAP {one['mAP']:.6f}; dump against one "
-            f"process's: {dump_gap(dump_shard, dump_one)}")
-        if set(errs) != set(shard[0]["metrics"]) or max(errs.values()) > 1e-12:
-            raise AssertionError(f"cli dp: --shard-eval metrics {shard[0]['metrics']} against {one}")
-        if shard[0]["metrics"] != shard[1]["metrics"] or not dump_one:
-            raise AssertionError("cli dp: the ranks' metrics differ, or the dump is empty")
-        if sum(s["k1"] for s in shard) < one_launches["k1"] or any(s["k2"] for s in shard):
-            raise AssertionError(f"cli dp: test launches {shard} against one process's "
-                                 f"{one_launches}")
-        tests[dtype] = dict(shard=shard, same=dump_shard == dump_one)
+    tests = {"f32": shard_eval(card, "Faster R-CNN float32", f32, work0 / "epoch_1", root / "f32")}
+    for dtype in ("bf16", "f32"):
+        tests[f"golden_{dtype}"] = shard_eval(
+            card, f"golden SOLOv2 {dtype}", GOLDEN_COCO / f"golden_solov2_{dtype}.py",
+            GOLDEN_COCO / "ckpt", root / f"golden_{dtype}", f"--segm --batch {GOLDEN_BATCH}")
+        one = tests[f"golden_{dtype}"]["one"]
+        if not (one["mAP_50"] > 0 and one["segm_mAP_50"] > 0):
+            raise AssertionError(f"cli dp: the golden SOLOv2 scores {one}")
     # float32 keeps each image's detections whatever its batch-mates: the dumps must be equal.
-    # bf16 does not (batch_position_gaps), and near-tied random scores turn its ulps into picks.
-    if not tests["f32"]["same"]:
-        raise AssertionError("cli dp: the float32 sharded dump differs from one process's")
+    # bf16 does not (batch_position_gaps): near-tied scores may turn its ulps into other picks.
+    for what in ("f32", "golden_f32"):
+        if not tests[what]["same"]:
+            raise AssertionError(f"cli dp: the {what} sharded dump differs from one process's")
     batch_position_gaps(card)
     return dict(training={f"rank{r}": {k: n[k] for k in ("k1", "k2", "matcher")}
                           for r, n in enumerate(ranks)},
-                test={f"{dtype}_rank{r}": {k: s[k] for k in ("k1", "k2", "matcher")}
-                      for dtype, t in tests.items() for r, s in enumerate(t["shard"])})
+                test={f"{what}_rank{r}": {k: s[k] for k in ("k1", "k2", "matcher")}
+                      for what, t in tests.items() for r, s in enumerate(t["shard"])})
 
 
 def main() -> int:

@@ -4,7 +4,8 @@ One spawn of two gloo ranks on the CPU (``torch_dp_families.rank_worker``)
 runs, for every family of ``build_loss_fn`` on its narrow model, one SGD
 step (momentum, weight decay, a global-norm clip the gradients exceed) on
 its half of a four-image batch whose halves hold 4 and 3 gts; then one
-FSDP step of Faster R-CNN, its checkpoint, and a resume of it; a
+FSDP step of Faster R-CNN, a validation, a second step and a validation,
+its checkpoint, and a resume of it; a
 ``Trainer`` that one rank alone is asked to stop; then one
 step of the JAX package's 2-device mesh test model (RetinaNet R18,
 ``tests/test_multihost_train.py``) from that test's own weights
@@ -13,17 +14,17 @@ the families, before it takes the JAX package's mesh step itself
 (``jax.jit`` over two of the CPU devices).
 
 The reference's promise is that N replicas give one device's result on the
-concatenated batch. So in each case the rank that drew the initial
-weights also takes the one-process step on the whole batch
-(``make_train_step(..., data_parallel=False)``) and reports where the
-ranks' step departs from it: the loss beyond 2e-5 (relative), the skip
+concatenated batch. So in each case the rank that draws the initial
+weights also takes the one-process step on the whole batch, before the
+group forms, and reports where the ranks' step departs from it: the loss beyond 2e-5 (relative), the skip
 decision, any parameter beyond ``rtol 2e-4, atol 2e-6`` (FSDP: ``2e-3,
 8e-6``, the reference's FSDP tolerance), any momentum buffer (after one
 step the clipped gradient plus the decay) beyond ``1e-4`` of its largest
 entry, at the least 1e-8, the rounding noise of a zero gradient (the
 attention key bias's). The replicas must be equal bit for bit (a digest of
-every parameter and momentum buffer), the FSDP checkpoint must load into a
-one-process model with ``strict=True`` holding the step's parameters and
+every parameter and momentum buffer), each FSDP validation must give a
+one-process model's features bit for bit, the FSDP checkpoint must load
+into a one-process model with ``strict=True`` holding the steps' parameters and
 resume into a sharded model with the same state, and the R18 step's
 parameters must equal the JAX mesh step's at ``rtol 2e-4, atol 2e-6``.
 The ranks send reports, not tensors; torch runs on one thread in every
@@ -139,6 +140,16 @@ def test_two_ranks_equal_one_process_on_the_global_batch(runs, name):
     assert len(compared) == 1, name
     assert compared[0]["mismatches"] == [], (name, compared[0]["metrics"],
                                              compared[0]["single_metrics"])
+
+
+def test_fsdp_validation_sees_each_step(runs):
+    """The FSDP model's inference within ``unsharded`` (the trainer's
+    validation) after each of two steps equals, bit for bit, a one-process
+    model holding that step's parameters: the second does not reuse the
+    ``FrozenBatchNorm`` folds the first cached, though FSDP's all-gather
+    writes the parameters without a new version."""
+    for r in runs["ranks"]:
+        assert r["fsdp_validation"] == [True, True]
 
 
 def test_fsdp_checkpoint_is_whole_and_resumes(runs):

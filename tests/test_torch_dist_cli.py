@@ -16,8 +16,13 @@ that the test can see that
   ``sample_per_replica`` 8 (the same images a step, in another order) at
   ``rtol 2e-4, atol 3e-6``;
 * ``tools.test --shard-eval`` on 2 ranks gives rank 0's ``epoch_2`` the
-  one-process metrics and the same COCO results dump (``score_thr`` 0, so
-  that the random weights leave detections);
+  one-process metrics and the same COCO results dump (``score_thr`` 0 and
+  100 detections an image, so that the barely trained weights leave
+  detections and some recall);
+* each run's epoch-2 validation record, taken over both ranks, equals a
+  one-process ``tools.test`` of its ``epoch_2`` checkpoint, which scores
+  above 0, so that a validation on stale weights (FSDP's whole parameters
+  are rewritten in place between validations) would show;
 * the same run under ``runtime.fsdp`` ends at the one-process parameters
   at the reference's FSDP tolerance, ``rtol 2e-3, atol 8e-6``, its
   replicas' whole parameters equal, and its ``epoch_2`` checkpoint loads
@@ -55,8 +60,8 @@ MODEL = dict(
 )
 CONFIG = """
 model = {model!r}
-detection = dict(num_classes=2, anchor=dict(strides=(8, 16, 32)), max_detections=10,
-                 pre_nms_top_k=50, score_thr=0.0)
+detection = dict(num_classes=2, anchor=dict(strides=(8, 16, 32)), max_detections=100,
+                 pre_nms_top_k=1000, score_thr=0.0)
 data = dict(
     train=dict(type="CocoDataset", ann_file={ann!r}, img_prefix={img!r}, img_means=(0, 0, 0),
                img_stds=(1, 1, 1), img_expected_sizes=(64, 64), size_divisor=32,
@@ -116,11 +121,14 @@ def runs(tmp_path_factory):
                          f"--shard-eval --out {root}/shard.json")
         one_metrics = test_cli.main([str(configs["ranks"]), str(ckpt), "--device", "cpu",
                                      "--batch", "2", "--out", str(root / "one.json")])
+        epoch_2 = {run: test_cli.main([str(configs[name]), str(root / f"{run}_r0" / "epoch_2"),
+                                       "--device", "cpu", "--batch", "4"])
+                   for run, name in (("work", "ranks"), ("fsdp", "fsdp"))}  # val_batch 4
         shard_log = finish(shard)
     finally:
         torch.set_num_threads(threads)
     return dict(root=root, log=log, fsdp_log=fsdp_log, shard_log=shard_log,
-                one_metrics=one_metrics)
+                one_metrics=one_metrics, epoch_2=epoch_2)
 
 
 @pytest.mark.parametrize("run", ["work", "fsdp"])
@@ -134,6 +142,21 @@ def test_only_rank_0_writes_the_work_dir(runs, run):
     assert len([r for r in records if "val_mAP" in r]) == 2
     assert all(r["images_per_sec"] > 0 for r in records if "loss" in r)
     assert not work1.exists() or not any(work1.iterdir())
+
+
+@pytest.mark.parametrize("run", ["work", "fsdp"])
+def test_validation_in_training_equals_one_process_test_of_the_checkpoint(runs, run):
+    """The epoch-2 validation record (both ranks' images; under FSDP the
+    whole parameters gathered anew) holds the one-process metrics of the
+    ``epoch_2`` checkpoint, to 1e-12; those metrics are not all 0."""
+    want = runs["epoch_2"][run]
+    assert any(v > 0 for v in want.values()), want
+    records = [json.loads(line)
+               for line in (runs["root"] / f"{run}_r0" / "metrics.jsonl").read_text().splitlines()]
+    got = [r for r in records if "val_mAP" in r][-1]
+    assert got["epoch"] == 1
+    for k, v in want.items():
+        assert abs(got[f"val_{k}"] - v) <= 1e-12, (k, got, want)
 
 
 def test_replicas_are_equal_and_equal_one_process(runs):
@@ -154,6 +177,7 @@ def test_shard_eval_equals_one_process(runs):
     assert len(printed) == 1, runs["shard_log"][-2000:]  # rank 0 alone prints
     shard_metrics = eval(printed[0], {"np": np})
     assert set(shard_metrics) == set(runs["one_metrics"])
+    assert any(v > 0 for v in runs["one_metrics"].values()), runs["one_metrics"]
     for k, v in runs["one_metrics"].items():
         assert abs(shard_metrics[k] - v) <= 1e-12, k
     dump = json.loads((root / "one.json").read_text())

@@ -23,7 +23,6 @@ from torch_detection_tpu.data.sampler import DistributedGroupSampler as JaxDistr
 from torch_detection_tpu_torch.data import DistributedGroupSampler, build_dataloader
 from torch_detection_tpu_torch.parallel import (
     batch_normaliser,
-    data_parallel_step,
     global_rows,
     init_distributed,
     make_mesh,
@@ -150,14 +149,13 @@ def test_the_mesh_refuses_tensor_parallelism_and_spatial_sharding():
 
 
 def test_the_step_helpers_keep_one_process_as_it_was():
-    """Outside a group, a data-parallel step's normaliser is the plain
-    clamp and its draws are the caller's."""
+    """Outside a group, a step's normaliser is the plain clamp and its
+    draws are the caller's."""
     def draw(shape):
         return (torch.rand(shape, generator=torch.Generator().manual_seed(0)),)
 
-    with data_parallel_step():
-        for count in (torch.tensor(0.0), torch.tensor(7.0)):
-            assert torch.equal(batch_normaliser(count), torch.clamp(count, min=1.0))
-        assert global_rows(draw) is draw
+    for count in (torch.tensor(0.0), torch.tensor(7.0)):
+        assert torch.equal(batch_normaliser(count), torch.clamp(count, min=1.0))
+    assert global_rows(draw) is draw
     with pytest.raises(ValueError, match="gradient"):
         batch_normaliser(torch.tensor(2.0, requires_grad=True))

@@ -23,6 +23,7 @@ from unittest import mock
 import numpy as np
 import torch
 from torch.distributed import barrier
+from torch.distributed.fsdp._fully_shard import _fsdp_param as fsdp_param
 
 from torch_detection_tpu_torch.builder import build_detector, build_loss_fn
 from torch_detection_tpu_torch.engine import Trainer
@@ -32,7 +33,7 @@ from torch_detection_tpu_torch.models.heads import ProposalConfig
 from torch_detection_tpu_torch.ops import anchors as a
 from torch_detection_tpu_torch.parallel import make_optimizer, make_train_step
 from torch_detection_tpu_torch.parallel.distributed import all_gather_objects, broadcast_object
-from torch_detection_tpu_torch.parallel.mesh import full_tensor
+from torch_detection_tpu_torch.parallel.mesh import full_tensor, unsharded
 
 R18_P3 = dict(type="ResNet", depth=18, num_stages=4, out_indices=(1, 2, 3))
 R18_P2 = dict(type="ResNet", depth=18, num_stages=4, out_indices=(0, 1, 2, 3))
@@ -257,9 +258,11 @@ def state_of(model, optimizer) -> Dict[str, torch.Tensor]:
     return out
 
 
-def step(model, loss_fn, optimizer, batch, data_parallel=None) -> Dict[str, object]:
-    """One ``make_train_step`` step: its metrics and the state after it."""
-    metrics = make_train_step(loss_fn, optimizer, data_parallel)(batch)
+def step(model, loss_fn, optimizer, batch) -> Dict[str, object]:
+    """One ``make_train_step`` step: its metrics and the state after it
+    (the global batch's step in a group of several ranks, else this
+    process's)."""
+    metrics = make_train_step(loss_fn, optimizer)(batch)
     return dict(metrics={k: float(v) for k, v in metrics.items()},
                 state=state_of(model, optimizer))
 
@@ -299,15 +302,15 @@ def r18_batch(rows=slice(None)) -> Dict[str, torch.Tensor]:
     return family_batch("retina", global_batch(seed=1, canvas=R18_CANVAS, num_classes=2), rows)
 
 
-def r18_step(state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
-             data_parallel=None) -> Dict[str, object]:
+def r18_step(state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]
+             ) -> Dict[str, object]:
     """One step of the R18 RetinaNet from ``state`` with the reference
     test's ``optax.sgd(0.01, momentum=0.9)``: SGD, no decay, no clip."""
     model = model_from(R18_MODEL, state)
     optimizer = make_optimizer(model.parameters(), 0.01, 0.9, 0.0, None)
     loss_fn = build_loss_fn(model, d.RetinaNetConfig(num_classes=2,
                                                      anchor_generator=RETINA_ANCHORS))
-    return step(model, loss_fn, optimizer, batch, data_parallel)
+    return step(model, loss_fn, optimizer, batch)
 
 
 def _case(dp, single, tol) -> Dict[str, object]:
@@ -354,45 +357,81 @@ def preempt_on_rank_1(rank: int, out_dir: str, init, batch) -> Dict[str, object]
                 wrote=sorted(os.listdir(work)) if os.path.isdir(work) else [])
 
 
+def fsdp_validation_sees_the_step(model, root, image: torch.Tensor, init,
+                                  state: Dict[str, torch.Tensor]) -> bool:
+    """Whether the FSDP model's inference within ``unsharded`` (the
+    trainer's validation) gives the features of a one-process model that
+    holds ``init`` updated by the step's whole parameters ``state``, bit
+    for bit. The first such inference caches each ``FrozenBatchNorm``'s
+    fold; the next, after another step, must not reuse it."""
+    with unsharded(root), torch.inference_mode():
+        got = model(image)[0]
+    plain = model_from(FAMILIES[FSDP_FAMILY][0], dict(init, **{
+        k: v for k, v in state.items() if not k.startswith("momentum.")}))
+    with torch.no_grad():  # the FSDP model's layout: FSDP shards contiguous tensors only
+        for p in plain.parameters():
+            p.data = p.data.contiguous()
+    with torch.inference_mode():
+        want = plain(image)[0]
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 def rank_worker(rank: int, world: int, port: int, out_dir: str, names: List[str]) -> None:
-    """One rank of a gloo CPU group. For every family: the ranks draw the
-    initial weights in turn and hand them round; each takes the
-    data-parallel step on its shard of the global batch; the family's
-    drawing rank also takes the one-process step on the whole batch
-    (``data_parallel=False``) and compares. Then the FSDP step, its
+    """One rank of a gloo CPU group. Before the group forms, each rank
+    draws the initial weights of every ``world``-th family (its own) and
+    takes the one-process step on the whole batch from them; rank 1 takes
+    the R18 one from the parent's weights. Then, for every family, the
+    drawing rank hands its weights round, each rank takes the data-parallel
+    step on its shard of the global batch, and the drawing rank compares.
+    Then the FSDP step, a validation, a second step and a validation, its
     checkpoint (loaded into a one-process model and resumed into a fresh
     sharded one), a ``Trainer`` that rank 1 alone is asked to stop, then
-    the R18 step from the parent's weights; rank 0
-    writes its R18 parameters for the parent. Each rank writes its report
-    (no tensors) to ``out_dir/rank<rank>.pt``."""
+    the R18 step; rank 0 writes its R18 parameters for the parent. Each
+    rank writes its report (no tensors) to ``out_dir/rank<rank>.pt``."""
+    torch.set_num_threads(1)
+    batch = global_batch()
+    inits, singles = {}, {}
+    for name in names[rank::world]:  # one process: the group does not exist yet
+        inits[name] = build_detector(FAMILIES[name][0], "float32", "cpu", seed=0).state_dict()
+        singles[name] = step(*build(name, inits[name]), family_batch(name, batch))
+    r18_init = r18_single = None
+    if rank == 1 % world:
+        path = os.path.join(out_dir, R18_INIT)  # written by the parent while the ranks start
+        _wait_for(path)
+        r18_init = torch.load(path)
+        r18_single = r18_step(r18_init, r18_batch())
+
     os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
-    torch.set_num_threads(1)
     from torch_detection_tpu_torch.parallel import init_distributed, shutdown_distributed
 
     info = init_distributed(device="cpu", timeout_s=300.0)
-    batch = global_batch()
     b = BATCH // world
     rows = slice(rank * b, (rank + 1) * b)
-    report, fsdp_single = {}, None
+    report = {}
     for first in range(0, len(names), world):
-        group = names[first: first + world]
-        mine = (build_detector(FAMILIES[group[rank]][0], "float32", "cpu", seed=0).state_dict()
-                if rank < len(group) else None)
-        for owner, name in enumerate(group):
-            init = broadcast_object(mine, src=owner)
+        for owner, name in enumerate(names[first: first + world]):
+            init = broadcast_object(inits.get(name), src=owner)
             dp = step(*build(name, init), family_batch(name, batch, rows))
-            single = (step(*build(name, init), family_batch(name, batch), data_parallel=False)
-                      if owner == rank else None)
-            report[name] = _case(dp, single, PARAM_TOL)
+            report[name] = _case(dp, singles.get(name), PARAM_TOL)
             if name == FSDP_FAMILY:
-                fsdp_init, fsdp_single = init, single
+                fsdp_init = init
             if name == PREEMPT_FAMILY:
                 yolox_init = init
 
-    model, loss_fn, optimizer = build(FSDP_FAMILY, fsdp_init, fsdp=True)
-    dp = step(model, loss_fn, optimizer, family_batch(FSDP_FAMILY, batch, rows))
-    report["fsdp"] = _case(dp, fsdp_single, FSDP_TOL)
+    # FSDP frees each whole parameter's storage between uses; a caching allocator (CUDA's) may
+    # hand the same address back. Kept, as here, the address always comes back.
+    with mock.patch.object(fsdp_param, "free_storage", lambda tensor: None):
+        model, loss_fn, optimizer = build(FSDP_FAMILY, fsdp_init, fsdp=True)
+        shard = family_batch(FSDP_FAMILY, batch, rows)
+        dp = step(model, loss_fn, optimizer, shard)
+        report["fsdp"] = _case(dp, singles.get(FSDP_FAMILY), FSDP_TOL)
+        # a validation after each of two steps, as the trainer's after each epoch
+        report["fsdp_validation"] = [fsdp_validation_sees_the_step(
+            model, optimizer.fsdp_root, shard["image"], fsdp_init, dp["state"])]
+        dp = step(model, loss_fn, optimizer, shard)
+        report["fsdp_validation"].append(fsdp_validation_sees_the_step(
+            model, optimizer.fsdp_root, shard["image"], fsdp_init, dp["state"]))
     # a whole checkpoint from the shards: one-process loadable, and resumed into a sharded model
     ckpt = os.path.join(out_dir, FSDP_CKPT)
     save_checkpoint(ckpt, model, optimizer, meta={"step": optimizer.steps})
@@ -405,7 +444,7 @@ def rank_worker(rank: int, world: int, port: int, out_dir: str, names: List[str]
     report["fsdp_checkpoint"] = dict(
         loads_whole=all(torch.equal(p.detach(), dp["state"][n])
                         for n, p in plain.named_parameters()),
-        resumes=optimizer.steps == 1 and digests(resumed) == digests(dp["state"]))
+        resumes=optimizer.steps == 2 and digests(resumed) == digests(dp["state"]))
     barrier()  # every rank has read it
     if rank == 0:
         shutil.rmtree(ckpt)
@@ -413,12 +452,9 @@ def rank_worker(rank: int, world: int, port: int, out_dir: str, names: List[str]
     report["preemption"] = preempt_on_rank_1(rank, out_dir, yolox_init,
                                              family_batch(PREEMPT_FAMILY, batch, rows))
 
-    path = os.path.join(out_dir, R18_INIT)  # written by the parent while the families ran
-    _wait_for(path)
-    init = torch.load(path)
+    init = broadcast_object(r18_init, src=1 % world)
     dp = r18_step(init, r18_batch(rows))
-    single = r18_step(init, r18_batch(), data_parallel=False) if rank == 1 % world else None
-    report["r18"] = _case(dp, single, PARAM_TOL)
+    report["r18"] = _case(dp, r18_single, PARAM_TOL)
     if rank == 0:
         torch.save({k: v for k, v in dp["state"].items() if not k.startswith("momentum.")},
                    os.path.join(out_dir, R18_DP))

@@ -19,7 +19,7 @@ the same loop on its own shard of each batch. Only rank 0 writes
 gathers an FSDP model's shards); a SIGTERM to any rank stops every rank
 after the same step, through an all-reduce of the flag each step; images/s
 counts the images of all ranks; the validation hook runs on every rank
-(``make_validation_hook(shard=True)`` spreads the images over them) with an
+(``make_validation_hook`` spreads the images over them) with an
 FSDP model whole for its duration. The EMA of the parameters and gradient
 accumulation wait for a later slice.
 """

@@ -10,8 +10,8 @@ alone); ``evaluate_detector`` (box mAP, and with ``segm`` mask mAP), the COCO
 results dumps (boxes and RLE masks) and the Trainer's validation hook, the
 one protocol of the test CLI and of validation in training; with
 ``voc_metric`` VOC2007's 11-point AP at IoU 0.5 instead of COCO's metrics.
-With ``shard`` the images are spread over the ranks of a
-``torch.distributed`` group and the detections gathered.
+In a ``torch.distributed`` group of several ranks the images are spread
+over the ranks and the detections gathered.
 """
 
 from __future__ import annotations
@@ -149,7 +149,6 @@ def evaluate_detector(
     return_detections: bool = False,
     segm: bool = False,
     voc_metric: bool = False,
-    shard: bool = False,
 ):
     """Run inference over ``dataset`` (a test-mode dataset) on the model's
     device and return the COCO box mAP metrics (``eval_coco_map``'s 12), or
@@ -177,8 +176,8 @@ def evaluate_detector(
     ``extras``, and each kept detection's source patch is pasted at its
     fused box: the NMS selects, so each has one source.
 
-    ``shard=True`` in a group of several ranks (every rank calls it, the
-    reference's ``mesh=``): each rank infers the strided shard of the
+    In a group of several ranks (every rank calls it, the reference's
+    ``mesh=``) each rank infers the strided shard of the
     test-mode ``DistributedGroupSampler`` over the ``n`` images, in
     batches of ``batch``, and fuses its images' detections; the detections
     are gathered on every rank, the images that the sampler's cyclic pad
@@ -194,7 +193,7 @@ def evaluate_detector(
     prop_cap = int(getattr(dataset, "num_max_proposals", 1000)) if needs_props else 0
 
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
-    ranks = world_size() if shard else 1
+    ranks = world_size()
     # this rank's images, in order; a repeated one at the end pads the shards to one size
     order = list(range(n)) if ranks == 1 else list(DistributedGroupSampler(
         _TestIndices(n), num_replicas=ranks, rank=rank()))
@@ -390,13 +389,12 @@ def make_validation_hook(
     max_images: Optional[int] = None,
     segm: bool = False,
     voc_metric: bool = False,
-    shard: bool = False,
 ) -> Callable[[], Dict[str, float]]:
     """``hook() -> metrics`` for the Trainer's validation: the model as it
     stands, in eval mode for the call, through one inference function
     built once; ``segm`` adds the mask metrics, ``voc_metric`` scores VOC
-    AP instead of COCO's; ``shard`` spreads the images over the ranks (every
-    rank calls the hook)."""
+    AP instead of COCO's. In a group of several ranks every rank calls the
+    hook, and the images are spread over them."""
     infer = make_inference_fn(model, det_cfg, segm=segm)
 
     def hook() -> Dict[str, float]:
@@ -405,7 +403,7 @@ def make_validation_hook(
         try:
             return evaluate_detector(model, det_cfg, dataset, batch=batch, canvas=canvas,
                                      max_images=max_images, infer=infer, segm=segm,
-                                     voc_metric=voc_metric, shard=shard)
+                                     voc_metric=voc_metric)
         finally:
             model.train(was_training)
 

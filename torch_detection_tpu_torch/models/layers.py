@@ -58,6 +58,13 @@ class FrozenBatchNorm(nn.Module):
         b = self.bias - self.mean * k
         return k.to(dtype)[:, None, None], b.to(dtype)[:, None, None]
 
+    def forget_fold(self) -> None:
+        """Drop the cached fold: for a writer that changes a statistic
+        without a trace in its key, as FSDP's all-gather does (it copies
+        into the same parameter, keeping its version, and its storage may
+        come back at the same address)."""
+        self._fold_key = self._fold_cache = None
+
     def forward(self, x: Tensor) -> Tensor:  # (B, C, H, W)
         if torch.is_grad_enabled() or torch.compiler.is_exporting():
             # under torch.export the statistics have no storage to key a

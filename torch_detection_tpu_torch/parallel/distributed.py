@@ -9,8 +9,8 @@ group from torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``), and the collectives are
 ``torch.distributed``'s: NCCL between GPUs, gloo on the CPU.
 
-A data-parallel step (``parallel/train_step.py``) runs its loss inside
-``data_parallel_step()``. Within it:
+In a group of several ranks every loss runs in a data-parallel step
+(``parallel/train_step.py``), where:
 
 * ``batch_normaliser`` turns a count over the batch (positives, valid
   rois, gt boxes) into the global batch's, so that the mean of the ranks'
@@ -19,13 +19,11 @@ A data-parallel step (``parallel/train_step.py``) runs its loss inside
 * ``global_rows`` makes a rank's random draws the rows of the global
   batch's draws that belong to its images.
 
-Outside such a step, and in one process, both leave their input as it is.
+In one process both leave their input as it is.
 """
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import datetime
 import logging
 import os
@@ -35,9 +33,10 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
+from ..utils.device import resolve_device
+
 logger = logging.getLogger(__name__)
 
-_IN_STEP = contextvars.ContextVar("data_parallel_step", default=False)
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -65,19 +64,15 @@ def is_main() -> bool:
     return rank() == 0
 
 
-def _rank_device(device: Optional[Union[str, torch.device]], backend: str,
-                 local_rank: int) -> torch.device:
+def _rank_device(device: torch.device, backend: str, local_rank: int) -> torch.device:
     """The device of this rank: ``cuda:LOCAL_RANK`` for a CUDA run (or the
     index the caller names), else the CPU. NCCL refuses two ranks on one
     device, so a node with more ranks than GPUs raises under it; gloo lets
     them share, rank ``r`` on GPU ``r mod count``."""
-    device = torch.device("cuda" if device is None else device)
     if device.type != "cuda":
         if backend == "nccl":
             raise ValueError(f"backend nccl needs CUDA devices, not {device}")
         return device
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     count = torch.cuda.device_count()
     local_ranks = _env_int("LOCAL_WORLD_SIZE", local_rank + 1)
     if backend == "nccl" and (local_ranks > count or device.index not in (None, local_rank)):
@@ -115,7 +110,7 @@ def init_distributed(
     this call created the group)."""
     world = _env_int("WORLD_SIZE", 1)
     local_rank = _env_int("LOCAL_RANK", 0)
-    requested = torch.device("cuda" if device is None else device)
+    requested = resolve_device(device)
     if backend is None:
         backend = "nccl" if requested.type == "cuda" else "gloo"
     created = False
@@ -134,8 +129,6 @@ def init_distributed(
         bound = _rank_device(requested, backend, local_rank)
     else:
         bound = requested
-        if bound.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
     devices: List[Optional[str]] = [str(bound)]
     if is_initialized():
         devices = [None] * world_size()
@@ -201,27 +194,9 @@ def broadcast_module(module: torch.nn.Module) -> None:
             dist.broadcast(t.data, src=0)
 
 
-@contextlib.contextmanager
-def data_parallel_step(active: Optional[bool] = None):
-    """The scope of one data-parallel step's loss (and its backward): the
-    normalisers and draws below take the global batch's view in it.
-    ``active`` None: whenever the group has more than one rank."""
-    token = _IN_STEP.set(world_size() > 1 if active is None else active)
-    try:
-        yield
-    finally:
-        _IN_STEP.reset(token)
-
-
-def step_ranks() -> Tuple[int, int]:
-    """(ranks, this rank) of the data-parallel step in flight; (1, 0)
-    outside one."""
-    return (world_size(), rank()) if _IN_STEP.get() else (1, 0)
-
-
 def batch_normaliser(count: Tensor, floor: float = 1.0) -> Tensor:
     """``max(count, floor)`` for a ``count`` summed over the batch's images,
-    taken over the global batch in a data-parallel step:
+    taken over the global batch in a group of several ranks:
     ``max(sum over the ranks, floor) / ranks``. A rank that divides its
     own images' sum by it contributes to the mean over the ranks exactly
     its share of the concatenated batch's loss. The sum is all-reduced
@@ -229,7 +204,7 @@ def batch_normaliser(count: Tensor, floor: float = 1.0) -> Tensor:
     the batch's count. ``count`` carries no gradient."""
     if count.requires_grad:
         raise ValueError("batch_normaliser takes a count that carries no gradient")
-    ranks, _ = step_ranks()
+    ranks = world_size()
     if ranks == 1:
         return torch.clamp(count, min=floor)
     return torch.clamp(all_reduce_sum(count), min=floor) / ranks
@@ -238,12 +213,12 @@ def batch_normaliser(count: Tensor, floor: float = 1.0) -> Tensor:
 def global_rows(draw: Callable[[Tuple[int, ...]], Tuple[Tensor, ...]]
                 ) -> Callable[[Tuple[int, ...]], Tuple[Tensor, ...]]:
     """``draw(shape) -> tensors of shape`` as seen by this rank in a
-    data-parallel step: the global batch's ``(ranks * B, ...)`` draws, of
+    group of several ranks: the global batch's ``(ranks * B, ...)`` draws, of
     which it keeps rows ``[rank * B, (rank + 1) * B)``, so that its images
     get the draws they get in one process on the concatenated batch (a
     CUDA generator's stream depends on the whole shape, so drawing B rows
-    alone would not). ``draw`` itself outside a step."""
-    ranks, me = step_ranks()
+    alone would not). ``draw`` itself in one process."""
+    ranks, me = world_size(), rank()
     if ranks == 1:
         return draw
 

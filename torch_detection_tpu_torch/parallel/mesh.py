@@ -163,14 +163,21 @@ def unsharded(root: Optional[nn.Module]) -> Iterator[None]:
     """Within: every parameter under the FSDP ``root`` whole on each rank
     and kept whole across forwards, for inference outside the training
     step (validation); sharded again on exit. Every rank must enter. A
-    ``root`` of None does nothing."""
+    ``root`` of None does nothing. Each ``FrozenBatchNorm``'s cached fold
+    is dropped on entry: the all-gather writes the step's statistics into
+    the same parameters without a trace that its cache key would see."""
     if root is None:
         yield
         return
+    from ..models.layers import FrozenBatchNorm  # here: the models import this package
+
     modules = fsdp_modules(root)
     units = [m for m in modules if m is not root]
     for m in modules:
         m.unshard()
+    for m in root.modules():
+        if isinstance(m, FrozenBatchNorm):
+            m.forget_fold()
     for m in units:
         m.set_reshard_after_forward(False, recurse=False)
     try:

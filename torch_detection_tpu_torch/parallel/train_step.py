@@ -11,9 +11,10 @@ batch alone.
 The reference's data-parallel step is one GSPMD program over the global
 batch, so N devices give what one gives on the concatenated batch. Here
 each rank holds its own shard of the batch, and the step keeps that promise
-so: the loss runs under ``distributed.data_parallel_step()``, where every
-normaliser that counts over the batch counts over the global one and each
-rank's sampling draws are its rows of the global batch's draws; the mean
+so: in a group of several ranks every normaliser that counts over the batch
+counts over the global one (``distributed.batch_normaliser``) and each
+rank's sampling draws are its rows of the global batch's draws
+(``distributed.global_rows``); the mean
 of the ranks' losses is then the global loss, and the mean of their
 gradients its gradient. After the backward the gradients are all-reduced
 explicitly, one flat bucket a dtype, and averaged (a ``DistributedDataParallel``
@@ -34,7 +35,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 import torch
 from torch import Tensor, nn
 
-from .distributed import all_reduce_sum, data_parallel_step, world_size
+from .distributed import all_reduce_sum, world_size
 from .mesh import local_tensor
 
 
@@ -151,7 +152,6 @@ def make_optimizer(
 def make_train_step(
     loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]],
     optimizer: Optimizer,
-    data_parallel: Optional[bool] = None,
 ) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
     """``train_step(batch) -> metrics``: one forward, one backward, one
     optimizer step. ``loss_fn(batch, step) -> (loss, metrics)``.
@@ -168,9 +168,8 @@ def make_train_step(
     a count that a family reports as a mean over the images; a count summed
     over the batch (``num_pos_rois``) reads per rank. The guard decides
     from the global loss and the global gradient norm, the same on every
-    rank. ``data_parallel=False`` makes the step this process's own in a
-    group all the same (no collective); None is ``world_size() > 1``."""
-    ranks = world_size() if data_parallel is None or data_parallel else 1
+    rank."""
+    ranks = world_size()
 
     def forward(batch: Dict[str, Tensor]):
         if optimizer.fsdp_root is not None:
@@ -179,9 +178,8 @@ def make_train_step(
 
     def train_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         optimizer.zero_grad()
-        with data_parallel_step(ranks > 1):
-            loss, metrics = forward(batch)
-            loss.backward()
+        loss, metrics = forward(batch)
+        loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         if ranks > 1:

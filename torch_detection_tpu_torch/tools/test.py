@@ -97,7 +97,6 @@ def _test(args, device) -> Dict[str, float]:
     results = evaluate_detector(
         model, det_cfg, dataset, batch=args.batch, canvas=canvas, max_images=args.max_images,
         tta=args.tta, return_detections=bool(args.out), segm=args.segm, voc_metric=args.voc_metric,
-        shard=args.shard_eval,
     )
     if args.out:
         results, detections = results

@@ -103,7 +103,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
 
 def _train(args, cfg, runtime, work_dir: str, total_epochs: int, dist_info) -> Trainer:
     device = dist_info["device"]
-    ranks = dist_info["process_count"]
 
     model, det_cfg, loader, optimizer = build_train_objects(cfg, device, seed=args.seed)
     pretrained = args.pretrained or runtime.get("pretrained")
@@ -138,7 +137,7 @@ def _train(args, cfg, runtime, work_dir: str, total_epochs: int, dist_info) -> T
             batch=int(runtime.get("val_batch", 8)),
             canvas=tuple(cfg["data"].get("canvas") or (800, 1344)),
             max_images=runtime.get("val_max_images"), segm=segm,
-            voc_metric=bool(runtime.get("val_voc_metric", False)), shard=ranks > 1,
+            voc_metric=bool(runtime.get("val_voc_metric", False)),
         )
 
     trainer = Trainer(
