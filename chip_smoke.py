@@ -318,7 +318,7 @@ Phases, each fatal on failure:
 42. the golden SOLOv2: the narrow model of tests/test_golden_map.py trained
    400 steps of b4 on the card (AdamW, weight decay 0) on the seeded
    squares set of ``data_fixtures.make_golden_coco`` (written here by
-   ``png_bytes``), scored by ``evaluate_detector(segm=True)`` against the
+   ``png_encode``), scored by ``evaluate_detector(segm=True)`` against the
    reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3); its
    checkpoint and two ``tools.test`` configs (bf16, float32) are kept for
    phase 48;
@@ -383,7 +383,28 @@ Phases, each fatal on failure:
    for an image moves with its place in the batch: the backbone's levels
    for a reversed b8 batch are compared in both dtypes). Each rank is
    ``python3 chip_smoke.py --cli-rank {train,test} LAUNCHES_JSON ARGS``,
-   which runs the tool and writes its launch counts.
+   which runs the tool and writes its launch counts;
+49. the training options through the entry points, right after phase 27:
+   on 32 of phase 26's PNGs (4 steps of b8 on 800 x 1344) ``tools.train``
+   for 2 epochs with ``accum_steps=2``, ``ema_decay=0.999``, the cosine
+   schedule (``min_lr_ratio`` 0.01 over the 2 epochs) and class-specific
+   box regression, validating the EMA each epoch; K1 and K2 twice a step
+   (once a micro-batch), K1 once a validation batch; the EMA of four named
+   tensors against a float64 recomputation from the parameters after each
+   step (1e-6 of its largest value), every logged learning rate against the
+   cosine's formula (1e-12 relative); one float32 step at
+   ``accum_steps=2`` against two b4 forward-backwards by hand with the
+   step's draws (the loss to 1e-6, every gradient to 1e-5 in relative
+   norm); the class-specific RoI losses and their gradient into
+   ``bbox_head.reg`` against the CPU (1e-3); the resume from ``epoch_1``
+   (the optimizer's state and the EMA bit for bit); ``tools.test`` on
+   ``epoch_2`` (K1 once a batch) with its 12 metrics from the C++ matcher
+   against the plain Python one on the same detections (1e-12, each
+   matcher's host ms); ``MaxIoUAssigner`` on RetinaNet's 182 403 anchors
+   with ``gt_max_assign_all=False`` and ignore regions, the card's
+   assignment equal to the CPU's; ``tools.visualize`` on 4 committed JPEGs
+   and ``--segm`` on 4 more with phase 27's Mask R-CNN, each PNG at its
+   image's size (K1 once an image, twice with masks; K2 never).
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -409,6 +430,7 @@ import struct
 import subprocess
 import sys
 import time
+import unittest.mock
 import zlib
 from pathlib import Path
 
@@ -431,7 +453,7 @@ from torch_detection_tpu_torch.data import (
     prefetch_to_device,
 )
 from torch_detection_tpu_torch.data.collate import pick_canvas
-from torch_detection_tpu_torch.data.ops.image import img_read
+from torch_detection_tpu_torch.data.ops.image import img_read, png_encode
 from torch_detection_tpu_torch.data.ops.jpeg import jpeg_read
 from torch_detection_tpu_torch.data.ops.mask import poly_to_mask, rle_decode, rle_encode, segm_to_mask
 from torch_detection_tpu_torch.engine import (
@@ -448,6 +470,8 @@ from torch_detection_tpu_torch.engine.checkpoint import (
     optimizer_state,
     save_checkpoint,
 )
+from torch_detection_tpu_torch.engine import eval as eval_mod
+from torch_detection_tpu_torch.engine import validate as validate_mod
 from torch_detection_tpu_torch.engine.eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
 from torch_detection_tpu_torch.engine.profiling import TRACE_NAME
 from torch_detection_tpu_torch.engine.tta import masks_to_original
@@ -579,6 +603,7 @@ from torch_detection_tpu_torch.models.torch_import import (
 from torch_detection_tpu_torch.ops import hungarian
 from torch_detection_tpu_torch.ops import nms as nms_ops
 from torch_detection_tpu_torch.ops import roi_align
+from torch_detection_tpu_torch.ops.assign import MaxIoUAssigner
 from torch_detection_tpu_torch.ops.boxes import bbox_overlaps, clip_boxes, delta2bbox
 from torch_detection_tpu_torch.ops.gmm import gmm_em_1d
 from torch_detection_tpu_torch.ops.losses import sigmoid_focal_loss_sparse, smooth_l1_loss
@@ -589,11 +614,17 @@ from torch_detection_tpu_torch.ops.preprocess import (
 )
 from torch_detection_tpu_torch.parallel.distributed import init_distributed, shutdown_distributed
 from torch_detection_tpu_torch.parallel.mesh import full_tensor
-from torch_detection_tpu_torch.parallel.train_step import make_optimizer, make_train_step
+from torch_detection_tpu_torch.parallel.train_step import (
+    ParamEMA,
+    make_optimizer,
+    make_train_step,
+    split_batch,
+)
 from torch_detection_tpu_torch.tools import dump_proposals as dump_cli
 from torch_detection_tpu_torch.tools import export as export_cli
 from torch_detection_tpu_torch.tools import test as test_cli
 from torch_detection_tpu_torch.tools import train as train_cli
+from torch_detection_tpu_torch.tools import visualize as visualize_cli
 from torch_detection_tpu_torch.utils.config import Config
 from torch_detection_tpu_torch.utils.file_handler import load
 from torch_detection_tpu_torch.utils.registry import BACKBONES, DETECTORS
@@ -3344,19 +3375,6 @@ CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_EPOCHS = 64, 16, 2
 SMOKE_COCO = ROOT / "build" / "smoke_coco"
 
 
-def png_bytes(img: np.ndarray) -> bytes:
-    """An RGB uint8 image as a PNG, every row unfiltered (filter 0)."""
-    h, w, _ = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
-
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
-
-
 def write_smoke_coco(split: str, n: int, seed: int, sizes=CLI_SIZES) -> Path:
     """``n`` seeded PNGs of ``sizes`` (noise with filled rectangles) under
     ``SMOKE_COCO/split`` and their instances JSON: 1-20 boxes an image over
@@ -3377,7 +3395,7 @@ def write_smoke_coco(split: str, n: int, seed: int, sizes=CLI_SIZES) -> Path:
                                     category_id=int(rng.choice(COCO_CATEGORY_IDS)),
                                     bbox=[x, y, bw, bh], area=bw * bh, iscrowd=int(j == boxes)))
         name = f"{i + 1:012d}.png"
-        (img_dir / name).write_bytes(png_bytes(img))
+        (img_dir / name).write_bytes(png_encode(img))
         images.append(dict(id=i + 1, file_name=name, width=w, height=h))
     ann_file = SMOKE_COCO / f"instances_{split}.json"
     ann_file.write_text(json.dumps(dict(
@@ -3861,7 +3879,7 @@ def write_smoke_coco_masks(split: str, n: int, seed: int) -> Path:
                                     category_id=int(rng.choice(COCO_CATEGORY_IDS)), bbox=bbox,
                                     area=int(m.sum()), iscrowd=int(crowd), segmentation=segm))
         name = f"{i + 1:012d}.png"
-        (img_dir / name).write_bytes(png_bytes(img))
+        (img_dir / name).write_bytes(png_encode(img))
         images.append(dict(id=i + 1, file_name=name, width=w, height=h))
     ann_file = SMOKE_COCO_MASKS / f"instances_{split}.json"
     ann_file.write_text(json.dumps(dict(
@@ -4243,6 +4261,422 @@ def phase_cli_mask(card: str) -> dict:
 
 
 # ---------------------------------------------------------------- JPEG, VOC and the Fast R-CNN workflow
+# ---------------------------------------------------------------- the training options
+OPTIONS_TRAIN_IMAGES, OPTIONS_EPOCHS, OPTIONS_ACCUM, OPTIONS_EMA = 32, 2, 2, 0.999
+OPTIONS_WARMUP, OPTIONS_MIN_LR_RATIO = 2, 0.01
+EMA_TRACKED = ("backbone.layer4_0.block1.conv.weight", "neck.fpn0.conv.weight",
+               "rpn.rpn_conv.weight", "bbox_head.reg.weight")
+VIS_FIXTURES = ("landscape_640x480_0.jpg", "landscape_640x427_0.jpg", "landscape_612x612_0.jpg",
+                "landscape_500x333_0.jpg")
+VIS_SEGM_FIXTURES = tuple(name.replace("_0.jpg", "_1.jpg") for name in VIS_FIXTURES)
+RETINA_ANCHOR_COUNT = 182_403  # 9 anchors at each cell of P3-P7 of 800 x 1216
+
+
+def write_options_configs(train_ann: Path, base: Path) -> tuple:
+    """The smoke config with the four training options, its training set
+    ``train_ann``, validation each epoch and its own work dir; and the same
+    in float32 (for the accumulation check)."""
+    path = SMOKE_COCO / "faster_rcnn_r50_fpn_options.py"
+    path.write_text(
+        f"_base_ = {str(base)!r}\n"
+        f"data = dict(train=dict(ann_file={str(train_ann)!r}))\n"
+        "model = dict(bbox_head=dict(reg_class_agnostic=False))\n"
+        f"schedule = dict(policy='cosine', min_lr_ratio={OPTIONS_MIN_LR_RATIO}, "
+        f"warmup_steps={OPTIONS_WARMUP}, total_epochs={OPTIONS_EPOCHS})\n"
+        f"runtime = dict(accum_steps={OPTIONS_ACCUM}, ema_decay={OPTIONS_EMA}, "
+        f"val_interval_epochs=1, work_dir={str(SMOKE_COCO / 'work_options')!r})\n")
+    f32 = SMOKE_COCO / "faster_rcnn_r50_fpn_options_f32.py"
+    f32.write_text(f"_base_ = {str(path)!r}\nruntime = dict(compute_dtype='float32')\n")
+    return path, f32
+
+
+def cosine_lr(step: int, base_lr: float, total: int) -> float:
+    """The schedule of the options config, written out: linear warmup from a
+    third of ``base_lr``, then the cosine to ``OPTIONS_MIN_LR_RATIO`` of it
+    over ``total`` steps."""
+    if step < OPTIONS_WARMUP:
+        return base_lr * (1 / 3 + (2 / 3) * step / OPTIONS_WARMUP)
+    floor = OPTIONS_MIN_LR_RATIO * base_lr
+    return floor + (base_lr - floor) * 0.5 * (1 + math.cos(math.pi * min(step / total, 1.0)))
+
+
+@contextlib.contextmanager
+def recorded_ema():
+    """Every ``ParamEMA.update`` while the block runs: the step, the rate,
+    and each ``EMA_TRACKED`` tensor's parameter and average (float64 on the
+    host) after it, with the averages before the first update; and at each
+    ``applied`` (validation) whether the model then holds the averages."""
+    update, applied = ParamEMA.update, ParamEMA.applied
+    records = dict(updates=[], start=None, validations=[])
+
+    def tracked(ema, tensors):
+        index = {n: i for i, n in enumerate(ema.names)}
+        return {n: tensors[index[n]].detach().double().cpu() for n in EMA_TRACKED}
+
+    def recording_update(ema, step):
+        if records["start"] is None:
+            records["start"] = tracked(ema, ema.tensors)
+        update(ema, step)
+        records["updates"].append(dict(step=step, rate=ema.rate(step),
+                                       params=tracked(ema, ema.params),
+                                       ema=tracked(ema, ema.tensors)))
+
+    @contextlib.contextmanager
+    def recording_applied(ema):
+        with applied(ema):
+            params = dict(zip(ema.names, ema.params))
+            records["validations"].append(all(
+                torch.equal(params[n], e) for n, e in zip(ema.names, ema.tensors)))
+            yield
+
+    ParamEMA.update, ParamEMA.applied = recording_update, recording_applied
+    try:
+        yield records
+    finally:
+        ParamEMA.update, ParamEMA.applied = update, applied
+
+
+def ema_recomputation_error(records: dict) -> float:
+    """The largest gap of the tracked averages from their float64
+    recomputation ``d * e + (1 - d) * p`` chained over the updates, over
+    each tensor's largest value."""
+    e64 = dict(records["start"])
+    worst = 0.0
+    for r in records["updates"]:
+        d = r["rate"]
+        for n in EMA_TRACKED:
+            e64[n] = d * e64[n] + (1 - d) * r["params"][n]
+            worst = max(worst, float((r["ema"][n] - e64[n]).abs().max() / e64[n].abs().max()))
+    return worst
+
+
+def accumulated_step_check(f32_config: Path) -> str:
+    """One float32 step at ``accum_steps=2`` on a b8 loader batch against two
+    b4 forward-backwards by hand with the step's draws, averaged: the loss to
+    1e-6 relative, every gradient to 1e-5 in relative norm."""
+    cfg = Config.fromfile(f32_config)
+    model, det_cfg, loader, optimizer = build_train_objects(cfg, "cuda", seed=SEED)
+    loss_fn = build_loss_fn(model, det_cfg, rng_seed=SEED)
+    batches = prefetch_to_device(loader.iter_batches(), 1, "cuda")
+    batch = next(batches)
+    batches.close()
+    batch.pop("img_meta")
+    captured = {}
+
+    def capture(grad_norm):  # in place of the update: the averaged gradients
+        captured["grads"] = [p.grad.detach().clone() for p in optimizer.params]
+
+    optimizer.apply = capture
+    metrics = make_train_step(loss_fn, optimizer, accum_steps=OPTIONS_ACCUM)(batch)
+    if "grads" not in captured:
+        raise AssertionError(f"the float32 accumulated step was skipped: {metrics}")
+    optimizer.zero_grad()
+    losses = []
+    for half in split_batch(batch, OPTIONS_ACCUM):
+        loss, _ = loss_fn(half, step=0)
+        loss.backward()
+        losses.append(loss.detach())
+    by_hand = (losses[0] + losses[1]) * 0.5
+    loss_err = abs(float(metrics["loss"]) - float(by_hand)) / abs(float(by_hand))
+    grad_err = 0.0
+    for p, g in zip(optimizer.params, captured["grads"]):
+        want = p.grad * 0.5
+        norm = float(want.norm())
+        gap = float((g - want).norm())
+        grad_err = max(grad_err, gap / norm if norm else (0.0 if gap == 0 else math.inf))
+    text = (f"one float32 b8 step at accum_steps={OPTIONS_ACCUM} against two b4 forward-backwards "
+            f"by hand with the step's draws: loss {float(metrics['loss']):.6f}, {loss_err:.2e} "
+            f"relative (limit 1e-6); every gradient within {grad_err:.2e} in relative norm (limit "
+            f"1e-5)")
+    if not (loss_err <= 1e-6 and grad_err <= 1e-5):
+        raise AssertionError(text)
+    return text
+
+
+def class_specific_reference(model) -> str:
+    """The class-specific RoI losses and their gradient into
+    ``bbox_head.reg`` on the card and on the CPU in float32, on the same
+    levels and sampled rois (phase 8's small canvas and gts)."""
+    det_cfg = build_detection_cfg(Config.fromfile(CONFIG).detection)
+    cpu = class_specific_build("meta")  # then the card's weights, not a draw of its own
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                        assign=True)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    x = torch.randn((2, 256, 320, 3), generator=gen)
+    gt = dict(gt_boxes=torch.tensor([[[16, 20, 120, 140], [150, 40, 300, 230], [60, 150, 110, 250]],
+                                     [[30, 30, 200, 180], [210, 100, 290, 200], [0, 0, 0, 0]]],
+                                    dtype=torch.float32),
+              gt_labels=torch.tensor([[3, 17, 80], [1, 45, 0]]),
+              gt_valid=torch.tensor([[True, True, True], [True, True, False]]))
+    with torch.no_grad():
+        feats, scores, deltas = model(x.cuda())
+    props = generate_proposals(det_cfg.proposal_train, det_cfg.anchor_generator, scores, deltas,
+                               torch.tensor([[256.0, 320.0], [240.0, 300.0]], device="cuda"))
+    sampled = sample_rois(det_cfg, props.boxes, props.valid, *(v.cuda() for v in gt.values()),
+                          same_noise(SEED + 12, "cuda"))
+    positives = sampled.labels[sampled.is_pos]
+    if len(set(positives.tolist())) < 2:
+        raise AssertionError(f"the class-specific check's positives cover only "
+                             f"{set(positives.tolist())}")
+    strides = det_cfg.roi_strides
+    out = {}
+    for name, net, device in (("gpu", model, "cuda"), ("cpu", cpu, "cpu")):
+        levels = [f.detach().to(device) for f in feats[: len(strides)]]
+        s = type(sampled)(*(t.to(device) for t in sampled))
+        rois = roi_align.batched_multilevel_roi_align(levels, s.rois, strides)
+        cls_l, reg_l = rcnn_losses(det_cfg, *net.roi_forward(rois), s)
+        reg = net.bbox_head.reg
+        grads = torch.autograd.grad(cls_l + reg_l, [reg.weight, reg.bias])
+        out[name] = (torch.stack([cls_l, reg_l]).detach(), grads)
+    loss_err = rel_err(out["gpu"][0], out["cpu"][0])
+    grad_err = max(rel_err(g, c) for g, c in zip(out["gpu"][1], out["cpu"][1]))
+    outputs = model.bbox_head.reg.out_features
+    text = (f"class-specific RoI losses (cls, reg) {out['gpu'][0].tolist()} within {loss_err:.2e} "
+            f"of the CPU's (limit 1e-3), their gradient into bbox_head.reg ({outputs} outputs) "
+            f"within {grad_err:.2e} (limit 1e-3); positives of classes "
+            f"{sorted(set(positives.tolist()))}")
+    if not (loss_err <= 1e-3 and grad_err <= 1e-3):
+        raise AssertionError(text)
+    return text
+
+
+def assigner_on_retina_anchors(card: str) -> str:
+    """``MaxIoUAssigner`` with ``gt_max_assign_all=False`` and ignore regions
+    (``ignore_iof_thr`` 0.5), and with both rules' other forms, on
+    RetinaNet's anchors of 800 x 1216 for 4 images of 20 seeded gts (some
+    padding, some copies of one anchor so that gts share a best anchor) and
+    5 ignore regions: the card's assignment and labels equal the CPU's."""
+    det_cfg = build_detection_cfg(Config.fromfile(RETINA_CONFIG).detection)
+    sizes = [(-(-CANVAS[0] // s), -(-CANVAS[1] // s)) for s in det_cfg.anchor_generator.strides]
+    anchors = det_cfg.anchor_generator.flat_anchors(sizes, "cpu")
+    if anchors.shape[0] != RETINA_ANCHOR_COUNT:
+        raise AssertionError(f"{anchors.shape[0]} RetinaNet anchors, expected "
+                             f"{RETINA_ANCHOR_COUNT}")
+    gen = torch.Generator().manual_seed(SEED + 13)
+    b, g = 4, 20
+    xy = torch.rand((b, g, 2), generator=gen) * torch.tensor([1100.0, 700.0])
+    wh = 16 + torch.rand((b, g, 2), generator=gen) * 300
+    gt = torch.cat([xy, xy + wh], -1)
+    gt[:, :3] = anchors[torch.randint(0, anchors.shape[0], (b, 1), generator=gen)] + \
+        torch.tensor([0.0, 0.0, 2.0, 1.0]) * torch.arange(3.0)[None, :, None]
+    valid = torch.arange(g)[None] < torch.tensor([[20], [15], [9], [1]])
+    gt = torch.where(valid[..., None], gt, torch.zeros_like(gt))
+    labels = torch.where(valid, torch.randint(1, 81, (b, g), generator=gen), 0)
+    ig_xy = torch.rand((b, 5, 2), generator=gen) * torch.tensor([1000.0, 600.0])
+    ignore = torch.cat([ig_xy, ig_xy + 50 + torch.rand((b, 5, 2), generator=gen) * 150], -1)
+    ignore_valid = torch.arange(5)[None].expand(b, 5) < 4
+    parts = []
+    for assign_all, iof in ((False, 0.5), (True, 0.5), (False, -1.0)):
+        assigner = MaxIoUAssigner(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.3,
+                                  gt_max_assign_all=assign_all, ignore_iof_thr=iof)
+        t0 = time.perf_counter()
+        want = assigner(anchors, gt, valid, labels, gt_boxes_ignore=ignore,
+                        gt_ignore_valid=ignore_valid)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        args = [t.cuda() for t in (anchors, gt, valid, labels)]
+        got = assigner(*args, gt_boxes_ignore=ignore.cuda(), gt_ignore_valid=ignore_valid.cuda())
+        gpu_ms = cuda_ms(lambda: assigner(*args, gt_boxes_ignore=ignore.cuda(),
+                                          gt_ignore_valid=ignore_valid.cuda()), 5)
+        for field in ("assigned_gt_inds", "labels", "max_overlaps"):
+            if not torch.equal(getattr(got, field).cpu(), getattr(want, field)):
+                raise AssertionError(f"assigner (gt_max_assign_all={assign_all}, ignore_iof_thr="
+                                     f"{iof}): the card's {field} differs from the CPU's")
+        inds = want.assigned_gt_inds
+        counts = [int(n.sum()) for n in (inds > 0, inds == 0, inds < 0)]
+        parts.append(f"gt_max_assign_all={assign_all} ignore_iof_thr={iof}: {counts[0]} positive, "
+                     f"{counts[1]} negative, {counts[2]} ignored anchors, equal on both; card "
+                     f"{gpu_ms:.3f} ms, CPU {cpu_ms:.1f} ms")
+    return (f"MaxIoUAssigner on {RETINA_ANCHOR_COUNT} RetinaNet anchors x 4 images x {g} gts "
+            f"[{card}]: " + "; ".join(parts))
+
+
+def matcher_comparison(seen: dict, detections: list, metrics: dict, card: str) -> str:
+    """``tools.test``'s scoring of its own detections through the C++
+    matchers and through the plain Python ones: the 12 metrics to 1e-12,
+    both equal to what ``tools.test`` reported; each matcher's host ms."""
+    dataset, num_classes = seen["dataset"], seen["det_cfg"].num_classes
+    t0 = time.perf_counter()
+    cxx = validate_mod._score(dataset, detections, num_classes, False, False)
+    cxx_ms = (time.perf_counter() - t0) * 1e3
+    fast = eval_mod._coco_match_img
+    eval_mod._coco_match_img = eval_mod._coco_match_img_plain
+    try:
+        t0 = time.perf_counter()
+        plain = validate_mod._score(dataset, detections, num_classes, False, False)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eval_mod._coco_match_img = fast
+    gap = max(abs(cxx[k] - plain[k]) for k in cxx)
+    reported = max(abs(cxx[k] - metrics[k]) for k in metrics)
+    text = (f"tools.test's 12 metrics through the C++ matcher and the plain Python one on its "
+            f"{sum(len(d['scores']) for d in detections)} detections: within {gap:.1e} of each "
+            f"other, {reported:.1e} of the CLI's (limit 1e-12); scoring host ms [{card}, host "
+            f"clock]: C++ {cxx_ms:.1f}, Python {plain_ms:.1f}")
+    if set(cxx) != set(metrics) or len(cxx) != 12 or not (gap <= 1e-12 and reported <= 1e-12):
+        raise AssertionError(text)
+    return text
+
+
+def visualize_check(config: Path, checkpoint: Path, fixtures: tuple, out_dir: Path,
+                    segm: bool) -> dict:
+    """``tools.visualize`` on ``fixtures``: one PNG an image at its size,
+    drawn on; K1 once an image (twice with the masks), K2 never."""
+    paths = [str(JPEG_FIXTURES / name) for name in fixtures]
+    reset_launches()
+    t0 = time.perf_counter()
+    written = visualize_cli.main([str(config), str(checkpoint), *paths, "--out-dir", str(out_dir),
+                                  "--score-thr", "0"] + (["--segm"] if segm else []))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches(f"tools.visualize{' --segm' if segm else ''}", launches,
+                    len(paths) * (2 if segm else 1), 0)
+    for src, out in zip(paths, written):
+        raw, drawn = img_read(src), img_read(out)
+        if drawn.shape != raw.shape or not (drawn != raw).any():
+            raise AssertionError(f"tools.visualize: {out} is {drawn.shape} for {raw.shape}, or "
+                                 "nothing was drawn")
+    return dict(launches=launches, wall=wall, files=[Path(p).name for p in written])
+
+
+def phase_cli_options(card: str) -> dict:
+    """The training options through ``tools.train`` on phase 26's folder,
+    then ``tools.test`` and ``tools.visualize`` (module docstring, phase
+    49)."""
+    t_phase = time.perf_counter()
+    base = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke.py"
+    source = json.loads((SMOKE_COCO / "instances_train.json").read_text())
+    keep = {img["id"] for img in source["images"][:OPTIONS_TRAIN_IMAGES]}
+    train_ann = SMOKE_COCO / "instances_train_options.json"
+    train_ann.write_text(json.dumps(dict(
+        source, images=[i for i in source["images"] if i["id"] in keep],
+        annotations=[a for a in source["annotations"] if a["image_id"] in keep])))
+    config, f32_config = write_options_configs(train_ann, base)
+    cfg = Config.fromfile(config)
+    work = SMOKE_COCO / "work_options"
+    shutil.rmtree(work, ignore_errors=True)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_ema() as ema_records:
+        trainer = train_cli.main([str(config)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = len(trainer.dataloader)
+    val_batches = -(-CLI_VAL_IMAGES // int(cfg["runtime"].get("val_batch", 8)))
+    expect_launches("options training (and its validations)", launches,
+                    OPTIONS_EPOCHS * (OPTIONS_ACCUM * steps + val_batches),
+                    OPTIONS_EPOCHS * OPTIONS_ACCUM * steps)
+    records = [json.loads(line) for line in (work / "metrics.jsonl").read_text().splitlines()]
+    logged = [r for r in records if "loss" in r]
+    vals = [r for r in records if "val_mAP" in r]
+    if (len(logged) != OPTIONS_EPOCHS * steps or not all(math.isfinite(r["loss"]) for r in logged)
+            or logged[-1]["skipped_steps"] or len(vals) != OPTIONS_EPOCHS):
+        raise AssertionError(f"options training: {len(logged)} step records, {len(vals)} "
+                             f"validations, or a non-finite loss or a skipped step")
+    if ema_records["validations"] != [True] * OPTIONS_EPOCHS:
+        raise AssertionError(f"validation did not see the EMA: {ema_records['validations']}")
+    ema_err = ema_recomputation_error(ema_records)
+    total = OPTIONS_EPOCHS * steps
+    lr_err = max(abs(r["lr"] - cosine_lr(r["step"], cfg["optimizer"]["lr"], total))
+                 / cosine_lr(r["step"], cfg["optimizer"]["lr"], total) for r in logged)
+    if not (ema_err <= 1e-6 and lr_err <= 1e-12):
+        raise AssertionError(f"options training: the EMA {ema_err} from its float64 "
+                             f"recomputation, or the learning rate {lr_err} from the cosine")
+    reg = trainer.model.bbox_head.reg
+    ms = [cfg["data"]["sample_per_replica"] / r["images_per_sec"] * 1e3 for r in logged]
+    log(f"cli options training [{card}]: {steps} steps an epoch of b"
+        f"{cfg['data']['sample_per_replica']} on {tuple(cfg['data']['canvas'])} at accum_steps="
+        f"{OPTIONS_ACCUM} (two b4 micro-batches a step), ema_decay {OPTIONS_EMA}, cosine to "
+        f"{OPTIONS_MIN_LR_RATIO} over {total} steps, class-specific regression ({reg.out_features} "
+        f"outputs); {OPTIONS_EPOCHS} epochs in {wall:.1f} s with a validation of the EMA each "
+        f"epoch; launches {launches} (K1 and K2 {OPTIONS_ACCUM} a step, K1 {val_batches} a "
+        f"validation); ms a step {[round(m, 1) for m in ms]}; learning rates "
+        f"{[round(r['lr'], 8) for r in logged]} within {lr_err:.1e} of the cosine (limit 1e-12); "
+        f"the EMA of {len(EMA_TRACKED)} tensors over {len(ema_records['updates'])} updates within "
+        f"{ema_err:.1e} of its float64 recomputation (limit 1e-6); val mAP "
+        f"{[r['val_mAP'] for r in vals]}; losses first {logged[0]['loss']:.4f}, last "
+        f"{logged[-1]['loss']:.4f}")
+    log(class_specific_reference(_f32_copy(trainer.model)))
+    del trainer
+    log(accumulated_step_check(f32_config))
+
+    # the resume from epoch_1: the optimizer's state and the EMA load bit for bit, the run goes on
+    saved = load_checkpoint_file(str(work / "epoch_1"))
+    model, _, _, optimizer = build_train_objects(cfg, "cuda", seed=SEED)
+    optimizer.ema = ParamEMA(model, OPTIONS_EMA)
+    meta = load_checkpoint(model, str(work / "epoch_1"), strict=True, optimizer=optimizer)
+    equal_state("the resumed optimizer", optimizer_state(model, optimizer), saved["optimizer"])
+    equal_state("the resumed EMA", optimizer.ema.state_dict(), saved["ema"])
+    del model, optimizer
+    resumed = train_cli.main([str(config), "--work-dir", str(SMOKE_COCO / "work_options_resumed"),
+                              "--resume", str(work / "epoch_1")])
+    got_steps, want_steps = [r for r in resumed.history if "loss" in r], logged[steps:]
+    if [r["step"] for r in got_steps] != [r["step"] for r in want_steps] or \
+            got_steps[0]["step"] != meta["step"] + 1:
+        raise AssertionError(f"options resume: steps {[r['step'] for r in got_steps]}")
+    rel = max(abs(g["loss"] - w["loss"]) / abs(w["loss"]) for g, w in zip(got_steps, want_steps))
+    if any(g["lr"] != w["lr"] for g, w in zip(got_steps, want_steps)) or not rel <= 1e-3:
+        raise AssertionError(f"options resume: learning rates or losses ({rel}) part from the "
+                             "straight run's")
+    log(f"cli options resume from epoch_1: the optimizer's state and the EMA loaded bit for bit; "
+        f"steps {got_steps[0]['step']}-{got_steps[-1]['step']} at the straight run's learning "
+        f"rates; losses within {rel:.2e} relative (limit 1e-3)")
+    del resumed
+
+    # tools.test on epoch_2 (the parameters, not the EMA), the matchers on its detections
+    out = SMOKE_COCO / "results_options.pkl"
+    reset_launches()
+    with recorded_evaluation() as seen:
+        metrics = test_cli.main([str(config), str(work / f"epoch_{OPTIONS_EPOCHS}"),
+                                 "--out", str(out)])
+    torch.cuda.synchronize()
+    test_launches = read_launches()
+    expect_launches("options test", test_launches, -(-CLI_VAL_IMAGES // 8), 0)
+    served = seen["model"].state_dict()
+    equal_state(f"the tools.test model against epoch_{OPTIONS_EPOCHS}'s parameters", served,
+                {k: v.to(served[k].dtype) for k, v in load_checkpoint_file(
+                    str(work / f"epoch_{OPTIONS_EPOCHS}"))["model"].items()})
+    log(matcher_comparison(seen, load(str(out)), metrics, card))
+    del seen
+
+    log(assigner_on_retina_anchors(card))
+
+    vis = visualize_check(config, work / f"epoch_{OPTIONS_EPOCHS}", VIS_FIXTURES,
+                          SMOKE_COCO / "vis", segm=False)
+    vis_segm = visualize_check(SMOKE_COCO_MASKS / "mask_rcnn_r50_fpn_smoke.py",
+                               SMOKE_COCO_MASKS / "work" / f"epoch_{CLI_MASK_EPOCHS}",
+                               VIS_SEGM_FIXTURES, SMOKE_COCO_MASKS / "vis", segm=True)
+    log(f"tools.visualize [{card}]: {vis['files']} in {vis['wall']:.1f} s, launches "
+        f"{vis['launches']}; --segm (Mask R-CNN, phase 27's epoch_{CLI_MASK_EPOCHS}) "
+        f"{vis_segm['files']} in {vis_segm['wall']:.1f} s, launches {vis_segm['launches']}; each "
+        f"PNG decodes at its image's size, drawn on")
+    log(f"cli options phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(training=launches, test=test_launches, visualize=vis["launches"],
+                visualize_segm=vis_segm["launches"])
+
+
+def class_specific_build(device):
+    """The slice's detector with a class-specific box head, float32, in
+    train mode, its weights not drawn (``load_state_dict(assign=True)``
+    gives it some)."""
+    cfg = Config.fromfile(CONFIG)
+    with unittest.mock.patch("torch_detection_tpu_torch.builder.init_weights"):
+        return build_detector(dict(cfg.model, bbox_head=dict(cfg.model["bbox_head"],
+                                                             reg_class_agnostic=False)),
+                              "float32", device).train()
+
+
+def _f32_copy(model):
+    """A float32-compute copy of a training build (float32 parameters) on
+    the card, for the class-specific check against the CPU."""
+    copy = class_specific_build("meta")
+    copy.load_state_dict({k: v.detach().clone() for k, v in model.state_dict().items()},
+                         assign=True)
+    return copy
+
+
 JPEG_FIXTURES = ROOT / "tests" / "torch_jpeg"
 JPEG_TIMED = "landscape_640x480_0.jpg"  # 4:2:0, cv2's default sampling
 VOC_CONFIG = ROOT / "configs" / "retinanet_r101_fpn_voc.py"
@@ -4299,7 +4733,7 @@ def phase_jpeg(card: str) -> dict:
     path = JPEG_FIXTURES / JPEG_TIMED
     rgb = img_read(str(path))
     png = ROOT / "build" / "smoke_jpeg_timed.png"
-    png.write_bytes(png_bytes(rgb))
+    png.write_bytes(png_encode(rgb))
     if not np.array_equal(img_read(str(png)), rgb):
         raise AssertionError("the PNG of the timed JPEG's pixels does not decode to them")
     jpeg_ms = median_ms(lambda: img_read(str(path)))
@@ -6878,7 +7312,7 @@ def phase_cli_solov2(card: str) -> dict:
 def write_golden_coco(root: Path, n_images: int = 8, size: int = 64, seed: int = 7) -> tuple:
     """``tests/data_fixtures.py::make_golden_coco`` without OpenCV: the same
     seeded draws (1-2 bright squares of two classes on dark noise an image),
-    the PNGs written by ``png_bytes`` (lossless: the same pixels)."""
+    the PNGs written by ``png_encode`` (lossless: the same pixels)."""
     img_dir = root / "images"
     img_dir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -6896,7 +7330,7 @@ def write_golden_coco(root: Path, n_images: int = 8, size: int = 64, seed: int =
                                 "area": s * s,
                                 "segmentation": [[x, y, x + s, y, x + s, y + s, x, y + s]]})
         # cv2.imwrite writes BGR: the file holds the channels reversed
-        (img_dir / f"g{i}.png").write_bytes(png_bytes(np.ascontiguousarray(img[..., ::-1])))
+        (img_dir / f"g{i}.png").write_bytes(png_encode(np.ascontiguousarray(img[..., ::-1])))
         images.append({"id": i + 1, "file_name": f"g{i}.png", "height": size, "width": size})
     ann_file = root / "golden.json"
     ann_file.write_text(json.dumps({"images": images, "annotations": annotations,
@@ -8279,6 +8713,7 @@ def main() -> int:
     cli = phase_cli(card, train)
     cli_profile = phase_cli_profile(card)
     cli_mask = phase_cli_mask(card)
+    cli_options = phase_cli_options(card)
     cli_tta = phase_cli_tta(card)
     cli_voc = phase_cli_voc(card)
     cli_fast = phase_cli_fast(card, SMOKE_COCO / "work" / f"epoch_{CLI_EPOCHS}")
@@ -8324,6 +8759,10 @@ def main() -> int:
                  "cli_fast_test": cli_fast["test"], "cli_tta_test": cli_tta["test"],
                  "cli_ssd_training": cli_ssd["training"], "cli_ssd_test": cli_ssd["test"],
                  "cli_yolox_training": cli_yolox["training"], "cli_yolox_test": cli_yolox["test"]}
+    slice20_paths = {f"cli_options_{what}": cli_options[what]
+                     for what in ("training", "test", "visualize", "visualize_segm")}
+    log(f"the training options' and the visualiser's launches of K1, K2 and the matcher: "
+        f"{slice20_paths}")
     dense_paths = {f"{name}_{mode}": runs[name]["launches"] for name, _ in DENSE
                    for mode, runs in (("serving", dense_serve), ("training", dense_train))}
     single_paths = {f"{name}_{mode}": runs[name]["launches"] for name, _ in SINGLE
@@ -8347,7 +8786,7 @@ def main() -> int:
     log(f"the data-parallel paths' launches of K1, K2 and the matcher, each rank's: {slice19_paths}")
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
                    **dense_paths, **single_paths, **cli_paths, **slice15_paths, **slice16_paths,
-                   **slice18_paths, **slice19_paths}
+                   **slice18_paths, **slice19_paths, **slice20_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],

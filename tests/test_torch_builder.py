@@ -15,6 +15,7 @@ from torch_detection_tpu import builder as jax_builder
 from torch_detection_tpu.utils.config import Config as JaxConfig
 from torch_detection_tpu_torch.builder import build_detection_cfg, build_detector
 from torch_detection_tpu_torch.engine import make_inference_fn
+from torch_detection_tpu_torch.ops.assign import MaxIoUAssigner
 from torch_detection_tpu_torch.utils.config import Config
 
 CONFIG = Path(__file__).resolve().parent.parent / "configs" / "faster_rcnn_r50_fpn_coco.py"
@@ -44,7 +45,7 @@ def test_detection_cfg_matches_reference():
     "det_cfg,match",
     [
         (dict(style="mask_scoring_rcnn"), "style"),  # a style of neither builder
-        (dict(style="faster_rcnn", rpn_num_samples=256), "rpn_num_samples"),  # training key
+        (dict(style="faster_rcnn", rpn_pos_fraction=0.5), "rpn_pos_fraction"),  # neither reads it
         (dict(style="fast_rcnn", anchor=dict(strides=(4,))), "anchor"),  # Fast R-CNN has none
     ],
 )
@@ -173,19 +174,24 @@ def test_each_single_stage_style_reaches_its_own_loss_and_inference(style, monke
 def test_paa_assigner_drops_foreign_keys_and_refuses_what_is_not_ported():
     """A PAA config's merged ``assigner`` keeps MaxIoUAssigner's fields, as
     the reference's builder (``_base_`` the ATSS config leaves ``topk``);
-    ``gt_max_assign_all=True`` is the port's rule; ``ignore_iof_thr`` and
-    ``gt_max_assign_all=False`` raise by name, for PAA as for RetinaNet."""
+    ``gt_max_assign_all`` and ``ignore_iof_thr`` build for PAA and
+    FreeAnchor and equal the reference's fields; a foreign key raises for
+    every style but PAA."""
     merged = dict(topk=9, pos_iou_thr=0.1, neg_iou_thr=0.1, min_pos_iou=0.0)
     got = build_detection_cfg(dict(style="paa", assigner=merged))
     want = jax_builder.build_detection_cfg(dict(style="paa", assigner=merged))
     for field in ("pos_iou_thr", "neg_iou_thr", "min_pos_iou"):
         assert getattr(got.assigner, field) == getattr(want.assigner, field) == merged[field]
-    assert want.assigner.gt_max_assign_all
+    assert want.assigner.gt_max_assign_all and got.assigner.gt_max_assign_all
     build_detection_cfg(dict(style="paa", assigner=dict(merged, gt_max_assign_all=True)))
     for style in ("paa", "free_anchor"):
-        for extra, name in ((dict(ignore_iof_thr=0.5), "ignore_iof_thr"),
-                            (dict(gt_max_assign_all=False), "gt_max_assign_all")):
-            with pytest.raises(NotImplementedError, match=name):
-                build_detection_cfg(dict(style=style, assigner=dict(merged, **extra)))
+        for extra in (dict(ignore_iof_thr=0.5), dict(gt_max_assign_all=False)):
+            cfg = dict(style=style, assigner=dict(merged, **extra))
+            if style != "paa":
+                cfg["assigner"].pop("topk")
+            got = build_detection_cfg(cfg).assigner
+            asked = dict(merged, **extra)
+            for field in ("pos_iou_thr", "gt_max_assign_all", "ignore_iof_thr"):
+                assert getattr(got, field) == asked.get(field, getattr(MaxIoUAssigner(), field))
     with pytest.raises(TypeError, match="topk"):  # only PAA drops foreign keys
         build_detection_cfg(dict(style="free_anchor", assigner=merged))

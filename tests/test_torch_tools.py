@@ -162,8 +162,7 @@ runtime = dict(compute_dtype="float32", log_interval=1)
         assert set(metrics) == set(METRICS) and all(math.isfinite(v) for v in metrics.values())
 
 
-@pytest.mark.parametrize("knob", [dict(ema_decay=0.999), dict(accum_steps=2),
-                                  dict(mesh=dict(model=2))])
+@pytest.mark.parametrize("knob", [dict(mesh=dict(model=2))])
 def test_train_cli_refuses_unported_knobs(tmp_path, knob):
     config = _write_config(tmp_path / "knob.py", dict(ann_file="a.json", img_prefix="."), **knob)
     with pytest.raises(NotImplementedError, match=next(iter(knob))):

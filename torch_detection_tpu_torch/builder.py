@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import logging
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -68,6 +69,8 @@ from .parallel.mesh import make_mesh, shard_model
 from .parallel.train_step import Optimizer, make_optimizer
 from .utils.registry import DETECTORS
 
+logger = logging.getLogger(__name__)
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the dtypes the kernels take
 
 # detection-config keys each style's paths read (besides ``anchor``)
@@ -75,8 +78,9 @@ _RETINA_KEYS = ("num_classes", "target_means", "target_stds", "focal_gamma", "fo
                 "smooth_l1_beta", "reg_loss_weight", "score_thr", "nms_iou_thr",
                 "pre_select_per_level", "pre_nms_top_k", "max_detections", "nms_method",
                 "soft_sigma")
-_FASTER_RCNN_KEYS = ("num_classes", "score_thr", "nms_iou_thr", "max_detections", "roi_size",
-                     "finest_scale")
+_FAST_RCNN_KEYS = ("num_classes", "score_thr", "nms_iou_thr", "max_detections", "roi_size",
+                   "finest_scale", "rcnn_num_samples", "rcnn_pos_fraction", "smooth_l1_beta")
+_FASTER_RCNN_KEYS = _FAST_RCNN_KEYS + ("rpn_num_samples",)
 _MASK_KEYS = ("mask_size", "mask_roi_size", "mask_loss_weight")
 _CASCADE_KEYS = ("num_stages", "stage_pos_ious", "stage_loss_weights", "stage_target_stds")
 _SPARSE_KEYS = ("num_classes", "num_proposals", "cls_weight", "l1_weight", "giou_weight",
@@ -122,7 +126,7 @@ _STYLES = {"retina": (RetinaNetConfig, _RETINA_KEYS, "assigner"),
            "cascade_rcnn": (CascadeRCNNConfig, _FASTER_RCNN_KEYS + _CASCADE_KEYS, None),
            "cascade_mask_rcnn": (CascadeMaskRCNNConfig,
                                  _FASTER_RCNN_KEYS + _CASCADE_KEYS + _MASK_KEYS, None),
-           "fast_rcnn": (FastRCNNConfig, _FASTER_RCNN_KEYS, "rcnn_assigner"),
+           "fast_rcnn": (FastRCNNConfig, _FAST_RCNN_KEYS, "rcnn_assigner"),
            "sparse_rcnn": (SparseRCNNConfig, _SPARSE_KEYS, None),
            "detr": (DETRConfig, _DETR_KEYS, None),
            "fcos": (FCOSConfig, _FCOS_KEYS, None),
@@ -200,20 +204,24 @@ def _build_anchor_generator(config_cls, anchor: Dict[str, Any]):
 def _build_assigner(config_cls, assigner: Dict[str, Any]):
     """The assigner of ``config_cls`` from its config dict. PAA's keeps the
     MaxIoUAssigner fields of a merged dict and drops the rest, as the
-    reference; a MaxIoUAssigner's ``gt_max_assign_all=True`` is the port's
-    rule, while ``gt_max_assign_all=False`` and ``ignore_iof_thr`` (the
-    ignore-region rule) wait for a caller and raise by name."""
+    reference. A MaxIoUAssigner takes ``gt_max_assign_all`` and
+    ``ignore_iof_thr``; no detector hands its assigner ignore regions, in
+    the reference as here (R14), so the builder says once that
+    ``ignore_iof_thr`` changes nothing in training."""
     cls = _ASSIGNERS.get(config_cls, MaxIoUAssigner)
     if cls is not MaxIoUAssigner:
         return cls(**assigner)
     if config_cls is PAAConfig:
         assigner = {k: v for k, v in assigner.items() if k in _MAX_IOU_FIELDS}
-    if not assigner.pop("gt_max_assign_all", True):
-        raise NotImplementedError("assigner gt_max_assign_all=False is not ported yet")
-    if "ignore_iof_thr" in assigner:
-        raise NotImplementedError("assigner ignore_iof_thr (the ignore-region rule) is not "
-                                  "ported yet")
+    if assigner.get("ignore_iof_thr", -1.0) > 0:
+        _log_no_ignore_regions()
     return cls(**assigner)
+
+
+@functools.lru_cache(maxsize=None)
+def _log_no_ignore_regions() -> None:
+    logger.info("assigner ignore_iof_thr is set, but no detector passes ignore regions to its "
+                "assigner (as in the reference: R14), so it changes no assignment in training")
 
 
 def build_detection_cfg(det_cfg: Dict[str, Any]) -> DetectionConfig:
@@ -359,17 +367,20 @@ def _rcnn_loss(det_cfg) -> Callable:
 
 
 def build_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
-    """The config's learning-rate schedule as a plain ``step -> lr``."""
+    """The config's learning-rate schedule as a plain ``step -> lr``: the
+    ``step`` or ``cosine`` policy, the cosine over ``schedule.total_epochs``
+    (which ``--epochs`` does not change, as in the reference)."""
     opt_cfg = cfg.get("optimizer", {})
     sched_cfg = cfg.get("schedule", {})
-    if sched_cfg.get("policy", "step") != "step":
-        raise NotImplementedError(f"schedule policy {sched_cfg['policy']!r} is not ported")
     return detection_lr_schedule(
         opt_cfg.get("lr", 0.01),
         steps_per_epoch=max(int(steps_per_epoch), 1),
+        total_epochs=sched_cfg.get("total_epochs", 12),
         decay_epochs=tuple(sched_cfg.get("decay_epochs", (8, 11))),
         warmup_steps=sched_cfg.get("warmup_steps", 500),
         warmup_ratio=sched_cfg.get("warmup_ratio", 1.0 / 3),
+        policy=sched_cfg.get("policy", "step"),
+        min_lr_ratio=sched_cfg.get("min_lr_ratio", 0.0),
     )
 
 

@@ -14,13 +14,19 @@ Counterpart of ``torch_detection_tpu/data/ops/image.py`` without OpenCV:
   exactly: source index ``floor(i / (new / old))`` in doubles, clamped;
 * sizes, flips, pads and the aspect-ratio flag are numpy copies, so
   ``img_shape``, ``pad_shape`` and ``scale_factor`` are the reference's
-  exactly.
+  exactly;
+* ``img_write`` encodes PNG itself (zlib, unfiltered rows), and
+  ``img_rotate`` is ``cv2.warpAffine``'s bilinear sampling with a constant
+  border: on uint8 images within one grey level of OpenCV 5's, a pixel in
+  thousands one level apart (``tests/test_torch_visualize.py``).
 
 Randomness comes from an injected ``np.random.Generator``.
 """
 
 from __future__ import annotations
 
+import math
+import os
 import os.path as osp
 import struct
 import zlib
@@ -131,6 +137,44 @@ def img_read(img_path: str, img_mode: str = "rgb") -> np.ndarray:
     raise ValueError(f"unsupported image format {ext!r} ({img_path}): PNG or JPEG only")
 
 
+def png_encode(img: np.ndarray) -> bytes:
+    """An (H, W) gray or (H, W, 3|4) RGB(A) uint8 image as an 8-bit PNG,
+    every row unfiltered."""
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3
+                                                         and img.shape[2] not in (1, 3, 4)):
+        raise ValueError(f"PNG takes (H, W) or (H, W, 1|3|4) uint8, not {img.shape} {img.dtype}")
+    img = img.reshape(img.shape[0], img.shape[1], -1)
+    h, w, c = img.shape
+    color = {1: 0, 3: 2, 4: 6}[c]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (_PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def img_write(img: np.ndarray, file_path: str, auto_mkdir: bool = True,
+              img_mode: str = "rgb") -> None:
+    """Write an HWC uint8 image as a PNG; ``img_mode`` names ``img``'s
+    channel order (a ``bgr`` image is stored as RGB), as the reference's
+    ``cv2.imwrite`` round trip. Only ``.png`` is written: another extension
+    raises ``ValueError`` naming it."""
+    if img_mode not in ("rgb", "bgr"):
+        raise ValueError(f"img_mode must be 'rgb' or 'bgr', got {img_mode!r}")
+    ext = osp.splitext(file_path)[1].lower()
+    if ext != ".png":
+        raise ValueError(f"img_write writes PNG only, not {ext!r} ({file_path})")
+    if auto_mkdir:
+        os.makedirs(osp.dirname(osp.abspath(file_path)), exist_ok=True)
+    if img_mode == "bgr" and img.ndim == 3 and img.shape[2] >= 3:
+        img = np.concatenate([img[..., 2::-1], img[..., 3:]], axis=2)
+    with open(file_path, "wb") as f:
+        f.write(png_encode(np.ascontiguousarray(img)))
+
+
 # ---------------------------------------------------------------- normalize
 def img_normalize(img: np.ndarray, img_mean, img_std) -> np.ndarray:
     mean = np.asarray(img_mean, dtype=np.float64)
@@ -233,6 +277,99 @@ def img_flip(
     if flipped:
         img = np.flip(img, 1 if direction == "horizontal" else 0)
     return img, flipped, direction
+
+
+def img_denormalize(img: np.ndarray, img_mean, img_std) -> np.ndarray:
+    """``img * std + mean`` in float64, ``img_normalize``'s inverse."""
+    mean = np.asarray(img_mean, dtype=np.float64)
+    std = np.asarray(img_std, dtype=np.float64)
+    return np.asarray(img * std + mean)
+
+
+# ---------------------------------------------------------------- rotate
+def _rotation_matrix(center: Tuple[float, float], angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: (2, 3), counter-clockwise by ``angle``
+    degrees about ``center`` (x, y)."""
+    a = math.radians(angle)
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = center
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
+
+
+def _invert_affine(m: np.ndarray) -> np.ndarray:
+    """``cv2.invertAffineTransform``, in its order of operations."""
+    d = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22, a12, a21 = m[1, 1] * d, m[0, 0] * d, -m[0, 1] * d, -m[1, 0] * d
+    return np.array([[a11, a12, -a11 * m[0, 2] - a12 * m[1, 2]],
+                     [a21, a22, -a21 * m[0, 2] - a22 * m[1, 2]]], np.float64)
+
+
+def _warp_affine_bilinear(img: np.ndarray, matrix: np.ndarray, size: Tuple[int, int],
+                         border_value=0) -> np.ndarray:
+    """``cv2.warpAffine(img, matrix, size=(w, h), INTER_LINEAR,
+    BORDER_CONSTANT, border_value)``: each output pixel samples the source at
+    the inverse map of its centre (float64), bilinearly from its four
+    neighbours in float32 (``lerp`` along x, then along y), a neighbour
+    outside the source taking the border value; uint8 is rounded half to
+    even. A scalar ``border_value`` is cv2's ``Scalar(v)``: ``v`` in the
+    first channel, 0 in the others."""
+    w, h = size
+    inv = _invert_affine(np.asarray(matrix, np.float64))
+    ys, xs = np.mgrid[:h, :w].astype(np.float64)
+    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+    x0, y0 = np.floor(sx), np.floor(sy)
+    ax = (sx - x0).astype(np.float32)[..., None]
+    ay = (sy - y0).astype(np.float32)[..., None]
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+
+    src = img.reshape(img.shape[0], img.shape[1], -1).astype(np.float32)
+    sh, sw, c = src.shape
+    border = np.zeros(c, np.float32)
+    values = np.asarray(border_value, np.float32).reshape(-1)[:c]
+    border[:len(values)] = values
+
+    def tap(dx: int, dy: int) -> np.ndarray:
+        x, y = x0 + dx, y0 + dy
+        inside = (x >= 0) & (x < sw) & (y >= 0) & (y < sh)
+        v = src[np.clip(y, 0, sh - 1), np.clip(x, 0, sw - 1)]
+        return np.where(inside[..., None], v, border)
+
+    v00, v01, v10, v11 = tap(0, 0), tap(1, 0), tap(0, 1), tap(1, 1)
+    top = v00 + ax * (v01 - v00)
+    out = top + ay * (v10 + ax * (v11 - v10) - top)
+    if img.dtype == np.uint8:
+        out = np.clip(np.rint(out), 0, 255)
+    return out.astype(img.dtype).reshape((h, w) + img.shape[2:])
+
+
+def img_rotate(
+    img: np.ndarray,
+    angle: float,
+    center: Optional[Tuple[float, float]] = None,
+    scale: float = 1.0,
+    border_value=0,
+    auto_bound: bool = False,
+) -> np.ndarray:
+    """Rotate clockwise by ``angle`` degrees about ``center`` (default the
+    image's centre, ((w - 1) / 2, (h - 1) / 2)), bilinearly with a constant
+    border (``_warp_affine_bilinear``); ``auto_bound`` grows the canvas to
+    hold the whole rotated image."""
+    if center is not None and auto_bound:
+        raise ValueError("auto_bound conflicts with an explicit center")
+    h, w = img.shape[:2]
+    if center is None:
+        center = ((w - 1) * 0.5, (h - 1) * 0.5)
+    matrix = _rotation_matrix(center, -angle, scale)
+    if auto_bound:
+        cos, sin = abs(matrix[0, 0]), abs(matrix[0, 1])
+        new_w, new_h = h * sin + w * cos, h * cos + w * sin
+        matrix[0, 2] += (new_w - w) * 0.5
+        matrix[1, 2] += (new_h - h) * 0.5
+        w, h = int(np.round(new_w)), int(np.round(new_h))
+    return _warp_affine_bilinear(img, matrix, (w, h), border_value)
 
 
 # ---------------------------------------------------------------- crop

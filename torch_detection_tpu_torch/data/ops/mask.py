@@ -13,14 +13,13 @@ Counterpart of ``torch_detection_tpu/data/ops/mask.py``:
   8-connected Bresenham outline, both clipped to the image), bit for bit
   (``tests/test_torch_mask_data.py`` holds it to the installed cv2);
 * resize (nearest, cv2's ``INTER_NEAREST`` floor mapping), flip, crop and
-  pad of a mask.
-
-The visualiser (``mask_visualize``) waits for the port's visualiser.
+  pad of a mask;
+* ``mask_visualize``, the reference's overlay in numpy.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -332,3 +331,49 @@ def mask_crop(mask: np.ndarray, size_crop: Tuple[int, int], min_w: int = 0, min_
 def mask_pad(mask: np.ndarray, expected_shape: Tuple[int, int], pad_val=0) -> np.ndarray:
     assert mask.ndim == 2
     return img_pad(np.asarray(mask, np.uint8), expected_shape, pad_val=pad_val)
+
+
+# ---------------------------------------------------------------- visualize
+def blend_weighted(src1: np.ndarray, alpha: float, src2: np.ndarray, beta: float) -> np.ndarray:
+    """``cv2.addWeighted(src1, alpha, src2, beta, 0)`` on uint8: the float32
+    ``src2 * beta`` rounded, then ``src1 * alpha`` added with one rounding to
+    float32, then rounded half to even and saturated. Another dtype is
+    blended in float64."""
+    if src1.dtype != np.uint8:
+        return (src1 * alpha + src2 * beta).astype(src1.dtype)
+    a, b = np.float32(alpha), np.float32(beta)
+    t = src1.astype(np.float64) * float(a) + (src2.astype(np.float32) * b).astype(np.float64)
+    return np.clip(np.rint(t.astype(np.float32)), 0, 255).astype(np.uint8)
+
+
+def mask_visualize(
+    img_array: np.ndarray,
+    masks: np.ndarray,
+    inds: Optional[np.ndarray],
+    mask_color=(0, 255, 0),
+    alpha: float = 0.5,
+    out_file: Optional[str] = None,
+) -> np.ndarray:
+    """Overlay (n, H, W) masks on a uint8 image with opacity ``alpha``;
+    returns the blended image (``img_array`` is not changed). The reference
+    fills the masks' contours (``cv2.findContours`` with ``RETR_TREE``, then
+    ``cv2.fillPoly`` of every contour): that paints exactly each mask's
+    nonzero pixels after ``astype(uint8)``, holes left open by the even-odd
+    fill of their own contours (held to cv2 in
+    ``tests/test_torch_visualize.py``), so the fill here is the mask
+    itself. ``inds`` selects masks when not empty; ``out_file`` writes a
+    PNG."""
+    from .image import img_write
+
+    if masks.ndim != 3:
+        raise ValueError(f"masks must be (n, H, W), got {masks.shape}")
+    masks = masks.astype(np.uint8)
+    if inds is not None and len(inds) > 0:
+        masks = masks[inds, ...]
+    overlay = img_array.copy()
+    if len(masks):
+        overlay[masks.any(axis=0)] = mask_color
+    out = blend_weighted(overlay, alpha, img_array, 1 - alpha)
+    if out_file is not None:
+        img_write(out, out_file)
+    return out

@@ -2,8 +2,10 @@
 
 Counterpart of ``torch_detection_tpu/engine/checkpoint.py``. A checkpoint is
 a directory: ``model.pt`` (the model's ``state_dict``), ``optimizer.pt``
-(the optimizer's state keyed by parameter name, its step and update counts)
-and ``meta.json`` (epoch, step, ``batches_done`` of a mid-epoch save, time).
+(the optimizer's state keyed by parameter name, its step and update counts),
+``ema.pt`` where the optimizer keeps an EMA of the parameters (each average
+by parameter name) and ``meta.json`` (epoch, step, ``batches_done`` of a
+mid-epoch save, time).
 Loading reports missing and unexpected keys by name, and the optimizer's
 state is restored by parameter name, never by position. ``torch://`` loads
 a torchvision or mmdetection ``.pth`` through ``models/torch_import.py``;
@@ -33,6 +35,7 @@ from ..parallel.mesh import copy_full_, full_tensor, shard_like
 logger = logging.getLogger(__name__)
 
 MODEL_FILE, OPTIMIZER_FILE, META_FILE = "model.pt", "optimizer.pt", "meta.json"
+EMA_FILE = "ema.pt"
 
 
 def _named_params(model, optimizer) -> Dict[int, str]:
@@ -58,15 +61,19 @@ def optimizer_state(model, optimizer) -> Dict[str, Any]:
     }
 
 
-def save_checkpoint(path: str, model, optimizer=None, meta: Optional[Dict] = None) -> None:
-    """Write the model's ``state_dict``, the optimizer's state (if given)
-    and ``meta`` (with the time) into the directory ``path``. The files are
-    written under temporary names and renamed, so a checkpoint that exists
-    is whole. In a group of several ranks only rank 0 writes; under FSDP
-    every rank must call it, since the shards are gathered first."""
+def save_checkpoint(path: str, model, optimizer=None, meta: Optional[Dict] = None,
+                    with_ema: bool = True) -> None:
+    """Write the model's ``state_dict``, the optimizer's state (if given),
+    its EMA (if it keeps one and ``with_ema``) and ``meta`` (with the time)
+    into the directory ``path``. The files are written under temporary
+    names and renamed, so a checkpoint that exists is whole. In a group of
+    several ranks only rank 0 writes; under FSDP every rank must call it,
+    since the shards are gathered first."""
     payloads = [(MODEL_FILE, {k: full_tensor(v) for k, v in model.state_dict().items()})]
     if optimizer is not None:
         payloads.append((OPTIMIZER_FILE, optimizer_state(model, optimizer)))
+        if with_ema and optimizer.ema is not None:
+            payloads.append((EMA_FILE, optimizer.ema.state_dict()))
     if not is_main():
         return
     path = os.path.abspath(os.path.expanduser(path))
@@ -103,7 +110,8 @@ def latest_checkpoint(work_dir: str) -> Optional[str]:
 
 
 def load_checkpoint_file(path: str) -> Dict[str, Any]:
-    """{'model': state_dict, 'optimizer': state or absent, 'meta': dict}."""
+    """{'model': state_dict, 'optimizer': state or absent, 'ema': averages
+    or absent, 'meta': dict}."""
     path = os.path.abspath(os.path.expanduser(path))
     if not os.path.isdir(path):
         raise FileNotFoundError(f"no checkpoint directory at {path}")
@@ -114,6 +122,9 @@ def load_checkpoint_file(path: str) -> Dict[str, Any]:
     opt = os.path.join(path, OPTIMIZER_FILE)
     if os.path.exists(opt):
         payload["optimizer"] = torch.load(opt, map_location="cpu", weights_only=True)
+    ema = os.path.join(path, EMA_FILE)
+    if os.path.exists(ema):
+        payload["ema"] = torch.load(ema, map_location="cpu", weights_only=True)
     return payload
 
 
@@ -236,7 +247,10 @@ def load_checkpoint(model, filename: str, strict: bool = False, optimizer=None,
     * ``modelzoo://``, ``http(s)://`` and ``file://`` resolve first
       (``resolve_checkpoint_source``);
     * anything else is a directory saved by ``save_checkpoint``, with the
-      optimizer's state too where ``optimizer`` is given.
+      optimizer's state too where ``optimizer`` is given, and its EMA where
+      the optimizer keeps one: restored from ``ema.pt``, or started from
+      the loaded parameters when the checkpoint has none (as the
+      reference's resume of an EMA run from a checkpoint without one).
 
     Missing and unexpected keys are logged by name, or raised when
     ``strict``."""
@@ -251,4 +265,10 @@ def load_checkpoint(model, filename: str, strict: bool = False, optimizer=None,
         if "optimizer" not in payload:
             raise ValueError(f"{filename} holds no optimizer state")
         load_optimizer_state(model, optimizer, payload["optimizer"], strict=strict)
+        if optimizer.ema is not None:
+            if "ema" in payload:
+                optimizer.ema.load_state_dict(payload["ema"])
+            else:
+                logger.info("%s holds no EMA: the EMA starts from its parameters", filename)
+                optimizer.ema.reset()
     return payload["meta"]

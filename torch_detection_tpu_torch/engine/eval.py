@@ -5,11 +5,15 @@ matched greedily by descending score at IoU thresholds 0.50:0.05:0.95,
 101-point interpolated AP, area ranges (all/small/medium/large), maxDets
 1/10/100, crowd boxes as ignore regions (IoU = intersection / detection
 area), the full 12-metric summary; the same protocol on mask IoU
-(``eval_coco_segm_map``), computed on the masks' RLE runs. The matchers are
-the reference's Python versions, which its C++ matcher
-(``native/eval_match.cpp``, boxes only) only speeds up. ``eval_voc_map``
+(``eval_coco_segm_map``), computed on the masks' RLE runs. ``eval_voc_map``
 is VOC AP at IoU 0.5 (11-point for VOC2007, all-point otherwise), difficult
 objects as ignore regions.
+
+The matchers run in C++ (``native/eval_match.cpp``, built by g++ at first
+use, no fallback): COCO's on any IoU matrix, boxes' or masks', and VOC's on
+boxes. ``_coco_match_img_plain`` and ``_match_image_plain`` are the same
+loops in Python, the plain versions they are tested against; VOC's runs on
+a precomputed (mask) IoU.
 
 Box convention: xyxy with the inclusive +1 area rule.
 """
@@ -21,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..data.ops.mask import rle_area, rle_encode, rle_iou_matrix
+from ..native import eval_match
 
 
 def _iou_matrix(det: np.ndarray, gt: np.ndarray, offset: float = 1.0) -> np.ndarray:
@@ -60,9 +65,28 @@ def _match_image(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Greedy matching. Returns (det_matched, det_ignored) bool arrays.
 
-    The VOC protocol's matcher; ``iou`` and ``iou_crowd`` may be given
-    precomputed (mask IoU).
+    The VOC protocol's matcher: on boxes the C++ one; with ``iou`` (and
+    ``iou_crowd``) given precomputed (mask IoU), the plain version.
     """
+    if iou is None:
+        return eval_match.match_image(det_boxes, gt_boxes, gt_ignore, ignore_regions, iou_thr)
+    return _match_image_plain(det_boxes, gt_boxes, gt_ignore, ignore_regions, iou_thr, iou,
+                              iou_crowd)
+
+
+def _match_image_plain(
+    det_boxes: np.ndarray,
+    gt_boxes: np.ndarray,
+    gt_ignore: np.ndarray,
+    ignore_regions: np.ndarray,
+    iou_thr: float,
+    iou: Optional[np.ndarray] = None,
+    iou_crowd: Optional[np.ndarray] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``_match_image`` in Python: each detection takes the free
+    non-ignored gt of highest IoU at or above ``iou_thr`` (the first on a
+    tie), else the free ignored gt of highest IoU above it (and is
+    ignored), else it is ignored when a region reaches ``iou_thr``."""
     if iou is None:
         iou = _iou_matrix(det_boxes, gt_boxes)
         iou_crowd = _iou_matrix(det_boxes, ignore_regions) if len(ignore_regions) else None
@@ -115,8 +139,18 @@ def _coco_match_img(
     be matched by many detections; once a detection has a non-ignored match
     candidate, ignored gts (which sort last) cannot override it. Returns
     (matched, ignored) each (T, D): matched = det matched ANY gt (incl.
-    ignored); ignored = the matched gt was ignored.
+    ignored); ignored = the matched gt was ignored. The C++ matcher.
     """
+    return eval_match.coco_match(iou, gt_ig, gt_crowd, iou_thrs)
+
+
+def _coco_match_img_plain(
+    iou: np.ndarray,
+    gt_ig: np.ndarray,
+    gt_crowd: np.ndarray,
+    iou_thrs: np.ndarray,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``_coco_match_img`` in Python: the same loops."""
     d_n, g_n = iou.shape
     t_n = len(iou_thrs)
     dt_matched = np.zeros((t_n, d_n), bool)

@@ -20,8 +20,13 @@ gathers an FSDP model's shards); a SIGTERM to any rank stops every rank
 after the same step, through an all-reduce of the flag each step; images/s
 counts the images of all ranks; the validation hook runs on every rank
 (``make_validation_hook`` spreads the images over them) with an
-FSDP model whole for its duration. The EMA of the parameters and gradient
-accumulation wait for a later slice.
+FSDP model whole for its duration.
+
+``ema_decay`` keeps the EMA of the parameters (``parallel.ParamEMA``, in
+``optimizer.ema``): validation scores the averages, which the checkpoints
+carry beside the parameters, and ``best/`` holds the weights validation
+scored, as the reference's. ``accum_steps`` averages that many
+micro-batches a step (``parallel/train_step.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import math
 import os
 import shutil
 import signal
@@ -41,7 +47,7 @@ import torch
 from ..data.device import prefetch_to_device
 from ..parallel.distributed import all_reduce_sum, is_main, world_size
 from ..parallel.mesh import unsharded
-from ..parallel.train_step import Optimizer, make_train_step
+from ..parallel.train_step import Optimizer, ParamEMA, make_train_step
 from .checkpoint import save_checkpoint
 from .profiling import annotate, trace
 
@@ -53,18 +59,31 @@ PREFETCH = 2  # batches whose host-to-device copies are issued ahead of their st
 def detection_lr_schedule(
     base_lr: float,
     steps_per_epoch: int,
+    total_epochs: int = 12,
     decay_epochs: Sequence[int] = (8, 11),
     warmup_steps: int = 500,
     warmup_ratio: float = 1.0 / 3.0,
+    policy: str = "step",
+    min_lr_ratio: float = 0.0,
 ) -> Callable[[int], float]:
-    """mmdetection's step schedule: from ``warmup_ratio * base_lr`` linearly
-    up to ``base_lr`` over ``warmup_steps``, then ``base_lr`` times 0.1 for
-    every boundary ``epoch * steps_per_epoch`` reached."""
+    """mmdetection's schedule: from ``warmup_ratio * base_lr`` linearly up
+    to ``base_lr`` over ``warmup_steps``, then ``policy``: ``"step"``,
+    ``base_lr`` times 0.1 for every boundary
+    ``epoch * steps_per_epoch`` reached, or ``"cosine"``, annealed from
+    ``base_lr`` to ``min_lr_ratio * base_lr`` over ``total_epochs *
+    steps_per_epoch`` steps (counted from step 0, the warmup inside them)."""
+    if policy not in ("step", "cosine"):
+        raise ValueError(f"schedule policy {policy!r} is not 'step' or 'cosine'")
     boundaries = sorted({int(e * steps_per_epoch) for e in decay_epochs})
+    total = max(total_epochs * steps_per_epoch, 1)
+    floor = min_lr_ratio * base_lr
 
     def schedule(step: int) -> float:
         if step < warmup_steps:
             return base_lr * (warmup_ratio + (1 - warmup_ratio) * step / warmup_steps)
+        if policy == "cosine":
+            t = min(max(step / total, 0.0), 1.0)
+            return floor + (base_lr - floor) * 0.5 * (1.0 + math.cos(math.pi * t))
         return base_lr * 0.1 ** sum(step >= b for b in boundaries)
 
     return schedule
@@ -81,7 +100,10 @@ class Trainer:
     window and the learning rate. With ``work_dir`` None nothing is
     written: no metrics file, no checkpoint; on a rank other than 0 neither.
     ``profile_dir`` traces the first epoch that ``run`` trains into
-    ``profile_dir/trace.json``."""
+    ``profile_dir/trace.json``. ``ema_decay`` starts ``optimizer.ema`` from
+    the model's parameters as they are (a resume that loads a checkpoint
+    afterwards restores it, or restarts it from the loaded parameters);
+    ``accum_steps`` is the micro-batches a step."""
 
     def __init__(
         self,
@@ -99,6 +121,8 @@ class Trainer:
         checkpoint_interval_steps: Optional[int] = None,
         handle_preemption: bool = False,
         profile_dir: Optional[str] = None,
+        ema_decay: Optional[float] = None,
+        accum_steps: int = 1,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -121,7 +145,10 @@ class Trainer:
         self.checkpoint_interval_steps = checkpoint_interval_steps
         self.handle_preemption = handle_preemption
         self.profile_dir = profile_dir
-        self.train_step = make_train_step(loss_fn, optimizer)
+        self.accum_steps = int(accum_steps)
+        if ema_decay is not None:
+            optimizer.ema = ParamEMA(model, ema_decay)
+        self.train_step = make_train_step(loss_fn, optimizer, self.accum_steps)
         self.skipped_steps = 0
         self.preempted = False
         self._preempt_requested = False
@@ -251,9 +278,16 @@ class Trainer:
             f.write(json.dumps(clean) + "\n")
 
     def _validate(self, epoch: int) -> None:
+        """Score the EMA weights when there are any, else the parameters;
+        a new best saves the weights scored."""
         t0 = time.perf_counter()
-        with unsharded(self.optimizer.fsdp_root):
-            metrics = self.val_hook()
+        ema = self.optimizer.ema
+        with ema.applied() if ema is not None else contextlib.nullcontext():
+            with unsharded(self.optimizer.fsdp_root):
+                metrics = self.val_hook()
+            self._log_validation(epoch, metrics, t0)
+
+    def _log_validation(self, epoch: int, metrics: Dict[str, float], t0: float) -> None:
         parts = " ".join(f"{k} {v:.4f}" for k, v in sorted(metrics.items()))
         logger.info("epoch %d val (%.1fs): %s", epoch, time.perf_counter() - t0, parts)
         record = {"epoch": epoch, **{f"val_{k}": v for k, v in metrics.items()}}
@@ -264,7 +298,7 @@ class Trainer:
             self.best_score = float(score)
             if self.work_dir is not None:  # every rank joins the save; rank 0 writes
                 path = os.path.join(self.work_dir, "best")
-                save_checkpoint(path, self.model, self.optimizer,
+                save_checkpoint(path, self.model, self.optimizer, with_ema=False,
                                 meta={"epoch": epoch + 1, "step": self.optimizer.steps,
                                       self.best_metric: float(score)})
                 logger.info("new best %s %.4f at epoch %d -> %s", self.best_metric,

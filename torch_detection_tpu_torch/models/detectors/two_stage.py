@@ -266,10 +266,15 @@ def sample_rois(
 def rcnn_losses(
     cfg: FasterRCNNConfig, cls_logits: Tensor, reg_pred: Tensor, sampled: SampledRois
 ) -> Tuple[Tensor, Tensor]:
-    """The box head's cls and reg losses over the batch's sampled rois."""
-    if reg_pred.shape[-1] != 4:
-        raise NotImplementedError("class-specific box regression is not ported for training")
+    """The box head's cls and reg losses over the batch's sampled rois. A
+    class-specific head's (..., C * 4) deltas are read at each roi's class,
+    ``clip(label - 1, 0, C - 1)`` (background rois carry no reg weight)."""
     cls_logits, reg_pred = cls_logits.float(), reg_pred.float()
+    if reg_pred.shape[-1] != 4:
+        per_class = reg_pred.reshape(*reg_pred.shape[:-1], cfg.num_classes, 4)
+        label = (sampled.labels.long() - 1).clamp(0, cfg.num_classes - 1)
+        reg_pred = torch.gather(per_class, -2, label[..., None, None].expand(
+            *label.shape, 1, 4)).squeeze(-2)
     w_valid = sampled.is_valid.float()
     n_valid = batch_normaliser(w_valid.sum())
     cls_l = softmax_cross_entropy(cls_logits, sampled.labels, weight=w_valid, avg_factor=n_valid)

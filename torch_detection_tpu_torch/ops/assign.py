@@ -1,11 +1,10 @@
 """Anchor to gt assignment (fixed shapes, masked), batched over images.
 
 Counterpart of ``torch_detection_tpu/ops/assign.py``, cut to what the
-ported slices call: ``MaxIoUAssigner`` with its rules 1-4, every anchor
-that ties a gt's best IoU taking it (the reference's
-``gt_max_assign_all=True``), and ``anchor_valid``; YOLOv3's
-``GridAssigner``; and ``ATSSAssigner`` (ATSS and GFL). The ignore-region
-rule waits for a caller. Labels come from
+ported slices call: ``MaxIoUAssigner`` with its five rules (both forms of
+rule 4, ``gt_max_assign_all``, and the ignore regions of rule 5) and
+``anchor_valid``; YOLOv3's ``GridAssigner``; and ``ATSSAssigner`` (ATSS
+and GFL). Labels come from
 plain indexing; the reference's one-hot matmul (``ops/tpu_gather.py``) is a
 TPU workaround with the same values.
 
@@ -36,15 +35,24 @@ class MaxIoUAssigner:
 
     Rules, in order: (1) everything starts ignored; (2) anchors whose best
     IoU is under ``neg_iou_thr`` are negative; (3) anchors at or above
-    ``pos_iou_thr`` take that gt; (4) every anchor that ties a gt's best IoU
-    takes that gt if the IoU is at least ``min_pos_iou`` (and above 0); an
-    anchor that ties several gts takes the one of highest IoU, the first on a
-    tie. Anchors outside ``anchor_valid`` are ignored. With no valid gt every
+    ``pos_iou_thr`` take that gt; (4) each gt's best anchor takes that gt if
+    the IoU is at least ``min_pos_iou`` (and above 0): with
+    ``gt_max_assign_all`` every anchor that ties the gt's best IoU, an
+    anchor that ties several gts taking the one of highest IoU, the first on
+    a tie; without it the gt's first best anchor only, written gt by gt in
+    order (R16: a gt that does not qualify, padding included, writes back
+    its best anchor's value from before rule 4, and the last gt to name an
+    anchor decides it); (5) with ``ignore_iof_thr > 0`` anchors whose
+    intersection over their own area with any valid ignore region
+    (``gt_boxes_ignore``, ``gt_ignore_valid``) reaches it are ignored.
+    Anchors outside ``anchor_valid`` are ignored. With no valid gt every
     anchor is negative."""
 
     pos_iou_thr: float = 0.5
     neg_iou_thr: float = 0.4
     min_pos_iou: float = 0.0
+    gt_max_assign_all: bool = True
+    ignore_iof_thr: float = -1.0
 
     def __call__(
         self,
@@ -53,6 +61,9 @@ class MaxIoUAssigner:
         gt_valid: Tensor,  # (..., G) bool
         gt_labels: Optional[Tensor] = None,  # (..., G) int
         anchor_valid: Optional[Tensor] = None,  # (..., N) bool
+        *,
+        gt_boxes_ignore: Optional[Tensor] = None,  # (..., Gi, 4)
+        gt_ignore_valid: Optional[Tensor] = None,  # (..., Gi) bool
     ) -> AssignResult:
         overlaps = bbox_overlaps(anchors, gt_boxes)  # (..., N, G)
         overlaps = torch.where(gt_valid[..., None, :], overlaps, torch.full_like(overlaps, -1.0))
@@ -65,16 +76,45 @@ class MaxIoUAssigner:
         is_pos = any_gt & (max_overlaps >= self.pos_iou_thr)
         assigned = torch.where(is_pos, argmax_overlaps.to(torch.int32) + 1, assigned)
 
-        gt_max = overlaps.max(dim=-2).values  # (..., G)
+        gt_max, gt_argmax = overlaps.max(dim=-2)  # (..., G)
         qualify = gt_valid & (gt_max >= self.min_pos_iou) & (gt_max > 0)
-        tie = (overlaps == gt_max[..., None, :]) & qualify[..., None, :]
-        tie_best = torch.where(tie, overlaps, torch.full_like(overlaps, -torch.inf)).argmax(dim=-1)
-        assigned = torch.where(tie.any(dim=-1), tie_best.to(torch.int32) + 1, assigned)
+        if self.gt_max_assign_all:
+            tie = (overlaps == gt_max[..., None, :]) & qualify[..., None, :]
+            tie_best = torch.where(tie, overlaps,
+                                   torch.full_like(overlaps, -torch.inf)).argmax(dim=-1)
+            assigned = torch.where(tie.any(dim=-1), tie_best.to(torch.int32) + 1, assigned)
+        else:
+            assigned = _last_writer(assigned, gt_argmax, qualify)
+
+        if (self.ignore_iof_thr > 0 and gt_boxes_ignore is not None
+                and gt_boxes_ignore.shape[-2] > 0):
+            iof = bbox_overlaps(anchors, gt_boxes_ignore, mode="iof")  # (..., N, Gi)
+            if gt_ignore_valid is not None:
+                iof = torch.where(gt_ignore_valid[..., None, :], iof, torch.full_like(iof, -1.0))
+            hit = iof.max(dim=-1).values >= self.ignore_iof_thr
+            assigned = torch.where(hit, torch.full_like(assigned, -1), assigned)
 
         if anchor_valid is not None:
             assigned = torch.where(anchor_valid, assigned, torch.full_like(assigned, -1))
 
         return AssignResult(assigned, max_overlaps, _labels(assigned, gt_boxes, gt_labels))
+
+
+def _last_writer(assigned: Tensor, gt_argmax: Tensor, qualify: Tensor) -> Tensor:
+    """Rule 4 without ``gt_max_assign_all``, as the reference's scatter
+    ``assigned.at[gt_argmax].set(where(qualify, g + 1, assigned[gt_argmax]))``
+    runs on the CPU, one gt after another: each anchor named by some gt's
+    ``gt_argmax`` ends with the write of the last such gt, ``g + 1`` if that
+    gt qualifies, else its own value from before the scatter (R16). The last
+    writer is a deterministic ``amax`` over the gt indices, where a scatter
+    of duplicate indices on CUDA would be undefined."""
+    g = torch.arange(gt_argmax.shape[-1], device=gt_argmax.device).expand_as(gt_argmax)
+    last = torch.full(assigned.shape, -1, dtype=torch.int64, device=assigned.device)
+    last = last.scatter_reduce(-1, gt_argmax, g, reduce="amax", include_self=True)
+    named = last >= 0
+    writer = last.clamp(min=0)
+    takes = named & torch.gather(qualify, -1, writer)
+    return torch.where(takes, (writer + 1).to(assigned.dtype), assigned)
 
 
 def _labels(assigned: Tensor, gt_boxes: Tensor, gt_labels: Optional[Tensor]) -> Tensor:

@@ -19,15 +19,18 @@ In a group of several ranks every loss runs in a data-parallel step
 * ``global_rows`` makes a rank's random draws the rows of the global
   batch's draws that belong to its images.
 
-In one process both leave their input as it is.
+In one process both leave their input as it is, and so they do within
+``rank_local()``, where each micro-batch of an accumulated step lies on one
+rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import logging
 import os
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -38,6 +41,7 @@ from ..utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+_RANK_LOCAL = False  # set within ``rank_local()``
 
 
 def _env_int(name: str, default: int) -> int:
@@ -194,6 +198,24 @@ def broadcast_module(module: torch.nn.Module) -> None:
             dist.broadcast(t.data, src=0)
 
 
+@contextlib.contextmanager
+def rank_local() -> Iterator[None]:
+    """Within: ``batch_normaliser`` and ``global_rows`` act as in one
+    process, for a batch that lies whole on this rank (a micro-batch of an
+    accumulated step, ``parallel/train_step.py``)."""
+    global _RANK_LOCAL
+    before, _RANK_LOCAL = _RANK_LOCAL, True
+    try:
+        yield
+    finally:
+        _RANK_LOCAL = before
+
+
+def _batch_ranks() -> int:
+    """The ranks the batch in flight is spread over."""
+    return 1 if _RANK_LOCAL else world_size()
+
+
 def batch_normaliser(count: Tensor, floor: float = 1.0) -> Tensor:
     """``max(count, floor)`` for a ``count`` summed over the batch's images,
     taken over the global batch in a group of several ranks:
@@ -204,7 +226,7 @@ def batch_normaliser(count: Tensor, floor: float = 1.0) -> Tensor:
     the batch's count. ``count`` carries no gradient."""
     if count.requires_grad:
         raise ValueError("batch_normaliser takes a count that carries no gradient")
-    ranks = world_size()
+    ranks = _batch_ranks()
     if ranks == 1:
         return torch.clamp(count, min=floor)
     return torch.clamp(all_reduce_sum(count), min=floor) / ranks
@@ -218,7 +240,7 @@ def global_rows(draw: Callable[[Tuple[int, ...]], Tuple[Tensor, ...]]
     get the draws they get in one process on the concatenated batch (a
     CUDA generator's stream depends on the whole shape, so drawing B rows
     alone would not). ``draw`` itself in one process."""
-    ranks, me = world_size(), rank()
+    ranks, me = _batch_ranks(), rank()
     if ranks == 1:
         return draw
 

@@ -24,19 +24,105 @@ norm and so the same skip decision and update, and the replicas stay
 identical bit for bit. Under FSDP (``mesh.shard_model``) FSDP2 averages the
 gradients by reduce-scatter, each rank keeps its shards of the parameters,
 gradients and optimizer state, and the global norm sums the squares of
-every shard. Gradient accumulation and the EMA of the parameters wait for a
-later slice.
+every shard.
+
+``accum_steps`` splits a step's batch into micro-batches, each with its own
+forward, backward and normalisers, and averages their losses, metrics and
+gradients before the one optimizer step, as the reference's ``lax.scan``
+does. The reference splits the global batch, whose rows are the ranks'
+shards in rank order; where ``accum_steps`` is a multiple of the ranks each
+micro-batch lies whole on one rank (``distributed.rank_local``), and any
+other count over several ranks raises by name. ``ParamEMA`` keeps the
+exponential moving average of the parameters.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional, Tuple, Union
+import contextlib
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import Tensor, nn
 
-from .distributed import all_reduce_sum, world_size
-from .mesh import local_tensor
+from .distributed import all_reduce_sum, rank_local, world_size
+from .mesh import copy_full_, full_tensor, local_tensor
+
+
+class ParamEMA:
+    """The exponential moving average of every parameter of a model, the
+    frozen ones too, as the reference keeps ``ema_params`` beside
+    ``params`` (``parallel/train_step.py:55-66``, ``:178-192``).
+
+    After an applied update at step ``t`` (the step count before the
+    update, skipped steps included) each average becomes ``d * e + (1 - d)
+    * p`` with ``d = min(decay, (1 + t) / (10 + t))``, computed in float32
+    and cast to the parameter's dtype. A skipped step leaves it as it was.
+    Under FSDP each average is a shard like its parameter's."""
+
+    def __init__(self, model: nn.Module, decay: float):
+        self.decay = float(decay)
+        named = list(model.named_parameters())
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        with torch.no_grad():
+            self.tensors = [p.detach().clone() for p in self.params]
+
+    def rate(self, step: int) -> float:
+        """``d`` of step ``step`` in float32, as the reference computes it."""
+        t = np.float32(step)
+        return float(min(np.float32(self.decay), (np.float32(1) + t) / (np.float32(10) + t)))
+
+    @torch.no_grad()
+    def update(self, step: int) -> None:
+        d = np.float32(self.rate(step))
+        keep, take = float(d), float(np.float32(1) - d)
+        pairs = [(local_tensor(e), local_tensor(p.detach())) for e, p in zip(self.tensors,
+                                                                               self.params)]
+        f32 = [(e, p) for e, p in pairs if e.dtype == p.dtype == torch.float32]
+        if f32:  # the training build's parameters: two fused passes over all of them
+            emas, params = zip(*f32)
+            torch._foreach_mul_(emas, keep)
+            torch._foreach_add_(emas, params, alpha=take)
+        for e, p in pairs:
+            if not e.dtype == p.dtype == torch.float32:
+                e.copy_(e.float() * keep + p.float() * take)
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Start the averages from the parameters."""
+        for e, p in zip(self.tensors, self.params):
+            local_tensor(e).copy_(local_tensor(p.detach()))
+
+    def state_dict(self) -> Dict[str, Tensor]:
+        """Each average whole, by parameter name (every rank must call it
+        under FSDP)."""
+        return {n: full_tensor(e) for n, e in zip(self.names, self.tensors)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, Tensor]) -> None:
+        missing = set(self.names) - set(state)
+        unexpected = set(state) - set(self.names)
+        if missing or unexpected:
+            raise RuntimeError(f"EMA state: missing {sorted(missing)}, unexpected "
+                               f"{sorted(unexpected)}")
+        for n, e in zip(self.names, self.tensors):
+            copy_full_(e, state[n])
+
+    @contextlib.contextmanager
+    def applied(self) -> Iterator[None]:
+        """Within: the model's parameters hold the averages (each rank its
+        shards); they are given back on exit."""
+        with torch.no_grad():
+            saved = [local_tensor(p.detach()).clone() for p in self.params]
+            for p, e in zip(self.params, self.tensors):
+                local_tensor(p.detach()).copy_(local_tensor(e))
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, v in zip(self.params, saved):
+                    local_tensor(p.detach()).copy_(v)
 
 
 class Optimizer:
@@ -56,7 +142,8 @@ class Optimizer:
     reference's ``TrainState.step``; ``count`` the updates applied, which
     the schedule reads, as optax's count, which a skipped step restores.
     ``fsdp_root`` is the ``mesh.LossRoot`` of a model sharded by FSDP,
-    whose parameters (``DTensor`` shards) these are; None otherwise."""
+    whose parameters (``DTensor`` shards) these are; None otherwise.
+    ``ema`` is the ``ParamEMA`` the step updates, or None."""
 
     def __init__(self, params: Iterable[Tensor], learning_rate: Union[float, Callable[[int], float]],
                  momentum: float, weight_decay: float, grad_clip_norm: Optional[float],
@@ -76,6 +163,7 @@ class Optimizer:
             raise NotImplementedError(f"optimizer {kind!r} is not ported")
         self.steps = 0
         self.count = 0
+        self.ema: Optional[ParamEMA] = None
 
     def zero_grad(self) -> None:
         self.torch_optimizer.zero_grad(set_to_none=True)
@@ -149,17 +237,56 @@ def make_optimizer(
                      fsdp_root)
 
 
+def micro_batches_per_rank(accum_steps: int, ranks: int) -> int:
+    """The micro-batches each rank runs a step: ``accum_steps / ranks``.
+    The reference splits the global batch into ``accum_steps`` contiguous
+    micro-batches; only where the ranks divide that count does each lie
+    whole on one rank. Any other count over several ranks would need rows
+    exchanged between the ranks, and raises."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps {accum_steps} < 1")
+    if accum_steps > 1 and accum_steps % ranks:
+        raise NotImplementedError(
+            f"accum_steps={accum_steps} over {ranks} ranks: a micro-batch would span ranks; "
+            "only a multiple of the ranks is ported")
+    return accum_steps // ranks if accum_steps > 1 else 1
+
+
+def split_batch(batch: Dict[str, Tensor], parts: int) -> List[Dict[str, Tensor]]:
+    """``batch``'s leading axis cut into ``parts`` contiguous micro-batches
+    (views); every tensor's leading axis is the batch's."""
+    size = batch["image"].shape[0]
+    if size % parts:
+        raise ValueError(f"a batch of {size} images does not split into {parts} micro-batches")
+    step = size // parts
+    return [{k: v.narrow(0, i * step, step) if isinstance(v, Tensor) else v
+             for k, v in batch.items()} for i in range(parts)]
+
+
 def make_train_step(
     loss_fn: Callable[..., Tuple[Tensor, Dict[str, Tensor]]],
     optimizer: Optimizer,
+    accum_steps: int = 1,
 ) -> Callable[[Dict[str, Tensor]], Dict[str, Tensor]]:
-    """``train_step(batch) -> metrics``: one forward, one backward, one
-    optimizer step. ``loss_fn(batch, step) -> (loss, metrics)``.
+    """``train_step(batch) -> metrics``: one forward and one backward a
+    micro-batch, one optimizer step. ``loss_fn(batch, step) -> (loss,
+    metrics)``.
+
+    With ``accum_steps > 1`` the batch is cut into contiguous micro-batches
+    (``accum_steps / ranks`` a rank), each with its own normalisers; every
+    micro-batch of a step gets the same ``step``, so a loss that draws from
+    it draws the same noise for each (R15, as the reference's
+    ``fold_in(key, step)``). Losses, metrics and gradients are summed over
+    the micro-batches and scaled by one over their count, then the step
+    goes on as for one batch: the guard and the clip read the averages,
+    and the schedule counts optimizer steps.
 
     A step whose loss or gradient norm is NaN or Inf changes neither the
-    parameters nor the optimizer's state, and its metrics carry ``skipped_nonfinite``
-    = 1 (0 otherwise). The guard reads both scalars on the host, one sync a
-    step; the reference selects on the device instead.
+    parameters, the optimizer's state nor the EMA, and its metrics carry
+    ``skipped_nonfinite`` = 1 (0 otherwise). The guard reads both scalars on
+    the host, one sync a step; the reference selects on the device instead.
+    After an applied step ``optimizer.ema`` (if any) takes the new
+    parameters.
 
     In a group of more than one rank, ``batch`` is the rank's shard and the
     step is the global batch's (module docstring): the loss and every
@@ -170,18 +297,36 @@ def make_train_step(
     from the global loss and the global gradient norm, the same on every
     rank."""
     ranks = world_size()
+    micro = micro_batches_per_rank(accum_steps, ranks)
 
     def forward(batch: Dict[str, Tensor]):
         if optimizer.fsdp_root is not None:
             return optimizer.fsdp_root(loss_fn, batch, optimizer.steps)
         return loss_fn(batch, step=optimizer.steps)
 
+    def accumulate(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """Every micro-batch's forward and backward; the averages."""
+        sums: Dict[str, Tensor] = {}
+        scope = rank_local() if accum_steps > 1 else contextlib.nullcontext()
+        with scope:
+            for part in split_batch(batch, micro) if micro > 1 else [batch]:
+                loss, metrics = forward(part)
+                loss.backward()
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                metrics["loss"] = loss.detach()
+                for k, v in metrics.items():
+                    sums[k] = sums[k] + v if k in sums else v
+        if micro > 1:
+            inv = 1.0 / micro
+            sums = {k: v * inv for k, v in sums.items()}
+            grads = [local_tensor(p.grad) for p in optimizer.params if p.grad is not None]
+            if grads:
+                torch._foreach_mul_(grads, inv)
+        return sums
+
     def train_step(batch: Dict[str, Tensor]) -> Dict[str, Tensor]:
         optimizer.zero_grad()
-        loss, metrics = forward(batch)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["loss"] = loss.detach()
+        metrics = accumulate(batch)
         if ranks > 1:
             optimizer.reduce_gradients()
             names = sorted(metrics)
@@ -192,6 +337,8 @@ def make_train_step(
         ok = bool(torch.isfinite(loss) & torch.isfinite(grad_norm))
         if ok:
             optimizer.apply(grad_norm)
+            if optimizer.ema is not None:
+                optimizer.ema.update(optimizer.steps)
         optimizer.zero_grad()
         optimizer.steps += 1
         metrics["skipped_nonfinite"] = torch.tensor(0.0 if ok else 1.0)

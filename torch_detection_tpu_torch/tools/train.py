@@ -19,10 +19,14 @@ initialises the model from a torchvision or mmdetection ``.pth``
 ``backbone.`` keys loads as a whole detector, one without them as the
 backbone. Validation in training reports the mask metrics too under
 ``runtime.val_segm``, and VOC2007's AP instead of COCO's under
-``runtime.val_voc_metric``. ``--profile-dir`` writes a ``torch.profiler``
+``runtime.val_voc_metric``. ``runtime.ema_decay`` keeps an EMA of the
+parameters, which validation scores and the checkpoints carry;
+``runtime.accum_steps`` averages that many micro-batches of each batch a
+step; ``schedule.policy="cosine"`` (with ``min_lr_ratio``) anneals over
+``schedule.total_epochs``. ``--profile-dir`` writes a ``torch.profiler``
 Chrome trace of the first epoch run to ``DIR/trace.json``. Runs on ``cuda``
-unless ``--device cpu``. Knobs the port does not do yet raise
-``NotImplementedError``.
+unless ``--device cpu``. Tensor parallelism (``runtime.mesh.model > 1``)
+raises ``NotImplementedError``.
 
 Launched by torchrun with N processes, each rank joins the group
 (``parallel.init_distributed``: ``nccl`` on ``cuda:LOCAL_RANK``, ``gloo``
@@ -55,16 +59,10 @@ from ..utils.config import Config
 
 def refuse_unported(cfg) -> None:
     """Raise ``NotImplementedError`` naming a training knob the port does
-    not do yet."""
+    not do yet: tensor parallelism (``runtime.mesh.model > 1``)."""
     runtime = cfg.get("runtime", {})
-    knobs = {
-        "ema_decay": runtime.get("ema_decay") is not None,
-        "accum_steps > 1": int(runtime.get("accum_steps", 1) or 1) > 1,
-        "mesh model > 1 (tensor parallelism)": int(runtime.get("mesh", {}).get("model", 1)) > 1,
-    }
-    for knob, asked in knobs.items():
-        if asked:
-            raise NotImplementedError(f"{knob} is not ported yet")
+    if int(runtime.get("mesh", {}).get("model", 1)) > 1:
+        raise NotImplementedError("mesh model > 1 (tensor parallelism) is not ported yet")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
@@ -150,6 +148,8 @@ def _train(args, cfg, runtime, work_dir: str, total_epochs: int, dist_info) -> T
         checkpoint_interval_steps=runtime.get("checkpoint_interval_steps"),
         handle_preemption=bool(runtime.get("handle_preemption", True)),
         profile_dir=args.profile_dir,
+        ema_decay=runtime.get("ema_decay"),
+        accum_steps=int(runtime.get("accum_steps", 1) or 1),
     )
     resume = args.resume
     if args.auto_resume and not resume:
@@ -158,7 +158,7 @@ def _train(args, cfg, runtime, work_dir: str, total_epochs: int, dist_info) -> T
             logging.info("auto-resume found %s", resume)
     start_epoch = skip_batches = 0
     if resume:
-        # the model's and the optimizer's state by name, the step counts with them
+        # the model's and the optimizer's state by name, the step counts and the EMA with them
         meta = load_checkpoint(model, resume, strict=True, optimizer=optimizer)
         start_epoch = int(meta.get("epoch", 0))
         # a mid-epoch checkpoint carries its batch position; those batches are not decoded
