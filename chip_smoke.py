@@ -321,7 +321,8 @@ Phases, each fatal on failure:
    ``png_encode``), scored by ``evaluate_detector(segm=True)`` against the
    reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3); its
    checkpoint and two ``tools.test`` configs (bf16, float32) are kept for
-   phase 48;
+   phase 48; it runs in this process while phase 50's six spawned
+   processes train;
 43. RetinaNet MobileNetV2-FPN, ShuffleNetV2-FPN and PAFPN-R50
    (configs/retinanet_{mobilenetv2_fpn,shufflenetv2_fpn,pafpn_r50}_coco.py,
    unchanged; ``cls_out``'s bias at 0 for serving) after Soft-NMS: served
@@ -404,7 +405,29 @@ Phases, each fatal on failure:
    with ``gt_max_assign_all=False`` and ignore regions, the card's
    assignment equal to the CPU's; ``tools.visualize`` on 4 committed JPEGs
    and ``--segm`` on 4 more with phase 27's Mask R-CNN, each PNG at its
-   image's size (K1 once an image, twice with masks; K2 never).
+   image's size (K1 once an image, twice with masks; K2 never);
+50. the golden RoI families: the reference's narrow Faster, Fast (on the
+   reference's jittered-gt proposals, a pkl), Cascade, Cascade Mask, Mask
+   and Sparse R-CNN (ResNet-18) of tests/test_golden_map.py, each trained
+   300-400 steps of b4 on the squares set in float32 in its own spawned
+   process on the card, then scored by ``evaluate_detector`` against the
+   reference's band (mAP_50 and mAP at least 0.5 and 0.3, segm_mAP_50 0.3
+   with masks; Sparse R-CNN 0.25 and 0.12); K1/K2/matcher 1/1/0, 1/1/0,
+   3/3/0, 6/6/0, 2/2/0 and 2/2/1 a step, all at out 7, K1 as each family's
+   served batch (1, 1, 3, 4, 2, 2) and K2 never in the evaluation; a score
+   under its band fails the run once phases 47 and 48 have run;
+51. config formats, right after phase 49, on its options config and
+   ``work_options/epoch_2``: the options config written by the port's
+   ``Config.dump`` to json and yaml reads back to the ``.py`` file's tree;
+   ``tools.train`` for one epoch (float32, ``accum_steps`` 1) from a
+   ``.py``, a json child of the ``.py`` and, where PyYAML is present, a
+   yaml child of the json dump: K1 and K2 once a step, every loss finite,
+   each first loss within 1e-6 relative of the ``.py`` run's, the later
+   ones beside a second run of the ``.py`` config's; then
+   ``tools.test`` on ``epoch_2`` from each: the same detections and
+   metrics (bit for bit, or every detection partnered and the metrics
+   within 1e-6). Without PyYAML a yaml config must raise the named
+   ``ImportError``.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -431,6 +454,7 @@ import subprocess
 import sys
 import time
 import unittest.mock
+import warnings
 import zlib
 from pathlib import Path
 
@@ -625,11 +649,13 @@ from torch_detection_tpu_torch.tools import export as export_cli
 from torch_detection_tpu_torch.tools import test as test_cli
 from torch_detection_tpu_torch.tools import train as train_cli
 from torch_detection_tpu_torch.tools import visualize as visualize_cli
-from torch_detection_tpu_torch.utils.config import Config
-from torch_detection_tpu_torch.utils.file_handler import load
+from torch_detection_tpu_torch.utils.config import Config, _to_plain
+from torch_detection_tpu_torch.utils.file_handler import dump, load
 from torch_detection_tpu_torch.utils.registry import BACKBONES, DETECTORS
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "tests"))
+import torch_golden_cases as golden_cases  # noqa: E402  the golden RoI cases, defined once
 CONFIG = ROOT / "configs" / "faster_rcnn_r50_fpn_coco.py"
 MASK_CONFIG = ROOT / "configs" / "mask_rcnn_r50_fpn_coco.py"
 RETINA_CONFIG = ROOT / "configs" / "retinanet_r50_fpn_coco.py"
@@ -4657,6 +4683,127 @@ def phase_cli_options(card: str) -> dict:
                 visualize_segm=vis_segm["launches"])
 
 
+def yaml_present() -> bool:
+    """Whether PyYAML imports here."""
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def format_children(options: Path, dumps: dict) -> dict:
+    """One epoch's config in each format over the options config: float32,
+    ``accum_steps`` 1, no validation, its own work dir. The ``.py`` and json
+    children take the options ``.py`` file as ``_base_``; the yaml child,
+    where PyYAML is present, takes the options json dump."""
+    def runtime(fmt: str) -> dict:
+        return dict(compute_dtype="float32", accum_steps=1, val_interval_epochs=0,
+                    work_dir=str(SMOKE_COCO / f"work_formats_{fmt}"))
+
+    children = {"py": SMOKE_COCO / "faster_rcnn_r50_fpn_formats.py",
+                "json": SMOKE_COCO / "faster_rcnn_r50_fpn_formats.json"}
+    children["py"].write_text(f"_base_ = {str(options)!r}\nruntime = {runtime('py')!r}\n")
+    dump({"_base_": str(options), "runtime": runtime("json")}, str(children["json"]))
+    if "yaml" in dumps:
+        children["yaml"] = SMOKE_COCO / "faster_rcnn_r50_fpn_formats.yaml"
+        dump({"_base_": str(dumps["json"]), "runtime": runtime("yaml")}, str(children["yaml"]))
+    return children
+
+
+def phase_cli_config_formats(card: str) -> dict:
+    """Full-width Faster R-CNN R50-FPN through the CLIs from json and yaml
+    configs (module docstring, phase 51), on phase 49's options config and
+    its ``work_options/epoch_2``."""
+    t_phase = time.perf_counter()
+    options = SMOKE_COCO / "faster_rcnn_r50_fpn_options.py"
+    cfg = Config.fromfile(options)
+    have_yaml = yaml_present()
+    dumps = {}
+    for fmt in ("json", "yaml"):
+        path = SMOKE_COCO / f"faster_rcnn_r50_fpn_options.{fmt}"
+        if fmt == "yaml" and not have_yaml:
+            path.write_text("a: 1\n")
+            try:
+                Config.fromfile(path)
+            except ImportError as e:
+                if "PyYAML" not in str(e) or path.name not in str(e):
+                    raise
+                log(f"cli formats: PyYAML does not import; Config.fromfile of a yaml "
+                    f"file raises the named ImportError: {e}")
+                continue
+            raise AssertionError("a yaml config loaded without PyYAML")
+        cfg.dump(path)
+        if _to_plain(Config.fromfile(path)) != _to_plain(cfg):
+            raise AssertionError(f"cli formats: the {fmt} dump of the options config reads back "
+                                 "to another tree")
+        dumps[fmt] = path
+    log(f"cli formats: PyYAML {'present' if have_yaml else 'absent'}; the options config "
+        f"dumped to {sorted(dumps)} reads back to the .py file's tree as plain dicts")
+
+    # one epoch of tools.train from each format's child config, and from the
+    # .py one again: its later losses against the first .py run's are the
+    # card's own run-to-run spread, beside which the formats' are read
+    children = format_children(options, dumps)
+    trained = {}
+    for fmt, path in [*children.items(), ("py again", children["py"])]:
+        again = ["--work-dir", str(SMOKE_COCO / "work_formats_py_again")] if " " in fmt else []
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = train_cli.main([str(path), "--epochs", "1", *again])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        steps = len(trainer.dataloader)
+        expect_launches(f"cli formats training from {fmt}", launches, steps, steps)
+        losses = [r["loss"] for r in trainer.history if "loss" in r]
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"cli formats training from {fmt}: losses {losses}")
+        trained[fmt] = dict(launches=launches, losses=losses, wall=wall, steps=steps)
+        del trainer
+    want = trained["py"]["losses"]
+    gaps = {fmt: abs(t["losses"][0] - want[0]) / abs(want[0]) for fmt, t in trained.items()}
+    for fmt, t in trained.items():
+        later = max(abs(g - w) / abs(w) for g, w in zip(t["losses"][1:], want[1:]))
+        log(f"cli formats training from the {fmt} config [{card}]: {t['steps']} steps of b"
+            f"{cfg['data']['sample_per_replica']} in {t['wall']:.1f} s (the build and checkpoint "
+            f"included), float32, launches {t['launches']} (K1 and K2 once a step); losses "
+            f"{[round(v, 6) for v in t['losses']]}; first loss {gaps[fmt]:.1e} relative from the "
+            f".py run's (limit 1e-6), later losses up to {later:.1e}")
+    if not all(gap <= 1e-6 for gap in gaps.values()):
+        raise AssertionError(f"cli formats: first losses part from the .py run's: {gaps}")
+
+    # tools.test on epoch_2 of the options run from each format, float32
+    checkpoint = SMOKE_COCO / "work_options" / f"epoch_{OPTIONS_EPOCHS}"
+    tested = {}
+    for fmt, path in children.items():
+        out = SMOKE_COCO / f"results_formats_{fmt}.json"
+        reset_launches()
+        metrics = test_cli.main([str(path), str(checkpoint), "--out", str(out)])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        expect_launches(f"cli formats test from {fmt}", launches, -(-CLI_VAL_IMAGES // 8), 0)
+        tested[fmt] = dict(metrics=metrics, results=load(str(out)), launches=launches)
+    want = tested["py"]
+    for fmt, t in tested.items():
+        same = t["results"] == want["results"] and t["metrics"] == want["metrics"]
+        metric_gap = max(abs(t["metrics"][k] - want["metrics"][k]) for k in want["metrics"])
+        kept, found = match_detections(t["results"], want["results"])
+        log(f"cli formats test from {children[fmt].name} [{card}]: {len(t['results'])} "
+            f"detections, launches {t['launches']}; "
+            + ("detections and metrics bit for bit the .py run's" if same else
+               f"{kept:.4f} of its detections have a partner in the .py run's and {found:.4f} "
+               f"the other way (boxes within 1 px, scores within 2%), the 12 metrics within "
+               f"{metric_gap:.2e}")
+            + f"; mAP {t['metrics']['mAP']:.6f}")
+        if not (same or (kept == 1.0 and found == 1.0 and metric_gap <= 1e-6)):
+            raise AssertionError(f"cli formats: tools.test from {fmt} gives other detections")
+    log(f"cli formats phase: {time.perf_counter() - t_phase:.1f} s")
+    trained = {fmt.replace(" ", "_"): t for fmt, t in trained.items()}
+    return dict(yaml=have_yaml, **{f"training_{fmt}": t["launches"] for fmt, t in trained.items()},
+                **{f"test_{fmt}": t["launches"] for fmt, t in tested.items()})
+
+
 def class_specific_build(device):
     """The slice's detector with a class-specific box head, float32, in
     train mode, its weights not drawn (``load_state_dict(assign=True)``
@@ -6660,7 +6807,8 @@ SMOKE_COCO_SOLOV2 = ROOT / "build" / "smoke_coco_solov2"
 SOLOV2_CLI_EPOCHS = 2
 SOFT_ULPS = 8  # float32 ulps between the devices' sigmoids and decayed scores (an exp each)
 GOLDEN_COCO = ROOT / "build" / "golden_coco"
-GOLDEN_CANVAS, GOLDEN_STEPS, GOLDEN_BATCH = (64, 64), 400, 4
+GOLDEN_PROPOSALS = GOLDEN_COCO / "golden_props.pkl"
+GOLDEN_CANVAS, GOLDEN_STEPS, GOLDEN_BATCH = golden_cases.CANVAS, 400, 4
 GOLDEN_BAND = {"segm_mAP_50": 0.3, "mAP_50": 0.3}  # tests/test_golden_map.py's SOLOv2 band
 GOLDEN_SOLOV2_MODEL = dict(
     type="SOLOV2",
@@ -7339,64 +7487,198 @@ def write_golden_coco(root: Path, n_images: int = 8, size: int = 64, seed: int =
     return ann_file, img_dir
 
 
-def phase_golden_solov2(card: str) -> dict:
-    """The golden SOLOv2 (``tests/test_golden_map.py::test_golden_map_solov2``
-    and ``tests/test_torch_golden_map.py``): the narrow model trained on the
-    card for 400 steps of b4 through the port's data tier (the loader at
-    seed 3, ``max_gts`` 4, the 64 x 64 canvas) with AdamW at lr 1e-3 and
-    weight decay 0 (the reference's ``optax.adam``), float32, then scored by
-    ``evaluate_detector(segm=True)`` on the val split; the scores must meet
-    the reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3)."""
+def write_golden_set() -> None:
+    """``GOLDEN_COCO`` written afresh: the squares set and the Fast R-CNN
+    proposals (``golden_cases.write_golden_proposals``)."""
     shutil.rmtree(GOLDEN_COCO, ignore_errors=True)
-    ann_file, img_dir = write_golden_coco(GOLDEN_COCO)
+    ann_file, _ = write_golden_coco(GOLDEN_COCO)
+    golden_cases.write_golden_proposals(ann_file, GOLDEN_PROPOSALS)
 
-    def data(train: bool) -> dict:
-        return dict(type="CocoDataset", ann_file=str(ann_file), img_prefix=str(img_dir),
-                    img_means=(0, 0, 0), img_stds=(1, 1, 1), img_expected_sizes=GOLDEN_CANVAS,
-                    size_divisor=32, flip_ratio=0.0, test_mode=not train, with_mask=True)
 
-    det_cfg = build_detection_cfg(GOLDEN_SOLOV2_DETECTION)
-    loader = build_dataloader(get_datasets(data(True)), sample_per_replica=GOLDEN_BATCH, seed=3,
-                              max_gts=4, canvas=GOLDEN_CANVAS, prefetch=0)
-    model = build_detector(GOLDEN_SOLOV2_MODEL, "float32", device="cuda", seed=SEED).train()
-    optimizer = make_optimizer(model.parameters(), 1e-3, weight_decay=0.0, kind="adamw")
-    step = make_train_step(build_loss_fn(model, det_cfg, rng_seed=SEED), optimizer)
+def golden_data(train: bool, with_mask: bool, segm: bool, proposals: bool) -> dict:
+    """``golden_cases.data_cfg`` on ``GOLDEN_COCO``: masks read in training
+    with ``with_mask``, in validation with ``segm``; 16 proposals an image
+    from ``GOLDEN_PROPOSALS`` with ``proposals``."""
+    cfg = golden_cases.data_cfg((str(GOLDEN_COCO / "golden.json"), str(GOLDEN_COCO / "images")),
+                                train, with_mask,
+                                str(GOLDEN_PROPOSALS) if proposals else None)
+    if not train:
+        cfg["with_mask"] = segm
+    return cfg
+
+
+def golden_train_eval(model_cfg: dict, det_cfg, steps: int, lr: float = 1e-3,
+                      with_mask: bool = False, segm: bool = False,
+                      proposals: bool = False, seed: int = SEED) -> dict:
+    """The golden harness on the card (``tests/test_torch_golden_map.py::
+    train_and_eval``): ``steps`` steps of b4 in float32 from the init of
+    ``seed`` on ``GOLDEN_COCO``
+    through the port's data tier (the loader at seed 3, ``max_gts`` 4, the
+    64 x 64 canvas, ``max_proposals`` 16 with proposals) with AdamW at
+    ``lr`` and weight decay 0 (the reference's ``optax.adam``), then
+    ``evaluate_detector`` on the val split; the launches of each part and
+    K1's and K2's training launches by output size."""
+    loader = build_dataloader(get_datasets(golden_data(True, with_mask, segm, proposals)),
+                              sample_per_replica=GOLDEN_BATCH, seed=3, max_gts=4,
+                              canvas=GOLDEN_CANVAS, prefetch=0,
+                              max_proposals=16 if proposals else None)
+    model = build_detector(model_cfg, "float32", device="cuda", seed=seed).train()
+    optimizer = make_optimizer(model.parameters(), lr, weight_decay=0.0, kind="adamw")
+    step = make_train_step(build_loss_fn(model, det_cfg, rng_seed=seed), optimizer)
     losses, epoch = [], 0
     reset_launches()
     t0 = time.perf_counter()
-    while len(losses) < GOLDEN_STEPS:
-        loader.set_epoch(epoch)
-        epoch += 1
-        for b in prefetch_to_device(iter(loader), device="cuda"):
-            losses.append(step(b)["loss"])
-            if len(losses) >= GOLDEN_STEPS:
-                break
-    losses = [float(x) for x in losses]
+    with launches_by_out_size() as sizes:
+        while len(losses) < steps:
+            loader.set_epoch(epoch)
+            epoch += 1
+            for b in prefetch_to_device(iter(loader), device="cuda"):
+                losses.append(step(b)["loss"])
+                if len(losses) >= steps:
+                    break
+        losses = [float(x) for x in losses]
     train_s = time.perf_counter() - t0
     launches = read_launches()
-    expect_launches("golden solov2", launches, 0, 0)
     if not (math.isfinite(losses[-1]) and losses[-1] < losses[0]):
-        raise AssertionError(f"golden solov2: loss {losses[0]} -> {losses[-1]}")
+        raise AssertionError(f"golden training: loss {losses[0]} -> {losses[-1]}")
     model.eval()
+    reset_launches()
     t0 = time.perf_counter()
-    res = evaluate_detector(model, det_cfg, get_datasets(data(False)), batch=GOLDEN_BATCH,
-                            canvas=GOLDEN_CANVAS, segm=True)
-    log(f"golden solov2 [{card}]: {GOLDEN_STEPS} steps of b{GOLDEN_BATCH} in {train_s:.1f} s, loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}; evaluated in "
-        f"{time.perf_counter() - t0:.1f} s: "
+    res = evaluate_detector(model, det_cfg,
+                            get_datasets(golden_data(False, with_mask, segm, proposals)),
+                            batch=GOLDEN_BATCH, canvas=GOLDEN_CANVAS, segm=segm)
+    torch.cuda.synchronize()
+    return dict(model=model, res=res, first=losses[0], last=losses[-1], train_s=train_s,
+                eval_s=time.perf_counter() - t0, launches=launches,
+                eval_launches=read_launches(),
+                sizes={k: dict(sorted(v.items())) for k, v in sizes.items()})
+
+
+def phase_golden_solov2(card: str) -> dict:
+    """The golden SOLOv2 (``tests/test_golden_map.py::test_golden_map_solov2``
+    and ``tests/test_torch_golden_map.py``): ``golden_train_eval`` of the
+    narrow model for 400 steps at lr 1e-3 with masks, on ``write_golden_set``'s
+    files, scored with the mask metrics; the scores must meet the
+    reference's band (``segm_mAP_50`` and ``mAP_50`` at least 0.3)."""
+    det_cfg = build_detection_cfg(GOLDEN_SOLOV2_DETECTION)
+    run = golden_train_eval(GOLDEN_SOLOV2_MODEL, det_cfg, GOLDEN_STEPS, with_mask=True, segm=True)
+    model, res, launches = run["model"], run["res"], run["launches"]
+    expect_launches("golden solov2", launches, 0, 0)
+    log(f"golden solov2 [{card}]: {GOLDEN_STEPS} steps of b{GOLDEN_BATCH} in {run['train_s']:.1f} "
+        f"s, loss {run['first']:.4f} -> {run['last']:.4f}, launches {launches}; evaluated in "
+        f"{run['eval_s']:.1f} s: "
         + ", ".join(f"{k} {res[k]:.4f} (band >= {v})" for k, v in GOLDEN_BAND.items())
         + f"; box mAP {res['mAP']:.4f}, segm mAP {res['segm_mAP']:.4f}")
     for k, v in GOLDEN_BAND.items():
         if not res[k] >= v:
             raise AssertionError(f"golden solov2: {k} {res[k]} under the reference's band {v}")
     save_checkpoint(str(GOLDEN_COCO / "ckpt"), model, meta={"step": GOLDEN_STEPS})
-    val = data(False)
+    val = golden_data(False, True, True, False)
     for dtype, name in (("bfloat16", "bf16"), ("float32", "f32")):  # configs for tools.test
         (GOLDEN_COCO / f"golden_solov2_{name}.py").write_text(
             f"model = {GOLDEN_SOLOV2_MODEL!r}\ndetection = {GOLDEN_SOLOV2_DETECTION!r}\n"
             f"data = dict(val={val!r}, canvas={GOLDEN_CANVAS!r})\n"
             f"runtime = dict(compute_dtype={dtype!r})\n")
     return dict(launches=launches, **{k: res[k] for k in GOLDEN_BAND})
+
+
+# K1, K2 and the matcher a training step, and K1 a served batch, of each
+# golden RoI family of ``golden_cases.GOLDEN_ROI``
+GOLDEN_ROI_LAUNCHES = {"faster_rcnn": ((1, 1, 0), 1), "fast_rcnn": ((1, 1, 0), 1),
+                       "cascade_rcnn": ((3, 3, 0), 3), "cascade_mask_rcnn": ((6, 6, 0), 4),
+                       "mask_rcnn": ((2, 2, 0), 2), "sparse_rcnn": ((2, 2, 1), 2)}
+
+
+def golden_roi_case(name: str) -> tuple:
+    """Golden RoI family ``name`` (``golden_cases``: the reference's
+    tests/test_golden_map.py:266-495 and :656-677): its model dict, detection
+    config, steps, ``golden_train_eval`` keywords and band."""
+    steps, kw, band = golden_cases.GOLDEN_ROI[name]
+    return (golden_cases.GOLDEN_MODELS[name], golden_cases.golden_detection_cfg(name), steps,
+            dict(kw), band)
+
+
+def golden_roi_worker(task: tuple) -> dict:
+    """Golden RoI family ``name`` from the init of ``seed`` (``task``) on the
+    card, in a worker process, with deterministic algorithms (cuDNN's and
+    cuBLAS's, the deterministic scatter and index kernels), so that a
+    family's score is the same every run as the reference's XLA runs are;
+    the operators that have no deterministic CUDA form are returned by
+    name."""
+    name, seed = task
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # before the first cuBLAS call
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.set_num_threads(1)
+    model_cfg, det_cfg, steps, kw, _ = golden_roi_case(name)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run = golden_train_eval(model_cfg, det_cfg, steps, seed=seed, **kw)
+    del run["model"]
+    loose = sorted({str(w.message).split(" does not have a deterministic")[0] for w in caught
+                    if "does not have a deterministic" in str(w.message)})
+    return dict(name=name, seed=seed, nondeterministic=loose, **run)
+
+
+def phase_golden_roi(card: str, alongside=None) -> dict:
+    """The six golden RoI families (``golden_roi_case``), each trained and
+    scored by ``golden_train_eval`` from each of its init seeds
+    (``golden_cases.golden_seeds``: Sparse R-CNN's 0-7, the others' 0) in
+    six spawned processes on the card, the longest runs first, while
+    ``alongside()`` runs in this one; then each run's launches: K1, K2 and
+    the matcher as a training step and a served batch take them, by step
+    and batch, K1 and K2 at out 7 only (``GOLDEN_ROI_LAUNCHES``); and each
+    family's scores, the mean over its seeds, against the reference's band.
+    Raises on a launch count; a mean under its band is returned in
+    ``under``, on which ``main`` raises once phases 47 and 48 have run on
+    the SOLOv2 trained alongside."""
+    t_phase = time.perf_counter()
+    write_golden_set()
+    order = ("cascade_mask_rcnn", "cascade_rcnn", "mask_rcnn", "sparse_rcnn", "faster_rcnn",
+             "fast_rcnn")
+    tasks = [(name, seed) for name in order for seed in golden_cases.golden_seeds(name)]
+    with multiprocessing.get_context("spawn").Pool(len(order)) as pool:
+        pending = pool.map_async(golden_roi_worker, tasks, chunksize=1)
+        side = alongside() if alongside is not None else None
+        runs = pending.get(timeout=900)
+    val_batches = -(-len(json.loads((GOLDEN_COCO / "golden.json").read_text())["images"])
+                    // GOLDEN_BATCH)
+    paths, under = {}, []
+    for name in order:
+        _, _, steps, _, band = golden_roi_case(name)
+        (k1, k2, matcher), k1_batch = GOLDEN_ROI_LAUNCHES[name]
+        mine = [run for run in runs if run["name"] == name]
+        for run in mine:
+            res = run["res"]
+            log(f"golden {name} seed {run['seed']} [{card}]: {steps} steps of b{GOLDEN_BATCH} in "
+                f"{run['train_s']:.1f} s, loss {run['first']:.4f} -> {run['last']:.4f}; evaluated "
+                f"in {run['eval_s']:.1f} s: " + ", ".join(f"{k} {res[k]:.4f}" for k in band)
+                + f"; launches in training {run['launches']} ({k1}/{k2}/{matcher} a step "
+                f"expected), K1/K2 by out size {run['sizes']}, in evaluation "
+                f"{run['eval_launches']} ({k1_batch} a batch of {val_batches} expected); "
+                f"operators without a deterministic CUDA form: "
+                f"{run['nondeterministic'] or 'none'}")
+            what = f"golden {name} seed {run['seed']}"
+            expect_launches(f"{what} training", run["launches"], k1 * steps, k2 * steps,
+                            matcher * steps)
+            expect_launches(f"{what} evaluation", run["eval_launches"], k1_batch * val_batches, 0)
+            if set(run["sizes"]["k1"]) != {OUT_SIZE} or set(run["sizes"]["k2"]) != {OUT_SIZE}:
+                raise AssertionError(f"{what}: K1 or K2 launched at another out size than 7")
+        mean = golden_cases.mean_scores([run["res"] for run in mine], band)
+        log(f"golden {name} [{card}]: the mean over init seeds "
+            f"{[run['seed'] for run in mine]}: "
+            + ", ".join(f"{k} {mean[k]:.4f} (band >= {v})" for k, v in band.items()))
+        under += [f"{name} {k} {mean[k]} (the mean over {len(mine)} init seeds) under the "
+                  f"reference's band {v}" for k, v in band.items() if not mean[k] >= v]
+        for path, part in (("training", "launches"), ("evaluation", "eval_launches")):
+            paths[f"golden_{name}_{path}"] = {k: sum(run[part][k] for run in mine)
+                                              for k in mine[0][part]}
+    log(f"golden RoI phase: {time.perf_counter() - t_phase:.1f} s for {len(runs)} runs of "
+        f"{len(order)} families in {len(order)} processes [{card}]")
+    return dict(paths=paths, alongside=side, under=under)
 
 
 # ---------------------------------------------------------------- the backbone zoo and PAFPN
@@ -8714,6 +8996,7 @@ def main() -> int:
     cli_profile = phase_cli_profile(card)
     cli_mask = phase_cli_mask(card)
     cli_options = phase_cli_options(card)
+    cli_formats = phase_cli_config_formats(card)
     cli_tta = phase_cli_tta(card)
     cli_voc = phase_cli_voc(card)
     cli_fast = phase_cli_fast(card, SMOKE_COCO / "work" / f"epoch_{CLI_EPOCHS}")
@@ -8722,9 +9005,12 @@ def main() -> int:
     cli_solov2 = phase_cli_solov2(card)
     cli_zoo = phase_cli_zoo(card)
     export = phase_export(card)
-    golden = phase_golden_solov2(card)
+    golden_roi = phase_golden_roi(card, alongside=functools.partial(phase_golden_solov2, card))
+    golden = golden_roi["alongside"]
     dp_step = phase_dp_step(card)
     cli_dp = phase_cli_dp(card)
+    if golden_roi["under"]:  # phase 50's verdict, after the phases that read its SOLOv2
+        raise AssertionError("golden RoI families: " + "; ".join(golden_roi["under"]))
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -8784,9 +9070,13 @@ def main() -> int:
                      **{f"cli_dp_{what}_{rank}": n for what in ("training", "test")
                         for rank, n in cli_dp[what].items()}}
     log(f"the data-parallel paths' launches of K1, K2 and the matcher, each rank's: {slice19_paths}")
+    slice21_paths = {**golden_roi["paths"],
+                     **{f"cli_formats_{k}": v for k, v in cli_formats.items() if k != "yaml"}}
+    log(f"the golden RoI families' and the config formats' launches of K1, K2 and the matcher: "
+        f"{slice21_paths}")
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
                    **dense_paths, **single_paths, **cli_paths, **slice15_paths, **slice16_paths,
-                   **slice18_paths, **slice19_paths, **slice20_paths}
+                   **slice18_paths, **slice19_paths, **slice20_paths, **slice21_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],

@@ -1,4 +1,4 @@
-"""The port and its chip scripts import no JAX, no flax and nothing of the JAX
+"""The port, its chip scripts and the golden cases they read import no JAX, no flax and nothing of the JAX
 package, not even its pure-Python modules, and no OpenCV: the card's machine
 has none, so the port decodes PNG and JPEG itself.
 
@@ -13,8 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "torch_detection_tpu", "cv2")
-SOURCES = sorted((ROOT / "torch_detection_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                                      ROOT / "conv_precision.py"]
+SOURCES = sorted((ROOT / "torch_detection_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "conv_precision.py", ROOT / "tests" / "torch_golden_cases.py"]
 
 
 def _imported_modules(path: Path):

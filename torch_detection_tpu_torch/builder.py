@@ -384,6 +384,24 @@ def build_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
     )
 
 
+def build_train_loader(cfg, dist: bool = False):
+    """The training loader of a full config tree: the ``train`` dataset,
+    grouped sampling (``dist``: the rank's shard), ``collate`` at the
+    canvas; ``workers_per_host`` threads decode the samples."""
+    data_cfg = cfg["data"]
+    return build_dataloader(
+        get_datasets(dict(data_cfg["train"])),
+        sample_per_replica=data_cfg.get("sample_per_replica", 2),
+        dist=dist,
+        max_gts=data_cfg.get("max_gts", 100),
+        canvas=tuple(data_cfg["canvas"]) if data_cfg.get("canvas") else None,
+        size_divisor=data_cfg["train"].get("size_divisor", 32) or 32,
+        workers=int(data_cfg.get("workers_per_host", 0)),
+        max_proposals=data_cfg.get("max_proposals"),
+        s2d=bool(cfg["model"].get("backbone", {}).get("stem_s2d", False)),
+    )
+
+
 def build_train_objects(
     cfg,
     device: Optional[Union[str, torch.device]] = None,
@@ -393,9 +411,9 @@ def build_train_objects(
     """(model, det_cfg, loader, optimizer) from a full config tree: the
     training build of the detector (float32 parameters, the runtime's
     compute dtype, train mode), the training loader of ``cfg['data']``
-    unless the caller passes one (any object with ``set_epoch``,
-    ``iter_batches`` and ``__len__``, such as ready batches), and the
-    config's optimizer (``type`` ``sgd``, the default, or
+    (``build_train_loader``) unless the caller passes one (any object with
+    ``set_epoch``, ``iter_batches`` and ``__len__``, such as ready
+    batches), and the config's optimizer (``type`` ``sgd``, the default, or
     ``adamw``) with its momentum, weight decay, clip and a schedule of
     ``len(loader)`` steps an epoch.
 
@@ -415,20 +433,7 @@ def build_train_objects(
     if runtime.get("fsdp") and ranks > 1:
         fsdp_root = shard_model(model, make_mesh(device_type=next(model.parameters()).device.type))
     if loader is None:
-        # the ``train`` dataset, grouped sampling, ``collate`` at the canvas;
-        # ``workers_per_host`` threads decode the samples
-        data_cfg = cfg["data"]
-        loader = build_dataloader(
-            get_datasets(dict(data_cfg["train"])),
-            sample_per_replica=data_cfg.get("sample_per_replica", 2),
-            dist=ranks > 1,
-            max_gts=data_cfg.get("max_gts", 100),
-            canvas=tuple(data_cfg["canvas"]) if data_cfg.get("canvas") else None,
-            size_divisor=data_cfg["train"].get("size_divisor", 32) or 32,
-            workers=int(data_cfg.get("workers_per_host", 0)),
-            max_proposals=data_cfg.get("max_proposals"),
-            s2d=bool(cfg["model"].get("backbone", {}).get("stem_s2d", False)),
-        )
+        loader = build_train_loader(cfg, dist=ranks > 1)
     opt_cfg = cfg.get("optimizer", {})
     optimizer = make_optimizer(
         model.parameters(),

@@ -16,7 +16,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..utils.file_handler import load
-from ..utils.misc import is_list_of, random_scale
+from ..utils.misc import expected_sizes, random_scale
 from .container import DataContainer
 from .ops.image import img_aspect_ratio_flag
 from .transforms import BackgroundErasing, BboxTransforms, ImageTransforms, MaskTransforms
@@ -64,11 +64,7 @@ class BaseDataset:
         self.img_infos = self.load_annotations(ann_file)
         self.img_prefix = img_prefix
         self.img_means, self.img_stds = img_means, img_stds
-        self.img_expected_sizes = (
-            img_expected_sizes if isinstance(img_expected_sizes, list) else [img_expected_sizes]
-        )
-        self.img_expected_sizes = [tuple(s) for s in self.img_expected_sizes]
-        assert is_list_of(self.img_expected_sizes, tuple)
+        self.img_expected_sizes = expected_sizes(img_expected_sizes)
         self.size_divisor = size_divisor
         self.flip_ratio = flip_ratio
         self.be_cell_size = be_cell_size

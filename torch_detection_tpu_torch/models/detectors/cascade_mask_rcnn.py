@@ -2,12 +2,13 @@
 
 Counterpart of ``torch_detection_tpu/models/detectors/cascade_mask_rcnn.py``.
 In training, stage t's mask head takes the positives-first prefix of stage
-t's box slate, the box sampler's positive cap an image (0.25 * 512 = 128):
-``sample_rois`` orders a slate by priority, so the prefix holds every
-positive, and it needs no assignment and no draw of its own. At inference
-the three mask heads run on the same final detections, through one RoIAlign
-at ``mask_roi_size``, and their sigmoid probabilities of the detected class
-are averaged. Both paths reuse the box path's one forward of the backbone.
+t's box slate, ``mask_num_rois`` an image or by default the box sampler's
+positive cap (0.25 * 512 = 128): ``sample_rois`` orders a slate by
+priority, so the prefix holds every positive, and it needs no assignment and
+no draw of its own. At inference the three mask heads run on the same final
+detections, through one RoIAlign at ``mask_roi_size``, and their sigmoid
+probabilities of the detected class are averaged. Both paths reuse the box
+path's one forward of the backbone.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ class CascadeMaskRCNNConfig(CascadeRCNNConfig):
     mask_size: int = 28  # the head outputs twice the roi feature size (14 -> 28)
     mask_roi_size: int = 14
     mask_loss_weight: float = 1.0
+    mask_num_rois: Optional[int] = None  # each stage's mask slate; None: the positive cap
 
 
 def cascade_mask_rcnn_loss(
@@ -66,7 +68,7 @@ def cascade_mask_rcnn_loss(
     mask_loss_weight``. ``batch`` adds ``gt_masks`` (B, G_mask, H, W) uint8,
     as for Mask R-CNN. ``noise`` is called as by ``cascade_rcnn_loss``."""
     losses, feats, slates = _cascade_rcnn_loss_core(cfg, model, batch, noise)
-    num = max(int(cfg.rcnn_num_samples * cfg.rcnn_pos_fraction), 1)
+    num = cfg.mask_num_rois or max(int(cfg.rcnn_num_samples * cfg.rcnn_pos_fraction), 1)
     total = losses["loss"]
     for t, slate in enumerate(slates):
         rois, matched = slate.rois[:, :num], slate.matched[:, :num]

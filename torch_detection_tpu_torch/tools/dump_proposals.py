@@ -36,11 +36,12 @@ from ..models.heads.rpn_head import generate_proposals
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.file_handler import dump
+from ..utils.misc import expected_sizes
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[np.ndarray]:
     parser = argparse.ArgumentParser(description="dump RPN proposals to a pkl")
-    parser.add_argument("config")
+    parser.add_argument("config", help="config (.py, .json, .yaml, .yml)")
     parser.add_argument("checkpoint", help="a checkpoint dir of the port or torch://w.pth")
     parser.add_argument("--split", choices=("train", "val"), default="val")
     parser.add_argument("--out", required=True, help="output .pkl path")
@@ -63,9 +64,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[np.ndarray]:
 
     # an unfiltered test-mode view of the split: single scale, no flip
     split_cfg = dict(cfg["data"][args.split])
-    sizes = split_cfg.get("img_expected_sizes")
-    if isinstance(sizes, list):
-        split_cfg["img_expected_sizes"] = sizes[0]
+    if "img_expected_sizes" in split_cfg:
+        split_cfg["img_expected_sizes"] = expected_sizes(split_cfg["img_expected_sizes"])[0]
     split_cfg["flip_ratio"] = 0
     split_cfg["test_mode"] = True
     split_cfg.pop("proposal_file", None)

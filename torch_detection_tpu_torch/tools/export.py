@@ -57,7 +57,7 @@ def check_inputs(batch: int, canvas, s2d_wire: bool, seed: int = 0):
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     parser = argparse.ArgumentParser(description="export a detector as a serving artifact")
-    parser.add_argument("config")
+    parser.add_argument("config", help="config (.py, .json, .yaml, .yml)")
     parser.add_argument("--checkpoint", default=None,
                         help="a checkpoint dir of the port, torch://w.pth or file://... "
                              "(default: seeded weights)")

@@ -44,11 +44,12 @@ from ..engine.validate import coco_detection_dump, coco_segm_dump, evaluate_dete
 from ..parallel.distributed import init_distributed, is_main, shutdown_distributed
 from ..utils.config import Config
 from ..utils.file_handler import dump
+from ..utils.misc import expected_sizes
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     parser = argparse.ArgumentParser(description="evaluate a detector")
-    parser.add_argument("config")
+    parser.add_argument("config", help="config (.py, .json, .yaml, .yml)")
     parser.add_argument("checkpoint", help="a checkpoint dir of the port or torch://w.pth")
     parser.add_argument("--tta", action="store_true", help="multi-scale x flip fusion")
     parser.add_argument("--batch", type=int, default=8,
@@ -86,9 +87,8 @@ def _test(args, device) -> Dict[str, float]:
 
     val_cfg = dict(cfg["data"]["val"])
     if not args.tta:
-        sizes = val_cfg.get("img_expected_sizes")
-        if isinstance(sizes, list):  # single-scale evaluation: the first size
-            val_cfg["img_expected_sizes"] = sizes[0]
+        if "img_expected_sizes" in val_cfg:  # single-scale evaluation: the first size
+            val_cfg["img_expected_sizes"] = expected_sizes(val_cfg["img_expected_sizes"])[0]
         val_cfg["flip_ratio"] = 0
     if args.segm:
         val_cfg["with_mask"] = True  # the gt masks of the mask-IoU metrics

@@ -55,6 +55,7 @@ from ..engine.trainer import Trainer
 from ..parallel.distributed import init_distributed, shutdown_distributed
 from ..parallel.mesh import full_tensor
 from ..utils.config import Config
+from ..utils.misc import expected_sizes
 
 
 def refuse_unported(cfg) -> None:
@@ -67,7 +68,7 @@ def refuse_unported(cfg) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     parser = argparse.ArgumentParser(description="train a detector")
-    parser.add_argument("config")
+    parser.add_argument("config", help="config (.py, .json, .yaml, .yml)")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--work-dir", default=None)
     parser.add_argument("--resume", default=None, help="checkpoint dir to resume from")
@@ -123,9 +124,8 @@ def _train(args, cfg, runtime, work_dir: str, total_epochs: int, dist_info) -> T
         from ..engine.validate import make_validation_hook
 
         val_cfg = dict(cfg["data"]["val"])
-        sizes = val_cfg.get("img_expected_sizes")
-        if isinstance(sizes, list):  # single-scale evaluation in training
-            val_cfg["img_expected_sizes"] = sizes[0]
+        if "img_expected_sizes" in val_cfg:  # single-scale evaluation in training
+            val_cfg["img_expected_sizes"] = expected_sizes(val_cfg["img_expected_sizes"])[0]
         val_cfg["flip_ratio"] = 0
         segm = bool(runtime.get("val_segm", False))
         if segm:

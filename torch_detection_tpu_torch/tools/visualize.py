@@ -33,12 +33,13 @@ from ..engine.validate import make_inference_fn
 from ..models.heads.mask_head import paste_masks_np
 from ..utils.config import Config
 from ..utils.device import resolve_device
+from ..utils.misc import expected_sizes
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     """Draw every image; returns the written files' paths."""
     parser = argparse.ArgumentParser(description="visualize detections")
-    parser.add_argument("config")
+    parser.add_argument("config", help="config (.py, .json, .yaml, .yml)")
     parser.add_argument("checkpoint", help="a checkpoint dir of the port or torch://w.pth")
     parser.add_argument("images", nargs="+")
     parser.add_argument("--out-dir", default="vis")
@@ -59,9 +60,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     train_cfg = cfg["data"]["train"]
     means = tuple(train_cfg.get("img_means", (123.675, 116.28, 103.53)))
     stds = tuple(train_cfg.get("img_stds", (58.395, 57.12, 57.375)))
-    sizes = train_cfg.get("img_expected_sizes", (1333, 800))
-    if isinstance(sizes, list):
-        sizes = sizes[0]
+    sizes = expected_sizes(train_cfg.get("img_expected_sizes", (1333, 800)))[0]
     canvas = tuple(cfg["data"].get("canvas") or (800, 1344))
     os.makedirs(args.out_dir, exist_ok=True)
 

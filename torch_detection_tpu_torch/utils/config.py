@@ -1,9 +1,12 @@
-"""Config: attribute-accessible dict tree loaded from a ``.py`` config file.
+"""Config: attribute-accessible dict tree loaded from a py, json, yaml or
+pkl config file.
 
-The port's own copy of ``torch_detection_tpu/utils/config.py``, cut to what
-loading ``configs/*.py`` needs: dotted attribute access, the ``_base_``
-inheritance chain and ``_delete_`` replacement. The config files are plain
-Python dicts and are shared with the JAX package.
+The port's own copy of ``torch_detection_tpu/utils/config.py``: dotted
+attribute access, the ``_base_`` inheritance chain (across formats) and
+``_delete_`` replacement, and ``Config.dump``. The ``.py`` config files are
+plain Python dicts and are shared with the JAX package; a json or yaml file
+holds lists where a ``.py`` file may hold tuples, and the port's readers of
+config values take either.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import importlib.util
 import sys
 from pathlib import Path
 from typing import Any, Dict
+
+from . import file_handler
 
 
 class ConfigDict(dict):
@@ -76,15 +81,15 @@ def merge_dicts(base: Dict, override: Dict) -> Dict:
 
 
 class Config(ConfigDict):
-    """Top-level config. ``Config.fromfile`` loads a ``.py`` file with its
-    ``_base_`` chain (str or list of str, relative to the file)."""
+    """Top-level config. ``Config.fromfile`` loads a ``.py`` file, or a
+    json, yaml, yml or pkl file through ``file_handler.load``, with its
+    ``_base_`` chain (str or list of str, each relative to the file and of
+    any of these formats)."""
 
     @classmethod
     def fromfile(cls, filename) -> "Config":
         path = Path(filename).expanduser().resolve()
-        if path.suffix != ".py":
-            raise ValueError(f"only .py config files are supported, got {path.name}")
-        raw = _load_py_config(path)
+        raw = _load_py_config(path) if path.suffix == ".py" else file_handler.load(path)
         bases = raw.pop("_base_", None)
         merged: Dict[str, Any] = {}
         if bases is not None:
@@ -94,3 +99,16 @@ class Config(ConfigDict):
                 merged = merge_dicts(merged, dict(cls.fromfile(path.parent / b)))
         merged = merge_dicts(merged, raw)
         return cls(_wrap(merged))
+
+    def dump(self, filepath) -> None:
+        """Write the config as plain dicts and lists (tuples become lists)
+        in the format of ``filepath``'s suffix: json, yaml, yml or pkl."""
+        file_handler.dump(_to_plain(self), filepath)
+
+
+def _to_plain(obj: Any) -> Any:
+    if isinstance(obj, dict):
+        return {k: _to_plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_plain(v) for v in obj]
+    return obj

@@ -2,7 +2,8 @@
 
 The port's own copy of ``torch_detection_tpu/utils/misc.py``: the type
 checks, ``to_array`` (the host's numpy currency; a batch crosses to the
-device once, in ``data/device.py``) and ``random_scale``.
+device once, in ``data/device.py``) and ``random_scale``; and
+``expected_sizes``, the one reader of a config's ``img_expected_sizes``.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import os
 import random
 from collections.abc import Sequence
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -44,6 +45,15 @@ def to_array(data, dtype=None) -> np.ndarray:
         except Exception as e:
             raise TypeError(f"cannot convert {type(data)} to array") from e
     return arr.astype(dtype) if dtype is not None else arr
+
+
+def expected_sizes(sizes) -> List[Tuple[int, int]]:
+    """``img_expected_sizes`` as a list of (long, short) tuples: one pair or
+    a list of pairs, tuples from a ``.py`` config or lists from a json or
+    yaml one."""
+    if not isinstance(sizes[0], (list, tuple)):
+        sizes = [sizes]
+    return [tuple(s) for s in sizes]
 
 
 def random_scale(img_expected_sizes, size_mode: str = "range", rng: random.Random = None) -> Tuple[int, int]:
