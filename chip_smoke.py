@@ -409,10 +409,11 @@ Phases, each fatal on failure:
 50. the golden RoI families: the reference's narrow Faster, Fast (on the
    reference's jittered-gt proposals, a pkl), Cascade, Cascade Mask, Mask
    and Sparse R-CNN (ResNet-18) of tests/test_golden_map.py, each trained
-   300-400 steps of b4 on the squares set in float32 in its own spawned
-   process on the card, then scored by ``evaluate_detector`` against the
-   reference's band (mAP_50 and mAP at least 0.5 and 0.3, segm_mAP_50 0.3
-   with masks; Sparse R-CNN 0.25 and 0.12); K1/K2/matcher 1/1/0, 1/1/0,
+   300-400 steps of b4 on the squares set in float32 in one of six spawned
+   processes on the card (shared with phase 52's runs), then scored by
+   ``evaluate_detector`` against the reference's band (mAP_50 and mAP at
+   least 0.5 and 0.3, segm_mAP_50 0.3 with masks; Sparse R-CNN 0.25 and
+   0.12); K1/K2/matcher 1/1/0, 1/1/0,
    3/3/0, 6/6/0, 2/2/0 and 2/2/1 a step, all at out 7, K1 as each family's
    served batch (1, 1, 3, 4, 2, 2) and K2 never in the evaluation; a score
    under its band fails the run once phases 47 and 48 have run;
@@ -427,7 +428,20 @@ Phases, each fatal on failure:
    ``tools.test`` on ``epoch_2`` from each: the same detections and
    metrics (bit for bit, or every detection partnered and the metrics
    within 1e-6). Without PyYAML a yaml config must raise the named
-   ``ImportError``.
+   ``ImportError``;
+52. the golden dense and set families, in phase 50's pool of six spawned
+   processes (``phase_golden``, the longest runs first): the reference's
+   narrow RetinaNet, FCOS, ATSS, YOLOv3, CenterNet, SSD, YOLOX, GFL,
+   FoveaBox, DETR, FreeAnchor and PAA of tests/test_golden_map.py
+   (``tests/torch_golden_cases.py``'s ``GOLDEN_DENSE``), each trained
+   200-400 steps of b4 on the squares set in float32 from each of its init
+   seeds, then scored by ``evaluate_detector``; each seed's scores and the
+   mean over the family's seeds printed beside the reference's band
+   (mAP_50 and mAP at least 0.5 and 0.15; YOLOX 0.5 and 0.3, GFL 0.8 and
+   0.5, DETR 0.4 and 0.2); K1 and K2 never launched, the matcher once a
+   DETR training step and never elsewhere; a launch count off raises at
+   once, a mean under its band fails the run with phase 50's, once phases
+   47 and 48 have run.
 
 The line before the last is the ``kernels`` JSON (launches by path; times
 and bounds at each path's shapes); the
@@ -655,7 +669,7 @@ from torch_detection_tpu_torch.utils.registry import BACKBONES, DETECTORS
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "tests"))
-import torch_golden_cases as golden_cases  # noqa: E402  the golden RoI cases, defined once
+import torch_golden_cases as golden_cases  # noqa: E402  the golden cases, defined once
 CONFIG = ROOT / "configs" / "faster_rcnn_r50_fpn_coco.py"
 MASK_CONFIG = ROOT / "configs" / "mask_rcnn_r50_fpn_coco.py"
 RETINA_CONFIG = ROOT / "configs" / "retinanet_r50_fpn_coco.py"
@@ -7583,23 +7597,32 @@ def phase_golden_solov2(card: str) -> dict:
 
 
 # K1, K2 and the matcher a training step, and K1 a served batch, of each
-# golden RoI family of ``golden_cases.GOLDEN_ROI``
-GOLDEN_ROI_LAUNCHES = {"faster_rcnn": ((1, 1, 0), 1), "fast_rcnn": ((1, 1, 0), 1),
-                       "cascade_rcnn": ((3, 3, 0), 3), "cascade_mask_rcnn": ((6, 6, 0), 4),
-                       "mask_rcnn": ((2, 2, 0), 2), "sparse_rcnn": ((2, 2, 1), 2)}
+# golden family of ``golden_cases.GOLDEN_CASES``: the dense families launch none, DETR
+# the matcher once a training step
+GOLDEN_LAUNCHES = {**{name: ((0, 0, 0), 0) for name in golden_cases.GOLDEN_DENSE},
+                   "detr": ((0, 0, 1), 0),
+                   "faster_rcnn": ((1, 1, 0), 1), "fast_rcnn": ((1, 1, 0), 1),
+                   "cascade_rcnn": ((3, 3, 0), 3), "cascade_mask_rcnn": ((6, 6, 0), 4),
+                   "mask_rcnn": ((2, 2, 0), 2), "sparse_rcnn": ((2, 2, 1), 2)}
+# the families in the order their runs start: the longest first (chip runs of
+# ``phase_golden``), so that the pool's last runs are short
+GOLDEN_ORDER = ("cascade_mask_rcnn", "cascade_rcnn", "mask_rcnn", "sparse_rcnn", "faster_rcnn",
+                "detr", "yolox", "centernet", "fast_rcnn", "free_anchor", "paa", "yolov3", "gfl",
+                "atss", "fcos", "retinanet", "foveabox", "ssd")
+GOLDEN_PROCESSES = 6
 
 
-def golden_roi_case(name: str) -> tuple:
-    """Golden RoI family ``name`` (``golden_cases``: the reference's
-    tests/test_golden_map.py:266-495 and :656-677): its model dict, detection
-    config, steps, ``golden_train_eval`` keywords and band."""
-    steps, kw, band = golden_cases.GOLDEN_ROI[name]
+def golden_case(name: str) -> tuple:
+    """Golden family ``name`` (``golden_cases``: the reference's
+    tests/test_golden_map.py:124-262 and :499-707): its model dict,
+    detection config, steps, ``golden_train_eval`` keywords and band."""
+    steps, kw, band = golden_cases.GOLDEN_CASES[name]
     return (golden_cases.GOLDEN_MODELS[name], golden_cases.golden_detection_cfg(name), steps,
             dict(kw), band)
 
 
-def golden_roi_worker(task: tuple) -> dict:
-    """Golden RoI family ``name`` from the init of ``seed`` (``task``) on the
+def golden_worker(task: tuple) -> dict:
+    """Golden family ``name`` from the init of ``seed`` (``task``) on the
     card, in a worker process, with deterministic algorithms (cuDNN's and
     cuBLAS's, the deterministic scatter and index kernels), so that a
     family's score is the same every run as the reference's XLA runs are;
@@ -7613,7 +7636,7 @@ def golden_roi_worker(task: tuple) -> dict:
     torch.backends.cudnn.deterministic = True
     torch.use_deterministic_algorithms(True, warn_only=True)
     torch.set_num_threads(1)
-    model_cfg, det_cfg, steps, kw, _ = golden_roi_case(name)
+    model_cfg, det_cfg, steps, kw, _ = golden_case(name)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         run = golden_train_eval(model_cfg, det_cfg, steps, seed=seed, **kw)
@@ -7623,39 +7646,38 @@ def golden_roi_worker(task: tuple) -> dict:
     return dict(name=name, seed=seed, nondeterministic=loose, **run)
 
 
-def phase_golden_roi(card: str, alongside=None) -> dict:
-    """The six golden RoI families (``golden_roi_case``), each trained and
-    scored by ``golden_train_eval`` from each of its init seeds
-    (``golden_cases.golden_seeds``: Sparse R-CNN's 0-7, the others' 0) in
-    six spawned processes on the card, the longest runs first, while
-    ``alongside()`` runs in this one; then each run's launches: K1, K2 and
-    the matcher as a training step and a served batch take them, by step
-    and batch, K1 and K2 at out 7 only (``GOLDEN_ROI_LAUNCHES``); and each
-    family's scores, the mean over its seeds, against the reference's band.
-    Raises on a launch count; a mean under its band is returned in
-    ``under``, on which ``main`` raises once phases 47 and 48 have run on
-    the SOLOv2 trained alongside."""
+def phase_golden(card: str, alongside=None) -> dict:
+    """Phases 50 and 52: the golden families of ``GOLDEN_ORDER``
+    (``golden_case``), each trained and scored by ``golden_train_eval`` from each of its init
+    seeds (``golden_cases.golden_seeds``) in ``GOLDEN_PROCESSES`` spawned
+    processes on the card, the longest runs first, while ``alongside()``
+    runs in this one; then each run's launches: K1, K2 and the matcher as a
+    training step and a served batch take them, by step and batch, K1 and K2
+    at out 7 only (``GOLDEN_LAUNCHES``); and each family's scores, the mean
+    over its seeds, against the reference's band. Raises on a launch count;
+    a mean under its band is returned in ``under``, on which ``main`` raises
+    once phases 47 and 48 have run on the SOLOv2 trained alongside."""
     t_phase = time.perf_counter()
     write_golden_set()
-    order = ("cascade_mask_rcnn", "cascade_rcnn", "mask_rcnn", "sparse_rcnn", "faster_rcnn",
-             "fast_rcnn")
-    tasks = [(name, seed) for name in order for seed in golden_cases.golden_seeds(name)]
-    with multiprocessing.get_context("spawn").Pool(len(order)) as pool:
-        pending = pool.map_async(golden_roi_worker, tasks, chunksize=1)
+    tasks = [(name, seed) for name in GOLDEN_ORDER
+             for seed in golden_cases.golden_seeds(name)]
+    with multiprocessing.get_context("spawn").Pool(GOLDEN_PROCESSES) as pool:
+        pending = pool.map_async(golden_worker, tasks, chunksize=1)
         side = alongside() if alongside is not None else None
         runs = pending.get(timeout=900)
     val_batches = -(-len(json.loads((GOLDEN_COCO / "golden.json").read_text())["images"])
                     // GOLDEN_BATCH)
     paths, under = {}, []
-    for name in order:
-        _, _, steps, _, band = golden_roi_case(name)
-        (k1, k2, matcher), k1_batch = GOLDEN_ROI_LAUNCHES[name]
+    for name in GOLDEN_ORDER:
+        _, _, steps, _, band = golden_case(name)
+        (k1, k2, matcher), k1_batch = GOLDEN_LAUNCHES[name]
         mine = [run for run in runs if run["name"] == name]
         for run in mine:
             res = run["res"]
             log(f"golden {name} seed {run['seed']} [{card}]: {steps} steps of b{GOLDEN_BATCH} in "
                 f"{run['train_s']:.1f} s, loss {run['first']:.4f} -> {run['last']:.4f}; evaluated "
-                f"in {run['eval_s']:.1f} s: " + ", ".join(f"{k} {res[k]:.4f}" for k in band)
+                f"in {run['eval_s']:.1f} s: "
+                + ", ".join(f"{k} {res[k]:.4f} (band >= {v})" for k, v in band.items())
                 + f"; launches in training {run['launches']} ({k1}/{k2}/{matcher} a step "
                 f"expected), K1/K2 by out size {run['sizes']}, in evaluation "
                 f"{run['eval_launches']} ({k1_batch} a batch of {val_batches} expected); "
@@ -7665,7 +7687,8 @@ def phase_golden_roi(card: str, alongside=None) -> dict:
             expect_launches(f"{what} training", run["launches"], k1 * steps, k2 * steps,
                             matcher * steps)
             expect_launches(f"{what} evaluation", run["eval_launches"], k1_batch * val_batches, 0)
-            if set(run["sizes"]["k1"]) != {OUT_SIZE} or set(run["sizes"]["k2"]) != {OUT_SIZE}:
+            if k1 and (set(run["sizes"]["k1"]) != {OUT_SIZE}
+                       or set(run["sizes"]["k2"]) != {OUT_SIZE}):
                 raise AssertionError(f"{what}: K1 or K2 launched at another out size than 7")
         mean = golden_cases.mean_scores([run["res"] for run in mine], band)
         log(f"golden {name} [{card}]: the mean over init seeds "
@@ -7676,8 +7699,8 @@ def phase_golden_roi(card: str, alongside=None) -> dict:
         for path, part in (("training", "launches"), ("evaluation", "eval_launches")):
             paths[f"golden_{name}_{path}"] = {k: sum(run[part][k] for run in mine)
                                               for k in mine[0][part]}
-    log(f"golden RoI phase: {time.perf_counter() - t_phase:.1f} s for {len(runs)} runs of "
-        f"{len(order)} families in {len(order)} processes [{card}]")
+    log(f"golden phase: {time.perf_counter() - t_phase:.1f} s for {len(runs)} runs of "
+        f"{len(GOLDEN_ORDER)} families in {GOLDEN_PROCESSES} processes [{card}]")
     return dict(paths=paths, alongside=side, under=under)
 
 
@@ -9005,12 +9028,12 @@ def main() -> int:
     cli_solov2 = phase_cli_solov2(card)
     cli_zoo = phase_cli_zoo(card)
     export = phase_export(card)
-    golden_roi = phase_golden_roi(card, alongside=functools.partial(phase_golden_solov2, card))
-    golden = golden_roi["alongside"]
+    golden_all = phase_golden(card, alongside=functools.partial(phase_golden_solov2, card))
+    golden = golden_all["alongside"]
     dp_step = phase_dp_step(card)
     cli_dp = phase_cli_dp(card)
-    if golden_roi["under"]:  # phase 50's verdict, after the phases that read its SOLOv2
-        raise AssertionError("golden RoI families: " + "; ".join(golden_roi["under"]))
+    if golden_all["under"]:  # phases 50's and 52's verdict, after the phases that read its SOLOv2
+        raise AssertionError("golden families: " + "; ".join(golden_all["under"]))
 
     def entry(name, replaces, launches, m, **extra):
         return {
@@ -9070,13 +9093,19 @@ def main() -> int:
                      **{f"cli_dp_{what}_{rank}": n for what in ("training", "test")
                         for rank, n in cli_dp[what].items()}}
     log(f"the data-parallel paths' launches of K1, K2 and the matcher, each rank's: {slice19_paths}")
-    slice21_paths = {**golden_roi["paths"],
+    slice21_paths = {**{f"golden_{name}_{path}": golden_all["paths"][f"golden_{name}_{path}"]
+                        for name in golden_cases.GOLDEN_ROI
+                        for path in ("training", "evaluation")},
                      **{f"cli_formats_{k}": v for k, v in cli_formats.items() if k != "yaml"}}
     log(f"the golden RoI families' and the config formats' launches of K1, K2 and the matcher: "
         f"{slice21_paths}")
+    slice22_paths = {f"golden_{name}_{path}": golden_all["paths"][f"golden_{name}_{path}"]
+                     for name in golden_cases.GOLDEN_DENSE for path in ("training", "evaluation")}
+    log(f"the golden dense and set families' launches of K1, K2 and the matcher: {slice22_paths}")
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
                    **dense_paths, **single_paths, **cli_paths, **slice15_paths, **slice16_paths,
-                   **slice18_paths, **slice19_paths, **slice20_paths, **slice21_paths}
+                   **slice18_paths, **slice19_paths, **slice20_paths, **slice21_paths,
+                   **slice22_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],

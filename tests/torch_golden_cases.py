@@ -1,9 +1,10 @@
-"""The golden RoI cases of the port, defined once for
+"""The golden cases of the port, defined once for
 ``tests/test_torch_golden_map.py`` (on the CPU) and ``chip_smoke.py`` (on
-the card): the reference's six narrow RoI models of
-``tests/test_golden_map.py`` as the port's config dicts, their detection
-configs, steps and bands, the init seeds whose mean score a family is
-held to, the golden dataset config and the Fast R-CNN proposal writer.
+the card): the reference's six narrow RoI models and twelve narrow dense
+and set models of ``tests/test_golden_map.py`` as config dicts that both
+packages' builders read, their detection configs, steps and bands, the
+init seeds whose mean score a family is held to, the golden dataset
+config and the Fast R-CNN proposal writer.
 This module imports neither JAX nor OpenCV: the card's machine has
 neither.
 """
@@ -13,7 +14,7 @@ import json
 import numpy as np
 
 from torch_detection_tpu_torch.models import detectors, heads
-from torch_detection_tpu_torch.ops import anchors
+from torch_detection_tpu_torch.ops import anchors, assign
 from torch_detection_tpu_torch.utils.file_handler import dump
 
 CANVAS = (64, 64)
@@ -45,10 +46,112 @@ GOLDEN_MODELS = {
                         dim_feedforward=128, dynamic_dim=16, roi_strides=(4, 8, 16, 32)),
 }
 
+# the reference's golden dense and set models (tests/test_golden_map.py:124-262, :499-519,
+# :553-652, :680-707)
+R18_C4 = dict(type="ResNet", depth=18, num_stages=3, out_indices=(0, 1, 2))
+FPN32 = dict(type="FPN", in_channels=(64, 128, 256), out_channels=32, num_outs=3)
 
-def golden_detection_cfg(name: str, d=detectors, h=heads, a=anchors):
+
+def _dense(head: str, **kw) -> dict:
+    """A ResNet-18 (3 stages), FPN 32 x 3 detector with a 1-conv ``head``."""
+    return dict(type="SingleStageDetector", backbone=R18_C4, neck=FPN32,
+                head=dict(type=head, num_classes=2, in_channels=32, feat_channels=32,
+                          stacked_convs=1, **kw))
+
+
+GOLDEN_MODELS.update({
+    "retinanet": _dense("RetinaHead", num_base_anchors=9),
+    "fcos": _dense("FCOSHead"),
+    "atss": _dense("ATSSHead"),
+    "yolov3": dict(type="SingleStageDetector",
+                   backbone=dict(type="Darknet", depth=53, stages=(1, 1, 1, 1, 1),
+                                 base_channels=8, out_indices=(2, 3, 4)),
+                   neck=dict(type="YOLOV3Neck", in_channels=(64, 128, 256),
+                             out_channels=(64, 32, 16)),
+                   head=dict(type="YOLOV3Head", num_classes=2, anchors_per_level=1,
+                             in_channels=(64, 32, 16), out_channels=(128, 64, 32))),
+    "centernet": dict(type="SingleStageDetector",
+                      backbone=dict(type="ResNet", depth=18, num_stages=4, out_indices=(3,)),
+                      neck=dict(type="CTResNetNeck", in_channels=512,
+                                num_deconv_filters=(64, 32, 32)),
+                      head=dict(type="CenterNetHead", num_classes=2, in_channels=32,
+                                feat_channels=32)),
+    "ssd": dict(type="SingleStageDetector",
+                backbone=dict(type="ResNet", depth=18, num_stages=3, out_indices=(1, 2)),
+                neck=None,
+                head=dict(type="SSDHead", num_classes=2, in_channels=(128, 256),
+                          anchors_per_level=(6, 6))),
+    "yolox": dict(type="SingleStageDetector",
+                  backbone=dict(type="CSPDarknet", deepen_factor=0.33, widen_factor=0.25,
+                                out_indices=(2, 3, 4)),
+                  neck=dict(type="YOLOXPAFPN", in_channels=(64, 128, 256), out_channels=64,
+                            num_csp_blocks=1),
+                  head=dict(type="YOLOXHead", num_classes=2, in_channels=64, feat_channels=64,
+                            stacked_convs=1)),
+    "gfl": _dense("GFLHead", reg_max=8),
+    "foveabox": _dense("FoveaHead"),
+    "detr": dict(type="DETR", backbone=dict(type="ResNet", depth=18, num_stages=3,
+                                            out_indices=(2,)),
+                 num_classes=2, d_model=64, nhead=4, num_encoder_layers=2, num_decoder_layers=2,
+                 dim_feedforward=128, num_queries=16),
+    "free_anchor": _dense("RetinaHead", num_base_anchors=9),
+    "paa": _dense("PAAHead"),
+})
+
+
+def _dense_cfg(name: str, d, a, s):
+    """The reference's detection config of golden dense or set family ``name``."""
+    top = dict(score_thr=0.05, max_detections=10, pre_nms_top_k=100)
+    ranked = dict(top, pre_select_per_level=50)
+    # anchor sizes 16/32/64 (ATSS, GFL) and 32/64/128 (PAA) at strides 4/8/16
+    atss_anchors = a.AnchorGenerator(strides=(4, 8, 16), ratios=(1.0,), octave_base_scale=4.0,
+                                     scales_per_octave=1)
+    if name == "retinanet":
+        return d.RetinaNetConfig(num_classes=2,
+                                 anchor_generator=a.AnchorGenerator(strides=(4, 8, 16)), **top)
+    if name == "fcos":
+        return d.FCOSConfig(num_classes=2, strides=(4, 8, 16),
+                            regress_ranges=((-1.0, 16.0), (16.0, 32.0), (32.0, 1e8)), **ranked)
+    if name == "atss":
+        return d.ATSSConfig(num_classes=2, anchor_generator=atss_anchors,
+                            assigner=s.ATSSAssigner(topk=9), **ranked)
+    if name == "yolov3":
+        return d.YOLOV3Config(
+            num_classes=2, anchor_generator=a.YOLOAnchorGenerator(
+                strides=(32, 16, 8),
+                base_sizes=(((28.0, 28.0),), ((22.0, 22.0),), ((16.0, 16.0),))), **ranked)
+    if name == "centernet":
+        return d.CenterNetConfig(num_classes=2, score_thr=0.05, max_detections=10)
+    if name == "ssd":
+        return d.SSDConfig(num_classes=2, anchor_generator=a.SSDAnchorGenerator(
+            strides=(8, 16), min_sizes=(12.0, 26.0), max_sizes=(26.0, 48.0),
+            ratios=((2.0, 3.0), (2.0, 3.0))), **top)
+    if name == "yolox":
+        return d.YOLOXConfig(num_classes=2, max_detections=10, pre_nms_top_k=100, score_thr=0.01)
+    if name == "gfl":
+        return d.GFLConfig(num_classes=2, anchor_generator=atss_anchors,
+                           assigner=s.ATSSAssigner(topk=9), reg_max=8, **ranked)
+    if name == "foveabox":
+        return d.FoveaConfig(num_classes=2, strides=(4, 8, 16), base_edges=(8.0, 16.0, 32.0),
+                             scale_ranges=((1.0, 16.0), (8.0, 32.0), (16.0, 1e8)), **ranked)
+    if name == "detr":
+        return d.DETRConfig(num_classes=2, num_queries=16, max_detections=10, score_thr=0.05)
+    if name == "free_anchor":
+        return d.FreeAnchorConfig(num_classes=2,
+                                  anchor_generator=a.AnchorGenerator(strides=(4, 8, 16)),
+                                  pre_anchor_topk=16, **top)
+    if name == "paa":
+        return d.PAAConfig(num_classes=2, anchor_generator=a.AnchorGenerator(
+            strides=(4, 8, 16), ratios=(1.0,), octave_base_scale=8.0, scales_per_octave=1),
+            topk=8, **ranked)
+    raise KeyError(name)
+
+
+def golden_detection_cfg(name: str, d=detectors, h=heads, a=anchors, s=assign):
     """The reference's detection config of golden family ``name``, built from
-    either package's detectors, heads and anchors modules."""
+    either package's detectors, heads, anchors and assign modules."""
+    if name in GOLDEN_DENSE:
+        return _dense_cfg(name, d, a, s)
     if name == "fast_rcnn":
         return d.FastRCNNConfig(num_classes=2, roi_strides=(4, 8, 16), rcnn_num_samples=32,
                                 max_detections=10)
@@ -79,6 +182,22 @@ GOLDEN_ROI = {
                   {"mAP_50": 0.5, "mAP": 0.3, "segm_mAP_50": 0.3}),
     "sparse_rcnn": (400, {}, {"mAP_50": 0.25, "mAP": 0.12}),
 }
+BOX_BAND = {"mAP_50": 0.5, "mAP": 0.15}
+GOLDEN_DENSE = {
+    "retinanet": (200, {}, BOX_BAND),
+    "fcos": (200, {}, BOX_BAND),
+    "atss": (200, {}, BOX_BAND),
+    "yolov3": (200, {}, BOX_BAND),
+    "centernet": (300, {}, BOX_BAND),
+    "ssd": (200, {}, BOX_BAND),
+    "yolox": (400, {}, {"mAP_50": 0.5, "mAP": 0.3}),
+    "gfl": (200, {}, {"mAP_50": 0.8, "mAP": 0.5}),
+    "foveabox": (200, {}, BOX_BAND),
+    "detr": (300, {}, {"mAP_50": 0.4, "mAP": 0.2}),
+    "free_anchor": (200, {}, BOX_BAND),
+    "paa": (200, {}, BOX_BAND),
+}
+GOLDEN_CASES = {**GOLDEN_ROI, **GOLDEN_DENSE}
 
 # The init seeds whose mean score a family is held to; seed 0 alone for the others.
 # Sparse R-CNN's mAP_50 at one seed lies anywhere from 0.15 to 0.80 (seeds 0-7 on an

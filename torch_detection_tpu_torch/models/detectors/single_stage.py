@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -34,7 +35,9 @@ class SingleStageDetector(nn.Module):
     """backbone (+ optional neck) + dense head, named as the reference's
     (``backbone``, ``neck``, ``head``). ``dtype``, ``param_dtype`` and
     ``device`` as ``TwoStageDetector``'s; without a neck the backbone's
-    levels feed the head."""
+    levels feed the head. A head that takes ``num_levels`` (FCOS's, ATSS's,
+    GFL's, PAA's ``scales``) and is given none takes the neck's
+    ``num_outs``, as flax sizes the reference's from the levels it is fed."""
 
     def __init__(self, backbone: Dict[str, Any], head: Dict[str, Any],
                  neck: Optional[Dict[str, Any]] = None, dtype: Optional[torch.dtype] = None,
@@ -45,7 +48,12 @@ class SingleStageDetector(nn.Module):
         kw = dict(dtype=self.param_dtype, device=resolve_device(device))
         self.backbone = BACKBONES.build(dict(backbone), **kw)
         self.neck = build_neck(neck, self.backbone, **kw) if neck else None
-        self.head = HEADS.build(dict(head), **kw)
+        head = dict(head)
+        if (hasattr(self.neck, "num_outs") and "num_levels" not in head
+                and "num_levels" in inspect.signature(HEADS.get(head["type"])).parameters):
+            # the reference's per-level ``scales`` take one entry a level the head is fed
+            head["num_levels"] = self.neck.num_outs
+        self.head = HEADS.build(head, **kw)
 
     def _autocast(self, x: Tensor):
         return compute_autocast(x, self.dtype, self.param_dtype)
