@@ -466,6 +466,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import unittest.mock
 import warnings
@@ -481,6 +482,7 @@ from torch_detection_tpu_torch.builder import (
     build_detection_cfg,
     build_detector,
     build_loss_fn,
+    build_train_loader,
     build_train_objects,
 )
 from torch_detection_tpu_torch.data import (
@@ -503,6 +505,7 @@ from torch_detection_tpu_torch.engine import (
     save_serving,
 )
 from torch_detection_tpu_torch.engine.checkpoint import (
+    META_FILE,
     load_checkpoint,
     load_checkpoint_file,
     optimizer_state,
@@ -651,11 +654,18 @@ from torch_detection_tpu_torch.ops.preprocess import (
     space_to_depth_2x2_np,
 )
 from torch_detection_tpu_torch.parallel.distributed import init_distributed, shutdown_distributed
-from torch_detection_tpu_torch.parallel.mesh import full_tensor
+from torch_detection_tpu_torch.parallel.mesh import (
+    full_tensor,
+    local_tensor,
+    make_mesh,
+    shard_batch,
+)
+from torch_detection_tpu_torch.parallel.tensor_parallel import tensor_parallel_plan
 from torch_detection_tpu_torch.parallel.train_step import (
     ParamEMA,
     make_optimizer,
     make_train_step,
+    micro_batch_parts,
     split_batch,
 )
 from torch_detection_tpu_torch.tools import dump_proposals as dump_cli
@@ -8789,10 +8799,26 @@ def cli_rank(argv) -> int:
     tool, launches_out, args = argv[0], argv[1], argv[2:]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if os.environ.get("CHIP_SMOKE_DETERMINISTIC") == "1":  # the mesh phases' ranks
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    record = os.environ.get("CHIP_SMOKE_RECORD")  # the mesh phases' ranks: their batches kept
+    if record and tool == "train":
+        build = train_cli.build_train_objects
+
+        def recorded(*a, **kw):
+            model, det_cfg, loader, optimizer = build(*a, **kw)
+            return model, det_cfg, Recording(loader, Path(record), int(os.environ["RANK"])), \
+                optimizer
+
+        train_cli.build_train_objects = recorded
     reset_launches()
     result = (train_cli if tool == "train" else test_cli).main(args)
     torch.cuda.synchronize()
-    extra = {"steps": result.optimizer.steps} if tool == "train" else {"metrics": result}
+    extra = ({"steps": result.optimizer.steps,
+              "held_bytes": sum(local_tensor(p).numel() * p.element_size()
+                                for p in result.model.parameters()),
+              "peak_reserved_gib": torch.cuda.max_memory_reserved() / 2**30}
+             if tool == "train" else {"metrics": result})
     Path(launches_out).write_text(json.dumps(dict(read_launches(), **extra)))
     return 0
 
@@ -8810,23 +8836,30 @@ def torchrun(ranks: int, command: str) -> subprocess.CompletedProcess:
     return run
 
 
+def start_shard_eval(cfg_path: Path, ckpt: Path, out: Path, extra: str = ""):
+    """The torchrun launch of ``tools.test --shard-eval`` on two ranks, in
+    the background."""
+    me = f"{sys.executable} {ROOT / 'chip_smoke.py'} --cli-rank"
+    return launch_ranks(f"{me} test {out}_r$RANK.json {cfg_path} {ckpt} --shard-eval "
+                        f"--out {out}_shard.json --dist-backend gloo {extra}", deterministic=False)
+
+
 def shard_eval(card: str, what: str, cfg_path: Path, ckpt: Path, out: Path,
-               extra: str = "") -> dict:
+               extra: str = "", run=None) -> dict:
     """``tools.test --shard-eval`` of ``ckpt`` on two ranks against this
     process's ``tools.test`` of it: every metric to 1e-12, K1 launched in
     the ranks at least as often as in the one process and K2 never.
     ``{shard: each rank's launches, same: whether the dumps are equal,
-    gap: how they differ, one: the one process's metrics}``."""
-    me = f"{sys.executable} {ROOT / 'chip_smoke.py'} --cli-rank"
-    t1 = time.perf_counter()
-    torchrun(DP_WORLD, f"{me} test {out}_r$RANK.json {cfg_path} {ckpt} --shard-eval "
-                       f"--out {out}_shard.json --dist-backend gloo {extra}")
-    shard_s = time.perf_counter() - t1
-    shard = [json.loads(Path(f"{out}_r{r}.json").read_text()) for r in range(DP_WORLD)]
+    gap: how they differ, one: the one process's metrics}``. This process's
+    test runs while the ranks do (``run``: their launch, if started already)."""
+    run = run or start_shard_eval(cfg_path, ckpt, out, extra)
     reset_launches()
     one = test_cli.main([str(cfg_path), str(ckpt), "--out", f"{out}_one.json", *extra.split()])
     torch.cuda.synchronize()
     one_launches = read_launches()
+    finish_ranks(run, f"cli dp: {what} --shard-eval")
+    shard_s = time.perf_counter() - run.started
+    shard = [json.loads(Path(f"{out}_r{r}.json").read_text()) for r in range(DP_WORLD)]
     errs = {k: abs(shard[0]["metrics"][k] - v) for k, v in one.items()}
     dump_shard, dump_one = (json.loads(Path(f"{out}_{n}.json").read_text())
                             for n in ("shard", "one"))
@@ -8901,10 +8934,13 @@ def phase_cli_dp(card: str) -> dict:
     f32 = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke_f32.py"
     f32.write_text(f"_base_ = {str(config)!r}\nruntime = dict(compute_dtype='float32')\n")
     tests = {"f32": shard_eval(card, "Faster R-CNN float32", f32, work0 / "epoch_1", root / "f32")}
-    for dtype in ("bf16", "f32"):
-        tests[f"golden_{dtype}"] = shard_eval(
-            card, f"golden SOLOv2 {dtype}", GOLDEN_COCO / f"golden_solov2_{dtype}.py",
-            GOLDEN_COCO / "ckpt", root / f"golden_{dtype}", f"--segm --batch {GOLDEN_BATCH}")
+    golden = {dtype: (GOLDEN_COCO / f"golden_solov2_{dtype}.py", GOLDEN_COCO / "ckpt",
+                      root / f"golden_{dtype}", f"--segm --batch {GOLDEN_BATCH}")
+              for dtype in ("bf16", "f32")}
+    runs = {dtype: start_shard_eval(*args) for dtype, args in golden.items()}  # two at once
+    for dtype, args in golden.items():
+        tests[f"golden_{dtype}"] = shard_eval(card, f"golden SOLOv2 {dtype}", *args,
+                                              run=runs[dtype])
         one = tests[f"golden_{dtype}"]["one"]
         if not (one["mAP_50"] > 0 and one["segm_mAP_50"] > 0):
             raise AssertionError(f"cli dp: the golden SOLOv2 scores {one}")
@@ -8918,6 +8954,542 @@ def phase_cli_dp(card: str) -> dict:
                           for r, n in enumerate(ranks)},
                 test={f"{what}_rank{r}": {k: s[k] for k in ("k1", "k2", "matcher")}
                       for what, t in tests.items() for r, s in enumerate(t["shard"])})
+
+
+MESH_DIR = ROOT / "build" / "mesh"
+MESH_LOSS_RTOL, MESH_UPDATE_RTOL = 1e-4, 1e-2  # as phase_dp_step's; written in PERF.md first
+MESH_ACCUM, MESH_ACCUM_ROWS = 3, 3  # accum_steps and images a rank: micro-batch 1 spans the ranks
+MESH_ROWS_BATCH, MESH_ROWS_CANVAS = 4, (800, 1344)
+
+
+def coco_subset(src: Path, n: int, out: Path) -> Path:
+    """The first ``n`` landscape images of the COCO file ``src`` and their
+    annotations, written to ``out``: one aspect group, so the grouped
+    samplers cut no partial batch."""
+    data = json.loads(src.read_text())
+    images = [im for im in data["images"] if im["width"] > im["height"]][:n]
+    keep = {im["id"] for im in images}
+    out.write_text(json.dumps(dict(data, images=images, annotations=[
+        a for a in data["annotations"] if a["image_id"] in keep])))
+    return out
+
+
+def write_mesh_configs() -> dict:
+    """The float32 smoke configs of the three mesh runs: ``accum``
+    (``accum_steps=3``, 3 images a rank, 12 images: 2 steps on two ranks),
+    ``tp`` (``mesh.model=2``, 2 images a step, 4 images, validation on 4
+    val images) and its one-process twins: ``tp_one`` without the
+    validation, ``tp_resume`` with it."""
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    base = SMOKE_COCO / "faster_rcnn_r50_fpn_smoke.py"
+    train12 = coco_subset(SMOKE_COCO / "instances_train.json", 12, MESH_DIR / "train12.json")
+    train4 = coco_subset(SMOKE_COCO / "instances_train.json", 4, MESH_DIR / "train4.json")
+    paths = {}
+    for name, text in (
+            ("accum", f"data = dict(train=dict(ann_file={str(train12)!r}), "
+                      f"sample_per_replica={MESH_ACCUM_ROWS})\n"
+                      f"runtime = dict(compute_dtype='float32', accum_steps={MESH_ACCUM}, "
+                      "checkpoint_interval_steps=1, checkpoint_interval_epochs=100)\n"),
+            ("tp", f"data = dict(train=dict(ann_file={str(train4)!r}), sample_per_replica=2)\n"
+                   "runtime = dict(compute_dtype='float32', mesh=dict(model=2), "
+                   "val_interval_epochs=1, val_max_images=4, val_batch=2, "
+                   "checkpoint_interval_steps=1, checkpoint_interval_epochs=100)\n"),
+            ("tp_one", "runtime = dict(mesh=dict(model=1), val_interval_epochs=0)\n"),
+            ("tp_resume", "runtime = dict(mesh=dict(model=1))\n")):
+        parent = paths["tp"] if name.startswith("tp_") else base
+        paths[name] = MESH_DIR / f"{name}.py"
+        paths[name].write_text(f"_base_ = {str(parent)!r}\n{text}")
+    return paths
+
+
+def concat_batches(per_rank: list) -> list:
+    """Each step's batches of the ranks, concatenated in rank order: the
+    global batch."""
+    out = []
+    for parts in zip(*per_rank):
+        out.append({k: (sum((p[k] for p in parts), []) if isinstance(parts[0][k], list)
+                        else np.concatenate([p[k] for p in parts])) for k in parts[0]})
+    return out
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Within: deterministic CUDA algorithms (a warning where an operator
+    has none), as the mesh ranks run, so that a comparison with them reads
+    the partitioning and not the atomics' summation order."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def launch_ranks(command: str, deterministic: bool = True) -> subprocess.Popen:
+    """``command`` as ``DP_WORLD`` processes of a standalone torchrun launch,
+    started in the background (``started``: when), with deterministic CUDA
+    algorithms unless told otherwise."""
+    env = dict(os.environ, OMP_NUM_THREADS="4", PYTHONPATH=str(ROOT))
+    if deterministic:
+        env.update(CUBLAS_WORKSPACE_CONFIG=":4096:8", CHIP_SMOKE_DETERMINISTIC="1")
+    output = tempfile.TemporaryFile("w+")  # not a pipe: a full pipe would stall the ranks
+    run = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(DP_WORLD), "--no-python", "sh", "-c", command],
+        cwd=str(ROOT), env=env, stdout=output, stderr=subprocess.STDOUT, text=True)
+    run.started, run.output = time.perf_counter(), output
+    return run
+
+
+def finish_ranks(run: subprocess.Popen, what: str) -> None:
+    """Wait for ``launch_ranks``' launch ``run``; its output's end if it failed."""
+    try:
+        run.wait(timeout=max(DP_TIMEOUT_S - (time.perf_counter() - run.started), 1))
+    finally:
+        if run.poll() is None:
+            run.kill()
+            run.wait()
+    with run.output:
+        if run.returncode != 0:
+            run.output.seek(0)
+            raise AssertionError(f"{what}: torchrun failed:\n{run.output.read()[-6000:]}")
+
+
+class Recording:
+    """A rank's train loader that writes each batch of an epoch to
+    ``where/b{k}.rank{rank}.pt`` before the first step takes one (each file
+    written whole, then renamed), so that a reference in another process
+    trains on the very batches the rank trained on."""
+
+    def __init__(self, loader, where: Path, rank: int):
+        self.loader, self.where, self.rank = loader, where, rank
+        where.mkdir(parents=True, exist_ok=True)
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def iter_batches(self, skip_batches: int = 0):
+        batches = list(self.loader.iter_batches(skip_batches))
+        for k, batch in enumerate(batches, start=skip_batches):
+            path = self.where / f"b{k}.rank{self.rank}.pt"
+            torch.save(batch, f"{path}.tmp")
+            os.replace(f"{path}.tmp", path)
+        return iter(batches)
+
+
+@contextlib.contextmanager
+def fed(batches: list):
+    """Within: ``tools.train`` in this process trains on ``batches``
+    instead of its loader's."""
+    build = train_cli.build_train_objects
+    train_cli.build_train_objects = lambda *a, **kw: build(*a, **dict(kw, loader=Batches(batches)))
+    try:
+        yield
+    finally:
+        train_cli.build_train_objects = build
+
+
+def wait_files(paths: list, run: subprocess.Popen, what: str) -> None:
+    """Wait until every one of ``paths`` exists, while ``launch_ranks``'
+    launch ``run`` goes on; its output's end if it failed first."""
+    while not all(p.exists() for p in paths):
+        if run.poll() is not None:
+            finish_ranks(run, what)
+            if not all(p.exists() for p in paths):
+                raise AssertionError(f"{what}: the ranks ended without writing {paths}")
+        if time.perf_counter() - run.started > DP_TIMEOUT_S:
+            raise AssertionError(f"{what}: no {paths} after {DP_TIMEOUT_S} s")
+        time.sleep(0.5)
+
+
+def recorded_batches(where: Path, steps: int, run: subprocess.Popen, what: str) -> list:
+    """Each rank's ``steps`` batches, as its ``Recording`` wrote them."""
+    paths = [[where / f"b{k}.rank{r}.pt" for k in range(steps)] for r in range(DP_WORLD)]
+    wait_files([p for rank in paths for p in rank], run, what)
+    return [[torch.load(p, weights_only=False) for p in rank] for rank in paths]
+
+
+def leaves_gap(a, b, at: str = "batch") -> float:
+    """The largest absolute difference between the arrays of two nested
+    batches; raises where their structure, a shape or another leaf
+    differs."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()):
+            raise AssertionError(f"{at}: keys differ")
+        return max((leaves_gap(a[k], b[k], f"{at}[{k!r}]") for k in a), default=0.0)
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        if type(a) is not type(b) or len(a) != len(b):
+            raise AssertionError(f"{at}: lengths differ")
+        return max((leaves_gap(x, y, f"{at}[{i}]") for i, (x, y) in enumerate(zip(a, b))),
+                   default=0.0)
+    if isinstance(a, (np.ndarray, torch.Tensor)):
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{at}: {a.shape} {a.dtype} against {b.shape} {b.dtype}")
+        return float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max(initial=0.0))
+    if a != b:
+        raise AssertionError(f"{at}: {a!r} against {b!r}")
+    return 0.0
+
+
+def update_gaps(got: dict, before: dict, after: dict) -> tuple:
+    """Each trained parameter's update from ``before`` (``got`` the ranks'
+    parameters, ``after`` one process's): the relative norm of the
+    difference, each and all together."""
+    gaps, sizes = {}, {}
+    for n, a in after.items():
+        want = (a - before[n]).double()
+        delta = torch.as_tensor(got[n]).double() - before[n].double()
+        gaps[n], sizes[n] = float((delta - want).norm()), float(want.norm())
+    errs = {n: gaps[n] / max(sizes[n], 1e-300) for n in gaps}
+    whole = (math.sqrt(sum(g * g for g in gaps.values()))
+             / math.sqrt(sum(v * v for v in sizes.values())))
+    return errs, whole
+
+
+def check_mesh_step(what: str, losses: list, want_losses: list, got: dict, before: dict,
+                    after: dict, card: str) -> dict:
+    """The ranks against one process from the same state ``before``: each
+    step's loss to ``MESH_LOSS_RTOL``, each trained parameter's update
+    (``got`` the ranks', ``after`` the one process's) to
+    ``MESH_UPDATE_RTOL`` in relative norm of the difference."""
+    errs = [abs(g - w) / abs(w) for g, w in zip(losses, want_losses)]
+    errs_t, whole = update_gaps(got, before, after)
+    worst = max(errs_t, key=errs_t.get)
+    log(f"{what} [{card}]: losses {losses} against one process {want_losses} (rel "
+        f"{[f'{e:.2e}' for e in errs]}, limit {MESH_LOSS_RTOL}); the {len(errs_t)} trained "
+        f"parameters' updates, worst relative norm of the difference {errs_t[worst]:.2e} at "
+        f"{worst}, all together {whole:.2e} (limit {MESH_UPDATE_RTOL} each)")
+    if len(losses) != len(want_losses) or not all(e <= MESH_LOSS_RTOL for e in errs):
+        raise AssertionError(f"{what}: losses {losses} against {want_losses}")
+    bad = {n: e for n, e in errs_t.items() if not e <= MESH_UPDATE_RTOL}
+    if bad:
+        raise AssertionError(f"{what}: updates beyond {MESH_UPDATE_RTOL}: {bad}")
+    return dict(loss_err=max(errs), update_err=errs_t[worst], update_err_all=whole)
+
+
+def replicas_equal(what: str, finals: list) -> None:
+    differ = [k for k in finals[0].files if not np.array_equal(finals[0][k], finals[1][k])]
+    if differ:
+        raise AssertionError(f"{what}: the ranks' parameters differ: {differ}")
+
+
+def train_losses(work: Path) -> list:
+    return [r["loss"] for r in (json.loads(line) for line in
+                                (work / "metrics.jsonl").read_text().splitlines()) if "loss" in r]
+
+
+def trained(model) -> dict:
+    return {n: full_tensor(p).detach().cpu().clone() for n, p in model.named_parameters()
+            if p.requires_grad}
+
+
+def start_mesh_ranks(what: str, configs: dict) -> subprocess.Popen:
+    """The torchrun launch of ``tools.train`` for the mesh phase ``what``
+    (``accum`` or ``tp``), its directory made anew, each rank's batches
+    recorded under ``batches/``."""
+    root = MESH_DIR / what
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    me = f"CHIP_SMOKE_RECORD={root / 'batches'} {sys.executable} {ROOT / 'chip_smoke.py'} --cli-rank"
+    return launch_ranks(f"{me} train {root}/r$RANK.json {configs[what]} --epochs 1 "
+                        f"--work-dir {root}/work --dump-final {root}/final --dist-backend gloo")
+
+
+def accum_reference(cfg, batches: list, work: Path, resume: Path = None) -> tuple:
+    """This process's ``accum_steps=3`` training on ``batches`` (each step's
+    global batch) from the seed's weights, or from the checkpoint
+    ``resume`` at its batch, writing a checkpoint a step into ``work``:
+    the losses and the trained parameters after it."""
+    model, det_cfg, loader, optimizer = build_train_objects(cfg, "cuda", seed=0,
+                                                            loader=Batches(batches))
+    skip = 0
+    if resume is not None:
+        skip = int(load_checkpoint(model, str(resume), strict=True,
+                                   optimizer=optimizer).get("batches_done", 0))
+    trainer = Trainer(build_loss_fn(model, det_cfg, rng_seed=0), model, optimizer, loader,
+                      work_dir=str(work), log_interval=1, accum_steps=MESH_ACCUM,
+                      checkpoint_interval_steps=1, checkpoint_interval_epochs=100)
+    with deterministic():
+        trainer.run(1, skip_batches=skip)
+    losses = [r["loss"] for r in trainer.history if "loss" in r]
+    after = trained(model)
+    del model, optimizer, trainer
+    torch.cuda.empty_cache()
+    return losses, after
+
+
+def phase_mesh_accum(card: str, configs: dict, run=None) -> dict:
+    """``tools.train`` as two gloo ranks sharing the card, ``accum_steps=3``
+    and 3 images a rank, 2 steps (micro-batch 1 spans the ranks: rank 0
+    runs micro-batch 0 and the first row of 1, rank 1 the second row of 1
+    and micro-batch 2), against this process taking the same steps on the
+    batches the ranks took, concatenated, in float32, each step from the
+    ranks' state before it (``check_mesh_step``): step 1 from the seed's
+    weights, step 2 resumed from the ranks' ``step_1`` checkpoint. This
+    process's own step 2, which starts from its step 1 and not the ranks',
+    is logged beside them. The ranks' batches are the shards this process's
+    loader cuts, their images' difference logged."""
+    t0 = time.perf_counter()
+    root = MESH_DIR / "accum"
+    run = run or start_mesh_ranks("accum", configs)
+    cfg = Config.fromfile(configs["accum"])
+    own = [list(build_train_loader(cfg, dist=True, num_replicas=DP_WORLD, rank=r).iter_batches())
+           for r in range(DP_WORLD)]
+    got = recorded_batches(root / "batches", len(own[0]), run, "mesh accum")
+    input_gap = max(leaves_gap(g, w, f"rank {r}") for r, (g, w) in enumerate(zip(got, own)))
+    log(f"mesh accum [{card}]: the ranks' batches are this process's loader's shards, their "
+        f"images {input_gap:.3e} apart at most")
+    batches = concat_batches(got)
+    finish_ranks(run, "mesh accum")
+    free_b, total_b = torch.cuda.mem_get_info()
+    log(f"mesh accum [{card}]: the card's memory free before the references "
+        f"{free_b / 2**30:.2f} of {total_b / 2**30:.2f} GiB")
+    model, _, _, _ = build_train_objects(cfg, "cuda", seed=0, loader=Batches([None]))
+    before = trained(model)
+    del model
+    free_losses, free = accum_reference(cfg, batches, root / "one")
+    losses2, after = accum_reference(cfg, batches, root / "two", resume=root / "work" / "step_1")
+    ranks = [json.loads((root / f"r{r}.json").read_text()) for r in range(DP_WORLD)]
+    finals = [np.load(root / f"final.rank{r}.npz") for r in range(DP_WORLD)]
+    replicas_equal("mesh accum", finals)
+    step1 = {who: {n: t for n, t in torch.load(root / who / "step_1" / "model.pt",
+                                               map_location="cpu").items() if n in before}
+             for who in ("work", "one")}
+    losses = train_losses(root / "work")
+    out1 = check_mesh_step("mesh accum step 1", losses[:1], free_losses[:1], step1["work"],
+                           before, step1["one"], card)
+    out2 = check_mesh_step("mesh accum step 2", losses[1:], losses2, finals[0], step1["work"],
+                           after, card)
+    free_loss = abs(losses[1] - free_losses[1]) / abs(free_losses[1])
+    _, free_all = update_gaps(finals[0], before, free)
+    log(f"mesh accum [{card}]: two free-running steps (not held), step 2's loss "
+        f"{free_loss:.2e} apart, the two steps' updates all together {free_all:.2e}")
+    parts = [len(micro_batch_parts(MESH_ACCUM, DP_WORLD, MESH_ACCUM_ROWS, r))
+             for r in range(DP_WORLD)]
+    for r, n in enumerate(ranks):
+        steps = n["steps"]
+        expect_launches(f"mesh accum rank {r}", {k: n[k] for k in ("k1", "k2", "matcher")},
+                        steps * parts[r], steps * parts[r])
+    seconds = time.perf_counter() - t0
+    log(f"mesh accum [{card}]: {DP_WORLD} ranks, accum_steps={MESH_ACCUM}, "
+        f"{MESH_ACCUM_ROWS} images a rank, parts a step {parts}; launches {ranks}; "
+        f"{seconds:.1f} s")
+    return dict(loss_err=max(out1["loss_err"], out2["loss_err"]),
+                update_err=max(out1["update_err"], out2["update_err"]),
+                step1=out1, step2=out2, free_loss_err=free_loss, free_update_err_all=free_all,
+                input_gap=input_gap, seconds=seconds,
+                launches={f"rank{r}": {k: n[k] for k in ("k1", "k2", "matcher")}
+                          for r, n in enumerate(ranks)})
+
+
+def phase_mesh_tp(card: str, configs: dict, run=None) -> dict:
+    """``tools.train`` as two gloo ranks sharing the card with
+    ``runtime.mesh.model=2`` (tensor parallelism, one data rank), 2 steps
+    and the in-training validation, against this process's ``tools.train``
+    at ``model=1`` on the batches the ranks took, in float32, each step
+    from the ranks' state before it (``check_mesh_step``): step 1 from the
+    seed's weights (``tp_one``, whose ``step_1`` checkpoint is compared),
+    step 2 and the validation resumed from the ranks' ``step_1`` checkpoint
+    (``tp_resume``). ``tp_one``'s own step 2, which starts from its step 1
+    and not the ranks', is logged beside them. Each rank's parameter bytes
+    against the reference's rule."""
+    t0 = time.perf_counter()
+    root = MESH_DIR / "tp"
+    run = run or start_mesh_ranks("tp", configs)
+    cfg = Config.fromfile(configs["tp_one"])
+    model, _, _, _ = build_train_objects(cfg, "cuda", seed=0, loader=Batches([None]))
+    before = trained(model)
+    plan = tensor_parallel_plan(model, 2)
+    predicted = sum(p.numel() // (2 if n in plan else 1) * p.element_size()
+                    for n, p in model.named_parameters())
+    whole = sum(p.numel() * p.element_size() for p in model.parameters())
+    del model
+    got = recorded_batches(root / "batches", 2, run, "mesh tp")
+    if leaves_gap(got[0], got[1], "the model group's batches"):
+        raise AssertionError("mesh tp: the model group's ranks took different images")
+    with deterministic(), fed(got[0]):
+        trainer = train_cli.main([str(configs["tp_one"]), "--epochs", "1", "--work-dir",
+                                  str(root / "one")])
+    free = trained(trainer.model)
+    del trainer
+    ranks_step1 = root / "work" / "step_1"
+    wait_files([ranks_step1 / META_FILE], run, "mesh tp")
+    with deterministic(), fed(got[0]):
+        trainer = train_cli.main([str(configs["tp_resume"]), "--epochs", "1", "--work-dir",
+                                  str(root / "two"), "--resume", str(ranks_step1)])
+    after = trained(trainer.model)
+    one_val = [r for r in trainer.history if "val_mAP" in r]
+    del trainer
+    torch.cuda.empty_cache()
+    finish_ranks(run, "mesh tp")
+    ranks = [json.loads((root / f"r{r}.json").read_text()) for r in range(DP_WORLD)]
+    finals = [np.load(root / f"final.rank{r}.npz") for r in range(DP_WORLD)]
+    replicas_equal("mesh tp", finals)
+    step1 = {who: {n: t for n, t in torch.load(root / who / "step_1" / "model.pt",
+                                               map_location="cpu").items() if n in before}
+             for who in ("work", "one")}
+    losses, one_losses = train_losses(root / "work"), train_losses(root / "one")
+    out1 = check_mesh_step("mesh tp step 1", losses[:1], one_losses[:1], step1["work"], before,
+                           step1["one"], card)
+    out2 = check_mesh_step("mesh tp step 2", losses[1:], train_losses(root / "two"), finals[0],
+                           step1["work"], after, card)
+    free_loss = abs(losses[1] - one_losses[1]) / abs(one_losses[1])
+    _, free_all = update_gaps(finals[0], before, free)
+    log(f"mesh tp [{card}]: two free-running steps (not held: step 1's rounding moves step 2's "
+        f"proposals), step 2's loss {free_loss:.2e} apart, the two steps' updates all together "
+        f"{free_all:.2e}")
+    records = [json.loads(line)
+               for line in (root / "work" / "metrics.jsonl").read_text().splitlines()]
+    val = [r for r in records if "val_mAP" in r]
+    val_gap = max(abs(val[0][k] - one_val[0][k]) for k in one_val[0] if k.startswith("val_"))
+    held = [n["held_bytes"] for n in ranks]
+    log(f"mesh tp [{card}]: {len(plan)} sharded parameters; each rank holds {held} bytes of "
+        f"parameters against the rule's {predicted} ({whole} whole); validation mAP "
+        f"{val[0]['val_mAP']!r} against one process's {one_val[0]['val_mAP']!r} (largest metric "
+        f"gap {val_gap:.2e}); launches {ranks}")
+    if held != [predicted] * DP_WORLD:
+        raise AssertionError(f"mesh tp: ranks hold {held} bytes, the rule {predicted}")
+    if val_gap > 1e-3:
+        raise AssertionError(f"mesh tp: validation {val[0]} against {one_val[0]}")
+    for r, n in enumerate(ranks):
+        steps = n["steps"]
+        if n["k2"] != steps or n["k1"] < steps + 1 or n["matcher"]:
+            raise AssertionError(f"mesh tp rank {r}: launches {n} for {steps} steps and a "
+                                 "validation")
+    seconds = time.perf_counter() - t0
+    log(f"mesh tp [{card}]: {seconds:.1f} s")
+    return dict(loss_err=max(out1["loss_err"], out2["loss_err"]),
+                update_err=max(out1["update_err"], out2["update_err"]),
+                step1=out1, step2=out2, free_loss_err=free_loss, free_update_err_all=free_all,
+                seconds=seconds, held=held, predicted=predicted, whole=whole,
+                launches={f"rank{r}": {k: n[k] for k in ("k1", "k2", "matcher")}
+                          for r, n in enumerate(ranks)})
+
+
+def rows_batch(device) -> dict:
+    gen = torch.Generator(device=device).manual_seed(SEED + 340)
+    return train_batch(gen, MESH_ROWS_BATCH, MESH_ROWS_CANVAS)
+
+
+def rows_step(model, det_cfg, optimizer, batch) -> tuple:
+    """One step: its loss, the trained parameters' update, the C2 rows the
+    backbone gave, the peak memory in GiB."""
+    seen = []
+    hook = model.backbone.register_forward_hook(lambda m, i, o: seen.append(o[0].shape[1]))
+    before = trained(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics = make_train_step(build_loss_fn(model, det_cfg, rng_seed=SEED), optimizer)(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    hook.remove()
+    after = trained(model)
+    return (float(metrics["loss"]), {n: after[n] - before[n] for n in after}, seen[0],
+            torch.cuda.max_memory_allocated() / 2**30, launches)
+
+
+def rows_rank(rank: int, world: int, port: int) -> None:
+    """One rank of ``phase_mesh_rows``, a spawned process: a (1, 2) mesh,
+    the float32 Faster R-CNN's step on its band of the batch's rows."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    info = init_distributed("gloo", "cuda:0", timeout_s=DP_TIMEOUT_S)
+    model, det_cfg, _, optimizer = build_train_objects(dp_config("float32"), info["device"],
+                                                       seed=SEED, loader=Batches([None]))
+    mesh = make_mesh(data=1, model=world)
+    batch = shard_batch(mesh, rows_batch(info["device"]), spatial=True)
+    loss, update, c2, peak, launches = rows_step(model, det_cfg, optimizer, batch)
+    if rank == 0:
+        torch.save({n: u.cpu() for n, u in update.items()}, MESH_DIR / "rows_update.pt")
+    torch.save(dict(loss=loss, c2=c2, peak=peak, launches=launches,
+                    image_rows=batch["image"].shape[1],
+                    digest=param_digest(whole_params(model))), MESH_DIR / f"rows_r{rank}.pt")
+    shutdown_distributed(info)
+
+
+def start_rows_ranks():
+    for f in MESH_DIR.glob("rows_*"):
+        f.unlink()
+    return torch.multiprocessing.start_processes(rows_rank, args=(DP_WORLD, free_port()),
+                                                 nprocs=DP_WORLD, join=False, start_method="spawn")
+
+
+def phase_mesh_rows(card: str, ctx=None) -> dict:
+    """Image rows over two gloo ranks sharing the card (``model=2``,
+    ``shard_batch(spatial=True)``): one training step of the float32 Faster
+    R-CNN on 4 images of 800 x 1344, each rank its band of 400 rows (C5's
+    25 rows 12 and 13, P6's 13 rows 6 and 7), against this process's step
+    on the whole images; each rank's C2 rows and peak memory beside the
+    one process's."""
+    t0 = time.perf_counter()
+    ctx = ctx or start_rows_ranks()
+    try:
+        model, det_cfg, _, optimizer = build_train_objects(dp_config("float32"), "cuda",
+                                                           seed=SEED, loader=Batches([None]))
+        with deterministic():
+            loss, update, c2, peak, launches = rows_step(model, det_cfg, optimizer,
+                                                         rows_batch("cuda"))
+        del model, optimizer
+        torch.cuda.empty_cache()
+        deadline = time.perf_counter() + DP_TIMEOUT_S
+        while not ctx.join(timeout=1):
+            if time.perf_counter() > deadline:
+                raise AssertionError("mesh rows: the ranks did not finish")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(MESH_DIR / f"rows_r{r}.pt") for r in range(DP_WORLD)]
+    got = torch.load(MESH_DIR / "rows_update.pt")
+    errs = {n: float((got[n].double() - u.cpu().double()).norm()
+                     / u.cpu().double().norm().clamp_min(1e-300)) for n, u in update.items()}
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(r["loss"] - loss) / abs(loss) for r in ranks)
+    log(f"mesh rows [{card}]: losses {[r['loss'] for r in ranks]} against one process {loss!r} "
+        f"(rel {loss_err:.2e}, limit {MESH_LOSS_RTOL}); updates' worst relative norm "
+        f"{errs[worst]:.2e} at {worst} (limit {MESH_UPDATE_RTOL}); image rows a rank "
+        f"{[r['image_rows'] for r in ranks]}, C2 rows a rank {[r['c2'] for r in ranks]} against "
+        f"{c2}; peak memory a rank {[round(r['peak'], 3) for r in ranks]} GiB against "
+        f"{peak:.3f}; launches {[r['launches'] for r in ranks]} (one process {launches})")
+    if not loss_err <= MESH_LOSS_RTOL or errs[worst] > MESH_UPDATE_RTOL:
+        raise AssertionError(f"mesh rows: loss {loss_err}, updates {errs[worst]} at {worst}")
+    if len({r["digest"] for r in ranks}) != 1 or [r["c2"] for r in ranks] != [c2 // 2] * 2:
+        raise AssertionError(f"mesh rows: replicas or C2 bands {[r['c2'] for r in ranks]}")
+    for r, n in enumerate(ranks):
+        expect_launches(f"mesh rows rank {r}", n["launches"], 1, 1)
+    seconds = time.perf_counter() - t0
+    log(f"mesh rows [{card}]: {seconds:.1f} s")
+    return dict(loss_err=loss_err, update_err=errs[worst], seconds=seconds,
+                c2=[r["c2"] for r in ranks], one_c2=c2, peak=[r["peak"] for r in ranks],
+                one_peak=peak, launches={f"rank{r}": n["launches"] for r, n in enumerate(ranks)})
+
+
+def phase_mesh(card: str) -> dict:
+    """The mesh's three phases, (a), (b) and (c): accumulation over ranks that do
+    not divide it, tensor parallelism and row partitioning, each its K1 and
+    K2 launches and seconds (their ranks overlap, so a phase's seconds
+    include its wait for the card and the host beside the others')."""
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    configs = write_mesh_configs()
+    # the three phases' ranks start together: their start-up (imports, the model's build, the
+    # first CUDA calls) overlaps, and this process's references run meanwhile
+    runs = {what: start_mesh_ranks(what, configs) for what in ("accum", "tp")}
+    rows = start_rows_ranks()
+    # (a)'s references last, when the other launches have given the card's memory back
+    out = dict(tp=phase_mesh_tp(card, configs, runs["tp"]), rows=phase_mesh_rows(card, rows),
+               accum=phase_mesh_accum(card, configs, runs["accum"]))
+    log(f"mesh [{card}]: the three phases {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -9028,8 +9600,12 @@ def main() -> int:
     cli_solov2 = phase_cli_solov2(card)
     cli_zoo = phase_cli_zoo(card)
     export = phase_export(card)
+    # this process is idle while the golden pool trains; the mesh's six ranks come after the
+    # pool, which leaves too little of the card's memory to start them beside it
     golden_all = phase_golden(card, alongside=functools.partial(phase_golden_solov2, card))
     golden = golden_all["alongside"]
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(card)
     dp_step = phase_dp_step(card)
     cli_dp = phase_cli_dp(card)
     if golden_all["under"]:  # phases 50's and 52's verdict, after the phases that read its SOLOv2
@@ -9102,10 +9678,13 @@ def main() -> int:
     slice22_paths = {f"golden_{name}_{path}": golden_all["paths"][f"golden_{name}_{path}"]
                      for name in golden_cases.GOLDEN_DENSE for path in ("training", "evaluation")}
     log(f"the golden dense and set families' launches of K1, K2 and the matcher: {slice22_paths}")
+    mesh_paths = {f"mesh_{what}_{rank}": n for what in ("accum", "tp", "rows")
+                     for rank, n in mesh[what]["launches"].items()}
+    log(f"the mesh paths' launches of K1, K2 and the matcher, each rank's: {mesh_paths}")
     later_paths = {**mask_paths, **retina_paths, **slice6_paths, **slice7_paths, **slice8_paths,
                    **dense_paths, **single_paths, **cli_paths, **slice15_paths, **slice16_paths,
                    **slice18_paths, **slice19_paths, **slice20_paths, **slice21_paths,
-                   **slice22_paths}
+                   **slice22_paths, **mesh_paths}
     line = {"kernels": [
         entry("roi_align_fwd", "torch_detection_tpu/ops/roi_align_pallas.py:65",
               {"serving": serve["launches"], "training": train["k1"],
@@ -9133,12 +9712,34 @@ def main() -> int:
               note="replaces a lax.while_loop (the reference's on-device matcher), not a Pallas "
                    "kernel", at_edge_sets=matcher_edges, at_detr_training=detr_step),
     ]}
+    log("each phase's wall seconds: " + json.dumps(
+        {k: round(v, 1) for k, v in sorted(PHASE_SECONDS.items(), key=lambda kv: -kv[1])}))
     log(f"chip_smoke wall time {time.perf_counter() - started:.1f} s (the kernels' build included)")
     log(card)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                             "count": torch.cuda.device_count()}}))
     return 0
+
+
+PHASE_SECONDS: dict = {}  # each phase's wall seconds in this run, summed over its calls
+
+
+def _timed(phase):
+    @functools.wraps(phase)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return phase(*args, **kwargs)
+        finally:
+            PHASE_SECONDS[phase.__name__] = (PHASE_SECONDS.get(phase.__name__, 0.0)
+                                             + time.perf_counter() - t0)
+    return run
+
+
+for _name, _phase in list(globals().items()):
+    if _name.startswith("phase_") and callable(_phase):
+        globals()[_name] = _timed(_phase)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,9 @@ and epochs, and its shards must cover the epoch with one length a rank
 (the reference's ``tests/test_multihost_train.py:53-64``).
 ``init_distributed`` does nothing in one process and raises, never
 carrying on as one process, when ``WORLD_SIZE > 1`` cannot initialise or
-NCCL would put two ranks on one GPU; the mesh refuses tensor parallelism
-and spatial sharding by name.
+NCCL would put two ranks on one GPU; the mesh keeps the reference's
+checks, and ``shard_batch(spatial=True)`` cuts the reference's leaves into
+bands of rows.
 """
 
 import socket
@@ -30,6 +31,7 @@ from torch_detection_tpu_torch.parallel import (
     spatial_sharding,
     world_size,
 )
+from torch_detection_tpu_torch.parallel.spatial import row_bounds
 
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -137,15 +139,42 @@ def test_nccl_refuses_two_ranks_on_one_gpu(clean_env):
         init_distributed(backend="nccl", device="cpu")
 
 
+class _ModelGroupOfTwo:
+    """A (data, model) mesh's answers for the second rank of a model group
+    of two, without a process group."""
+
+    mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return (1, 2)[dim]
+
+    def get_local_rank(self, name):
+        return {"data": 0, "model": 1}[name]
+
+    def get_group(self, name):
+        return None
+
+
 def test_the_mesh_refuses_tensor_parallelism_and_spatial_sharding():
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    """The mesh keeps the reference's checks: one process makes no 1 x 2
+    or 2 x 1 mesh. ``shard_batch(spatial=True)`` gives the second rank of a
+    model group of two the second band of each 4-D leaf whose rows (dim 1
+    of NHWC) two divide, and keeps the other leaves whole, as the
+    reference's ``mesh.py:97``; the bands of an odd map are uneven."""
+    with pytest.raises(ValueError, match="mesh model=2 does not divide the 1 ranks"):
         make_mesh(model=2)
-    with pytest.raises(NotImplementedError, match="spatial_sharding"):
-        spatial_sharding(None)
-    with pytest.raises(NotImplementedError, match="spatial_sharding"):
-        shard_batch(None, {}, spatial=True)
-    batch = {"image": torch.zeros(1)}
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 ranks"):
+        make_mesh(data=2)
+    batch = {"image": torch.arange(2 * 6 * 4 * 3.0).reshape(2, 6, 4, 3),
+             "odd": torch.zeros(2, 5, 4, 3), "gt_boxes": torch.zeros(2, 6, 4)}
     assert shard_batch(None, batch) is batch
+    sharding = spatial_sharding(_ModelGroupOfTwo())
+    assert (sharding.parts, sharding.index) == (2, 1)
+    got = shard_batch(_ModelGroupOfTwo(), batch, spatial=True)
+    assert got.rows == {"image": 6} and got.sharding == sharding
+    assert torch.equal(got["image"], batch["image"][:, 3:])
+    assert got["odd"] is batch["odd"] and got["gt_boxes"] is batch["gt_boxes"]
+    assert row_bounds(25, 2) == [(0, 12), (12, 25)] and row_bounds(1, 2) == [(0, 0), (0, 1)]
 
 
 def test_the_step_helpers_keep_one_process_as_it_was():

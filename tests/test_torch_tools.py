@@ -164,8 +164,10 @@ runtime = dict(compute_dtype="float32", log_interval=1)
 
 @pytest.mark.parametrize("knob", [dict(mesh=dict(model=2))])
 def test_train_cli_refuses_unported_knobs(tmp_path, knob):
+    """A ``model`` axis of 2 needs two ranks (tensor parallelism is ported:
+    ``test_torch_mesh.py``): one process refuses the mesh by name."""
     config = _write_config(tmp_path / "knob.py", dict(ann_file="a.json", img_prefix="."), **knob)
-    with pytest.raises(NotImplementedError, match=next(iter(knob))):
+    with pytest.raises(ValueError, match=next(iter(knob))):
         train_cli.main([config, "--device", "cpu"])
 
 

@@ -57,7 +57,7 @@ from torch_detection_tpu_torch.models.detectors import (
 from torch_detection_tpu_torch.models.heads import ProposalConfig
 from torch_detection_tpu_torch.ops.anchors import AnchorGenerator
 from torch_detection_tpu_torch.parallel import ParamEMA, make_optimizer, make_train_step
-from torch_detection_tpu_torch.parallel.train_step import micro_batches_per_rank
+from torch_detection_tpu_torch.parallel.train_step import micro_batch_parts, micro_batch_ranks
 from torch_detection_tpu_torch.tools import train as train_cli
 from torch_detection_tpu_torch.utils.config import Config
 
@@ -263,12 +263,23 @@ def test_micro_batches_of_a_step_draw_the_same_noise_pin_r15(options_setup):
 
 
 def test_accumulation_over_ranks_takes_whole_micro_batches():
-    """Each rank runs ``accum_steps / ranks`` micro-batches; a count that
-    the ranks do not divide would need rows exchanged, and raises."""
-    assert [micro_batches_per_rank(a, 1) for a in (1, 2, 3)] == [1, 2, 3]
-    assert [micro_batches_per_rank(a, 2) for a in (1, 2, 4)] == [1, 1, 2]
-    with pytest.raises(NotImplementedError, match="accum_steps=3 over 2 ranks"):
-        micro_batches_per_rank(3, 2)
+    """The global batch is the data ranks' shards in rank order, cut into
+    ``accum_steps`` contiguous micro-batches, as the reference cuts it; each
+    rank runs the parts its shard holds, in order: whole micro-batches
+    where the ranks divide the count, else parts of one that spans ranks
+    (``accum_steps=3`` over 2 ranks of 3 images: rank 0 holds micro-batch 0
+    and the first row of micro-batch 1, rank 1 its second row and
+    micro-batch 2). A global batch that does not split raises."""
+    assert [micro_batch_parts(a, 1, 6, 0) for a in (1, 2, 3)] == [
+        [(0, 0, 0, 6)], [(0, 0, 0, 3), (1, 3, 0, 3)], [(0, 0, 0, 2), (1, 2, 0, 2), (2, 4, 0, 2)]]
+    assert [micro_batch_parts(a, 2, 2, 1) for a in (1, 2, 4)] == [
+        [(0, 0, 2, 2)], [(1, 0, 0, 2)], [(2, 0, 0, 1), (3, 1, 0, 1)]]
+    assert micro_batch_parts(3, 2, 3, 0) == [(0, 0, 0, 2), (1, 2, 0, 1)]
+    assert micro_batch_parts(3, 2, 3, 1) == [(1, 0, 1, 1), (2, 1, 0, 2)]
+    assert [micro_batch_ranks(3, 2, 3, m) for m in range(3)] == [[0], [0, 1], [1]]
+    assert [micro_batch_ranks(2, 4, 1, m) for m in range(2)] == [[0, 1], [2, 3]]
+    with pytest.raises(ValueError, match="does not split into 4"):
+        micro_batch_parts(4, 2, 3, 0)
 
 
 # ---------------------------------------------------------------- the trainer and the checkpoints

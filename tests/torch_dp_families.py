@@ -392,7 +392,9 @@ def rank_worker(rank: int, world: int, port: int, out_dir: str, names: List[str]
     batch = global_batch()
     inits, singles = {}, {}
     for name in names[rank::world]:  # one process: the group does not exist yet
-        inits[name] = build_detector(FAMILIES[name][0], "float32", "cpu", seed=0).state_dict()
+        torch.manual_seed(0)  # torch's own initialisers: the seeded draw takes a second a model
+        with mock.patch("torch_detection_tpu_torch.builder.init_weights"):
+            inits[name] = build_detector(FAMILIES[name][0], "float32", "cpu").state_dict()
         singles[name] = step(*build(name, inits[name]), family_batch(name, batch))
     r18_init = r18_single = None
     if rank == 1 % world:

@@ -64,8 +64,9 @@ from .models.detectors import (
 from .models.inits import init_weights
 from .ops.anchors import AnchorGenerator, SSDAnchorGenerator, YOLOAnchorGenerator
 from .ops.assign import ATSSAssigner, GridAssigner, MaxIoUAssigner
-from .parallel.distributed import broadcast_module, global_rows, world_size
+from .parallel.distributed import broadcast_module, data_size, global_rows, world_size
 from .parallel.mesh import make_mesh, shard_model
+from .parallel.tensor_parallel import apply_tensor_parallel
 from .parallel.train_step import Optimizer, make_optimizer
 from .utils.registry import DETECTORS
 
@@ -384,15 +385,19 @@ def build_lr_schedule(cfg, steps_per_epoch: int) -> Callable[[int], float]:
     )
 
 
-def build_train_loader(cfg, dist: bool = False):
+def build_train_loader(cfg, dist: bool = False, num_replicas: Optional[int] = None,
+                       rank: Optional[int] = None):
     """The training loader of a full config tree: the ``train`` dataset,
-    grouped sampling (``dist``: the rank's shard), ``collate`` at the
-    canvas; ``workers_per_host`` threads decode the samples."""
+    grouped sampling (``dist``: the rank's shard, of ``num_replicas`` and
+    ``rank`` where given, else the data ranks'), ``collate`` at the canvas;
+    ``workers_per_host`` threads decode the samples."""
     data_cfg = cfg["data"]
     return build_dataloader(
         get_datasets(dict(data_cfg["train"])),
         sample_per_replica=data_cfg.get("sample_per_replica", 2),
         dist=dist,
+        num_replicas=num_replicas,
+        rank=rank,
         max_gts=data_cfg.get("max_gts", 100),
         canvas=tuple(data_cfg["canvas"]) if data_cfg.get("canvas") else None,
         size_divisor=data_cfg["train"].get("size_divisor", 32) or 32,
@@ -418,22 +423,31 @@ def build_train_objects(
     ``len(loader)`` steps an epoch.
 
     In a group of more than one rank (``parallel.init_distributed``) every
-    rank starts from rank 0's weights, its loader yields
-    ``sample_per_replica`` images a step from its own shard
-    (``DistributedGroupSampler``), and with ``runtime.fsdp`` the model is
-    sharded by FSDP (``parallel.mesh.shard_model``) before the optimizer
-    takes its parameters, the optimizer's ``fsdp_root`` the root."""
+    rank starts from rank 0's weights and the ranks form the
+    ``(data, runtime.mesh.model)`` mesh (``parallel.mesh.make_mesh``); each
+    data rank's loader yields ``sample_per_replica`` images a step from its
+    own shard (``DistributedGroupSampler``), the ranks of a model group the
+    same, so the global batch is ``sample_per_replica * data``. With
+    ``runtime.mesh.model > 1`` the model is sharded by the reference's
+    tensor-parallel rule (``parallel.tensor_parallel``), and with
+    ``runtime.fsdp`` over several data ranks by FSDP
+    (``parallel.mesh.shard_model``), both before the optimizer takes its
+    parameters, the optimizer's ``fsdp_root`` FSDP's root."""
     runtime = cfg.get("runtime", {})
     model = build_detector(cfg["model"], runtime.get("compute_dtype"), device, seed,
                            param_dtype="float32").train()
     det_cfg = build_detection_cfg(cfg["detection"])
-    ranks = world_size()
     broadcast_module(model)
+    model_axis = int(runtime.get("mesh", {}).get("model", 1) or 1)
     fsdp_root = None
-    if runtime.get("fsdp") and ranks > 1:
-        fsdp_root = shard_model(model, make_mesh(device_type=next(model.parameters()).device.type))
+    if world_size() > 1 or model_axis > 1:
+        mesh = make_mesh(model=model_axis, device_type=next(model.parameters()).device.type)
+        if model_axis > 1:
+            apply_tensor_parallel(model, mesh)
+        if runtime.get("fsdp") and data_size() > 1:
+            fsdp_root = shard_model(model, mesh)
     if loader is None:
-        loader = build_train_loader(cfg, dist=ranks > 1)
+        loader = build_train_loader(cfg, dist=data_size() > 1)
     opt_cfg = cfg.get("optimizer", {})
     optimizer = make_optimizer(
         model.parameters(),

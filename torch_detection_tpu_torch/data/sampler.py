@@ -72,7 +72,9 @@ class DistributedGroupSampler:
     mode the indices, padded cyclically to ``num_replicas * num_samples``,
     are dealt out strided (rank ``r`` takes ``r, r + N, ...``), so each
     rank keeps the evaluation order. ``num_replicas`` and ``rank`` default
-    to ``torch.distributed``'s world size and rank."""
+    to the data ranks' count and this rank's place among them
+    (``parallel.distributed.data_size``/``data_rank``: the world's, without
+    a ``model`` axis); the ranks of a model group load the same shard."""
 
     def __init__(
         self,
@@ -83,10 +85,10 @@ class DistributedGroupSampler:
         seed: int = 0,
     ):
         if num_replicas is None or rank is None:
-            from ..parallel.distributed import rank as dist_rank, world_size
+            from ..parallel.distributed import data_rank, data_size
 
-            num_replicas = world_size() if num_replicas is None else num_replicas
-            rank = dist_rank() if rank is None else rank
+            num_replicas = data_size() if num_replicas is None else num_replicas
+            rank = data_rank() if rank is None else rank
         if not 0 <= rank < num_replicas:
             raise ValueError(f"rank {rank} is not one of {num_replicas} replicas")
         self.test_mode = getattr(dataset, "test_mode", False)

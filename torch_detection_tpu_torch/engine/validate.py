@@ -65,7 +65,8 @@ from ..models.detectors import (
 )
 from ..data.ops.mask import _rle_compress, rle_encode
 from ..models.heads.mask_head import paste_masks_np
-from ..parallel.distributed import all_gather_objects, broadcast_object, is_main, rank, world_size
+from ..parallel.distributed import (all_gather_objects, broadcast_object, data_rank, data_size,
+                                    is_main, world_size)
 from .eval import eval_coco_map, eval_coco_segm_map, eval_voc_map
 from .tta import masks_to_original, merge_tta_detections, unflip_masks
 
@@ -177,7 +178,7 @@ def evaluate_detector(
     fused box: the NMS selects, so each has one source.
 
     In a group of several ranks (every rank calls it, the reference's
-    ``mesh=``) each rank infers the strided shard of the
+    ``mesh=``) each data rank infers the strided shard of the
     test-mode ``DistributedGroupSampler`` over the ``n`` images, in
     batches of ``batch``, and fuses its images' detections; the detections
     are gathered on every rank, the images that the sampler's cyclic pad
@@ -194,9 +195,10 @@ def evaluate_detector(
 
     n = len(dataset) if max_images is None else min(max_images, len(dataset))
     ranks = world_size()
-    # this rank's images, in order; a repeated one at the end pads the shards to one size
-    order = list(range(n)) if ranks == 1 else list(DistributedGroupSampler(
-        _TestIndices(n), num_replicas=ranks, rank=rank()))
+    # this rank's images, in order; a repeated one at the end pads the shards to one size (the
+    # ranks of a model group infer the same shard: their detections are one another's)
+    order = list(range(n)) if data_size() == 1 else list(DistributedGroupSampler(
+        _TestIndices(n), num_replicas=data_size(), rank=data_rank()))
     results: Dict = {}  # (position, aug_idx) -> the augmentation's detections
     pending: Dict = {}  # bucket (H, W) -> [(position, aug_idx, img, (h, w), proposals)]
     metas_all = [None] * len(order)

@@ -25,6 +25,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
+from torch.overrides import handle_torch_function, has_torch_function_unary
 
 
 def compute_autocast(x: Tensor, dtype: torch.dtype, param_dtype: torch.dtype):
@@ -348,7 +349,11 @@ def resize_nearest_2x(x: Tensor) -> Tensor:
 
 def resize_nearest(x: Tensor, out_hw: Tuple[int, int]) -> Tensor:
     """Nearest resize of NCHW to (H, W) with the reference's index arithmetic
-    ``floor(i * in / out)`` on integers; keeps channels_last memory."""
+    ``floor(i * in / out)`` on integers; keeps channels_last memory. A
+    torch function of its own, so that a ``TorchFunctionMode`` can run it
+    whole (row bands, ``parallel/spatial.py``)."""
+    if has_torch_function_unary(x):
+        return handle_torch_function(resize_nearest, (x,), x, out_hw)
     h, w = x.shape[2:]
     oh, ow = out_hw
     if (oh, ow) == (2 * h, 2 * w):

@@ -9,6 +9,11 @@ group from torchrun's environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``), and the collectives are
 ``torch.distributed``'s: NCCL between GPUs, gloo on the CPU.
 
+The ranks form a ``(data, model)`` mesh (``mesh.make_mesh``), rank
+``d * model + m`` at ``(d, m)``; without one every rank is a data rank.
+The ranks of one ``model`` group hold the same images, so the batch is
+spread over the data ranks, ``data_size()`` of them.
+
 In a group of several ranks every loss runs in a data-parallel step
 (``parallel/train_step.py``), where:
 
@@ -19,14 +24,17 @@ In a group of several ranks every loss runs in a data-parallel step
 * ``global_rows`` makes a rank's random draws the rows of the global
   batch's draws that belong to its images.
 
-In one process both leave their input as it is, and so they do within
-``rank_local()``, where each micro-batch of an accumulated step lies on one
-rank.
+In one process both leave their input as it is. Within ``batch_part``
+(an accumulated step's micro-batches) both act over the micro-batch in
+flight instead, which may lie whole on this rank or span several data
+ranks: the count is summed over the ranks that hold its rows, and the
+draws are the micro-batch's.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import logging
 import os
@@ -41,7 +49,8 @@ from ..utils.device import resolve_device
 logger = logging.getLogger(__name__)
 
 _ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
-_RANK_LOCAL = False  # set within ``rank_local()``
+_MESH: Optional["MeshGroups"] = None  # set by ``set_mesh`` (``mesh.make_mesh``)
+_PART: Optional["BatchPart"] = None  # set within ``batch_part()``
 
 
 def _env_int(name: str, default: int) -> int:
@@ -154,19 +163,21 @@ def init_distributed(
 def shutdown_distributed(info: Dict[str, Any]) -> None:
     """Destroy the default group if ``init_distributed`` (whose ``info``
     this is) created it, after a barrier, so that no rank leaves while
-    another still needs it."""
+    another still needs it. The mesh's layout goes with it."""
     if info.get("initialized") and is_initialized():
         dist.barrier()
         dist.destroy_process_group()
+        set_mesh(None)
 
 
-def all_reduce_sum(x: Tensor) -> Tensor:
-    """The sum of ``x`` over the ranks, as a new tensor on ``x``'s device
-    (a CUDA tensor under NCCL); ``x`` itself in one process."""
-    if not is_initialized() or world_size() == 1:
+def all_reduce_sum(x: Tensor, group=None) -> Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (default: all of them),
+    as a new tensor on ``x``'s device (a CUDA tensor under NCCL); ``x``
+    itself in one process or a group of one."""
+    if not is_initialized() or dist.get_world_size(group) == 1:
         return x
     out = x.detach().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
@@ -198,54 +209,131 @@ def broadcast_module(module: torch.nn.Module) -> None:
             dist.broadcast(t.data, src=0)
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """The ``(data, model)`` mesh as this rank sees it: the sizes, its
+    place, and the process groups of its column (the data ranks that share
+    its model index) and of its row (the model ranks that hold its
+    images)."""
+
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    data_group: Any
+    model_group: Any
+
+
+def set_mesh(mesh: Optional[MeshGroups]) -> None:
+    """Make ``mesh`` the ranks' layout (None: every rank a data rank)."""
+    global _MESH
+    _MESH = mesh
+
+
+def data_size() -> int:
+    """The data ranks: the ranks the batch is spread over."""
+    return _MESH.data if _MESH is not None else world_size()
+
+
+def data_rank() -> int:
+    """This rank's place among the data ranks: which shard of the batch it holds."""
+    return _MESH.data_rank if _MESH is not None else rank()
+
+
+def model_size() -> int:
+    """The ranks of one ``model`` group (1 without a mesh)."""
+    return _MESH.model if _MESH is not None else 1
+
+
+def data_group():
+    """The data ranks of this rank's model index (None: the default group)."""
+    return _MESH.data_group if _MESH is not None and _MESH.model > 1 else None
+
+
+def model_group():
+    """The ranks that hold this rank's images (None without a ``model`` axis)."""
+    return _MESH.model_group if _MESH is not None and _MESH.model > 1 else None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchPart:
+    """The rows of one micro-batch that this rank holds: ``rows`` of its
+    ``total``, from row ``start`` of it; ``group`` is the process group of
+    the data ranks that hold its rows (of this rank's model index), None
+    where it lies whole on this rank."""
+
+    start: int
+    rows: int
+    total: int
+    group: Any = None
+
+
 @contextlib.contextmanager
-def rank_local() -> Iterator[None]:
-    """Within: ``batch_normaliser`` and ``global_rows`` act as in one
-    process, for a batch that lies whole on this rank (a micro-batch of an
-    accumulated step, ``parallel/train_step.py``)."""
-    global _RANK_LOCAL
-    before, _RANK_LOCAL = _RANK_LOCAL, True
+def batch_part(part: BatchPart) -> Iterator[None]:
+    """Within: ``batch_normaliser`` and ``global_rows`` act over the
+    micro-batch ``part`` is of (``parallel/train_step.py``)."""
+    global _PART
+    before, _PART = _PART, part
     try:
         yield
     finally:
-        _RANK_LOCAL = before
-
-
-def _batch_ranks() -> int:
-    """The ranks the batch in flight is spread over."""
-    return 1 if _RANK_LOCAL else world_size()
+        _PART = before
 
 
 def batch_normaliser(count: Tensor, floor: float = 1.0) -> Tensor:
     """``max(count, floor)`` for a ``count`` summed over the batch's images,
-    taken over the global batch in a group of several ranks:
-    ``max(sum over the ranks, floor) / ranks``. A rank that divides its
-    own images' sum by it contributes to the mean over the ranks exactly
-    its share of the concatenated batch's loss. The sum is all-reduced
-    before the floor, so that one rank with no positives still divides by
-    the batch's count. ``count`` carries no gradient."""
+    taken over the global batch in a group of several data ranks:
+    ``max(sum over the data ranks, floor) / ranks``. A rank that divides
+    its own images' sum by it contributes to the mean over the ranks
+    exactly its share of the concatenated batch's loss. The sum is
+    all-reduced before the floor, so that one rank with no positives still
+    divides by the batch's count. Within ``batch_part`` the count is the
+    micro-batch's, summed over the ranks that hold its rows, and the share
+    is the part's rows of the micro-batch's: ``max(sum, floor) * rows /
+    total``. ``count`` carries no gradient."""
     if count.requires_grad:
         raise ValueError("batch_normaliser takes a count that carries no gradient")
-    ranks = _batch_ranks()
-    if ranks == 1:
+    part = _PART
+    if part is None:
+        ranks = data_size()
+        if ranks == 1:
+            return torch.clamp(count, min=floor)
+        return torch.clamp(all_reduce_sum(count, data_group()), min=floor) / ranks
+    if part.group is not None:
+        count = all_reduce_sum(count, part.group)
+    if part.rows == part.total:
         return torch.clamp(count, min=floor)
-    return torch.clamp(all_reduce_sum(count), min=floor) / ranks
+    return torch.clamp(count, min=floor) / (part.total / part.rows)
 
 
 def global_rows(draw: Callable[[Tuple[int, ...]], Tuple[Tensor, ...]]
                 ) -> Callable[[Tuple[int, ...]], Tuple[Tensor, ...]]:
     """``draw(shape) -> tensors of shape`` as seen by this rank in a
-    group of several ranks: the global batch's ``(ranks * B, ...)`` draws, of
-    which it keeps rows ``[rank * B, (rank + 1) * B)``, so that its images
-    get the draws they get in one process on the concatenated batch (a
-    CUDA generator's stream depends on the whole shape, so drawing B rows
-    alone would not). ``draw`` itself in one process."""
-    ranks, me = _batch_ranks(), rank()
-    if ranks == 1:
+    group of several data ranks: the global batch's ``(ranks * B, ...)``
+    draws, of which it keeps rows ``[rank * B, (rank + 1) * B)``, so that
+    its images get the draws they get in one process on the concatenated
+    batch (a CUDA generator's stream depends on the whole shape, so
+    drawing B rows alone would not). Within ``batch_part`` the draws are
+    the micro-batch's ``(total, ...)``, of which it keeps its part's rows.
+    ``draw`` itself in one process."""
+    part = _PART
+    if part is None:
+        ranks, start = data_size(), data_rank()
+        if ranks == 1:
+            return draw
+
+        def rows(shape: Tuple[int, ...]) -> Tuple[Tensor, ...]:
+            b = shape[0]
+            return tuple(t.narrow(0, start * b, b) for t in draw((ranks * b,) + tuple(shape[1:])))
+
+        return rows
+    if part.rows == part.total:
         return draw
 
-    def rows(shape: Tuple[int, ...]) -> Tuple[Tensor, ...]:
-        b = shape[0]
-        return tuple(t.narrow(0, me * b, b) for t in draw((ranks * b,) + tuple(shape[1:])))
+    def part_rows(shape: Tuple[int, ...]) -> Tuple[Tensor, ...]:
+        if shape[0] != part.rows:
+            raise ValueError(f"a draw of {shape[0]} rows for a part of {part.rows}")
+        return tuple(t.narrow(0, part.start, part.rows)
+                     for t in draw((part.total,) + tuple(shape[1:])))
 
-    return rows
+    return part_rows

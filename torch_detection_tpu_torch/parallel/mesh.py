@@ -1,13 +1,18 @@
-"""The device mesh and the FSDP plan.
+"""The device mesh, the FSDP plan, and the batch's shards.
 
 Counterpart of ``torch_detection_tpu/parallel/mesh.py``. The reference
 builds a ``(data, model)`` ``jax.sharding.Mesh`` and states its strategies
-as shardings: the batch over ``data``, and under ``fsdp=True`` each leaf of
-8192 elements or more sharded over ``data`` as well (ZeRO-3), with GSPMD
-inserting the all-gathers and reduce-scatters. Here the mesh is a
-``DeviceMesh`` with one ``data`` axis over the ranks
-(``init_device_mesh``), each rank loads its own shard of the batch, so
-``shard_batch`` has nothing to move, and FSDP is FSDP2's ``fully_shard``:
+as shardings: the batch over ``data``, under ``fsdp=True`` each leaf of
+8192 elements or more sharded over ``data`` as well (ZeRO-3), wide kernels'
+output channels over ``model`` (tensor parallelism), and with
+``spatial=True`` the images' rows over ``model``; GSPMD inserts the
+collectives. Here the mesh is a ``DeviceMesh`` of the same shape and names
+over the ranks (``init_device_mesh``), rank ``d * model + m`` at
+``(d, m)``; each rank loads its own shard of the batch, the ranks of a
+model group the same one, so ``shard_batch`` moves nothing; tensor
+parallelism is ``tensor_parallel.apply_tensor_parallel`` and the rows'
+partitioning ``spatial.py``. FSDP is FSDP2's ``fully_shard`` over the
+mesh's ``data`` dim:
 
 * ``shard_model`` shards each unit the loss functions call through its
   ``forward`` (the backbone's stages, then the detector's children:
@@ -19,10 +24,8 @@ inserting the all-gathers and reduce-scatters. Here the mesh is a
 * FSDP2 shards every parameter on dim 0 (``torch.chunk`` over the ranks),
   biases and norm scales too, where the reference replicates leaves under
   8192 elements. Each rank's numbers are the same either way; only what
-  it holds between steps differs.
-
-Tensor parallelism (``model > 1``) and spatial partitioning (image rows
-over ``model``) are not ported and raise ``NotImplementedError``.
+  it holds between steps differs. A tensor-parallel shard is sharded
+  again over ``data`` (FSDP2's two-dimensional form).
 """
 
 from __future__ import annotations
@@ -34,36 +37,50 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import torch
 from torch import Tensor, nn
 
-from .distributed import world_size
+from . import spatial
+from .distributed import MeshGroups, set_mesh, world_size
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1, device_type: str = "cuda"):
-    """A one-axis ``DeviceMesh`` named ``data`` over the ranks of the
-    default group (``data`` None: all of them). ``model > 1`` raises."""
-    if model != 1:
-        raise NotImplementedError(f"mesh model={model}: tensor parallelism is not ported")
+    """A ``(data, model)`` ``DeviceMesh`` named ``("data", "model")`` over
+    the ranks of the default group (``data`` None: the ranks over
+    ``model``), with the reference's checks; it becomes the ranks' layout
+    (``distributed.set_mesh``): the batch is spread over the data ranks.
+    Every rank must call it."""
     n = world_size()
-    data = n if data is None else data
-    if data != n:
-        raise ValueError(f"mesh data={data} != {n} ranks")
+    if data is None:
+        if n % model:
+            raise ValueError(f"mesh model={model} does not divide the {n} ranks")
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"mesh {data}x{model} != {n} ranks")
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(device_type, (data,), mesh_dim_names=("data",))
+    mesh = init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
+    set_mesh(MeshGroups(data, model, mesh.get_local_rank("data"), mesh.get_local_rank("model"),
+                        mesh.get_group("data"), mesh.get_group("model")))
+    return mesh
 
 
-def spatial_sharding(mesh) -> None:
-    """The reference's rows-over-``model`` image sharding: not ported."""
-    raise NotImplementedError("spatial_sharding (image rows over the mesh's model axis) is not "
-                              "ported")
+def spatial_sharding(mesh) -> spatial.RowSharding:
+    """The reference's NHWC sharding with the batch over ``data`` and the
+    image rows over ``model``: this rank's place among its model group's
+    ranks, by which ``shard_batch(spatial=True)`` cuts its bands."""
+    return spatial.RowSharding(mesh.size(mesh.mesh_dim_names.index("model")),
+                               mesh.get_local_rank("model"), mesh.get_group("model"))
 
 
 def shard_batch(mesh, batch: Dict[str, Any], spatial: bool = False) -> Dict[str, Any]:
     """The rank's batch as the mesh's ``data`` shard: each rank's loader
-    already yields its own images, so nothing moves. ``spatial=True``
-    raises."""
-    if spatial:
-        spatial_sharding(mesh)
-    return batch
+    already yields its own images, so nothing moves. ``spatial=True`` also
+    cuts each 4-D leaf whose rows (dim 1 of NHWC) ``model`` divides to this
+    rank's band of them (a ``spatial.RowBatch``, which the training step
+    runs on bands); the other leaves stay whole, as in the reference."""
+    if not spatial:
+        return batch
+    from . import spatial as rows
+
+    return rows.band_batch(batch, spatial_sharding(mesh))
 
 
 class LossRoot(nn.Module):
@@ -94,13 +111,16 @@ def fsdp_units(model: nn.Module) -> List[nn.Module]:
 
 
 def shard_model(model: nn.Module, mesh) -> LossRoot:
-    """Apply FSDP2 to ``model`` in place over ``mesh``'s ranks: each of
-    ``fsdp_units`` then the ``LossRoot`` that is returned. Build the
+    """Apply FSDP2 to ``model`` in place over ``mesh``'s ``data`` ranks:
+    each of ``fsdp_units`` then the ``LossRoot`` that is returned. Build the
     optimizer after this call: the parameters become ``DTensor`` shards.
-    FSDP2 averages the gradients over the ranks, as the data-parallel
-    step's all-reduce does."""
+    FSDP2 averages the gradients over the data ranks, as the data-parallel
+    step's all-reduce does. A model already sharded by tensor parallelism
+    (over the same mesh's ``model`` dim) keeps its shards, sharded again."""
     from torch.distributed.fsdp import fully_shard
 
+    if mesh.mesh_dim_names and "data" in mesh.mesh_dim_names and mesh.ndim > 1:
+        mesh = mesh["data"]
     with torch.no_grad():  # FSDP shards contiguous tensors only: the convs' channels_last goes
         for p in model.parameters():
             p.data = p.data.contiguous()
@@ -121,8 +141,23 @@ def is_sharded(t: Tensor) -> bool:
 
 def full_tensor(t: Tensor) -> Tensor:
     """The whole of a sharded tensor (an all-gather every rank must join),
-    or ``t``."""
-    return t.full_tensor() if is_sharded(t) else t
+    or ``t``. A tensor-parallel shard (one dim of a one-dim mesh, split
+    evenly) is gathered by ``torch.distributed.all_gather``, which gloo
+    also runs on CUDA tensors (ranks sharing a card); any other through
+    ``DTensor.full_tensor``."""
+    if not is_sharded(t):
+        return t
+    mesh, placements = t.device_mesh, t.placements
+    if mesh.ndim == 1 and len(placements) == 1 and placements[0].is_shard():
+        import torch.distributed as dist
+
+        dim, local = placements[0].dim, t.to_local()
+        if local.shape[dim] * mesh.size() == t.shape[dim]:
+            parts = [torch.empty_like(local, memory_format=torch.contiguous_format)
+                     for _ in range(mesh.size())]
+            dist.all_gather(parts, local.contiguous(), group=mesh.get_group())
+            return torch.cat(parts, dim=dim)
+    return t.full_tensor()
 
 
 def local_tensor(t: Tensor) -> Tensor:

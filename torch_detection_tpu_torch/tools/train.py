@@ -25,18 +25,22 @@ parameters, which validation scores and the checkpoints carry;
 step; ``schedule.policy="cosine"`` (with ``min_lr_ratio``) anneals over
 ``schedule.total_epochs``. ``--profile-dir`` writes a ``torch.profiler``
 Chrome trace of the first epoch run to ``DIR/trace.json``. Runs on ``cuda``
-unless ``--device cpu``. Tensor parallelism (``runtime.mesh.model > 1``)
-raises ``NotImplementedError``.
+unless ``--device cpu``.
 
 Launched by torchrun with N processes, each rank joins the group
 (``parallel.init_distributed``: ``nccl`` on ``cuda:LOCAL_RANK``, ``gloo``
 with ``--device cpu``, or ``--dist-backend``), loads its own share of each
 step, ``sample_per_replica`` images, and the step is the global batch's
 (``parallel/train_step.py``); ``runtime.fsdp`` shards the model by FSDP.
-Only rank 0 writes the work directory, and validation spreads the val
-images over the ranks. ``--dump-final PATH`` writes every parameter after
-training, whole, to ``PATH.rank<k>.npz`` on every rank, so that a
-multi-process run can show its replicas agree.
+``runtime.mesh.model`` (default 1) makes the ranks a ``(data, model)``
+mesh: the ranks of a model group load the same images and shard the wide
+kernels' output channels between them (tensor parallelism), so the global
+batch is ``sample_per_replica * data``; ``runtime.accum_steps`` need not be
+a multiple of the data ranks. Only rank 0 writes the work directory, and
+validation spreads the val images over the data ranks. ``--dump-final
+PATH`` writes every parameter after training, whole, to
+``PATH.rank<k>.npz`` on every rank, so that a multi-process run can show
+its replicas agree.
 """
 
 from __future__ import annotations
@@ -56,14 +60,6 @@ from ..parallel.distributed import init_distributed, shutdown_distributed
 from ..parallel.mesh import full_tensor
 from ..utils.config import Config
 from ..utils.misc import expected_sizes
-
-
-def refuse_unported(cfg) -> None:
-    """Raise ``NotImplementedError`` naming a training knob the port does
-    not do yet: tensor parallelism (``runtime.mesh.model > 1``)."""
-    runtime = cfg.get("runtime", {})
-    if int(runtime.get("mesh", {}).get("model", 1)) > 1:
-        raise NotImplementedError("mesh model > 1 (tensor parallelism) is not ported yet")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Trainer:
@@ -89,7 +85,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     cfg = Config.fromfile(args.config)
-    refuse_unported(cfg)
     runtime = cfg.get("runtime", {})
     work_dir = args.work_dir or runtime.get("work_dir", "work_dirs/default")
     total_epochs = args.epochs or cfg.get("schedule", {}).get("total_epochs", 12)
